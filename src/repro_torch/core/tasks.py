@@ -1,0 +1,62 @@
+"""Task and loss definitions used by the federated core; the counterpart of
+``repro.core.tasks``.
+
+``LogisticLoss`` is the paper's Sec. VII.A objective (per client i):
+
+    f_i(w) = (1/d_i) sum_t [ ln(1 + e^{<x_t, w>}) - b_t <x_t, w> ]
+             + (beta/2) ||w||^2
+
+with beta = 1e-3. Where JAX ``vmap``s the loss over clients, the port's
+module takes the stacked client weights W (m, n) and the stacked client
+batches {x (m, d, n), y (m, d), mask (m, d)} and returns the m per-client
+losses. The validity mask zeroes padded rows of ragged shards.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def _logits(W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, W.unsqueeze(-1)).squeeze(-1)  # (m, d)
+
+
+def _d_i(mask: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(mask.sum(dim=-1), 1.0)
+
+
+class LogisticLoss(nn.Module):
+    """(m, n) weights, stacked batches -> (m,) per-client losses."""
+
+    def __init__(self, beta: float = 1e-3):
+        super().__init__()
+        self.beta = beta
+
+    def forward(self, W: torch.Tensor, batch) -> torch.Tensor:
+        x, y, mask = batch["x"], batch["y"], batch["mask"]
+        z = _logits(W, x)
+        # ln(1 + e^z) - b z; logaddexp(z, 0) is jax.nn.softplus exactly
+        # (F.softplus switches to z above a threshold)
+        per = torch.logaddexp(z, torch.zeros_like(z)) - y * z
+        reg = 0.5 * self.beta * torch.sum(W * W, dim=-1)
+        return torch.sum(per * mask, dim=-1) / _d_i(mask) + reg
+
+
+class LeastSquaresLoss(nn.Module):
+    """0.5 * mean of squared residuals + (beta/2) ||w||^2, per client."""
+
+    def __init__(self, beta: float = 0.0):
+        super().__init__()
+        self.beta = beta
+
+    def forward(self, W: torch.Tensor, batch) -> torch.Tensor:
+        x, y, mask = batch["x"], batch["y"], batch["mask"]
+        r = (_logits(W, x) - y) * mask
+        return (0.5 * torch.sum(r * r, dim=-1) / _d_i(mask)
+                + 0.5 * self.beta * torch.sum(W * W, dim=-1))
+
+
+def accuracy_logistic(w: torch.Tensor, X: torch.Tensor,
+                      y: torch.Tensor) -> torch.Tensor:
+    pred = (X @ w) > 0
+    return torch.mean((pred == (y > 0.5)).to(torch.float32))

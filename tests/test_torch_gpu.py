@@ -1,0 +1,91 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the round on the card against the round on the CPU.
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Without a CUDA card every test here skips; the decision is taken in a
+fixture, never at import. This file imports no JAX, so it runs where only
+PyTorch is installed.
+"""
+import pytest
+import torch
+
+from repro_torch.core import dp, fedepm
+from repro_torch.core.participation import sample_uniform
+from repro_torch.core.tasks import LogisticLoss
+from repro_torch.kernels.ens import ops as ens_ops
+from repro_torch.kernels.ens.ens import ens_cuda, ens_ref
+from repro_torch.kernels.prox import ops as prox_ops
+from repro_torch.kernels.prox.prox import prox_update_cuda, prox_update_ref
+from repro_torch.launch.paper import get_task
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return g
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (4, 7), (128, 14), (3, 513),
+                                 (8, 4099)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_prox_kernel_bitwise(gen, m, n, dtype):
+    dt = DTYPES[dtype]
+    wi = (torch.randn(m, n, generator=gen, device="cuda") * 2).to(dt)
+    wt = (torch.randn(n, generator=gen, device="cuda") * 2).to(dt)
+    g = torch.randn(m, n, generator=gen, device="cuda").to(dt)
+    mu = 0.05 + torch.rand(m, generator=gen, device="cuda")
+    got = prox_ops.prox_update(wi, wt, g, mu, 0.05, 0.02)
+    torch.testing.assert_close(got, prox_update_ref(wi, wt, g, mu, 0.05, 0.02),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 33, 50, 128])
+@pytest.mark.parametrize("n", [1, 7, 14, 513])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ens_kernel_bitwise(gen, m, n, dtype):
+    Z = (torch.randn(m, n, generator=gen, device="cuda") * 3).to(DTYPES[dtype])
+    got = ens_ops.ens(Z, 0.3, 0.9)
+    assert got.dtype == Z.dtype
+    torch.testing.assert_close(got, ens_ref(Z, 0.3, 0.9), rtol=0, atol=0)
+
+
+def test_counters_count_launches(gen):
+    Z = torch.randn(4, 10, generator=gen, device="cuda")
+    p0, e0 = prox_update_cuda.launches, ens_cuda.launches
+    ens_ops.ens_tree({"a": Z.reshape(4, 2, 5)}, 0.1, 0.2)
+    prox_ops.prox_update(Z, Z[0], Z, torch.ones(4, device="cuda"), 0.1, 0.2)
+    ens_ops.ens(Z, 0.1, 0.2, impl="ref")
+    assert (prox_update_cuda.launches - p0, ens_cuda.launches - e0) == (1, 1)
+
+
+def test_round_on_card_matches_cpu(gen):
+    """Same masks and unit noise on both devices; the CPU parity tests'
+    trajectory tolerance (4e-6 of the largest |value|)."""
+    m, n = 16, 14
+    cfg = fedepm.FedEPMConfig.paper_defaults(m=m, rho=0.5, k0=12, eps_dp=0.1)
+    loss = LogisticLoss()
+    _, _, b_cpu = get_task(m, d=4000, device="cpu")
+    b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
+    s_cpu = fedepm.init_state(torch.zeros(n), cfg)
+    s_gpu = fedepm.init_state(torch.zeros(n, device="cuda"), cfg)
+    host = torch.Generator().manual_seed(1)
+    for _ in range(3):
+        mask = sample_uniform(host, m, cfg.rho)
+        unit = dp.sample_laplace(host, (m, n), 1.0)
+        s_cpu, _ = fedepm.fedepm_round(s_cpu, b_cpu, loss, cfg, mask=mask,
+                                       unit_noise=unit)
+        s_gpu, _ = fedepm.fedepm_round(s_gpu, b_gpu, loss, cfg,
+                                       mask=mask.cuda(),
+                                       unit_noise=unit.cuda())
+    for name in ("w_tau", "W", "Z"):
+        a, b = getattr(s_cpu, name), getattr(s_gpu, name).cpu()
+        assert float((a - b).abs().max()) <= 4e-6 * max(1.0,
+                                                       float(a.abs().max()))
