@@ -166,6 +166,22 @@ def test_ens_vs_pallas_interpret(m, n, dtype):
         assert max_abs_diff(got, want) <= tol
 
 
+@pytest.mark.parametrize("m", [3, 5, 32])
+def test_ens_mean_is_sum_times_reciprocal(m):
+    """XLA:CPU's eager ``jnp.mean`` over m <= 32 rows is a sequential f32 sum
+    times the f32 reciprocal of m, and ``ens_mean`` is that bit for bit. A
+    true divide by m rounds differently (at m = 3 and 5 in this draw), which
+    is why the port's fixed order multiplies."""
+    Z = _Z(m, 20000, seed=m)
+    want = jnp.mean(jnp.asarray(Z), axis=0)
+    assert_bitwise(tens_ref.ens_mean(to_torch(Z)), want)
+    if m in (3, 5):
+        total = torch.zeros(Z.shape[1])
+        for row in to_torch(Z):
+            total = total + row
+        assert np.any(to_np(total / m) != to_np(want))
+
+
 def test_ens_offsets_match_jax():
     from repro.kernels.ens.ens import ens_offsets as jax_offsets
     for m in (1, 5, 50, 128):
