@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero before the last line:
    embedding leaf (49152 x 576); bitwise expected. Times by CUDA events.
 4. main path: ``run_fedepm`` (FedEPM, Algorithm 2) on the paper's task at
    m = 128, d = 45222 to the paper's stopping rule, with the launch
-   counters proving both kernels ran; then a short profiled window.
+   counters proving both kernels ran; then ``run_fedepm`` again, cut to
+   10 rounds under ``torch.profiler``, for the device's idle share.
 5. card against CPU: 5 rounds at m = 50 on the card and on the port's CPU
    path with the same masks and unit-noise planes.
 
@@ -230,54 +231,50 @@ def run_main_path() -> dict:
     return out
 
 
-def profile_rounds(rounds: int = 10) -> dict:
-    """Device busy share and kernel time by name over a few main-path
-    rounds (m = 128), with the stopping rule's host reads in each round."""
+def profile_main_path(rounds: int = 10) -> dict:
+    """Profile the main path's entry point, ``run_fedepm`` at m = 128 cut
+    to ``rounds`` rounds, and read the device inside its timed-rounds span:
+    busy time and idle share, device operations per round and the kernels
+    that take the time. The span must hold one ENS and k0 prox launches per
+    round, which checks that the window is the right one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import fedepm
-    from repro_torch.core.tasks import LogisticLoss
-    from repro_torch.launch.paper import get_task
-    m = 128
-    _, _, batches = get_task(m, device="cuda")
-    loss = LogisticLoss()
-    cfg = fedepm.FedEPMConfig.paper_defaults(m=m, rho=0.5, k0=12, eps_dp=0.1)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    state = fedepm.init_state(torch.zeros(14, device="cuda"), cfg)
-
-    def one(s):
-        s, met = fedepm.fedepm_round(s, batches, loss, cfg, gen)
-        float(fedepm.global_objective(loss, s.w_tau, batches))
-        float(met.snr)
-        float(fedepm.global_grad_sq_norm(loss, s.w_tau, batches))
-        return s
-
-    state = one(state)
-    torch.cuda.synchronize()
+    from repro_torch.launch.paper import ROUNDS_SPAN, run_fedepm
+    k0 = 12
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(rounds):
-            state = one(state)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        res = run_fedepm(m=128, k0=k0, rho=0.5, eps=0.1, seed=0,
+                         max_rounds=rounds, device="cuda")
+    events = prof.events()
+    spans = [e for e in events
+             if e.name == ROUNDS_SPAN and e.device_type == DeviceType.CPU]
+    assert len(spans) == 1, f"{len(spans)} {ROUNDS_SPAN} spans"
+    lo, hi = spans[0].time_range.start, spans[0].time_range.end
+    by_name: dict[str, list] = {}
+    for e in events:
+        if (e.device_type != DeviceType.CUDA or e.name == ROUNDS_SPAN
+                or getattr(e, "is_user_annotation", False)
+                or not lo <= e.time_range.start < hi):
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        kern.append((float(us), e.count, e.key))
-    busy = sum(k[0] for k in kern)
-    kern.sort(reverse=True)
-    out = {"rounds": rounds, "wall_ms_per_round": wall_us / rounds / 1e3,
-           "device_busy_ms_per_round": busy / rounds / 1e3 if busy else None,
-           "device_idle_share": 1 - busy / wall_us if busy else None,
-           "kernels_per_round": sum(k[1] for k in kern) / rounds,
-           "top": [{"kernel": k[2][:80], "us_per_round": k[0] / rounds,
-                    "calls_per_round": k[1] / rounds} for k in kern[:8]]}
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us()
+        entry[1] += 1
+    cr = res["CR"]
+
+    def launches(kernel: str) -> int:
+        return sum(c for name, (_, c) in by_name.items() if kernel in name)
+
+    assert launches("ens_kernel") == cr, (launches("ens_kernel"), cr)
+    assert launches("prox_kernel") == cr * k0, (launches("prox_kernel"), cr)
+    busy = sum(t for t, _ in by_name.values())
+    window = hi - lo
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    out = {"rounds": cr, "wall_ms_per_round": window / cr / 1e3,
+           "device_busy_ms_per_round": busy / cr / 1e3,
+           "device_idle_share": 1 - busy / window,
+           "device_ops_per_round": sum(c for _, c in by_name.values()) / cr,
+           "top": [{"kernel": name[:80], "us_per_round": t / cr,
+                    "calls_per_round": c / cr} for name, (t, c) in top]}
     log("profile " + json.dumps(out))
     return out
 
@@ -343,7 +340,7 @@ def main() -> int:
         k["card"] = card
     phases["main_path_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    profile_rounds()
+    profile_main_path()
     check_card_vs_cpu()
     phases["profile_and_card_vs_cpu_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_start

@@ -56,11 +56,6 @@ class FedEPMConfig:
     eps_dp: float = 0.1          # DP epsilon; <= 0 disables noise
     s0: int = 10                 # coverage window (Setup VI.1)
     sampler: str = "uniform"     # "uniform" | "coverage" | "full"
-    ens_impl: str | None = None  # None (by device) | "ref" | "cuda" | "oracle"
-    prox_impl: str | None = None  # None (by device) | "ref" | "cuda"
-    init_noise_scale: float = 0.0
-    # cap on the sensitivity surrogate Delta_hat = 2||g||_1; 0 disables
-    sensitivity_clip: float = 0.0
 
     @staticmethod
     def paper_defaults(m: int, rho: float = 0.5, k0: int = 12,
@@ -97,16 +92,11 @@ def _need(generator, what: str) -> torch.Generator:
     return generator
 
 
-def init_state(params0: Params, cfg: FedEPMConfig,
-               generator: torch.Generator | None = None) -> FedEPMState:
-    """All clients start from the same w_i^0 = params0 (paper: w_i^0 = 0)."""
+def init_state(params0: Params, cfg: FedEPMConfig) -> FedEPMState:
+    """All clients start from the same w_i^0 = params0 (paper: w_i^0 = 0)
+    and upload it unnoised: Z^0 = W^0."""
     W = tree_broadcast_clients(params0, cfg.m)
-    Z = W
-    if cfg.init_noise_scale > 0:
-        noise = dp.laplace_tree(_need(generator, "initial noise"), W,
-                                cfg.init_noise_scale)
-        Z = tmap(torch.add, W, noise)
-    return FedEPMState(w_tau=params0, W=W, Z=Z, k=0)
+    return FedEPMState(w_tau=params0, W=W, Z=W, k=0)
 
 
 def _select(generator, cfg: FedEPMConfig, round_idx: int, device):
@@ -156,8 +146,7 @@ def _client_inner(W, w_new, g, k_start: int, cfg: FedEPMConfig):
     for t in range(cfg.k0):
         sq = tree_sq_norm(tmap(torch.sub, W, w_new), per_client=True)
         mu = cfg.mu0 * (1.0 + cfg.c * sq) * pows[t]
-        W = prox_ops.prox_update_tree(W, w_new, g, mu, cfg.lam, cfg.eta,
-                                      impl=cfg.prox_impl)
+        W = prox_ops.prox_update_tree(W, w_new, g, mu, cfg.lam, cfg.eta)
     return W, mu
 
 
@@ -178,7 +167,7 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
         mask = _select(generator, cfg, state.k // cfg.k0, device)
 
     # ---- server: aggregate uploads via ENS (19) and broadcast ----
-    w_new = ens_ops.ens_tree(state.Z, cfg.lam, cfg.eta, impl=cfg.ens_impl)
+    w_new = ens_ops.ens_tree(state.Z, cfg.lam, cfg.eta)
 
     # ---- clients: one gradient per round at the broadcast point (18) ----
     g = client_grads(loss_fn, w_new, batches, m)
@@ -190,8 +179,6 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     # ---- DP-noised upload (21)/(39) ----
     grad_l1 = dp.sensitivity_surrogate(g, per_client=True) / 2.0
     delta_hat = 2.0 * grad_l1
-    if cfg.sensitivity_clip > 0:
-        delta_hat = torch.clamp_max(delta_hat, cfg.sensitivity_clip)
     if cfg.eps_dp > 0:
         scale = dp.fedepm_noise_scale(delta_hat, cfg.eps_dp, mu_last)  # (m,)
         if unit_noise is None:

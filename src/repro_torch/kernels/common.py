@@ -1,5 +1,5 @@
-"""Shared helpers for the port's kernels: padding, device resolution and
-the ``impl=`` dispatch.
+"""Shared helpers for the port's kernels: device resolution and the
+``impl=`` dispatch.
 
 Dispatch goes by the tensor's device. A CUDA tensor goes to the
 hand-written kernel, a CPU tensor to the plain PyTorch version. The plain
@@ -12,34 +12,6 @@ from __future__ import annotations
 import torch
 
 IMPLS = ("ref", "cuda")
-
-
-def next_pow2(v: int) -> int:
-    p = 1
-    while p < v:
-        p *= 2
-    return p
-
-
-def pad_axis(x: torch.Tensor, axis: int, multiple: int, value) -> torch.Tensor:
-    """Pad ``axis`` of x up to the next multiple of ``multiple`` with ``value``."""
-    size = x.shape[axis]
-    target = -(-size // multiple) * multiple
-    if target == size:
-        return x
-    shape = list(x.shape)
-    shape[axis] = target - size
-    fill = torch.full(shape, value, dtype=x.dtype, device=x.device)
-    return torch.cat([x, fill], dim=axis)
-
-
-def as_2d_blocks(flat: torch.Tensor, cols: int):
-    """Reshape a 1-D tensor to (rows, cols), padding with zeros.
-
-    Returns (blocked, original_size).
-    """
-    n = flat.shape[0]
-    return pad_axis(flat, 0, cols, 0).reshape(-1, cols), n
 
 
 def resolve_impl(impl: str | None, x: torch.Tensor) -> str:

@@ -15,6 +15,7 @@ and what ``chip_smoke.py`` holds the kernel to on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,6 +38,15 @@ def _fn(dtype: torch.dtype):
     return _FNS[dtype]
 
 
+@functools.lru_cache(maxsize=64)
+def device_offsets(m: int, lam: float, eta: float,
+                   device: torch.device) -> torch.Tensor:
+    """``ens_offsets`` built once per (m, lam, eta, device) and kept there:
+    a round's ENS launch reuses it instead of rebuilding it on the host and
+    copying it over. Callers only read it."""
+    return ens_offsets(m, lam, eta, device=device)
+
+
 def ens_cuda(Z: torch.Tensor, lam, eta) -> torch.Tensor:
     """ENS over a CUDA tensor Z (m, n) -> (n,) in Z's dtype, f32 math."""
     if Z.dim() != 2:
@@ -52,7 +62,7 @@ def ens_cuda(Z: torch.Tensor, lam, eta) -> torch.Tensor:
     if n == 0:
         return out
     Z = Z.contiguous()
-    offs = ens_offsets(m, lam, eta, device=Z.device)
+    offs = device_offsets(m, float(lam), float(eta), Z.device)
     lib, fn = _fn(Z.dtype)
     err = fn(Z.data_ptr(), offs.data_ptr(), out.data_ptr(), m, n,
              torch.cuda.current_stream(Z.device).cuda_stream)

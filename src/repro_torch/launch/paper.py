@@ -26,6 +26,9 @@ from repro_torch.data.partition import partition_iid
 from repro_torch.kernels.common import resolve_device
 
 LCT_REPS = 10
+# a profiler span over the timed rounds, so that a profile of run_fedepm
+# reads the device's share of exactly the window TCT measures
+ROUNDS_SPAN = "run_fedepm.rounds"
 
 
 def get_task(m: int, d: int = 45222, n: int = 14, seed: int = 0,
@@ -96,21 +99,25 @@ def run_fedepm(m: int, k0: int, rho: float, eps: float, seed: int = 0,
     snr_fixed = np.inf  # SNR at a fixed round (20)
     rounds = 0
     t0 = time.perf_counter()
-    for r in range(max_rounds):
-        state, metrics = fedepm.fedepm_round(state, batches, loss, cfg, gen)
-        rounds += 1
-        # the stopping rule reads f and ||grad f||^2 on the host every round
-        f_hist.append(float(fedepm.global_objective(loss, state.w_tau,
-                                                    batches)))
-        snr = float(metrics.snr)
-        if np.isfinite(snr):
-            snr_last = snr
-            if r <= 20:
-                snr_fixed = snr
-        gsq = float(fedepm.global_grad_sq_norm(loss, state.w_tau, batches))
-        if termination_reached(f_hist, gsq, n):
-            break
-    _sync(dev)
+    with torch.profiler.record_function(ROUNDS_SPAN):
+        for r in range(max_rounds):
+            state, metrics = fedepm.fedepm_round(state, batches, loss, cfg,
+                                                 gen)
+            rounds += 1
+            # the stopping rule reads f and ||grad f||^2 on the host every
+            # round
+            f_hist.append(float(fedepm.global_objective(loss, state.w_tau,
+                                                        batches)))
+            snr = float(metrics.snr)
+            if np.isfinite(snr):
+                snr_last = snr
+                if r <= 20:
+                    snr_fixed = snr
+            gsq = float(fedepm.global_grad_sq_norm(loss, state.w_tau,
+                                                   batches))
+            if termination_reached(f_hist, gsq, n):
+                break
+        _sync(dev)
     tct = time.perf_counter() - t0
 
     lct = measure_lct(loss, batches, cfg, dev)

@@ -14,7 +14,7 @@ from _torch_helpers import assert_bitwise, max_abs_diff, to_jax, to_np, to_torch
 from repro.kernels.ens import ops as jens_ops
 from repro.kernels.ens import ref as jens_ref
 from repro.kernels.prox import ops as jprox_ops
-from repro_torch.kernels import common
+from repro_torch.kernels.ens import ens as tens_ens
 from repro_torch.kernels.ens import ops as tens_ops
 from repro_torch.kernels.ens import ref as tens_ref
 from repro_torch.kernels.prox import ops as tprox_ops
@@ -190,6 +190,18 @@ def test_ens_offsets_match_jax():
                            jax_offsets(m, lam, eta)[:, 0])
 
 
+def test_ens_device_offsets_cached():
+    """The kernel wrapper's offsets are ``ens_offsets``'s bits, built once
+    per (m, lam, eta, device) and reused by every later launch."""
+    cpu = torch.device("cpu")
+    first = tens_ens.device_offsets(50, 1e-5, 2e-5, cpu)
+    assert_bitwise(first, tens_ref.ens_offsets(50, 1e-5, 2e-5))
+    assert tens_ens.device_offsets(50, 1e-5, 2e-5, cpu) is first
+    other = tens_ens.device_offsets(50, 2e-5, 2e-5, cpu)
+    assert other is not first
+    assert_bitwise(other, tens_ref.ens_offsets(50, 2e-5, 2e-5))
+
+
 def test_ens_objective_oracle_paper_match_jax():
     Z = _Z(9, 37, seed=5)
     lam, eta = 0.7, 1.3
@@ -234,11 +246,3 @@ def test_ens_tree_chunking(monkeypatch):
     for got in (whole, chunked):
         assert_bitwise(got["a"], want["a"])
         assert_bitwise(got["b"][0], want["b"][0])
-
-
-def test_pad_helpers():
-    assert [common.next_pow2(v) for v in (1, 2, 3, 257)] == [1, 2, 4, 512]
-    x = torch.arange(5.0)
-    blocks, n = common.as_2d_blocks(x, 4)
-    assert n == 5 and blocks.shape == (2, 4) and bool((blocks[1, 1:] == 0).all())
-    assert common.pad_axis(x, 0, 5, -1.0) is x

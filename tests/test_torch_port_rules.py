@@ -32,7 +32,7 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
 for name in ("main", "build_kernels", "check_kernels", "run_main_path",
-             "check_card_vs_cpu"):
+             "profile_main_path", "check_card_vs_cpu"):
     assert callable(getattr(chip_smoke, name)), name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
