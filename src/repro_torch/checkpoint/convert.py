@@ -1,10 +1,14 @@
-"""Carry FedEPM state between the port and numpy.
+"""Carry FedEPM and simulator state between the port and numpy.
 
 ``state_from_numpy`` takes the leaves of a FedEPM state as numpy arrays
 (``w_tau``, ``W``, ``Z`` as arrays or dict/tuple trees of arrays, and the
 iteration counter ``k``), for example read from the JAX package's
 ``FedEPMState``, and builds the port's state on ``device``.
-``state_to_numpy`` goes back. Values are copied bit for bit.
+``state_to_numpy`` goes back. ``sim_state_from_numpy`` and
+``sim_state_to_numpy`` do the same for a ``FedSim``'s device state: the
+FedEPM state plus the error-feedback memory ``H`` (the JAX sim's
+``_H``), so a run can continue from another's state at any round. Values
+are copied bit for bit.
 """
 from __future__ import annotations
 
@@ -33,3 +37,24 @@ def state_to_numpy(state: FedEPMState) -> dict:
 
     return {"w_tau": tmap(to_np, state.w_tau), "W": tmap(to_np, state.W),
             "Z": tmap(to_np, state.Z), "k": np.asarray(state.k, np.int32)}
+
+
+def sim_state_to_numpy(sim) -> dict:
+    """A FedSim's device state: ``state_to_numpy`` of its FedEPM state,
+    plus ``H`` when it keeps an error-feedback memory."""
+    out = state_to_numpy(sim.state)
+    if sim.H is not None:
+        out["H"] = tmap(lambda t: t.detach().cpu().numpy(), sim.H)
+    return out
+
+
+def sim_state_from_numpy(sim, leaves: Mapping) -> None:
+    """Load ``leaves`` (as ``sim_state_to_numpy`` writes them) into ``sim``
+    on its device; ``H`` is required exactly when the sim keeps one."""
+    if (sim.H is None) != (leaves.get("H") is None):
+        raise ValueError("H must be given exactly when the sim runs error "
+                         "feedback")
+    sim.state = state_from_numpy(leaves, device=sim.device)
+    if sim.H is not None:
+        sim.H = tmap(lambda a: torch.from_numpy(np.array(a, copy=True))
+                     .to(sim.device), leaves["H"])

@@ -10,6 +10,10 @@ the counterpart of ``repro.core.participation``, drawing from a
 
 Both return a bool mask of shape (m,) on the generator's device. The
 numbers differ from JAX's (another generator); the properties are the same.
+
+``arrival_mask`` and ``first_arrivals_mask`` turn simulated arrival times
+into the mask the sim's deadline, adaptive, sync and overselect policies
+aggregate; they equal JAX's bit for bit.
 """
 from __future__ import annotations
 
@@ -61,3 +65,27 @@ def sample_coverage(generator: torch.Generator, m: int, rho: float,
     scores = torch.where(mask, torch.full_like(scores, 2.0), scores)
     order = torch.argsort(-scores, stable=True)
     return _mask(m, order[:n_sel])
+
+
+def arrival_mask(candidates: torch.Tensor, arrivals: torch.Tensor,
+                 deadline) -> torch.Tensor:
+    """Deadline aggregation: keep the candidates whose simulated arrival is
+    within ``deadline`` (a scalar, or one cutoff per client). An offline
+    client (arrival inf) is dropped even under an infinite deadline.
+
+    As in JAX without x64, arrival times and the deadline compare in f32.
+    """
+    arr = arrivals.to(torch.float32)
+    dl = torch.as_tensor(deadline, dtype=torch.float32, device=arr.device)
+    return candidates & torch.isfinite(arr) & (arr <= dl)
+
+
+def first_arrivals_mask(candidates: torch.Tensor, arrivals: torch.Tensor,
+                        n_keep: int) -> torch.Tensor:
+    """Over-selection: of the contacted ``candidates``, keep the ``n_keep``
+    earliest finite arrivals (f32 times, ties broken by client index)."""
+    arr = arrivals.to(torch.float32)
+    t = torch.where(candidates, arr, torch.full_like(arr, torch.inf))
+    order = torch.argsort(t, stable=True)
+    rank = torch.argsort(order, stable=True)
+    return (rank < n_keep) & torch.isfinite(t)

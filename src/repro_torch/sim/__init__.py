@@ -1,0 +1,31 @@
+"""Federated systems runtime on the port: client heterogeneity and latency
+models, the sync/deadline/adaptive/overselect policies over simulated time,
+the upload codec with optional error feedback and DP uploads, and the byte
+ledger; the counterpart of ``repro.sim`` (the async policy, fault injection
+and the compiled engine come with later slices)."""
+from repro_torch.sim.clients import (     # noqa: F401
+    AdaptiveDeadlines,
+    ClientProfiles,
+    LatencyTrace,
+    latency_model_names,
+    make_latency_model,
+    make_profiles,
+    register_latency_model,
+    round_arrivals,
+    uniform_profiles,
+)
+from repro_torch.sim.server import (      # noqa: F401
+    FedSim,
+    SimConfig,
+    SimMetrics,
+    client_work_flops,
+)
+from repro_torch.sim.transport import (   # noqa: F401
+    ByteLedger,
+    CodecConfig,
+    codec_roundtrip,
+    ef_roundtrip,
+    encoded_client_bytes,
+    stacked_client_bytes,
+    tree_client_bytes,
+)

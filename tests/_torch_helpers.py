@@ -6,9 +6,13 @@ arrays; JAX stays on the CPU.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+from repro.core import dp as jdp
+from repro.core import fedepm as jf
 
 
 def to_np(x) -> np.ndarray:
@@ -50,3 +54,22 @@ def ulp_diff(a, b) -> float:
     spacing = np.spacing(np.abs(a32))
     return float(np.max(np.abs(a32.astype(np.float64) - b32) / spacing,
                         initial=0.0))
+
+
+def jax_round_draws(cfg):
+    """A jitted ``state -> (mask, unit)`` giving what ``jf.fedepm_round``
+    draws from ``state.key``: its participation mask
+    (``default_round_mask``) and its per-client unit-Laplace planes (the
+    round's key split, then one key per client)."""
+    m = cfg.m
+
+    @jax.jit
+    def draws(s):
+        mask = jf.default_round_mask(s, cfg)
+        _, _, k_noise = jax.random.split(s.key, 3)
+        keys = jax.random.split(k_noise, m)
+        unit = jax.vmap(lambda kk, wi: jdp.laplace_tree(kk, wi, 1.0))(keys,
+                                                                       s.W)
+        return mask, unit
+
+    return draws

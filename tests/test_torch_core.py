@@ -9,6 +9,7 @@ import torch
 
 from _torch_helpers import assert_bitwise, to_np, to_torch, ulp_diff
 from repro.core import dp as jdp
+from repro.core import participation as jpart
 from repro.core import fedepm as jfedepm
 from repro.core import treeutil as jtree
 from repro.core.tasks import (accuracy_logistic, make_least_squares_loss,
@@ -224,3 +225,30 @@ def test_termination_rule_matches_jax():
     for hist, gsq in cases:
         assert tcfg.termination_reached(hist, gsq, 14) == jrule(hist, gsq, 14)
     assert tcfg.CONFIG.m_grid == (50, 100, 128)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_arrival_masks_bitwise(seed):
+    """The sim's policy masks: f64 arrival times compared in f32, as JAX
+    without x64 compares them, with ties (equal in f32 only), offline
+    clients (inf), scalar and per-client deadlines, and over-selection's
+    stable order."""
+    rng = np.random.default_rng(seed)
+    m = 40
+    arr = rng.pareto(1.2, m) * 1e-4 + 3e-5
+    arr[::7] = np.inf
+    arr[1::9] = np.float64(np.float32(arr[2])) + 1e-13  # f32 ties
+    cand = rng.random(m) < 0.7
+    cut = np.where(rng.random(m) < 0.3, np.inf, arr * rng.uniform(0.5, 2, m))
+    for dl in (np.inf, float(np.median(arr[np.isfinite(arr)])), cut):
+        want = jpart.arrival_mask(jnp.asarray(cand), jnp.asarray(arr),
+                                  jnp.asarray(dl))
+        got = tpart.arrival_mask(torch.tensor(cand), torch.tensor(arr),
+                                 torch.as_tensor(dl))
+        assert_bitwise(got, want)
+    for keep in (1, 5, 20, 40):
+        want = jpart.first_arrivals_mask(jnp.asarray(cand), jnp.asarray(arr),
+                                         keep)
+        got = tpart.first_arrivals_mask(torch.tensor(cand),
+                                        torch.tensor(arr), keep)
+        assert_bitwise(got, want)

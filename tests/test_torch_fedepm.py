@@ -20,8 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import assert_bitwise, max_abs_diff, to_np, to_torch
-from repro.core import dp as jdp
+from _torch_helpers import (
+    assert_bitwise,
+    jax_round_draws,
+    max_abs_diff,
+    to_np,
+    to_torch,
+)
 from repro.core import fedepm as jf
 from repro.core.tasks import make_logistic_loss
 from repro.data import synth
@@ -40,21 +45,6 @@ def _data(m, d):
     parts = partition_iid(X, y, m=m, seed=0)
     return (X, y, {k: jnp.asarray(v) for k, v in parts.items()},
             {k: to_torch(v) for k, v in parts.items()})
-
-
-def _jax_draws(cfg):
-    m = cfg.m
-
-    @jax.jit
-    def draws(s):
-        mask = jf.default_round_mask(s, cfg)
-        _, _, k_noise = jax.random.split(s.key, 3)
-        keys = jax.random.split(k_noise, m)
-        unit = jax.vmap(lambda kk, wi: jdp.laplace_tree(kk, wi, 1.0))(keys,
-                                                                       s.W)
-        return mask, unit
-
-    return draws
 
 
 def _close(got, want, rtol=STATE_RTOL):
@@ -91,7 +81,7 @@ def test_round_by_round_vs_jax(m, eps):
     js = jf.init_state(jax.random.PRNGKey(0), jnp.zeros(14), cfg)
     ts = tf.init_state(torch.zeros(14), tcfg)
     step = jax.jit(lambda s: jf.fedepm_round(s, jb, jloss, cfg))
-    draws = _jax_draws(cfg)
+    draws = jax_round_draws(cfg)
     for r in range(10):
         mask, unit = draws(js)
         js, jm = step(js)
@@ -118,7 +108,7 @@ def test_resume_mid_trajectory_from_jax_state():
     ts = state_from_numpy({f: np.asarray(getattr(js, f))
                            for f in ("w_tau", "W", "Z", "k")})
     assert ts.k == 36
-    mask, unit = _jax_draws(cfg)(js)
+    mask, unit = jax_round_draws(cfg)(js)
     js, jm = step(js)
     ts, tm = tf.fedepm_round(ts, tb, tloss, tcfg, mask=to_torch(mask),
                              unit_noise=to_torch(unit))

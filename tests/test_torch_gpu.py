@@ -17,6 +17,9 @@ from repro_torch.kernels.ens import ops as ens_ops
 from repro_torch.kernels.ens.ens import ens_cuda, ens_ref
 from repro_torch.kernels.prox import ops as prox_ops
 from repro_torch.kernels.prox.prox import prox_update_cuda, prox_update_ref
+from repro_torch.kernels.quant import ops as quant_ops
+from repro_torch.kernels.quant import quant as quant_cuda
+from repro_torch.kernels.quant import ref as quant_ref
 from repro_torch.launch.paper import get_task
 
 pytestmark = pytest.mark.gpu
@@ -89,3 +92,91 @@ def test_round_on_card_matches_cpu(gen):
         a, b = getattr(s_cpu, name), getattr(s_gpu, name).cpu()
         assert float((a - b).abs().max()) <= 4e-6 * max(1.0,
                                                        float(a.abs().max()))
+
+
+def _quant_args(kind, m, n, dt, bits, stochastic, gen):
+    X = (torch.randn(m, n, generator=gen, device="cuda") * 2).to(dt)
+    F = torch.randn(m, n, generator=gen, device="cuda").to(dt)
+    if m > 1:
+        X[0] = 0
+    kc = torch.randint(0, n + 1, (m,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    bits_plane = torch.randint(-2 ** 31, 2 ** 31, (m, n), generator=gen,
+                               device="cuda", dtype=torch.int32)
+    u = bits_plane if stochastic else None
+    s = X.float().abs().amax(1)
+    if kind == "quantize":
+        return (X, s, bits, u)
+    if kind == "cols":
+        return (X, F, s, kc, bits, u)
+    if kind == "ef":
+        return (X, F, (X.float() - F.float()).abs().amax(1), bits, u)
+    cf = 0.2 + torch.rand(m, generator=gen, device="cuda")
+    b = torch.rand(m, generator=gen, device="cuda")
+    lap = quant_ref.laplace_from_u32(torch.randint(
+        -2 ** 31, 2 ** 31, (m, n), generator=gen, device="cuda",
+        dtype=torch.int32))
+    return (X, F, cf, b, s * cf, kc, bits, u, lap)
+
+
+QUANT_OPS = {"quantize": quant_ops.quantize, "cols": quant_ops.quantize_cols,
+             "ef": quant_ops.ef_accumulate,
+             "private": quant_ops.private_quantize_cols}
+
+
+@pytest.mark.parametrize("kind", sorted(QUANT_OPS))
+@pytest.mark.parametrize("m,n", [(1, 7), (5, 300), (32, 1024), (3, 513),
+                                 (128, 14)])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quant_kernels_bitwise(gen, kind, m, n, bits, stochastic, dtype):
+    args = _quant_args(kind, m, n, DTYPES[dtype], bits, stochastic, gen)
+    op = QUANT_OPS[kind]
+    got = op(*args)
+    assert got.dtype == DTYPES[dtype]
+    torch.testing.assert_close(got, op(*args, impl="ref"), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+def test_quant_counters_count_launches(gen):
+    before = (quant_cuda.quantize_cols_cuda.launches,
+              quant_cuda.ef_accumulate_cuda.launches,
+              quant_cuda.private_quantize_cols_cuda.launches,
+              quant_cuda.quantize_cuda.launches)
+    for kind, op in QUANT_OPS.items():
+        op(*_quant_args(kind, 4, 9, torch.float32, 8, True, gen))
+        op(*_quant_args(kind, 4, 9, torch.float32, 8, True, gen),
+           impl="ref")
+    after = (quant_cuda.quantize_cols_cuda.launches,
+             quant_cuda.ef_accumulate_cuda.launches,
+             quant_cuda.private_quantize_cols_cuda.launches,
+             quant_cuda.quantize_cuda.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--policy", "sync", "--bits", "4", "--error-feedback"],
+    ["--policy", "overselect", "--dp-eps", "10", "--bits", "8"],
+    ["--policy", "adaptive", "--topk", "0.25", "--bits", "8",
+     "--error-feedback", "--latency", "lognormal"],
+])
+def test_sim_on_card_matches_cpu(gen, extra):
+    """One seeded set of CPU draws for both sims; each round the card's sim
+    starts from the CPU sim's state."""
+    from repro_torch.checkpoint.convert import (sim_state_from_numpy,
+                                                sim_state_to_numpy)
+    from repro_torch.launch.simulate import build_sim, parser
+    from repro_torch.sim.server import TorchDraws
+    a = parser().parse_args(["--m", "16", "--d", "2000", "--k0", "4",
+                             "--telemetry"] + extra)
+    cpu, _ = build_sim(a, torch.device("cpu"), draws=TorchDraws(0, 0))
+    card, _ = build_sim(a, torch.device("cuda"), draws=TorchDraws(0, 0))
+    for _ in range(3):
+        sim_state_from_numpy(card, sim_state_to_numpy(cpu))
+        assert cpu.step() == card.step()
+        for x, y in [(cpu.state.W, card.state.W), (cpu.state.Z, card.state.Z)]:
+            assert float((x - y.cpu()).abs().max()) <= 4e-6 * max(
+                1.0, float(x.abs().max()))
+    assert cpu.telemetry.events == card.telemetry.events
+    assert cpu.ledger.total == card.ledger.total

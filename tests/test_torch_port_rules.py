@@ -21,6 +21,7 @@ from repro_torch.kernels.ens import ops as ens_ops
 from repro_torch.kernels.prox import ops as prox_ops
 from repro_torch.kernels.prox import prox as prox_kernel
 from repro_torch.launch import paper
+from repro_torch.launch import simulate
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -31,9 +32,18 @@ import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
-for name in ("main", "build_kernels", "check_kernels", "run_main_path",
-             "profile_main_path", "check_card_vs_cpu"):
+for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
+             "run_main_path", "run_sim_path", "profile_main_path",
+             "profile_sim_path", "check_card_vs_cpu",
+             "check_sim_card_vs_cpu", "reset_counts", "read_counts"):
     assert callable(getattr(chip_smoke, name)), name
+walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                 "repro_torch.")}}
+for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
+            "repro_torch.kernels.quant", "repro_torch.launch.simulate",
+            "repro_torch.sim.server", "repro_torch.sim.transport",
+            "repro_torch.kernels.quant.quant"):
+    assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -85,6 +95,9 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         paper.run_fedepm(4, 2, 0.5, 0.1, d=200, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate.main(["--m", "4", "--d", "200", "--rounds", "1",
+                       "--quiet"])
 
 
 def test_kernel_on_cpu_tensor_raises():
@@ -106,7 +119,7 @@ def test_kernel_on_cpu_tensor_raises():
 
 
 def test_build_plan():
-    assert build.sources() == ["ens", "prox"]
+    assert build.sources() == ["ens", "prox", "quant"]
     for flag in ("arch=compute_90a,code=sm_90a", "--fmad=false", "-O3",
                  "-shared"):
         assert flag in build.NVCC_FLAGS
