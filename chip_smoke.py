@@ -12,8 +12,12 @@ Phases, in order; any failure exits non-zero before the last line:
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main path's shape, edge shapes and a full smollm-135m
    embedding leaf (49152 x 576); bitwise expected. Times by CUDA events.
-   The four quantizer entries run at every bit width (2, 4, 8, 16), with
-   and without dither, with an all-zero row and a row with no live column.
+   ENS also runs tie-heavy inputs, lam = 0, eta = 1e-9, a negative lam/eta
+   and m = 100 and 128 in both launch layouts, and is timed by the
+   profiler's device time beside ``torch.median`` at the main path's shape
+   and the wide leaves. The four quantizer entries run at every bit width
+   (2, 4, 8, 16), with and without dither, with an all-zero row and a row
+   with no live column.
 4. main paths, each with every launch counter set to 0 just before it and
    read just after: ``run_fedepm`` (FedEPM, Algorithm 2) on the paper's
    task at m = 128, d = 45222 to the paper's stopping rule; then the
@@ -140,39 +144,98 @@ def _prox_case(m, n, dtype, gen, reps):
     return res
 
 
-def _ens_case(m, n, dtype, gen, reps):
+# ENS inputs: name -> (lam, eta, tie-heavy Z). "ties" rounds Z to
+# half-integers and makes every other column sum to exactly 0, so its mean
+# is 0 and client values equal candidates; "eta_to_0" sends the candidates
+# towards +-inf (eq. (5)); "negative_ratio" gives descending offsets
+ENS_KINDS = {"random": (0.3, 0.9, False), "ties": (0.5, 1.0, True),
+             "lam0": (0.0, 0.9, False), "eta_to_0": (0.3, 1e-9, False),
+             "negative_ratio": (0.3, -0.9, False)}
+
+
+def device_ms(fn, reps: int, attempts: int = 3) -> tuple[float, list[str]]:
+    """Device time per call: the time of every device operation that
+    ``reps`` calls ran under ``torch.profiler``, after one warm-up call,
+    over ``reps``; and the names of those operations. A session in which
+    CUPTI delivered no device record is run again, up to ``attempts``
+    times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if ops:
+            busy = sum(e.time_range.elapsed_us() for e in ops)
+            return busy / reps / 1e3, sorted({e.name[:80] for e in ops})
+    raise AssertionError(f"no device operation in {attempts} profiles")
+
+
+def _ens_Z(m, n, dtype, tied, gen):
+    Z = torch.randn(m, n, generator=gen, device="cuda") * 3
+    if tied:
+        Z = torch.round(Z * 2) / 2
+        h = m // 2
+        Z[h:2 * h, ::2] = -Z[:h, ::2]
+        Z[2 * h:, ::2] = 0.0
+    return Z.to(dtype)
+
+
+def _ens_case(m, n, dtype, gen, reps, kind="random", profiled=False):
     from repro_torch.kernels.ens.ens import ens_cuda, ens_ref
     from repro_torch.kernels.ens.ref import ens_candidates
-    Z = (torch.randn(m, n, generator=gen, device="cuda") * 3).to(dtype)
-    lam, eta = 0.3, 0.9
+    lam, eta, tied = ENS_KINDS[kind]
+    Z = _ens_Z(m, n, dtype, tied, gen)
     got = ens_cuda(Z, lam, eta)
     want = ens_ref(Z, lam, eta)
     torch.cuda.synchronize()
     res = compare(got, want, ulps=0)
     del got, want
+    res.update(shape=[m, n], dtype=str(dtype).replace("torch.", ""),
+               kind=kind)
+    if not reps:
+        return res
     item = Z.element_size()
     # bytes: Z once, out once; operations: mean and candidates (2m+1 per
-    # coordinate) plus a linear-time selection (2m+1 compares) -- the least
-    # this work needs, not this kernel's O((2m+1)^2) compares
+    # coordinate) plus a linear-time selection (2m+1 compares), the least
+    # this work needs; the kernel's sort of the clients is above that
     b_ms, b_by = bound((m * n + n) * item + 4 * (m + 1), (4 * m + 3) * n)
     stack = ens_candidates(Z, lam, eta)
-    res.update(shape=[m, n], dtype=str(dtype).replace("torch.", ""),
-               ms=time_ms(lambda: ens_cuda(Z, lam, eta), reps),
+    res.update(ms=time_ms(lambda: ens_cuda(Z, lam, eta), reps),
                plain_ms=time_ms(lambda: ens_ref(Z, lam, eta), reps),
                bound_ms=b_ms, bound_by=b_by,
                library_ms=time_ms(lambda: torch.median(stack, dim=0), reps))
+    if profiled:
+        # at the main path's shape the events above time the host's issue;
+        # the profiler gives the device's own time, for both calls alike
+        kernel, names = device_ms(lambda: ens_cuda(Z, lam, eta), reps)
+        assert all("ens_kernel" in name for name in names), names
+        median, median_names = device_ms(
+            lambda: torch.median(stack, dim=0), reps)
+        res.update(device_ms=kernel, library_device_ms=median,
+                   device_ops=names, library_device_ops=median_names)
     return res
 
 
 def _summary(name, source, replaces, cases):
     main = cases[0]  # the main path's shape
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None,
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "mismatches": sum(c["mismatches"] for c in cases),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "shapes": cases}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": None,
+           "max_abs_err": max(c["max_abs_err"] for c in cases),
+           "mismatches": sum(c["mismatches"] for c in cases),
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": main["library_ms"], "shapes": cases}
+    for key in ("device_ms", "library_device_ms"):  # ENS's device times
+        if key in main:
+            row[key] = main[key]
+    return row
 
 
 def check_kernels(card: str) -> list[dict]:
@@ -190,20 +253,31 @@ def check_kernels(card: str) -> list[dict]:
         log(f"  prox {c['shape']} {c['dtype']}: mismatches {c['mismatches']}"
             f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
             f"bound {c['bound_ms']:.4f} ms")
-    ens_plan = [(128, 14, f32, 50)]
-    ens_plan += [(m, n, f32, 5) for m in (1, 2, 3, 5, 16, 33, 50, 128)
-                 for n in (1, 7, 513, 14)]
-    ens_plan += [(8, SMOLLM_LEAF, f32, 3), (8, SMOLLM_LEAF, bf16, 3),
-                 (128, 1 << 20, f32, 3)]
+    # the main path's shape first; n < 4096 takes the warp layout, n = 4099
+    # and the wide leaves the thread layout
+    # (the last field: timed by the profiler too)
+    ens_plan = [(128, 14, f32, 50, "random", True)]
+    ens_plan += [(m, n, f32, 5, "random", False)
+                 for m in (1, 2, 3, 5, 16, 33, 50, 100, 128)
+                 for n in (1, 7, 513, 14, 4099)]
+    ens_plan += [(m, n, dt, 0, kind, False) for kind in ENS_KINDS
+                 for m in (1, 5, 100, 128) for n in (14, 4099)
+                 for dt in (f32, bf16)]
+    ens_plan += [(8, SMOLLM_LEAF, f32, 3, "random", True),
+                 (8, SMOLLM_LEAF, bf16, 3, "random", True),
+                 (128, 1 << 20, f32, 3, "random", True)]
     ens_cases = []
-    for m, n, dt, reps in ens_plan:
-        ens_cases.append(_ens_case(m, n, dt, gen, reps))
+    for m, n, dt, reps, kind, profiled in ens_plan:
+        ens_cases.append(_ens_case(m, n, dt, gen, reps, kind, profiled))
         c = ens_cases[-1]
-        if n > 1000 or (m, n) == (128, 14):
+        if "device_ms" in c:
             log(f"  ens {c['shape']} {c['dtype']}: mismatches "
-                f"{c['mismatches']} kernel {c['ms']:.4f} ms plain "
-                f"{c['plain_ms']:.4f} ms median {c['library_ms']:.4f} ms "
-                f"bound {c['bound_ms']:.4f} ms")
+                f"{c['mismatches']} kernel {c['ms']:.4f} ms (device "
+                f"{c['device_ms']:.4f}) plain {c['plain_ms']:.4f} ms median "
+                f"{c['library_ms']:.4f} ms (device "
+                f"{c['library_device_ms']:.4f}) bound {c['bound_ms']:.4f} ms")
+    log(f"  ens: {len(ens_cases)} cases, kinds {sorted(ENS_KINDS)}, "
+        f"mismatches {sum(c['mismatches'] for c in ens_cases)}")
     log(f"kernels: {len(prox_cases)} prox and {len(ens_cases)} ENS shapes "
         f"agree with their plain versions ({card}); prox has no single "
         f"PyTorch call computing eq. (20), so its library_ms is null")
@@ -418,6 +492,10 @@ def _profile_window(prof, span: str, rounds: int) -> tuple[dict, dict]:
              "device_idle_share": 1 - busy / window,
              "device_ops_per_round":
                  sum(c for _, c in by_name.values()) / rounds,
+             "port_kernels_us_per_round": {
+                 k: sum(t for name, (t, _) in by_name.items() if k in name)
+                 / rounds for k in ("ens_kernel", "prox_kernel",
+                                    "quant_kernel")},
              "top": [{"kernel": name[:80], "us_per_round": t / rounds,
                       "calls_per_round": c / rounds}
                      for name, (t, c) in top]}

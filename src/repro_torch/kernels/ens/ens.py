@@ -3,12 +3,16 @@ Algorithm 1.
 
 Replaces ``src/repro/kernels/ens/ens.py::_ens_kernel`` and
 ``_bitonic_sort_axis0`` (entry ``ens_pallas``). The kernel source is
-``csrc/ens.cu``; its note says what bounds it on the H100 (bytes in
-principle; its O((2m+1)^2) selection makes it compare-bound at large m) and
-what the simple design does (one thread per coordinate over a shared-memory
-tile, an exact rank-counting selection with no sentinels or power-of-two
-pad). The plain PyTorch version, ``ens_ref``, sits beside it: the CPU path,
-and what ``chip_smoke.py`` holds the kernel to on the card.
+``csrc/ens.cu``; its note says what bounds it on the H100 (bytes, with an
+O(m log^2 m) sort of the client values per coordinate on top) and what the
+design does: sort only the m client values with a bitonic network, then
+select order statistic m of their union with the m+1 candidates, which are
+already in order. The plain PyTorch version, ``ens_ref``, sits beside it:
+the CPU path, and what ``chip_smoke.py`` holds the kernel to on the card.
+
+The launch shape follows n: below ``WARP_LAYOUT_MAX_N`` coordinates each
+coordinate gets one warp (``ens_kernel_warp``), else one thread
+(``ens_kernel_thread``, coalesced row reads). Either is one launch.
 
 ``ens_cuda.launches`` counts kernel launches.
 """
@@ -23,7 +27,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ens.ref import ens_offsets, ens_ref  # noqa: F401
 
 _ENTRIES = {torch.float32: "ens_f32", torch.bfloat16: "ens_bf16"}
-MAX_CLIENTS = 128  # the shared-memory tile is (m, 64) f32
+MAX_CLIENTS = 128  # the thread layout keeps a column in 128 registers
+# below this n the thread layout would put fewer warps on the card than it
+# has SMs (132 on an H100), so a warp takes each coordinate instead
+WARP_LAYOUT_MAX_N = 4096
 _FNS: dict = {}  # dtype -> (library, C entry with argtypes set)
 
 
@@ -32,7 +39,7 @@ def _fn(dtype: torch.dtype):
         lib = build.load("ens")
         fn = getattr(lib, _ENTRIES[dtype])
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64,
-                                               ctypes.c_void_p]
+                                               ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[dtype] = (lib, fn)
     return _FNS[dtype]
@@ -64,7 +71,8 @@ def ens_cuda(Z: torch.Tensor, lam, eta) -> torch.Tensor:
     Z = Z.contiguous()
     offs = device_offsets(m, float(lam), float(eta), Z.device)
     lib, fn = _fn(Z.dtype)
-    err = fn(Z.data_ptr(), offs.data_ptr(), out.data_ptr(), m, n,
+    per_warp = int(n < WARP_LAYOUT_MAX_N)
+    err = fn(Z.data_ptr(), offs.data_ptr(), out.data_ptr(), m, n, per_warp,
              torch.cuda.current_stream(Z.device).cuda_stream)
     build.check(lib, err, "ENS kernel launch")
     ens_cuda.launches += 1

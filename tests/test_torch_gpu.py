@@ -13,6 +13,7 @@ import torch
 from repro_torch.core import dp, fedepm
 from repro_torch.core.participation import sample_uniform
 from repro_torch.core.tasks import LogisticLoss
+from repro_torch.kernels.ens import ens as ens_mod
 from repro_torch.kernels.ens import ops as ens_ops
 from repro_torch.kernels.ens.ens import ens_cuda, ens_ref
 from repro_torch.kernels.prox import ops as prox_ops
@@ -50,14 +51,46 @@ def test_prox_kernel_bitwise(gen, m, n, dtype):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 33, 50, 128])
+# lam, eta and tie-heavy data: "ties" rounds Z to half-integers and makes
+# every other column sum to exactly 0, so client values equal candidates;
+# "eta_to_0" sends the candidates towards +-inf; "negative_ratio" gives
+# descending offsets
+ENS_KINDS = {"random": (0.3, 0.9, False), "ties": (0.5, 1.0, True),
+             "lam0": (0.0, 0.9, False), "eta_to_0": (0.3, 1e-9, False),
+             "negative_ratio": (0.3, -0.9, False)}
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 33, 50, 100, 128])
 @pytest.mark.parametrize("n", [1, 7, 14, 513])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_ens_kernel_bitwise(gen, m, n, dtype):
-    Z = (torch.randn(m, n, generator=gen, device="cuda") * 3).to(DTYPES[dtype])
-    got = ens_ops.ens(Z, 0.3, 0.9)
+@pytest.mark.parametrize("kind", sorted(ENS_KINDS))
+@pytest.mark.parametrize("layout", ["warp", "thread"])
+def test_ens_kernel_bitwise(gen, monkeypatch, m, n, dtype, kind, layout):
+    """Both launch layouts (the wrapper picks by n; forced here) equal the
+    plain version bit for bit."""
+    lam, eta, tied = ENS_KINDS[kind]
+    monkeypatch.setattr(ens_mod, "WARP_LAYOUT_MAX_N",
+                        1 << 30 if layout == "warp" else 0)
+    Z = torch.randn(m, n, generator=gen, device="cuda") * 3
+    if tied:
+        Z = torch.round(Z * 2) / 2
+        h = m // 2
+        Z[h:2 * h, ::2] = -Z[:h, ::2]
+        Z[2 * h:, ::2] = 0.0
+    Z = Z.to(DTYPES[dtype])
+    got = ens_ops.ens(Z, lam, eta)
     assert got.dtype == Z.dtype
-    torch.testing.assert_close(got, ens_ref(Z, 0.3, 0.9), rtol=0, atol=0)
+    torch.testing.assert_close(got, ens_ref(Z, lam, eta), rtol=0, atol=0)
+
+
+def test_ens_kernel_limits(gen):
+    """m = MAX_CLIENTS runs; one more client raises before any launch."""
+    Z = torch.randn(ens_mod.MAX_CLIENTS + 1, 5000, generator=gen,
+                    device="cuda")
+    got = ens_ops.ens(Z[1:], 0.3, 0.9)
+    torch.testing.assert_close(got, ens_ref(Z[1:], 0.3, 0.9), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="clients"):
+        ens_ops.ens(Z, 0.3, 0.9)
 
 
 def test_counters_count_launches(gen):

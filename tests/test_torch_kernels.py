@@ -246,3 +246,136 @@ def test_ens_tree_chunking(monkeypatch):
     for got in (whole, chunked):
         assert_bitwise(got["a"], want["a"])
         assert_bitwise(got["b"][0], want["b"][0])
+
+
+# --- the CUDA kernel's selection, written out in numpy ---------------------
+# csrc/ens.cu sorts only the m client values (bitonic, +inf pads to a power
+# of two) and takes order statistic m of their union with the m+1
+# candidates, already in order (read backwards when lam/eta < 0), as
+# min(C[m], min_i max(A[i], C[m-1-i])). These mirrors repeat its index
+# arithmetic for both launch layouts, so a slip shows here, on the CPU.
+
+def _bitonic_thread(r):
+    """ens_kernel_thread's network over the P rows of r (P, n)."""
+    r = r.copy()
+    P = r.shape[0]
+    for kk in range(1, P.bit_length()):
+        for ss in range(kk - 1, -1, -1):
+            for i in range(P):
+                l = i ^ (1 << ss)
+                if l > i:
+                    lo, hi = np.minimum(r[i], r[l]), np.maximum(r[i], r[l])
+                    asc = (i & (1 << kk)) == 0
+                    r[i], r[l] = (lo, hi) if asc else (hi, lo)
+    return r
+
+
+def _bitonic_warp(r):
+    """ens_kernel_warp's network: r (32, E, n), lane l holding positions
+    l*E .. l*E+E-1; steps below E swap within a lane, the others exchange
+    with lane ^ (s / E) as __shfl_xor_sync does."""
+    r = r.copy()
+    E = r.shape[1]
+    lane = np.arange(32)[:, None]
+    for kk in range(1, (32 * E).bit_length()):
+        for ss in range(kk - 1, -1, -1):
+            s = 1 << ss
+            if s < E:
+                for e in range(E):
+                    if e & s == 0:
+                        f = e | s
+                        lo = np.minimum(r[:, e], r[:, f])
+                        hi = np.maximum(r[:, e], r[:, f])
+                        asc = ((lane * E + e) & (1 << kk)) == 0
+                        r[:, e], r[:, f] = (np.where(asc, lo, hi),
+                                            np.where(asc, hi, lo))
+            else:
+                bit = s // E
+                low = (lane & bit) == 0
+                for e in range(E):
+                    other = r[np.arange(32) ^ bit, e]
+                    asc = ((lane * E + e) & (1 << kk)) == 0
+                    r[:, e] = np.where(low == asc, np.minimum(r[:, e], other),
+                                       np.maximum(r[:, e], other))
+    return r.reshape(32 * E, -1)
+
+
+def _kernel_mean(Z):
+    total = np.zeros(Z.shape[1], np.float32)
+    for row in Z:
+        total = total + row
+    return total * (np.float32(1.0) / np.float32(Z.shape[0]))
+
+
+def _kernel_select(A, mean, offs):
+    """Order statistic m of the sorted clients A (>= m rows, real values
+    first) and the candidates mean + offs, read in ascending order."""
+    m = offs.shape[0] - 1
+    desc = offs[0] > offs[m]
+    C = [mean + offs[m - t if desc else t] for t in range(m + 1)]
+    med = C[m]
+    for i in range(m):
+        med = np.minimum(med, np.maximum(A[i], C[m - 1 - i]))
+    return med
+
+
+def _kernel_ens(Z, offs, mean, layout):
+    m, n = Z.shape
+    inf = np.float32(np.inf)
+    if layout == "thread":
+        P = 1 << (m - 1).bit_length()
+        r = np.full((P, n), inf, np.float32)
+        r[:m] = Z
+        A = _bitonic_thread(r)
+    else:
+        W = max(32, 1 << (m - 1).bit_length())
+        r = np.full((W, n), inf, np.float32)
+        r[:m] = Z
+        A = _bitonic_warp(r.reshape(32, W // 32, n))
+    np.testing.assert_array_equal(A[:m], np.sort(Z, axis=0))
+    return _kernel_select(A, mean, offs)
+
+
+ENS_CASES = {  # name: (lam, eta, tie-heavy data)
+    "random": (0.3, 0.9, False),
+    "ties": (0.5, 1.0, True),
+    "lam0": (0.0, 0.9, False),
+    "eta_to_0": (0.3, 1e-9, False),
+    "negative_ratio": (0.3, -0.9, False),
+}
+
+
+def _ens_case_Z(m, n, tied, seed):
+    """Random, or tie-heavy: half-integers, and every other column made to
+    sum to exactly 0 so that its mean is 0 and client values equal
+    candidates (0, and +-lam/eta at the ends)."""
+    Z = _Z(m, n, seed)
+    if tied:
+        Z = np.round(Z * 2) / 2
+        h = m // 2
+        Z[h:2 * h, ::2] = -Z[:h, ::2]
+        Z[2 * h:, ::2] = 0.0
+    return Z.astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 33, 50, 100, 128])
+@pytest.mark.parametrize("case", sorted(ENS_CASES))
+def test_ens_kernel_selection_mirror(m, case):
+    """Both layouts' sort and selection, with the kernel's mean, equal the
+    port's ``ens_ref`` bit for bit; with JAX's mean and offsets they equal
+    the JAX ``ens_ref`` bit for bit (above m = 32 XLA's mean has other
+    bits, which is the only difference between the two references)."""
+    from repro.kernels.ens.ens import ens_offsets as jax_offsets
+    lam, eta, tied = ENS_CASES[case]
+    Z = _ens_case_Z(m, 37, tied, seed=100 + m)
+    offs = to_np(tens_ref.ens_offsets(m, lam, eta))
+    want = to_np(tens_ref.ens_ref(to_torch(Z), lam, eta))
+    for layout in ("thread", "warp"):
+        got = _kernel_ens(Z, offs, _kernel_mean(Z), layout)
+        assert_bitwise(got, want)
+    jmean = to_np(jnp.mean(jnp.asarray(Z), axis=0))
+    joffs = to_np(jax_offsets(m, lam, eta)[:, 0])
+    got = _kernel_ens(Z, joffs, jmean, "warp")
+    assert_bitwise(got, jens_ref.ens_ref(jnp.asarray(Z), lam, eta))
+    if tied and m > 1:  # mean 0, so candidates are the offsets: ties
+        assert np.isin(Z[:, ::2], offs).any()
