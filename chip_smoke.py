@@ -17,7 +17,12 @@ Phases, in order; any failure exits non-zero before the last line:
    profiler's device time beside ``torch.median`` at the main path's shape
    and the wide leaves. The four quantizer entries run at every bit width
    (2, 4, 8, 16), with and without dither, with an all-zero row and a row
-   with no live column.
+   with no live column. The threefry hash (``csrc/threefry.cu``) against its
+   plain version, bitwise, in all three modes at one key x 3 and x 128
+   counters, 128 keys x 1, x 14 and x 1,048,576; and the port's
+   ``repro_torch.random`` on the card against a table of JAX's own answers
+   (``PRNGKey``, ``split``, ``fold_in``, ``bits``, ``uniform``,
+   ``permutation``) computed with jax 0.9.0 and committed below.
 4. main paths, each with every launch counter set to 0 just before it and
    read just after: ``run_fedepm`` (FedEPM, Algorithm 2) on the paper's
    task at m = 128, d = 45222 to the paper's stopping rule; then the
@@ -25,11 +30,16 @@ Phases, in order; any failure exits non-zero before the last line:
    configurations (deadline + 8-bit codec, sync + 4-bit error feedback,
    overselect + DP uploads, adaptive + top-k error feedback), which must
    launch ``quantize_cols``, ``ef_accumulate`` and
-   ``private_quantize_cols``. Each is then profiled, cut to 10 rounds,
-   under ``torch.profiler`` for the device's busy time and idle share.
-5. card against CPU: 5 rounds at m = 50 of the paper round, and of two
-   simulator configurations, on the card and on the port's CPU path with
-   the same draws.
+   ``private_quantize_cols``, and a fifth, SFedProx under the deadline
+   policy with the 8-bit codec; then the paper's baselines: the Fig. 2
+   twin (all three algorithms at m = 50, d = 45222, 120 rounds) and the
+   Table I twin (LCT at k0 in {4, 8, 12, 16, 20}). The paper path, SFedAvg
+   and SFedProx at m = 128 and simulator configuration (a) are then
+   profiled, cut to 10 rounds, under ``torch.profiler`` for the device's
+   busy time and idle share.
+5. card against CPU: 5 rounds at m = 50 of the paper round, of two
+   simulator configurations (same draws), and of SFedAvg and SFedProx from
+   the same key (masks bitwise).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -423,15 +433,189 @@ def check_quant_kernels(card: str) -> list[dict]:
     return out
 
 
+# The threefry hash's least work per output, read off csrc/threefry.cu:
+# 20 rounds of (add, rotate, xor) and six key injections of two adds (the
+# key-only sums k2 + 1, k0 + 2, ... are made once per key, outside the loop
+# over counters): 40 rotates and xors and 32 adds; bits adds the output
+# xor; uniform adds the xor, shift and or of its mantissa and its
+# subtract, FMA and max. THREEFRY_OPS holds (shift and logic ops, all
+# other ops) per output for each mode. On
+# Hopper (architecture white paper) an SM takes shifts and logic on its 64
+# INT32 lanes only; an add can issue on its 128 FP32 lanes as an IMAD, and
+# its four schedulers issue 128 thread-instructions per clock in all. So
+# one output takes at least max(alu / 64, all / 128) clocks of one SM, of
+# 132 SMs at the 1.98 GHz boost clock. Bytes: the keys read, the output
+# written (16 per key pair, 8 per bits value, 4 per uniform).
+THREEFRY_OPS = {"keys": (40, 32), "bits": (41, 32), "uniform": (43, 35)}
+SM_CLOCKS_PER_S = 132 * 1.98e9
+THREEFRY_OUT_BYTES = {"keys": 16, "bits": 8, "uniform": 4}
+# (keys, counters, timing repetitions); the main path's noise draw is
+# 128 keys x 14 uniforms
+THREEFRY_PLAN = [(128, 14, 200), (1, 3, 0), (1, 128, 0), (128, 1, 0),
+                 (128, 1 << 20, 5)]
+
+
+def _threefry_case(K, n, mode, reps, gen):
+    from repro_torch.kernels.threefry.threefry import (threefry_cuda,
+                                                       threefry_ref)
+    keys = torch.randint(0, 2 ** 32, (K, 2), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    lo, hi = (-0.5 + 1e-7, 0.5) if mode == "uniform" else (0.0, 1.0)
+    offsets = (0, 7, 2 ** 32 - 2) if n < 1000 else (0,)
+    res = {"shape": [K, n], "mode": mode, "mismatches": 0,
+           "max_abs_err": 0.0}
+    for off in offsets:
+        got = threefry_cuda(keys, n, off, mode, lo, hi)
+        want = threefry_ref(keys, n, off, mode, lo, hi)
+        torch.cuda.synchronize()
+        if mode == "uniform":  # bit patterns, so -0.0 and NaN count too
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        mism = int((got != want).sum())
+        if mism:
+            raise AssertionError(f"threefry {mode} ({K}, {n}) offset {off}:"
+                                 f" {mism} values differ")
+    if reps:
+        b_ms, b_by = bound(16 * K + THREEFRY_OUT_BYTES[mode] * K * n, 0.0)
+        alu, other = THREEFRY_OPS[mode]
+        t_ops = (max(alu / 64, (alu + other) / 128) * K * n
+                 / SM_CLOCKS_PER_S * 1e3)
+        if t_ops > b_ms:
+            b_ms, b_by = t_ops, "operations"
+        res.update(ms=time_ms(lambda: threefry_cuda(keys, n, 0, mode, lo,
+                                                    hi), reps),
+                   plain_ms=time_ms(lambda: threefry_ref(keys, n, 0, mode,
+                                                         lo, hi),
+                                    max(1, reps // 10)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if K * n <= 4096:  # events time the host's launches: take the device's
+            dev, names = device_ms(lambda: threefry_cuda(keys, n, 0, mode,
+                                                         lo, hi), reps)
+            assert all("threefry_kernel" in nm for nm in names), names
+            res["device_ms"] = dev
+    return res
+
+
+def check_threefry_kernel(card: str) -> list[dict]:
+    """The threefry kernel against its plain version, bitwise, in all three
+    modes at every planned shape (counters crossing 2**32 at the small
+    ones); timed at the main path's 128 x 14 uniforms first."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    cases = []
+    for K, n, reps in THREEFRY_PLAN:
+        for mode in ("uniform", "keys", "bits"):
+            cases.append(_threefry_case(K, n, mode, reps, gen))
+            c = cases[-1]
+            if "ms" in c:
+                log(f"  threefry ({K}, {n}) {mode}: kernel {c['ms']:.4f} ms "
+                    f"(device {c.get('device_ms', float('nan')):.4f}) plain "
+                    f"{c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
+                    f"({c['bound_by']})")
+        torch.cuda.empty_cache()
+    log(f"kernels: threefry agrees with its plain version in {len(cases)} "
+        f"cases ({card}); no PyTorch call computes threefry2x32 (torch's "
+        f"generators are Philox), so library_ms is null")
+    return [_summary("threefry", "src/repro_torch/kernels/csrc/threefry.cu",
+                     "no TPU kernel: jax/_src/prng.py "
+                     "_threefry2x32_lowering, XLA elementwise code", cases)]
+
+
+# jax.random's answers under jax 0.9.0's defaults (threefry2x32,
+# partitionable), for PRNGKey(seed): the key, split(key, 3) flattened,
+# fold_in(key, 7), bits(key, (5,)), the f32 bit patterns of
+# uniform(key, (4,), -0.5+1e-7, 0.5), permutation(key, 16), and digests
+# (sum of (i+1) * v_i mod 2**61 - 1) of bits(key, (1000,)) and
+# permutation(key, 128). tests/test_torch_random.py recomputes this table
+# with JAX.
+JAX_RANDOM = {
+    0: {"key": [0, 0],
+        "split3": [1797259609, 2579123966, 928981903, 3453687069,
+                   4146024105, 2718843009],
+        "fold_in_7": [2716826189, 292468403],
+        "bits5": [4070199207, 4202968722, 1427181096, 2012915765,
+                  2447653815],
+        "uniform4_bits": [1055208603, 1056245867, 3190537157, 3170915703],
+        "perm16": [0, 1, 8, 12, 5, 6, 4, 13, 14, 3, 10, 2, 7, 15, 11, 9],
+        "bits_1000_digest": 1070556034957836, "perm128_digest": 554929},
+    1: {"key": [0, 1],
+        "split3": [507451445, 1853169794, 1948878966, 4237131848,
+                   2441914641, 3819641963],
+        "fold_in_7": [954670714, 4016809582],
+        "bits5": [1883912375, 2292451390, 1915204986, 1882898417,
+                  3854144420],
+        "uniform4_bits": [3178978422, 1024082055, 3177022646, 3179041814],
+        "perm16": [7, 6, 3, 2, 0, 8, 13, 1, 5, 10, 15, 9, 4, 12, 14, 11],
+        "bits_1000_digest": 1035091097594592, "perm128_digest": 540361},
+    42: {"key": [0, 42],
+         "split3": [1832780943, 270669613, 64467757, 2916123636,
+                    2465931498, 255383827],
+         "fold_in_7": [2547012911, 1371500959],
+         "bits5": [2098992034, 2919706841, 2646866425, 2409546199,
+                   1935504149],
+         "uniform4_bits": [3157850975, 1043864769, 1039015874, 1031400454],
+         "perm16": [7, 4, 2, 5, 3, 6, 10, 11, 15, 8, 9, 13, 14, 0, 1, 12],
+         "bits_1000_digest": 1126604175929679, "perm128_digest": 546918},
+    2 ** 32 - 1: {
+        "key": [0, 4294967295],
+        "split3": [2973345818, 897673333, 3461607691, 1112781462,
+                   3122495753, 3444035234],
+        "fold_in_7": [614485078, 1000807227],
+        "bits5": [2226700399, 2348827549, 2002407339, 3973470413,
+                  1347664280],
+        "uniform4_bits": [1016535055, 1027605542, 3171572503, 1054452911],
+        "perm16": [8, 12, 5, 15, 2, 9, 11, 10, 14, 0, 1, 7, 13, 4, 6, 3],
+        "bits_1000_digest": 1101738670068722, "perm128_digest": 554837},
+}
+
+
+def _digest(values) -> int:
+    p = 2 ** 61 - 1
+    return sum((i + 1) * int(v) % p for i, v in enumerate(values)) % p
+
+
+def _ints(t: torch.Tensor) -> list[int]:
+    return [int(v) for v in t.reshape(-1).tolist()]
+
+
+def random_answers(seed: int, device) -> dict:
+    """The quantities of ``JAX_RANDOM`` from the port's stream on
+    ``device``."""
+    from repro_torch import random
+    key = random.PRNGKey(seed, device=device)
+    u = random.uniform(key, (4,), -0.5 + 1e-7, 0.5)
+    return {
+        "key": _ints(key), "split3": _ints(random.split(key, 3)),
+        "fold_in_7": _ints(random.fold_in(key, 7)),
+        "bits5": _ints(random.bits(key, (5,))),
+        "uniform4_bits": [v & 0xFFFFFFFF for v in _ints(u.view(torch.int32))],
+        "perm16": _ints(random.permutation(key, 16)),
+        "bits_1000_digest": _digest(random.bits(key, (1000,)).tolist()),
+        "perm128_digest": _digest(random.permutation(key, 128).tolist()),
+    }
+
+
+def check_jax_random_table() -> dict:
+    """``repro_torch.random`` on the card (the threefry kernel) equals
+    JAX's committed answers, every entry."""
+    for seed, want in JAX_RANDOM.items():
+        got = random_answers(seed, "cuda")
+        assert got == want, (seed, {k: (got[k], v) for k, v in want.items()
+                                    if got[k] != v})
+    out = {"seeds": sorted(JAX_RANDOM), "entries": len(JAX_RANDOM[0])}
+    log("jax_random_table " + json.dumps(out))
+    return out
+
+
 def _counters() -> dict:
     from repro_torch.kernels.ens.ens import ens_cuda
     from repro_torch.kernels.prox.prox import prox_update_cuda
     from repro_torch.kernels.quant import quant
+    from repro_torch.kernels.threefry.threefry import threefry_cuda
     return {"prox_update": prox_update_cuda, "ens": ens_cuda,
             "quantize_cols": quant.quantize_cols_cuda,
             "ef_accumulate": quant.ef_accumulate_cuda,
             "private_quantize_cols": quant.private_quantize_cols_cuda,
-            "quantize": quant.quantize_cuda}
+            "quantize": quant.quantize_cuda, "threefry": threefry_cuda}
 
 
 def reset_counts() -> None:
@@ -443,13 +627,42 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
 
 
+# The JAX CPU run's CR and f/m for the same trials, seed 0 on the paper
+# task (d = 45222): ``benchmarks.common.run_algorithm(alg, **settings)``
+# with jax 0.9.0. The port draws JAX's stream, so the card must reach the
+# same CR, or one round from it (the variance rule can flip on an ulp),
+# with f/m within 1e-5. tests/test_torch_bench.py recomputes them with JAX.
+JAX_TRIALS = {
+    "main": {"alg": "fedepm", "m": 128, "k0": 12, "rho": 0.5, "eps": 0.1,
+             "max_rounds": 400, "CR": 120, "f": 0.6923203468322754},
+    "fig2/fedepm": {"alg": "fedepm", "m": 50, "k0": 12, "rho": 0.5,
+                    "eps": 0.1, "max_rounds": 120, "CR": 29,
+                    "f": 0.6923370361328125},
+    "fig2/sfedavg": {"alg": "sfedavg", "m": 50, "k0": 12, "rho": 0.5,
+                     "eps": 0.1, "max_rounds": 120, "CR": 93,
+                     "f": 0.6929182434082031},
+    "fig2/sfedprox": {"alg": "sfedprox", "m": 50, "k0": 12, "rho": 0.5,
+                      "eps": 0.1, "max_rounds": 120, "CR": 120,
+                      "f": 0.6926033782958985},
+}
+CR_SLACK, F_ATOL = 1, 1e-5
+
+
+def check_against_jax(trial: str, cr: int, f: float) -> None:
+    want = JAX_TRIALS[trial]
+    assert abs(cr - want["CR"]) <= CR_SLACK and \
+        abs(f - want["f"]) <= F_ATOL, \
+        (trial, {"CR": cr, "f": f}, {"CR": want["CR"], "f": want["f"]})
+
+
 def run_main_path() -> dict:
     from repro_torch.launch.paper import run_fedepm
-    m, k0 = 128, 12
+    trial = JAX_TRIALS["main"]
+    m, k0 = trial["m"], trial["k0"]
     reset_counts()
     t0 = time.perf_counter()
-    res = run_fedepm(m=m, k0=k0, rho=0.5, eps=0.1, seed=0, d=45222,
-                     device="cuda")
+    res = run_fedepm(m=m, k0=k0, rho=trial["rho"], eps=trial["eps"], seed=0,
+                     max_rounds=trial["max_rounds"], d=45222, device="cuda")
     wall = time.perf_counter() - t0
     launches = read_counts()
     warmup = 1
@@ -459,33 +672,61 @@ def run_main_path() -> dict:
     log("main_path " + json.dumps(out))
     assert res["f"] < 0.6925, res["f"]
     assert res["acc"] > 0.70, res["acc"]
+    check_against_jax("main", res["CR"], res["f"])
     want_prox = (res["CR"] + warmup + res["LCT_calls"]) * k0
     assert launches["prox_update"] == want_prox, (launches, want_prox)
     assert launches["ens"] == res["CR"] + warmup, (launches, res["CR"])
+    # per round: the 3-way split, the permutation's split and bits, the
+    # noise's per-client split, per-leaf split and uniforms
+    assert launches["threefry"] == 6 * (res["CR"] + warmup), launches
     assert not any(launches[k] for k in QUANT), launches
     return out
 
 
+# CUDA runtime and driver calls that start device work: kernels (plain,
+# cooperative, in a graph), copies, fills
+_RUNTIME_CALLS = ("LaunchKernel", "LaunchCooperative", "GraphLaunch",
+                  "Memcpy", "Memset")
+
+
 def _profile_window(prof, span: str, rounds: int) -> tuple[dict, dict]:
-    """Device kernels inside the one ``span`` of a profile: (per-name
-    [us, calls], the busy time, idle share and operations per round)."""
+    """Device kernels launched inside the one ``span`` of a profile:
+    (per-name [us, calls], the busy time, idle share and operations per
+    round). A device operation belongs to the window when the CUDA runtime
+    call that started it (the one with its CUPTI correlation id) started
+    inside the span, so the host's clock alone decides: device
+    timestamps, aligned to it by the profiler, put a first-round kernel
+    before the span now and then (one ENS launch in one run). A device
+    operation whose starting call is none of ``_RUNTIME_CALLS`` would be
+    left out: the window fails if one runs inside the span by device
+    time."""
     from torch.autograd import DeviceType
-    events = prof.events()
+    events = prof.profiler.kineto_results.events()
     spans = [e for e in events
-             if e.name == span and e.device_type == DeviceType.CPU]
+             if e.name() == span and e.device_type() == DeviceType.CPU]
     assert len(spans) == 1, f"{len(spans)} {span} spans"
-    lo, hi = spans[0].time_range.start, spans[0].time_range.end
+    lo, hi = spans[0].start_ns(), spans[0].end_ns()
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() == DeviceType.CPU
+                and e.name().startswith("cu")
+                and any(w in e.name() for w in _RUNTIME_CALLS)}
     by_name: dict[str, list] = {}
     for e in events:
-        if (e.device_type != DeviceType.CUDA or e.name == span
-                or getattr(e, "is_user_annotation", False)
-                or not lo <= e.time_range.start < hi):
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
+                or not lo <= launched.get(e.correlation_id(), -1) <= hi:
             continue
-        entry = by_name.setdefault(e.name, [0.0, 0])
-        entry[0] += e.time_range.elapsed_us()
+        entry = by_name.setdefault(e.name(), [0.0, 0])
+        entry[0] += e.duration_ns() / 1e3
         entry[1] += 1
+    stray = sorted({e.name()[:60] for e in events
+                    if e.device_type() == DeviceType.CUDA
+                    and not e.is_user_annotation()
+                    and e.correlation_id() not in launched
+                    and lo <= e.start_ns() <= hi})
+    assert not stray, f"device operations in {span} with no launching " \
+        f"call among {_RUNTIME_CALLS}: {stray}"
+    window = (hi - lo) / 1e3
     busy = sum(t for t, _ in by_name.values())
-    window = hi - lo
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     stats = {"rounds": rounds, "wall_ms_per_round": window / rounds / 1e3,
              "device_busy_ms_per_round": busy / rounds / 1e3,
@@ -495,7 +736,7 @@ def _profile_window(prof, span: str, rounds: int) -> tuple[dict, dict]:
              "port_kernels_us_per_round": {
                  k: sum(t for name, (t, _) in by_name.items() if k in name)
                  / rounds for k in ("ens_kernel", "prox_kernel",
-                                    "quant_kernel")},
+                                    "quant_kernel", "threefry_kernel")},
              "top": [{"kernel": name[:80], "us_per_round": t / rounds,
                       "calls_per_round": c / rounds}
                      for name, (t, c) in top]}
@@ -523,6 +764,8 @@ def profile_main_path(rounds: int = 10) -> dict:
     by_name, out = _profile_window(prof, ROUNDS_SPAN, cr)
     assert _launches_in(by_name, "ens_kernel") == cr
     assert _launches_in(by_name, "prox_kernel") == cr * k0
+    assert _launches_in(by_name, "threefry_kernel") == 6 * cr
+    out["tct_ms_per_round"] = res["TCT"] / cr * 1e3
     log("profile " + json.dumps(out))
     return out
 
@@ -532,7 +775,11 @@ def profile_main_path(rounds: int = 10) -> dict:
 # its uploads go through. Upload DP runs at eps 10: at eps 1 the noise
 # (Laplace scale 2 ||z||_1 per coordinate) swamps this task and f/m rises
 # over 40 rounds, in ``python -m repro.launch.simulate --policy overselect
-# --dp-eps 1.0 --bits 8 --m 128 --d 45222 --k0 12`` on the CPU as here
+# --dp-eps 1.0 --bits 8 --m 128 --d 45222 --k0 12`` on the CPU as here.
+# SFedProx (e) waits 1.2e-3 s: its client work model counts k0 * ell
+# gradients, so its arrivals are about 20x FedEPM's, and 6e-5 s (under
+# the 5th percentile) abandons every round; 1.2e-3 s keeps about the share
+# of clients that 6e-5 s keeps for FedEPM (a third)
 SIM_COMMON = ["--m", "128", "--d", "45222", "--n", "14", "--k0", "12",
               "--rho", "0.5", "--quiet", "--device", "cuda"]
 SIM_CONFIGS = {
@@ -544,17 +791,21 @@ SIM_CONFIGS = {
           "private_quantize_cols"),
     "d": (["--policy", "adaptive", "--latency", "lognormal", "--topk",
            "0.25", "--bits", "8", "--error-feedback"], "quantize_cols"),
+    "e": (["--alg", "sfedprox", "--policy", "deadline", "--deadline",
+           "1.2e-3", "--latency", "pareto", "--bits", "8"], "quantize_cols"),
 }
 SIM_ROUNDS = 40
 
 
 def run_sim_path() -> dict:
-    """``run_sim`` in the four configurations to the paper's stopping rule
-    or ``SIM_ROUNDS``. Per configuration: the launch counters (ENS and k0
-    prox launches per merged round, and one launch of the configuration's
-    quantizer entry per merged round, the state being one f32 leaf), f/m
-    finite and falling from round 0, and the ledger equal to the per-round
-    byte arithmetic of the metrics."""
+    """``run_sim`` in the five configurations to the paper's stopping rule
+    or ``SIM_ROUNDS``. Per configuration: the launch counters (for FedEPM
+    ENS and k0 prox launches per merged round; one launch of the
+    configuration's quantizer entry per merged round, the state being one
+    f32 leaf; three threefry launches per round for the candidates, the
+    3-way split and the permutation, and one per merged round for the
+    round's own split), f/m finite and falling from round 0, and the
+    ledger equal to the per-round byte arithmetic of the metrics."""
     from repro_torch.launch.simulate import parser, run_sim
     out = {}
     for key, (extra, kernel) in SIM_CONFIGS.items():
@@ -567,8 +818,10 @@ def run_sim_path() -> dict:
         launches = read_counts()
         merged = sum(not mm.abandoned for mm in sim.metrics)
         want = {name: 0 for name in launches}
-        want.update(ens=merged, prox_update=a.k0 * merged)
+        if a.alg == "fedepm":
+            want.update(ens=merged, prox_update=a.k0 * merged)
         want[kernel] = merged
+        want["threefry"] = 3 * len(sim.metrics) + merged
         assert launches == want, (key, launches, want)
         assert np.isfinite(f_hist).all() and f_hist[-1] < f_hist[0], \
             (key, f_hist[0], f_hist[-1])
@@ -579,7 +832,8 @@ def run_sim_path() -> dict:
         assert sum(mm.bytes_up for mm in sim.metrics) == sim.ledger.total_up
         assert sum(mm.n_contacted for mm in sim.metrics) * down == \
             sim.ledger.total_down
-        out[key] = {"args": " ".join(extra), "kernel": kernel,
+        out[key] = {"args": " ".join(extra), "alg": a.alg,
+                    "kernel": kernel,
                     "rounds": summary["rounds"], "merged_rounds": merged,
                     "f0": f_hist[0] / a.m, "f_final": summary["f_final"],
                     "accuracy": summary["accuracy"],
@@ -613,35 +867,44 @@ def profile_sim_path(rounds: int = 10) -> dict:
 
 
 def check_card_vs_cpu(rounds: int = 5) -> dict:
-    from repro_torch.core import dp, fedepm
-    from repro_torch.core.participation import sample_uniform
+    """FedEPM, SFedAvg and SFedProx, ``rounds`` rounds at m = 50 from the
+    same key on the card and on the CPU, nothing handed in: the masks and
+    keys equal bit for bit (the same threefry draws), the states within
+    STATE_RTOL of the largest |value| of a leaf (the gradients' sums, the
+    selected mean and log1p round differently on the two devices)."""
+    from repro_torch import random
+    from repro_torch.core import baselines, fedepm
     from repro_torch.core.tasks import LogisticLoss
     from repro_torch.launch.paper import get_task
     m, n = 50, 14
-    cfg = fedepm.FedEPMConfig.paper_defaults(m=m, rho=0.5, k0=12, eps_dp=0.1)
     loss = LogisticLoss()
     _, _, b_cpu = get_task(m, device="cpu")
-    b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
-    s_cpu = fedepm.init_state(torch.zeros(n), cfg)
-    s_gpu = fedepm.init_state(torch.zeros(n, device="cuda"), cfg)
-    gen = torch.Generator().manual_seed(0)
-    worst = {"w_tau": 0.0, "W": 0.0}
-    for _ in range(rounds):
-        mask = sample_uniform(gen, m, cfg.rho)
-        unit = dp.sample_laplace(gen, (m, n), 1.0)
-        s_cpu, _ = fedepm.fedepm_round(s_cpu, b_cpu, loss, cfg, mask=mask,
-                                       unit_noise=unit)
-        s_gpu, _ = fedepm.fedepm_round(s_gpu, b_gpu, loss, cfg,
-                                       mask=mask.cuda(),
-                                       unit_noise=unit.cuda())
-        for name in worst:
-            a, b = getattr(s_cpu, name), getattr(s_gpu, name).cpu()
-            d = float((a - b).abs().max())
-            worst[name] = max(worst[name], d)
-            scale = max(1.0, float(a.abs().max()))
-            assert d <= STATE_RTOL * scale, (name, d, scale)
-    out = {"rounds": rounds, "m": m, "max_abs_diff": worst,
-           "rtol_of_max": STATE_RTOL}
+    _, _, b_gpu = get_task(m, device="cuda")
+    algs = {"fedepm": (fedepm.FedEPMConfig.paper_defaults(
+        m=m, rho=0.5, k0=12, eps_dp=0.1), fedepm.init_state,
+        fedepm.fedepm_round)}
+    bcfg = baselines.BaselineConfig(m=m, k0=12, rho=0.5, eps_dp=0.1)
+    algs.update({alg: (bcfg, baselines.init_state, step)
+                 for alg, step in baselines.ROUNDS.items()})
+    out = {}
+    for alg, (cfg, init, step) in algs.items():
+        s_cpu = init(random.PRNGKey(0), torch.zeros(n), cfg)
+        s_gpu = init(random.PRNGKey(0, device="cuda"),
+                     torch.zeros(n, device="cuda"), cfg)
+        worst = {"w_tau": 0.0, "W": 0.0, "Z": 0.0}
+        for _ in range(rounds):
+            s_cpu, m_cpu = step(s_cpu, b_cpu, loss, cfg)
+            s_gpu, m_gpu = step(s_gpu, b_gpu, loss, cfg)
+            assert torch.equal(m_cpu.selected, m_gpu.selected.cpu()), alg
+            assert torch.equal(s_cpu.key, s_gpu.key.cpu()), alg
+            for name in worst:
+                a, b = getattr(s_cpu, name), getattr(s_gpu, name).cpu()
+                d = float((a - b).abs().max())
+                worst[name] = max(worst[name], d)
+                scale = max(1.0, float(a.abs().max()))
+                assert d <= STATE_RTOL * scale, (alg, name, d, scale)
+        out[alg] = {"rounds": rounds, "m": m, "max_abs_diff": worst,
+                    "rtol_of_max": STATE_RTOL}
     log("card_vs_cpu " + json.dumps(out))
     return out
 
@@ -687,6 +950,110 @@ def check_sim_card_vs_cpu(rounds: int = 5) -> dict:
     return out
 
 
+# the paper's baselines at the paper's width (Sec. VII; the JAX
+# benchmarks' defaults): the Fig. 2 twin runs all three algorithms at
+# m = 50 for up to 120 rounds, the Table I twin times the local
+# computation at every k0
+FIG2 = {"m": 50, "k0": 12, "rho": 0.5, "eps": 0.1, "rounds": 120,
+        "d": 45222}
+TABLE1_K0 = (4, 8, 12, 16, 20)
+
+
+def run_paper_twins() -> dict:
+    """The Fig. 2 and Table I twins (``repro_torch.benchmarks``), each a
+    path of its own with the counters set to 0 just before it. Fig. 2: ENS
+    once and prox k0 times per FedEPM round (the warm-up included) and per
+    FedEPM LCT call; six threefry launches per round of every algorithm;
+    f/m finite and below f(0) for all three. Table I: k0 prox launches per
+    FedEPM LCT call, nothing else; every LCT positive."""
+    from repro_torch.benchmarks import fig2_accuracy, table1_lct
+    from repro_torch.launch import paper
+    out = {}
+    crs, fs = {}, {}
+    real_run = paper.run_algorithm
+
+    def recording(alg, **kw):  # each trial's CR and f/m
+        res = real_run(alg, **kw)
+        crs[alg] = (res["CR"], res["LCT_calls"])
+        fs[alg] = res["f"]
+        return res
+
+    fig2_accuracy.run_algorithm = recording
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = fig2_accuracy.run(device="cuda", **FIG2)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        fig2_accuracy.run_algorithm = real_run
+    k0 = FIG2["k0"]
+    cr_e, lct_e = crs["fedepm"]
+    want = {name: 0 for name in launches}
+    want.update(ens=cr_e + 1, prox_update=(cr_e + 1 + lct_e) * k0,
+                threefry=6 * sum(cr + 1 for cr, _ in crs.values()))
+    assert launches == want, (launches, want)
+    for name, _, derived in rows:
+        log(f"  {name}: {derived}")
+    finals = [float(d.split(",")[0][2:]) for name, _, d in rows
+              if name.endswith("/f_final")]
+    assert all(np.isfinite(finals)) and max(finals) < 0.6931, finals
+    for alg, (cr, _) in crs.items():
+        check_against_jax(f"fig2/{alg}", cr, fs[alg])
+    out["fig2"] = {**FIG2, "rows": [list(r) for r in rows], "wall_s": wall,
+                   "CR": {a: cr for a, (cr, _) in crs.items()},
+                   "launches": launches}
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = table1_lct.run(m=FIG2["m"], k0_grid=TABLE1_K0, d=FIG2["d"],
+                          device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = {name: 0 for name in launches}
+    want["prox_update"] = (paper.LCT_REPS + 1) * sum(TABLE1_K0)
+    assert launches == want, (launches, want)
+    for name, us, derived in rows:
+        log(f"  {name}: {derived}")
+    # the paper's Table I claims compare host-bound wall times: reported,
+    # not asserted (one run of FedEPM's k0 = 4 LCT took twice its k0 = 8)
+    claims = {name: derived for name, _, derived in rows
+              if derived in ("True", "False")}
+    assert all(r[1] > 0 for r in rows if r[2] not in ("True", "False"))
+    out["table1"] = {"m": FIG2["m"], "k0_grid": list(TABLE1_K0),
+                     "rows": [list(r) for r in rows], "wall_s": wall,
+                     "claims": claims, "launches": launches}
+    log("paper_twins " + json.dumps({k: {kk: v for kk, v in r.items()
+                                         if kk != "rows"}
+                                     for k, r in out.items()}))
+    return out
+
+
+def profile_baselines(rounds: int = 10) -> dict:
+    """Profile ``run_algorithm`` for SFedAvg and SFedProx at the main
+    path's settings (m = 128, k0 = 12, rho = 0.5, eps = 0.1), cut to
+    ``rounds`` rounds, and read the device inside the timed-rounds span;
+    the span must hold six threefry launches per round and no ENS or
+    prox."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.paper import ROUNDS_SPAN, run_algorithm
+    out = {}
+    for alg in ("sfedavg", "sfedprox"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = run_algorithm(alg, m=128, k0=12, rho=0.5, eps=0.1,
+                                seed=0, max_rounds=rounds, device="cuda")
+        cr = res["CR"]
+        by_name, stats = _profile_window(prof, ROUNDS_SPAN, cr)
+        counts = {k: _launches_in(by_name, k) for k in
+                  ("threefry_kernel", "ens_kernel", "prox_kernel")}
+        assert counts == {"threefry_kernel": 6 * cr, "ens_kernel": 0,
+                          "prox_kernel": 0}, (alg, cr, counts)
+        stats["tct_ms_per_round"] = res["TCT"] / cr * 1e3
+        out[alg] = stats
+        log(f"profile_{alg} " + json.dumps(stats))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -705,14 +1072,19 @@ def main() -> int:
     phases = {}
     t = time.perf_counter()
     phases["build"] = build_kernels()
-    kernels = check_kernels(card) + check_quant_kernels(card)
+    kernels = (check_kernels(card) + check_quant_kernels(card)
+               + check_threefry_kernel(card))
+    jax_table = check_jax_random_table()
     phases["kernels_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    record = {"card": card, "main_path": run_main_path(),
-              "sim_path": run_sim_path()}
+    record = {"card": card, "jax_random_table": jax_table,
+              "main_path": run_main_path(), "sim_path": run_sim_path(),
+              "paper_twins": run_paper_twins()}
     paths = {"run_fedepm": record["main_path"]["launches"]}
     paths.update({f"simulate.{key}": res["launches"]
                   for key, res in record["sim_path"].items()})
+    paths.update({f"twin.{key}": res["launches"]
+                  for key, res in record["paper_twins"].items()})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -720,6 +1092,7 @@ def main() -> int:
     phases["main_paths_s"] = time.perf_counter() - t
     t = time.perf_counter()
     record["profile_main_path"] = profile_main_path()
+    record["profile_baselines"] = profile_baselines()
     record["profile_sim_path"] = profile_sim_path()
     record["card_vs_cpu"] = check_card_vs_cpu()
     record["sim_card_vs_cpu"] = check_sim_card_vs_cpu()

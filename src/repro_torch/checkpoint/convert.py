@@ -1,10 +1,11 @@
 """Carry FedEPM and simulator state between the port and numpy.
 
-``state_from_numpy`` takes the leaves of a FedEPM state as numpy arrays
-(``w_tau``, ``W``, ``Z`` as arrays or dict/tuple trees of arrays, and the
-iteration counter ``k``), for example read from the JAX package's
-``FedEPMState``, and builds the port's state on ``device``.
-``state_to_numpy`` goes back. ``sim_state_from_numpy`` and
+``state_from_numpy`` takes the leaves of a FedEPM or baseline state as
+numpy arrays (``w_tau``, ``W``, ``Z`` as arrays or dict/tuple trees of
+arrays, the iteration counter ``k`` and, when present, the PRNG ``key``,
+two uint32), for example read from the JAX package's ``FedEPMState``, and
+builds the port's state on ``device``. ``state_to_numpy`` goes back,
+writing the key as JAX holds it (uint32). ``sim_state_from_numpy`` and
 ``sim_state_to_numpy`` do the same for a ``FedSim``'s device state: the
 FedEPM state plus the error-feedback memory ``H`` (the JAX sim's
 ``_H``), so a run can continue from another's state at any round. Values
@@ -21,22 +22,29 @@ from repro_torch.core.fedepm import FedEPMState
 from repro_torch.core.treeutil import tmap
 
 
-def state_from_numpy(leaves: Mapping, device="cpu") -> FedEPMState:
+def state_from_numpy(leaves: Mapping, device="cpu", cls=FedEPMState):
+    """A ``cls`` (``FedEPMState`` or ``BaselineState``) from numpy leaves;
+    without a ``key`` the state has none."""
     def to_t(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
-    return FedEPMState(w_tau=tmap(to_t, leaves["w_tau"]),
-                       W=tmap(to_t, leaves["W"]),
-                       Z=tmap(to_t, leaves["Z"]),
-                       k=int(np.asarray(leaves["k"])))
+    key = leaves.get("key")
+    if key is not None:
+        key = torch.from_numpy(np.asarray(key).astype(np.int64)).to(device)
+    return cls(w_tau=tmap(to_t, leaves["w_tau"]), W=tmap(to_t, leaves["W"]),
+               Z=tmap(to_t, leaves["Z"]), k=int(np.asarray(leaves["k"])),
+               key=key)
 
 
-def state_to_numpy(state: FedEPMState) -> dict:
+def state_to_numpy(state) -> dict:
     def to_np(t):
         return t.detach().cpu().numpy()
 
-    return {"w_tau": tmap(to_np, state.w_tau), "W": tmap(to_np, state.W),
-            "Z": tmap(to_np, state.Z), "k": np.asarray(state.k, np.int32)}
+    out = {"w_tau": tmap(to_np, state.w_tau), "W": tmap(to_np, state.W),
+           "Z": tmap(to_np, state.Z), "k": np.asarray(state.k, np.int32)}
+    if state.key is not None:
+        out["key"] = to_np(state.key).astype(np.uint32)
+    return out
 
 
 def sim_state_to_numpy(sim) -> dict:
@@ -54,7 +62,8 @@ def sim_state_from_numpy(sim, leaves: Mapping) -> None:
     if (sim.H is None) != (leaves.get("H") is None):
         raise ValueError("H must be given exactly when the sim runs error "
                          "feedback")
-    sim.state = state_from_numpy(leaves, device=sim.device)
+    sim.state = state_from_numpy(leaves, device=sim.device,
+                                 cls=type(sim.state))
     if sim.H is not None:
         sim.H = tmap(lambda a: torch.from_numpy(np.array(a, copy=True))
                      .to(sim.device), leaves["H"])

@@ -4,45 +4,89 @@ counterpart of ``repro.core.dp``.
 Noise model: i.i.d. Laplace perturbation of the uploaded parameters,
 z_i = w_i + eps_i, with scale b = Delta_hat / (eps_dp * mu_{i,k+1}) and the
 sensitivity surrogate Delta_hat = 2 ||g_i||_1 of eq. (39). Uniforms come
-from a ``torch.Generator``; ``laplace_from_uniform`` is the inverse CDF
-alone, so tests can feed it JAX's uniforms.
+from the JAX-compatible stream (``repro_torch.random``), so a key gives
+JAX's uniforms bit for bit; the inverse CDF's ``log1p`` is another
+library's, and about 7% of the Laplace values differ from JAX's by one ulp.
+``laplace_from_uniform`` is the inverse CDF alone.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.treeutil import tmap, tree_l1_norm, tree_sq_norm
+from repro_torch import random
+from repro_torch.core.treeutil import (
+    tmap,
+    tree_l1_norm,
+    tree_leaves,
+    tree_sq_norm,
+    tree_unflatten,
+)
 
 _U_LO = -0.5 + 1e-7
 _U_HI = 0.5
 
 
+def _unit_laplace(u: torch.Tensor) -> torch.Tensor:
+    return -torch.sign(u) * torch.log1p(-2.0 * torch.abs(u))
+
+
 def laplace_from_uniform(u: torch.Tensor, scale) -> torch.Tensor:
     """Laplace(0, scale) from uniforms on [-0.5+1e-7, 0.5), in f32."""
-    eps = -torch.sign(u) * torch.log1p(-2.0 * torch.abs(u))
-    return scale * eps
+    return scale * _unit_laplace(u)
 
 
-def sample_uniform_noise(generator: torch.Generator, shape) -> torch.Tensor:
-    """f32 uniforms on [-0.5+1e-7, 0.5), mapped as ``jax.random.uniform``
-    maps [0, 1): ``max(lo, r * (hi - lo) + lo)``."""
-    r = torch.rand(shape, generator=generator, device=generator.device,
-                   dtype=torch.float32)
-    lo = torch.full((), _U_LO, dtype=torch.float32, device=r.device)
-    return torch.maximum(lo, r * (_U_HI - lo) + lo)
+def sample_uniform_noise(key: torch.Tensor, shape) -> torch.Tensor:
+    """f32 uniforms on [-0.5+1e-7, 0.5): ``jax.random.uniform`` with the
+    bounds of ``repro.core.dp.sample_laplace``."""
+    return random.uniform(key, shape, _U_LO, _U_HI)
 
 
-def sample_laplace(generator: torch.Generator, shape, scale,
+def sample_laplace(key: torch.Tensor, shape, scale,
                    dtype=torch.float32) -> torch.Tensor:
     """Laplace(0, scale) via the inverse CDF; ``scale`` may be a tensor."""
-    u = sample_uniform_noise(generator, shape)
+    u = sample_uniform_noise(key, shape)
     return laplace_from_uniform(u, scale).to(dtype)
 
 
-def laplace_tree(generator: torch.Generator, tree, scale):
-    """Sample a Laplace-noise tree shaped like ``tree``."""
-    return tmap(lambda leaf: sample_laplace(generator, leaf.shape, scale,
-                                            dtype=leaf.dtype), tree)
+def laplace_tree(key: torch.Tensor, tree, scale):
+    """Sample a Laplace-noise tree shaped like ``tree``: one key per leaf,
+    ``split(key, n_leaves)``, as JAX's ``laplace_tree``."""
+    leaves = tree_leaves(tree)
+    keys = random.split(key, len(leaves))
+    return tree_unflatten(tree, [
+        sample_laplace(keys[i], leaf.shape, scale, dtype=leaf.dtype)
+        for i, leaf in enumerate(leaves)])
+
+
+def client_unit_laplace(k_noise: torch.Tensor, W):
+    """The rounds' per-client unit-Laplace planes (f32) for a tree ``W``
+    with a leading client axis m: JAX's ``split(k_noise, m)`` and a
+    ``laplace_tree`` per client under ``vmap``, written out as one draw per
+    leaf over all m clients' leaf keys."""
+    leaves = tree_leaves(W)
+    m = leaves[0].shape[0]
+    keys = random.split(random.split(k_noise, m), len(leaves))  # (m, L, 2)
+    return tree_unflatten(W, [
+        _unit_laplace(sample_uniform_noise(keys[:, i], x.shape[1:]))
+        for i, x in enumerate(leaves)])
+
+
+def add_client_noise(W, unit_noise, scale: torch.Tensor,
+                     mask: torch.Tensor):
+    """The noised upload Z = W + b_i * unit (in W's dtype) for per-client
+    scales ``scale`` (m,), and the paper's SNR, min over the selected
+    clients of log10(||w_i|| / ||eps_i||). Returns (Z, snr)."""
+
+    def noisy(u, w):
+        s = scale.reshape((-1,) + (1,) * (u.dim() - 1))
+        return (s * u).to(w.dtype)
+
+    noise = tmap(noisy, unit_noise, W)
+    Z = tmap(torch.add, W, noise)
+    snr_i = snr_db10(W, noise, per_client=True)
+    snr = torch.min(torch.where(mask, snr_i, torch.full_like(snr_i,
+                                                             torch.inf)))
+    return Z, snr
 
 
 def sensitivity_surrogate(g_tree, per_client: bool = False) -> torch.Tensor:

@@ -12,9 +12,12 @@ Where JAX ``vmap``s over clients the port writes the client axis out: the
 per-client gradients come from one backward pass over an (m, ...) copy of
 w^{tau+1} (each row depends only on its own client), and each prox step is
 one kernel launch for all m clients with a per-client mu. Randomness comes
-from a ``torch.Generator``; the round draws only what it is not given, so a
-test can inject the participation ``mask`` and the per-client unit-Laplace
-planes ``unit_noise`` that the JAX round drew.
+from the state's key, a key of the JAX-compatible stream
+(``repro_torch.random``) split as the JAX round splits it, so a state
+seeded like a JAX state draws JAX's masks and uniforms. The round draws
+only what it is not given: the simulator hands in its participation
+``mask`` and, through its draw seam, the per-client unit-Laplace planes
+``unit_noise``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import random
 from repro_torch.core import dp
 from repro_torch.core.participation import sample_coverage, sample_uniform
 from repro_torch.core.treeutil import (
@@ -71,6 +75,7 @@ class FedEPMState(NamedTuple):
     W: Params        # stacked client iterates, leading axis m
     Z: Params        # stacked (noisy) uploads, leading axis m
     k: int           # global iteration counter (a multiple of k0)
+    key: Any = None  # (2,) PRNG key; None when every draw is handed in
 
 
 class RoundMetrics(NamedTuple):
@@ -86,48 +91,61 @@ def _device(tree) -> torch.device:
     return tree_leaves(tree)[0].device
 
 
-def _need(generator, what: str) -> torch.Generator:
-    if generator is None:
-        raise ValueError(f"a torch.Generator is needed to draw the {what}")
-    return generator
+def need_key(key, what: str) -> torch.Tensor:
+    if key is None:
+        raise ValueError(f"the state carries no PRNG key to draw the {what}")
+    return key
 
 
-def init_state(params0: Params, cfg: FedEPMConfig) -> FedEPMState:
+def split_round_key(key):
+    """The round's ``key, k_sel, k_noise = split(state.key, 3)``; three
+    Nones for a state without a key."""
+    if key is None:
+        return None, None, None
+    ks = random.split(key, 3)
+    return ks[0], ks[1], ks[2]
+
+
+def init_state(key, params0: Params, cfg: FedEPMConfig) -> FedEPMState:
     """All clients start from the same w_i^0 = params0 (paper: w_i^0 = 0)
-    and upload it unnoised: Z^0 = W^0."""
+    and upload it unnoised: Z^0 = W^0. ``key`` is a ``random.PRNGKey``
+    (or None when the caller supplies every draw)."""
     W = tree_broadcast_clients(params0, cfg.m)
-    return FedEPMState(w_tau=params0, W=W, Z=W, k=0)
+    return FedEPMState(w_tau=params0, W=W, Z=W, k=0, key=key)
 
 
-def _select(generator, cfg: FedEPMConfig, round_idx: int, device):
+def _select(key, cfg: FedEPMConfig, round_idx: int, device):
     if cfg.sampler == "uniform":
-        return sample_uniform(_need(generator, "mask"), cfg.m, cfg.rho)
+        return sample_uniform(need_key(key, "mask"), cfg.m, cfg.rho)
     if cfg.sampler == "coverage":
-        return sample_coverage(_need(generator, "mask"), cfg.m, cfg.rho,
+        return sample_coverage(need_key(key, "mask"), cfg.m, cfg.rho,
                                round_idx, cfg.s0)
     if cfg.sampler == "full":
         return torch.ones(cfg.m, dtype=torch.bool, device=device)
     raise ValueError(f"unknown sampler {cfg.sampler!r}")
 
 
-def default_round_mask(state: FedEPMState, cfg: FedEPMConfig,
-                       generator: torch.Generator | None = None):
-    """A participation mask for this round, drawn from ``generator``."""
-    return _select(generator, cfg, state.k // cfg.k0, _device(state.W))
+def default_round_mask(state: FedEPMState, cfg: FedEPMConfig):
+    """The mask ``fedepm_round`` would draw for ``state`` this round."""
+    _, k_sel, _ = split_round_key(state.key)
+    return _select(k_sel, cfg, state.k // cfg.k0, _device(state.W))
 
 
-def client_grads(loss_fn: LossFn, w: Params, batches: Batch, m: int):
-    """g_i = grad f_i(w) for every client, stacked (m, ...).
-
-    One backward pass over an (m, ...) copy of w: row i of the summed loss
-    depends only on row i, so its gradient is client i's.
-    """
-    Wg = tmap(lambda x: x.detach().unsqueeze(0).expand((m,) + x.shape)
-              .clone().requires_grad_(True), w)
+def stacked_grads(loss_fn: LossFn, W: Params, batches: Batch):
+    """grad f_i at every client's own row of the stacked W (m, ...): one
+    backward pass over the summed losses, row i depending only on row i."""
+    Wg = tmap(lambda x: x.detach().clone().requires_grad_(True), W)
     with torch.enable_grad():
         leaves = tree_leaves(Wg)
         grads = torch.autograd.grad(loss_fn(Wg, batches).sum(), leaves)
     return tree_unflatten(Wg, grads)
+
+
+def client_grads(loss_fn: LossFn, w: Params, batches: Batch, m: int):
+    """g_i = grad f_i(w) for every client at one shared w, stacked (m, ...)."""
+    return stacked_grads(
+        loss_fn, tmap(lambda x: x.unsqueeze(0).expand((m,) + x.shape), w),
+        batches)
 
 
 def _client_inner(W, w_new, g, k_start: int, cfg: FedEPMConfig):
@@ -151,20 +169,22 @@ def _client_inner(W, w_new, g, k_start: int, cfg: FedEPMConfig):
 
 
 def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
-                 cfg: FedEPMConfig, generator: torch.Generator | None = None,
-                 *, mask: torch.Tensor | None = None, unit_noise=None):
+                 cfg: FedEPMConfig, mask: torch.Tensor | None = None, *,
+                 unit_noise=None):
     """One communication round = k0 iterations of Algorithm 2.
 
     ``batches`` is a tree with a leading client axis m. ``mask`` (m,) bool
     supplies the participation set; ``unit_noise`` a tree shaped like
     ``state.W`` of unit-scale Laplace values (f32), scaled per client by
     b_i as ``repro.core.dp.sample_laplace`` scales its draw. What is not
-    supplied is drawn from ``generator``. Returns (new_state, RoundMetrics).
+    supplied is drawn from the state's key, split as JAX splits it; the
+    key advances either way. Returns (new_state, RoundMetrics).
     """
     m = cfg.m
     device = _device(state.W)
+    key, k_sel, k_noise = split_round_key(state.key)
     if mask is None:
-        mask = _select(generator, cfg, state.k // cfg.k0, device)
+        mask = _select(k_sel, cfg, state.k // cfg.k0, device)
 
     # ---- server: aggregate uploads via ENS (19) and broadcast ----
     w_new = ens_ops.ens_tree(state.Z, cfg.lam, cfg.eta)
@@ -182,19 +202,9 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     if cfg.eps_dp > 0:
         scale = dp.fedepm_noise_scale(delta_hat, cfg.eps_dp, mu_last)  # (m,)
         if unit_noise is None:
-            gen = _need(generator, "noise")
-            unit_noise = tmap(lambda x: dp.sample_laplace(gen, x.shape, 1.0),
-                              W_upd)
-
-        def noisy(u, w):
-            s = scale.reshape((-1,) + (1,) * (u.dim() - 1))
-            return (s * u).to(w.dtype)
-
-        noise = tmap(noisy, unit_noise, W_upd)
-        Z_upd = tmap(torch.add, W_upd, noise)
-        snr_i = dp.snr_db10(W_upd, noise, per_client=True)
-        snr = torch.min(torch.where(mask, snr_i,
-                                    torch.full_like(snr_i, torch.inf)))
+            unit_noise = dp.client_unit_laplace(need_key(k_noise, "noise"),
+                                                W_upd)
+        Z_upd, snr = dp.add_client_noise(W_upd, unit_noise, scale, mask)
     else:
         scale = torch.zeros(m, dtype=torch.float32, device=device)
         Z_upd = W_upd
@@ -203,7 +213,7 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
 
     drift = tree_sq_norm(tmap(torch.sub, w_new, state.w_tau))
     new_state = FedEPMState(w_tau=w_new, W=W_next, Z=Z_next,
-                            k=state.k + cfg.k0)
+                            k=state.k + cfg.k0, key=key)
     metrics = RoundMetrics(mu_last=mu_last, grad_l1=grad_l1, snr=snr,
                            drift=drift, selected=mask, noise_scale=scale)
     return new_state, metrics

@@ -1,6 +1,5 @@
 """Partial-device participation schedules (paper Sec. IV.C, Setup VI.1);
-the counterpart of ``repro.core.participation``, drawing from a
-``torch.Generator`` where JAX threads keys.
+the counterpart of ``repro.core.participation``.
 
 ``sample_uniform``  -- the paper's experimental scheme: each round select
     |S| = max(1, round(rho*m)) clients uniformly without replacement.
@@ -8,16 +7,21 @@ the counterpart of ``repro.core.participation``, drawing from a
     windows of s0; within a window one permutation of [m] is dealt out
     round-robin, so every client is selected at least once per window.
 
-Both return a bool mask of shape (m,) on the generator's device. The
-numbers differ from JAX's (another generator); the properties are the same.
+Both take a key of the JAX-compatible stream (``repro_torch.random``) and
+return a bool mask of shape (m,) on the key's device, equal to JAX's for
+the same key.
 
 ``arrival_mask`` and ``first_arrivals_mask`` turn simulated arrival times
 into the mask the sim's deadline, adaptive, sync and overselect policies
-aggregate; they equal JAX's bit for bit.
+aggregate; they equal JAX's bit for bit. ``staleness_weight`` and
+``max_selection_gap`` are the async policy's down-weighting and the
+diagnostic of eq. (30).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch import random
 
 
 def _n_selected(m: int, rho: float) -> int:
@@ -30,21 +34,19 @@ def _mask(m: int, idx: torch.Tensor) -> torch.Tensor:
     return mask
 
 
-def sample_uniform(generator: torch.Generator, m: int,
-                   rho: float) -> torch.Tensor:
+def sample_uniform(key: torch.Tensor, m: int, rho: float) -> torch.Tensor:
     """|S| = max(1, round(rho*m)) clients uniformly without replacement."""
-    perm = torch.randperm(m, generator=generator, device=generator.device)
-    return _mask(m, perm[:_n_selected(m, rho)])
+    return _mask(m, random.permutation(key, m)[:_n_selected(m, rho)])
 
 
-def sample_coverage(generator: torch.Generator, m: int, rho: float,
-                    round_idx: int, s0: int) -> torch.Tensor:
+def sample_coverage(key: torch.Tensor, m: int, rho: float, round_idx: int,
+                    s0: int) -> torch.Tensor:
     """Coverage-guaranteed sampler satisfying Setup VI.1.
 
     Window w = round_idx // s0; position p = round_idx % s0. A permutation
-    seeded by (the generator's seed, w) is split into s0 contiguous chunks;
-    round p gets chunk p (size ceil(m/s0)), topped up to |S| with uniform
-    extras drawn from the generator.
+    keyed by ``fold_in(key, w)`` is split into s0 contiguous chunks; round
+    p gets chunk p (size ceil(m/s0)), topped up to |S| by the highest
+    uniform scores under ``fold_in(wkey, p + 1)``.
     """
     n_sel = _n_selected(m, rho)
     chunk = -(-m // s0)
@@ -53,15 +55,12 @@ def sample_coverage(generator: torch.Generator, m: int, rho: float,
             f"coverage sampler needs rho*m >= ceil(m/s0); got |S|={n_sel}, "
             f"ceil(m/s0)={chunk}")
     window, pos = divmod(int(round_idx), s0)
-    device = generator.device
-    wgen = torch.Generator(device=device)
-    wgen.manual_seed((generator.initial_seed() * 1_000_003 + window)
-                     % (1 << 63))
-    perm = torch.randperm(m, generator=wgen, device=device)
+    wkey = random.fold_in(key, window)
+    perm = random.permutation(wkey, m)
     start = (pos * chunk) % m
-    idx = (start + torch.arange(chunk, device=device)) % m
+    idx = (start + torch.arange(chunk, device=key.device)) % m
     mask = _mask(m, perm[idx])
-    scores = torch.rand(m, generator=generator, device=device)
+    scores = random.uniform(random.fold_in(wkey, pos + 1), (m,))
     scores = torch.where(mask, torch.full_like(scores, 2.0), scores)
     order = torch.argsort(-scores, stable=True)
     return _mask(m, order[:n_sel])
@@ -89,3 +88,23 @@ def first_arrivals_mask(candidates: torch.Tensor, arrivals: torch.Tensor,
     order = torch.argsort(t, stable=True)
     rank = torch.argsort(order, stable=True)
     return (rank < n_keep) & torch.isfinite(t)
+
+
+def staleness_weight(staleness, exp: float) -> torch.Tensor:
+    """FedBuff-style down-weighting of stale async contributions,
+    gamma = (1 + s)^(-exp) in f32; s = 0 gives exactly 1.0."""
+    s = torch.as_tensor(staleness, dtype=torch.float32)
+    return torch.pow(1.0 + s, -exp)
+
+
+def max_selection_gap(masks: torch.Tensor) -> torch.Tensor:
+    """Diagnostic for eq. (30): masks (T, m) -> the largest gap between
+    consecutive selections of any client, the first measured from t = -1.
+    A running maximum over rounds where JAX uses ``associative_scan``."""
+    T, m = masks.shape
+    t = torch.arange(T, device=masks.device).unsqueeze(1)
+    latest = torch.where(masks, t, torch.full_like(t, -1))
+    latest = torch.cummax(latest, dim=0).values
+    prev = torch.cat([torch.full((1, m), -1, dtype=latest.dtype,
+                                 device=masks.device), latest[:-1]])
+    return torch.max(torch.where(masks, t - prev, torch.zeros_like(t)))

@@ -1,0 +1,109 @@
+// The threefry2x32 hash of JAX's default PRNG, batched over keys and
+// counters, for the port's JAX-compatible random stream (random.py).
+//
+// For key k (k1, k2) of n_keys and counter j of n, the 64-bit counter
+// c = offset + j enters as the pair (hi, lo) = (c >> 32, c & 0xffffffff),
+// the layout of jax._src.prng.iota_2x32_shape, and the hash gives (y1, y2):
+//   mode 0 (keys):    out[k, j, :] = (y1, y2) as int64, the new keys of
+//                     split (offset 0) and fold_in (offset = data, n = 1);
+//   mode 1 (bits):    out[k, j] = y1 ^ y2 as int64, jax.random.bits (32);
+//   mode 2 (uniform): out[k, j] = the f32 of jax.random.uniform on
+//                     [lo, hi): the top 23 bits as a mantissa in [1, 2),
+//                     minus 1, then max(lo, fma(f, hi - lo, lo)), the one
+//                     FMA that XLA:CPU's jitted uniform computes.
+//
+// Not a TPU kernel: JAX lowers the hash to XLA elementwise code. Written
+// as torch ops it would take about 140 launches per call; here it is one.
+// Bound on the H100: 20 rounds of (add, rotate, xor) and six key
+// injections of two adds (the key-only sums made once per key) are 72
+// integer operations per output, 40 of them rotates and xors that only the
+// SM's 64 INT32 lanes take, against 16 (keys), 8 (bits) or 4 (uniform)
+// bytes written; at small n the launch itself.
+// Design: blockIdx.y walks the keys, a grid-stride loop over x walks the
+// counters, so writes are coalesced and each key is read once per thread.
+// Built with --fmad=false: the only FMA is the explicit one above.
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
+  return __funnelshift_l(x, x, d);
+}
+
+__device__ __forceinline__ void round4(uint32_t& x0, uint32_t& x1, int r0,
+                                       int r1, int r2, int r3) {
+  x0 += x1; x1 = rotl(x1, r0); x1 ^= x0;
+  x0 += x1; x1 = rotl(x1, r1); x1 ^= x0;
+  x0 += x1; x1 = rotl(x1, r2); x1 ^= x0;
+  x0 += x1; x1 = rotl(x1, r3); x1 ^= x0;
+}
+
+// jax._src.prng._threefry2x32_lowering, unrolled
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0; x1 += k1;
+  round4(x0, x1, 13, 15, 26, 6);
+  x0 += k1; x1 += k2 + 1u;
+  round4(x0, x1, 17, 29, 16, 24);
+  x0 += k2; x1 += k0 + 2u;
+  round4(x0, x1, 13, 15, 26, 6);
+  x0 += k0; x1 += k1 + 3u;
+  round4(x0, x1, 17, 29, 16, 24);
+  x0 += k1; x1 += k2 + 4u;
+  round4(x0, x1, 13, 15, 26, 6);
+  x0 += k2; x1 += k0 + 5u;
+}
+
+__global__ void threefry_kernel(const int64_t* __restrict__ keys,
+                                long long n_keys, long long n,
+                                unsigned long long offset, int mode,
+                                float lo, float hi, void* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const float range = __fsub_rn(hi, lo);
+  for (long long k = blockIdx.y; k < n_keys; k += gridDim.y) {
+    const uint32_t k0 = static_cast<uint32_t>(keys[2 * k]);
+    const uint32_t k1 = static_cast<uint32_t>(keys[2 * k + 1]);
+    for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         j < n; j += stride) {
+      const unsigned long long c = offset + static_cast<unsigned long long>(j);
+      uint32_t x0 = static_cast<uint32_t>(c >> 32);
+      uint32_t x1 = static_cast<uint32_t>(c);
+      threefry2x32(k0, k1, x0, x1);
+      const long long at = k * n + j;
+      if (mode == 0) {
+        int64_t* o = static_cast<int64_t*>(out) + 2 * at;
+        o[0] = static_cast<int64_t>(x0);
+        o[1] = static_cast<int64_t>(x1);
+      } else if (mode == 1) {
+        static_cast<int64_t*>(out)[at] = static_cast<int64_t>(x0 ^ x1);
+      } else {
+        const uint32_t b = ((x0 ^ x1) >> 9) | 0x3F800000u;
+        const float f = __fsub_rn(__uint_as_float(b), 1.0f);
+        static_cast<float*>(out)[at] = fmaxf(lo, __fmaf_rn(f, range, lo));
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int threefry2x32_launch(const void* keys, long long n_keys,
+                                   long long n, unsigned long long offset,
+                                   int mode, float lo, float hi, void* out,
+                                   void* stream) {
+  constexpr int kThreads = 256;
+  if (n_keys > 0 && n > 0) {
+    long long bx = (n + kThreads - 1) / kThreads;
+    if (bx > 4096) bx = 4096;
+    const long long by = n_keys < 65535 ? n_keys : 65535;
+    dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(by));
+    threefry_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int64_t*>(keys), n_keys, n, offset, mode, lo, hi,
+        out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,23 @@
+"""Public entry point for the threefry2x32 hash.
+
+``impl=None`` dispatches by device: the CUDA kernel for CUDA tensors, the
+plain version for CPU tensors; ``impl="ref"`` names the plain version on
+any device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import resolve_impl
+from repro_torch.kernels.threefry.ref import threefry_ref
+from repro_torch.kernels.threefry.threefry import threefry_cuda
+
+
+def threefry(keys: torch.Tensor, n: int, offset: int = 0, mode: str = "keys",
+             lo: float = 0.0, hi: float = 1.0, *,
+             impl: str | None = None) -> torch.Tensor:
+    """keys (K, 2) and n counters from ``offset``: (K, n, 2) key pairs,
+    (K, n) bits or (K, n) f32 uniforms on [lo, hi), by ``mode``."""
+    if resolve_impl(impl, keys) == "cuda":
+        return threefry_cuda(keys, n, offset, mode, lo, hi)
+    return threefry_ref(keys, n, offset, mode, lo, hi)

@@ -1,5 +1,6 @@
-"""The federated systems simulation on the port: FedEPM on the paper's
-logistic task under one clocked aggregation policy over simulated time,
+"""The federated systems simulation on the port: FedEPM, SFedAvg or SFedProx
+on the paper's logistic task under one clocked aggregation policy over
+simulated time,
 reporting per-round and summary systems metrics (simulated time, stragglers
 dropped, bytes moved) beside the objective and accuracy. The counterpart of
 ``python -m repro.launch.simulate`` for the sync, deadline, adaptive and
@@ -11,11 +12,14 @@ overselect policies, with its flag names and its summary keys.
         --error-feedback --device cpu
     python -m repro_torch.launch.simulate --policy overselect \\
         --dp-eps 1.0 --bits 8 --secure-agg
+    python -m repro_torch.launch.simulate --alg sfedprox --policy deadline \\
+        --deadline 6e-5 --latency pareto --bits 8
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path. Not
 ported yet: ``--spec`` and the scan engine (ROADMAP queue 1 items 10 and
-13), the async policy (item 11), the fault flags and the baselines (items
-12 and 6).
+13), the async policy (item 11) and the fault flags (item 12). The
+algorithm state is keyed by ``PRNGKey(--seed)`` as in JAX, so its masks and
+eq. (21) noise are the JAX CLI's.
 """
 from __future__ import annotations
 
@@ -28,14 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.paper_logreg import termination_reached
-from repro_torch.core import fedepm
+from repro_torch import random
+from repro_torch.core import baselines, fedepm
 from repro_torch.core.tasks import LogisticLoss, accuracy_logistic
 from repro_torch.data import synth
 from repro_torch.data.partition import partition_iid
 from repro_torch.kernels.common import resolve_device
 from repro_torch.privacy import PrivacyConfig
 from repro_torch.sim import clients
-from repro_torch.sim.server import POLICIES, FedSim, SimConfig
+from repro_torch.sim.server import ALGS, POLICIES, FedSim, SimConfig
 from repro_torch.sim.transport import CodecConfig
 from repro_torch.telemetry.events import EventRecorder
 
@@ -88,9 +93,16 @@ def build_sim(a, device: torch.device, *, draws=None):
     task = {"loss": LogisticLoss(), "batches": batches,
             "X": torch.from_numpy(X).to(device),
             "y": torch.from_numpy(y).to(device)}
-    cfg = fedepm.FedEPMConfig.paper_defaults(m=a.m, rho=a.rho, k0=a.k0,
-                                             eps_dp=a.eps)
-    state = fedepm.init_state(torch.zeros(a.n, device=device), cfg)
+    key = random.PRNGKey(a.seed, device=device)
+    params0 = torch.zeros(a.n, device=device)
+    if a.alg == "fedepm":
+        cfg = fedepm.FedEPMConfig.paper_defaults(m=a.m, rho=a.rho, k0=a.k0,
+                                                 eps_dp=a.eps)
+        state = fedepm.init_state(key, params0, cfg)
+    else:
+        cfg = baselines.BaselineConfig(m=a.m, k0=a.k0, rho=a.rho,
+                                       eps_dp=a.eps)
+        state = baselines.init_state(key, params0, cfg)
     if a.trace_file:
         profiles = clients.LatencyTrace.load(a.trace_file).sample_profiles(
             a.m, seed=a.seed)
@@ -112,7 +124,7 @@ def build_sim(a, device: torch.device, *, draws=None):
         latency_sigma=a.latency_sigma, latency_alpha=a.latency_alpha,
         seed=a.seed, codec=codec, deadline_slack=a.deadline_slack,
         ewma_beta=a.ewma_beta, privacy=privacy)
-    sim = FedSim(alg="fedepm", cfg=cfg, state=state, batches=batches,
+    sim = FedSim(alg=a.alg, cfg=cfg, state=state, batches=batches,
                  loss_fn=task["loss"], profiles=profiles, sim=sim_cfg,
                  telemetry=EventRecorder() if a.telemetry else None,
                  draws=draws)
@@ -159,8 +171,8 @@ def run_sim(a) -> tuple[dict, FedSim, list]:
             torch.cuda.synchronize(dev)
     wall = time.perf_counter() - wall0
     summary = {
-        "spec_name": f"cli/fedepm-{a.policy}",
-        "alg": "fedepm", "policy": a.policy, "engine": "eager",
+        "spec_name": f"cli/{a.alg}-{a.policy}",
+        "alg": a.alg, "policy": a.policy, "engine": "eager",
         "latency": a.latency, "rounds": len(f_hist),
         "f_final": f_hist[-1] / m,
         "accuracy": float(accuracy_logistic(sim.state.w_tau, task["X"],
@@ -187,6 +199,7 @@ def run_sim(a) -> tuple[dict, FedSim, list]:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--alg", default="fedepm", choices=tuple(ALGS))
     ap.add_argument("--aggregation", "--policy", dest="policy",
                     default="sync", choices=POLICIES,
                     help="aggregation policy (--policy is an alias)")

@@ -1,9 +1,10 @@
 """Clocked federated server simulation: aggregation over simulated time; the
-counterpart of ``repro.sim.server`` for FedEPM under the four clocked
-policies.
+counterpart of ``repro.sim.server`` for FedEPM, SFedAvg and SFedProx under
+the four clocked policies.
 
-The sim wraps the unmodified round function (``core.fedepm.fedepm_round``)
-in a client/server timing model: each round the server contacts a
+The sim wraps the unmodified round functions (``core.fedepm.fedepm_round``,
+``core.baselines.sfedavg_round`` / ``sfedprox_round``) in a client/server
+timing model: each round the server contacts a
 candidate set, ``clients.round_arrivals`` draws per-client completion times
 from the device profiles, and the policy turns arrivals into (participation
 mask, simulated round duration):
@@ -27,13 +28,15 @@ merged client.
 
 Randomness is data (``SimDraws``): each round the sim asks one object for
 its candidate mask, the round's unit-Laplace planes, the codec's dither
-planes and the privacy unit noise. The default, ``TorchDraws``, draws them
-from ``torch.Generator``s seeded from the sim's seed; a test hands in one
-that replays a JAX run's draws. Arrival times come from the numpy
-generator seeded as JAX's, so they are the JAX run's exactly.
+planes and the privacy unit noise. The default, ``TorchDraws``, draws the
+mask and the planes from the algorithm state's key as the JAX sim does (so
+they are JAX's), and the dither and privacy noise from ``torch.Generator``s
+seeded from the sim's seeds; a test hands in one that replays a JAX run's
+draws. Arrival times come from the numpy generator seeded as JAX's, so they
+are the JAX run's exactly.
 
 Not ported yet, and refused with a ValueError that names its ROADMAP item:
-``policy="async"``, fault injection, and the baseline algorithms.
+``policy="async"`` and fault injection.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from typing import Any, Callable, NamedTuple, Protocol
 import numpy as np
 import torch
 
-from repro_torch.core import dp, fedepm, participation
+from repro_torch.core import baselines, dp, fedepm, participation
 from repro_torch.core.treeutil import tmap, tree_leaves, tree_where_client
 from repro_torch.privacy import PrivacyConfig, build_privacy_model
 from repro_torch.sim import clients as simclients
@@ -67,8 +70,12 @@ POLICIES = ("sync", "deadline", "adaptive", "overselect")
 _NOT_PORTED = {
     "async": "policy='async' is not ported yet (ROADMAP queue 1 item 11)",
     "faults": "fault injection is not ported yet (ROADMAP queue 1 item 12)",
-    "alg": "the port's FedSim runs alg='fedepm'; the baselines are not "
-           "ported yet (ROADMAP queue 1 item 6)",
+}
+# alg -> (round function, the mask it would draw from a state)
+ALGS = {
+    "fedepm": (fedepm.fedepm_round, fedepm.default_round_mask),
+    "sfedavg": (baselines.sfedavg_round, baselines.default_round_mask),
+    "sfedprox": (baselines.sfedprox_round, baselines.default_round_mask),
 }
 
 
@@ -220,30 +227,32 @@ class SimDraws(Protocol):
 
 
 class TorchDraws:
-    """Default draws from ``torch.Generator``s on ``device``: one for the
-    algorithm (mask and eq. (21) planes) seeded with ``seed``, one for the
-    codec dither with ``seed ^ 0x5EED`` and one for the privacy noise with
-    ``privacy_seed ^ 0x9D1A``, the JAX simulator's stream tags. The numbers
-    differ from JAX's; their distributions are the same."""
+    """Default draws. The candidate mask and the round's unit-Laplace
+    planes come from the algorithm state's key, split as the round splits
+    it, so they are what the JAX sim draws; the codec dither and the
+    privacy noise come from ``torch.Generator``s on ``device`` seeded with
+    ``seed ^ 0x5EED`` and ``privacy_seed ^ 0x9D1A``, the JAX simulator's
+    stream tags (other numbers than JAX's, the same distributions)."""
 
     def __init__(self, seed: int, privacy_seed: int = 0, device="cpu"):
         dev = torch.device(device)
-        self._alg = torch.Generator(device=dev).manual_seed(seed)
         self._codec = torch.Generator(device=dev).manual_seed(seed ^ 0x5EED)
         self._privacy = torch.Generator(device=dev).manual_seed(
             privacy_seed ^ 0x9D1A)
 
     def candidates(self, sim: "FedSim") -> np.ndarray:
         if sim.sim.policy == "overselect":
-            mask = participation.sample_uniform(self._alg, sim.cfg.m,
-                                                sim.rho_eff)
+            _, k_sel, _ = fedepm.split_round_key(sim.state.key)
+            mask = participation.sample_uniform(
+                fedepm.need_key(k_sel, "candidates"), sim.cfg.m, sim.rho_eff)
         else:
-            mask = fedepm.default_round_mask(sim.state, sim.cfg, self._alg)
+            mask = sim.default_mask(sim.state, sim.cfg)
         return mask.cpu().numpy()
 
     def unit_noise(self, sim: "FedSim"):
-        return tmap(lambda x: dp.sample_laplace(self._alg, x.shape, 1.0),
-                    sim.state.W)
+        _, _, k_noise = fedepm.split_round_key(sim.state.key)
+        return dp.client_unit_laplace(fedepm.need_key(k_noise, "noise"),
+                                      sim.state.W)
 
     def dither(self, sim: "FedSim", shapes: list) -> list:
         return [None if s is None else random_bits(self._codec, s)
@@ -258,14 +267,15 @@ def _on(tree, device):
 
 
 class FedSim:
-    """Drives FedEPM under one clocked policy over simulated time.
+    """Drives one algorithm under one clocked policy over simulated time.
 
     Parameters
     ----------
-    alg : "fedepm" (the baselines are not ported yet)
-    cfg : FedEPMConfig -- the sim never alters it.
-    state : initial FedEPMState; its device is the sim's device.
-    batches, loss_fn : as taken by ``fedepm_round``.
+    alg : "fedepm" | "sfedavg" | "sfedprox"
+    cfg : the algorithm's config (FedEPMConfig / BaselineConfig) -- the
+          sim never alters it.
+    state : the algorithm's initial state; its device is the sim's device.
+    batches, loss_fn : as taken by the round functions.
     profiles : device heterogeneity (clients.make_profiles); default uniform.
     sim : SimConfig policy/latency/codec/privacy settings.
     work_flops : override the per-round client compute estimate.
@@ -278,8 +288,9 @@ class FedSim:
                  sim: SimConfig = SimConfig(),
                  work_flops: float | None = None, telemetry=None,
                  draws: SimDraws | None = None):
-        if alg != "fedepm":
-            raise ValueError(f"alg {alg!r}: {_NOT_PORTED['alg']}")
+        if alg not in ALGS:
+            raise ValueError(f"unknown alg {alg!r}; expected one of "
+                             f"{tuple(ALGS)}")
         if sim.policy == "async":
             raise ValueError(_NOT_PORTED["async"])
         if sim.policy not in POLICIES:
@@ -287,10 +298,13 @@ class FedSim:
                 f"unknown policy {sim.policy!r}; expected one of {POLICIES}")
         if sim.faults is not None:
             raise ValueError(_NOT_PORTED["faults"])
-        if sim.policy == "overselect" and cfg.sampler != "uniform":
+        if sim.policy == "overselect" and \
+                getattr(cfg, "sampler", "uniform") != "uniform":
             raise ValueError(
                 "policy='overselect' only supports the uniform sampler; "
                 f"got cfg.sampler={cfg.sampler!r}")
+        self.alg = alg
+        self._round_fn, self.default_mask = ALGS[alg]
         self.cfg = cfg
         self.sim = sim
         self.state = state
@@ -438,7 +452,7 @@ class FedSim:
             mask_dev = torch.from_numpy(mask).to(self.device)
             unit = (_on(self._draws.unit_noise(self), self.device)
                     if self.cfg.eps_dp > 0 else None)
-            new, _ = fedepm.fedepm_round(
+            new, _ = self._round_fn(
                 prev, self._batches, self._loss_fn, self.cfg, mask=mask_dev,
                 unit_noise=unit)
             if self.sim.codec is not None or self._privacy_tx is not None:

@@ -56,16 +56,17 @@ def ulp_diff(a, b) -> float:
                         initial=0.0))
 
 
-def jax_round_draws(cfg):
-    """A jitted ``state -> (mask, unit)`` giving what ``jf.fedepm_round``
-    draws from ``state.key``: its participation mask
-    (``default_round_mask``) and its per-client unit-Laplace planes (the
-    round's key split, then one key per client)."""
+def jax_round_draws(cfg, mask_fn=jf.default_round_mask):
+    """A jitted ``state -> (mask, unit)`` giving what a JAX round draws from
+    ``state.key``: its participation mask (``mask_fn``, FedEPM's
+    ``default_round_mask`` by default, the baselines' for theirs) and its
+    per-client unit-Laplace planes (the round's key split, then one key
+    per client)."""
     m = cfg.m
 
     @jax.jit
     def draws(s):
-        mask = jf.default_round_mask(s, cfg)
+        mask = mask_fn(s, cfg)
         _, _, k_noise = jax.random.split(s.key, 3)
         keys = jax.random.split(k_noise, m)
         unit = jax.vmap(lambda kk, wi: jdp.laplace_tree(kk, wi, 1.0))(keys,

@@ -16,6 +16,7 @@ from repro.core.tasks import (accuracy_logistic, make_least_squares_loss,
                               make_logistic_loss)
 from repro.data import synth
 from repro.data.partition import partition_iid
+from repro_torch import random as trandom
 from repro_torch.configs import paper_logreg as tcfg
 from repro_torch.core import dp as tdp
 from repro_torch.core import fedepm as tfedepm
@@ -95,13 +96,13 @@ def test_laplace_same_uniforms_within_two_ulp():
 
 
 def test_laplace_sampler_distribution():
-    gen = torch.Generator().manual_seed(0)
-    u = tdp.sample_uniform_noise(gen, (200000,))
+    k_u, k_x, k_t = trandom.split(trandom.PRNGKey(0), 3)
+    u = tdp.sample_uniform_noise(k_u, (200000,))
     assert float(u.min()) >= -0.5 + 1e-7 - 1e-9 and float(u.max()) < 0.5
-    x = tdp.sample_laplace(gen, (200000,), 2.0)
+    x = tdp.sample_laplace(k_x, (200000,), 2.0)
     assert abs(float(x.abs().mean()) - 2.0) < 0.03  # E|X| = b
     assert abs(float(x.mean())) < 0.03
-    tree = tdp.laplace_tree(gen, {"a": torch.zeros(3, 2),
+    tree = tdp.laplace_tree(k_t, {"a": torch.zeros(3, 2),
                                   "b": torch.zeros(4, dtype=torch.bfloat16)},
                             1.0)
     assert tree["a"].shape == (3, 2) and tree["b"].dtype == torch.bfloat16
@@ -132,9 +133,8 @@ def test_dp_helpers_match_jax():
 @pytest.mark.parametrize("m,rho", [(1, 0.5), (16, 0.5), (50, 0.3),
                                    (128, 0.5), (10, 1.0), (10, 0.01)])
 def test_sample_uniform_size(m, rho):
-    gen = torch.Generator().manual_seed(m)
-    for _ in range(5):
-        mask = tpart.sample_uniform(gen, m, rho)
+    for key in trandom.split(trandom.PRNGKey(m), 5):
+        mask = tpart.sample_uniform(key, m, rho)
         assert mask.dtype == torch.bool and mask.shape == (m,)
         assert int(mask.sum()) == max(1, int(round(rho * m)))
 
@@ -142,9 +142,9 @@ def test_sample_uniform_size(m, rho):
 @pytest.mark.parametrize("m,rho,s0", [(20, 0.3, 5), (50, 0.5, 10),
                                       (7, 0.5, 3)])
 def test_sample_coverage_covers_each_window(m, rho, s0):
-    gen = torch.Generator().manual_seed(1)
+    key = trandom.PRNGKey(1)
     n_sel = max(1, int(round(rho * m)))
-    masks = torch.stack([tpart.sample_coverage(gen, m, rho, r, s0)
+    masks = torch.stack([tpart.sample_coverage(key, m, rho, r, s0)
                          for r in range(3 * s0)])
     assert (masks.sum(dim=1) == n_sel).all()
     for w in range(3):
@@ -153,7 +153,7 @@ def test_sample_coverage_covers_each_window(m, rho, s0):
 
 def test_sample_coverage_rejects_small_rho():
     with pytest.raises(ValueError, match="coverage"):
-        tpart.sample_coverage(torch.Generator(), 100, 0.01, 0, 5)
+        tpart.sample_coverage(trandom.PRNGKey(0), 100, 0.01, 0, 5)
 
 
 @pytest.fixture(scope="module")

@@ -2,9 +2,12 @@
 round by round, and the behavioural tests of ``tests/test_fedepm.py`` on
 the port.
 
-Randomness is data: every round the test draws the JAX round's own mask
-(``default_round_mask``) and its per-client unit-Laplace planes (the key
-split of ``fedepm_round``) and injects both into the port's round.
+``test_round_by_round_vs_jax`` injects the JAX round's own mask
+(``default_round_mask``) and per-client unit-Laplace planes into the port's
+round, so it isolates the arithmetic; ``test_round_seeded_like_jax`` hands
+in nothing: the port's state, keyed like JAX's, draws JAX's masks and
+uniforms itself (the Laplace values differ from JAX's by at most one ulp,
+``tests/test_torch_random.py``).
 
 Tolerances, and why: round 0's w_tau and W agree bit for bit (m = 16);
 Z differs by an ulp where the l1 sum in the noise scale does. From there the
@@ -31,8 +34,10 @@ from repro.core import fedepm as jf
 from repro.core.tasks import make_logistic_loss
 from repro.data import synth
 from repro.data.partition import partition_iid
+from repro_torch import random as trandom
 from repro_torch.checkpoint.convert import state_from_numpy, state_to_numpy
 from repro_torch.core import fedepm as tf
+from repro_torch.core import participation as tpart
 from repro_torch.core.tasks import LogisticLoss
 
 torch.set_num_threads(1)
@@ -56,6 +61,7 @@ def _check_round(js, jm, ts, tm):
     for name in ("w_tau", "W", "Z"):
         _close(getattr(ts, name), getattr(js, name))
     assert ts.k == int(js.k)
+    np.testing.assert_array_equal(to_np(ts.key), np.asarray(js.key))
     assert_bitwise(tm.selected, jm.selected)
     np.testing.assert_allclose(to_np(tm.mu_last), to_np(jm.mu_last),
                                rtol=1e-6)
@@ -79,7 +85,7 @@ def test_round_by_round_vs_jax(m, eps):
     tcfg = tf.FedEPMConfig.paper_defaults(m=m, rho=0.5, k0=12, eps_dp=eps)
     jloss, tloss = make_logistic_loss(), LogisticLoss()
     js = jf.init_state(jax.random.PRNGKey(0), jnp.zeros(14), cfg)
-    ts = tf.init_state(torch.zeros(14), tcfg)
+    ts = tf.init_state(trandom.PRNGKey(0), torch.zeros(14), tcfg)
     step = jax.jit(lambda s: jf.fedepm_round(s, jb, jloss, cfg))
     draws = jax_round_draws(cfg)
     for r in range(10):
@@ -106,7 +112,7 @@ def test_resume_mid_trajectory_from_jax_state():
     for _ in range(3):
         js, _ = step(js)
     ts = state_from_numpy({f: np.asarray(getattr(js, f))
-                           for f in ("w_tau", "W", "Z", "k")})
+                           for f in ("w_tau", "W", "Z", "k", "key")})
     assert ts.k == 36
     mask, unit = jax_round_draws(cfg)(js)
     js, jm = step(js)
@@ -115,6 +121,32 @@ def test_resume_mid_trajectory_from_jax_state():
     _check_round(js, jm, ts, tm)
     back = state_to_numpy(ts)
     assert back["W"].shape == (m, 14) and int(back["k"]) == 48
+    assert back["key"].dtype == np.uint32
+    np.testing.assert_array_equal(back["key"], np.asarray(js.key))
+
+
+@pytest.mark.parametrize("m,sampler,rho", [(16, "uniform", 0.5),
+                                           (50, "uniform", 0.5),
+                                           (20, "coverage", 0.3)])
+def test_round_seeded_like_jax(m, sampler, rho):
+    """Nothing handed in: from PRNGKey(2) the port draws JAX's mask every
+    round (bitwise), advances the key as JAX does, and its Laplace noise
+    (JAX's uniforms, one-ulp log1p) keeps the states within STATE_RTOL."""
+    X, y, jb, tb = _data(m, 4000)
+    kw = dict(m=m, rho=rho, k0=8, eps_dp=0.1, sampler=sampler, s0=5)
+    cfg = jf.FedEPMConfig.paper_defaults(**kw)
+    tcfg = tf.FedEPMConfig.paper_defaults(**kw)
+    js = jf.init_state(jax.random.PRNGKey(2), jnp.zeros(14), cfg)
+    ts = tf.init_state(trandom.PRNGKey(2), torch.zeros(14), tcfg)
+    step = jax.jit(lambda s: jf.fedepm_round(s, jb, make_logistic_loss(),
+                                             cfg))
+    for _ in range(6):
+        np.testing.assert_array_equal(to_np(tf.default_round_mask(ts, tcfg)),
+                                      np.asarray(jf.default_round_mask(js,
+                                                                       cfg)))
+        js, jm = step(js)
+        ts, tm = tf.fedepm_round(ts, tb, LogisticLoss(), tcfg)
+        _check_round(js, jm, ts, tm)
 
 
 # --- behaviour, as tests/test_fedepm.py checks it on the JAX package ---
@@ -135,11 +167,11 @@ def _run(task_t, rounds, eps_dp=0.1, rho=0.5, k0=8, seed=0, **kw):
     X, y, m, batches, loss = task_t
     cfg = tf.FedEPMConfig.paper_defaults(m=m, rho=rho, k0=k0, eps_dp=eps_dp,
                                          **kw)
-    gen = torch.Generator().manual_seed(seed)
-    state = tf.init_state(torch.zeros(X.shape[1]), cfg)
+    state = tf.init_state(trandom.PRNGKey(seed), torch.zeros(X.shape[1]),
+                          cfg)
     fs, ms = [], []
     for _ in range(rounds):
-        state, metrics = tf.fedepm_round(state, batches, loss, cfg, gen)
+        state, metrics = tf.fedepm_round(state, batches, loss, cfg)
         fs.append(float(tf.global_objective(loss, state.w_tau, batches)) / m)
         ms.append(metrics)
     return state, fs, ms, cfg
@@ -162,7 +194,7 @@ def test_lyapunov_descent_noise_free(task):
     X, y, m, batches, loss = task
     cfg = tf.FedEPMConfig.paper_defaults(m=m, rho=1.0, k0=4, eps_dp=-1.0,
                                          sampler="full")
-    state = tf.init_state(torch.zeros(X.shape[1]), cfg)
+    state = tf.init_state(None, torch.zeros(X.shape[1]), cfg)  # no draws
     vals = []
     for _ in range(40):
         state, _ = tf.fedepm_round(state, batches, loss, cfg)
@@ -175,9 +207,8 @@ def test_partial_participation_carries_state(task):
     """Eq. (22): non-selected clients keep w_i and z_i."""
     X, y, m, batches, loss = task
     cfg = tf.FedEPMConfig.paper_defaults(m=m, rho=0.3, k0=4, eps_dp=0.1)
-    state = tf.init_state(torch.zeros(X.shape[1]), cfg)
-    new, metrics = tf.fedepm_round(state, batches, loss, cfg,
-                                   torch.Generator().manual_seed(0))
+    state = tf.init_state(trandom.PRNGKey(0), torch.zeros(X.shape[1]), cfg)
+    new, metrics = tf.fedepm_round(state, batches, loss, cfg)
     sel = to_np(metrics.selected)
     assert sel.sum() == int(round(0.3 * m))
     np.testing.assert_array_equal(to_np(new.W)[~sel], to_np(state.W)[~sel])
@@ -198,23 +229,57 @@ def test_snr_decreases_with_stronger_privacy(task):
 
 
 def test_coverage_sampler_in_the_round(task):
+    """The round draws ``sample_coverage`` from its own k_sel at its round
+    index. As in the JAX round, k_sel changes every round, so the window's
+    permutation does too and the round does not inherit the sampler's
+    per-window coverage (which ``test_torch_core`` checks with one key);
+    the masks are JAX's (``test_round_seeded_like_jax``)."""
     X, y, m, batches, loss = task
     cfg = tf.FedEPMConfig.paper_defaults(m=m, rho=0.2, k0=2, eps_dp=0.1,
                                          sampler="coverage", s0=5)
-    gen = torch.Generator().manual_seed(3)
-    state = tf.init_state(torch.zeros(X.shape[1]), cfg)
-    masks = []
+    state = tf.init_state(trandom.PRNGKey(3), torch.zeros(X.shape[1]), cfg)
+    for r in range(5):
+        _, k_sel, _ = trandom.split(state.key, 3)
+        want = tpart.sample_coverage(k_sel, m, 0.2, r, 5)
+        state, metrics = tf.fedepm_round(state, batches, loss, cfg)
+        assert torch.equal(metrics.selected, want)
+        assert int(metrics.selected.sum()) == 10
+
+
+@pytest.mark.parametrize("seed", [0, 1, 3])
+def test_coverage_window_inside_the_round(task, seed):
+    """Setup VI.1 promises every client once per window of s0 rounds. The
+    JAX reference's round breaks it (ROADMAP queue 3, "JAX's coverage
+    sampler inside the round": its k_sel, so the window's permutation,
+    changes every round), and the port's round draws the reference's masks.
+    This pins both: when the reference keeps the promise, the last
+    assertion fails here and the port's round must follow."""
+    X, y, m, batches, loss = task
+    kw = dict(m=m, rho=0.2, k0=2, eps_dp=0.1, sampler="coverage", s0=5)
+    cfg, jcfg = (tf.FedEPMConfig.paper_defaults(**kw),
+                 jf.FedEPMConfig.paper_defaults(**kw))
+    jb = {k: jnp.asarray(to_np(v)) for k, v in batches.items()}
+    step = jax.jit(lambda s: jf.fedepm_round(s, jb, make_logistic_loss(),
+                                             jcfg))
+    state = tf.init_state(trandom.PRNGKey(seed), torch.zeros(X.shape[1]), cfg)
+    js = jf.init_state(jax.random.PRNGKey(seed), jnp.zeros(X.shape[1]), jcfg)
+    covered = np.zeros(m, dtype=bool)
     for _ in range(5):
-        state, metrics = tf.fedepm_round(state, batches, loss, cfg, gen)
-        masks.append(to_np(metrics.selected))
-    assert np.stack(masks).any(axis=0).all()
+        state, metrics = tf.fedepm_round(state, batches, loss, cfg)
+        js, jm = step(js)
+        np.testing.assert_array_equal(to_np(metrics.selected),
+                                      np.asarray(jm.selected))
+        covered |= to_np(metrics.selected)
+    assert not covered.all(), int(covered.sum())
 
 
 def test_round_needs_a_generator_for_what_it_draws(task):
+    """A state without a key draws nothing: what it is not handed in, the
+    round refuses to invent (the mask first, then the noise)."""
     X, y, m, batches, loss = task
     cfg = tf.FedEPMConfig.paper_defaults(m=m, eps_dp=0.1)
-    state = tf.init_state(torch.zeros(X.shape[1]), cfg)
-    with pytest.raises(ValueError, match="Generator"):
+    state = tf.init_state(None, torch.zeros(X.shape[1]), cfg)
+    with pytest.raises(ValueError, match="key to draw the mask"):
         tf.fedepm_round(state, batches, loss, cfg)
     with pytest.raises(ValueError, match="noise"):
         tf.fedepm_round(state, batches, loss, cfg,

@@ -10,8 +10,8 @@ PyTorch is installed.
 import pytest
 import torch
 
-from repro_torch.core import dp, fedepm
-from repro_torch.core.participation import sample_uniform
+from repro_torch import random
+from repro_torch.core import baselines, fedepm
 from repro_torch.core.tasks import LogisticLoss
 from repro_torch.kernels.ens import ens as ens_mod
 from repro_torch.kernels.ens import ops as ens_ops
@@ -21,6 +21,8 @@ from repro_torch.kernels.prox.prox import prox_update_cuda, prox_update_ref
 from repro_torch.kernels.quant import ops as quant_ops
 from repro_torch.kernels.quant import quant as quant_cuda
 from repro_torch.kernels.quant import ref as quant_ref
+from repro_torch.kernels.threefry import ops as threefry_ops
+from repro_torch.kernels.threefry.threefry import threefry_cuda, threefry_ref
 from repro_torch.launch.paper import get_task
 
 pytestmark = pytest.mark.gpu
@@ -103,28 +105,65 @@ def test_counters_count_launches(gen):
 
 
 def test_round_on_card_matches_cpu(gen):
-    """Same masks and unit noise on both devices; the CPU parity tests'
+    """The same key on both devices and nothing handed in: the masks and
+    keys equal bit for bit, the states within the CPU parity tests'
     trajectory tolerance (4e-6 of the largest |value|)."""
     m, n = 16, 14
     cfg = fedepm.FedEPMConfig.paper_defaults(m=m, rho=0.5, k0=12, eps_dp=0.1)
+    _round_pair_on_card(cfg, fedepm.init_state, fedepm.fedepm_round, m, n)
+
+
+@pytest.mark.parametrize("alg", sorted(baselines.ROUNDS))
+def test_baselines_on_card_match_cpu(gen, alg):
+    m, n = 16, 14
+    cfg = baselines.BaselineConfig(m=m, k0=4, rho=0.5, eps_dp=0.1)
+    _round_pair_on_card(cfg, baselines.init_state, baselines.ROUNDS[alg],
+                        m, n)
+
+
+def _round_pair_on_card(cfg, init, step, m, n):
     loss = LogisticLoss()
     _, _, b_cpu = get_task(m, d=4000, device="cpu")
     b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
-    s_cpu = fedepm.init_state(torch.zeros(n), cfg)
-    s_gpu = fedepm.init_state(torch.zeros(n, device="cuda"), cfg)
-    host = torch.Generator().manual_seed(1)
+    s_cpu = init(random.PRNGKey(1), torch.zeros(n), cfg)
+    s_gpu = init(random.PRNGKey(1, device="cuda"),
+                 torch.zeros(n, device="cuda"), cfg)
     for _ in range(3):
-        mask = sample_uniform(host, m, cfg.rho)
-        unit = dp.sample_laplace(host, (m, n), 1.0)
-        s_cpu, _ = fedepm.fedepm_round(s_cpu, b_cpu, loss, cfg, mask=mask,
-                                       unit_noise=unit)
-        s_gpu, _ = fedepm.fedepm_round(s_gpu, b_gpu, loss, cfg,
-                                       mask=mask.cuda(),
-                                       unit_noise=unit.cuda())
+        s_cpu, m_cpu = step(s_cpu, b_cpu, loss, cfg)
+        s_gpu, m_gpu = step(s_gpu, b_gpu, loss, cfg)
+        assert torch.equal(m_cpu.selected, m_gpu.selected.cpu())
+        assert torch.equal(s_cpu.key, s_gpu.key.cpu())
     for name in ("w_tau", "W", "Z"):
         a, b = getattr(s_cpu, name), getattr(s_gpu, name).cpu()
         assert float((a - b).abs().max()) <= 4e-6 * max(1.0,
                                                        float(a.abs().max()))
+
+
+@pytest.mark.parametrize("K,n", [(1, 3), (1, 128), (128, 1), (128, 14),
+                                 (5, 1000), (3, 1 << 16)])
+@pytest.mark.parametrize("mode", ["keys", "bits", "uniform"])
+@pytest.mark.parametrize("offset", [0, 2 ** 32 - 2])
+def test_threefry_kernel_bitwise(gen, K, n, mode, offset):
+    keys = torch.randint(0, 2 ** 32, (K, 2), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    lo, hi = (-0.5 + 1e-7, 0.5) if mode == "uniform" else (0.0, 1.0)
+    got = threefry_ops.threefry(keys, n, offset, mode, lo, hi)
+    want = threefry_ref(keys, n, offset, mode, lo, hi)
+    if mode == "uniform":
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+def test_threefry_counts_launches_and_draws_jax_stream(gen):
+    """One launch per hash; the card's stream is the CPU's (and so JAX's)."""
+    before = threefry_cuda.launches
+    key = random.PRNGKey(7, device="cuda")
+    mask = random.permutation(key, 50)
+    assert threefry_cuda.launches - before == 2  # split and bits
+    assert torch.equal(mask.cpu(), random.permutation(random.PRNGKey(7), 50))
+    u = random.uniform(random.split(key, 4), (3, 5), -1.0, 2.0)
+    assert torch.equal(u.cpu(), random.uniform(
+        random.split(random.PRNGKey(7), 4), (3, 5), -1.0, 2.0))
 
 
 def _quant_args(kind, m, n, dt, bits, stochastic, gen):
@@ -193,6 +232,7 @@ def test_quant_counters_count_launches(gen):
     ["--policy", "overselect", "--dp-eps", "10", "--bits", "8"],
     ["--policy", "adaptive", "--topk", "0.25", "--bits", "8",
      "--error-feedback", "--latency", "lognormal"],
+    ["--alg", "sfedprox", "--policy", "sync", "--bits", "8"],
 ])
 def test_sim_on_card_matches_cpu(gen, extra):
     """One seeded set of CPU draws for both sims; each round the card's sim

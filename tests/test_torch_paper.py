@@ -1,44 +1,27 @@
-"""The port's paper run (``repro_torch.launch.paper.run_fedepm``) against a
-JAX ``fedepm_round`` loop run inline (``benchmarks/`` is not importable
-under the tier-1 ``PYTHONPATH=src``).
+"""The port's paper run (``repro_torch.launch.paper.run_algorithm``)
+against the JAX package's ``benchmarks.common.run_algorithm``, imported
+directly (``python -m pytest`` from the repo root puts ``benchmarks`` on
+the path).
 
-With rho = 1 and eps = 0 the trajectory draws nothing random, so both sides
-run the same rounds. The CPU probe found the same stopping round and f/m
-within 1e-7; the test allows +-1 round (the variance rule can flip on an
-ulp) and 1e-5 on f/m.
+Both sides seed a trial ``PRNGKey(seed)`` and draw the same masks and
+uniforms. The CPU probe found the same stopping round and f/m within 1e-7;
+the tests allow +-1 round (the variance rule can flip on an ulp) and 1e-5
+on f/m.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.configs.paper_logreg import termination_reached
-from repro.core import fedepm as jf
-from repro.core.tasks import make_logistic_loss
-from repro.data import synth
-from repro.data.partition import partition_iid
+from benchmarks import common as jcommon
 from repro_torch.launch import paper
 
 torch.set_num_threads(1)
 
 
-def _jax_run(m, k0, d, max_rounds=400):
-    X, y = synth.adult_like(d=d, n=14, seed=0)
-    b = {k: jnp.asarray(v) for k, v in partition_iid(X, y, m=m, seed=0).items()}
-    loss = make_logistic_loss()
-    cfg = jf.FedEPMConfig.paper_defaults(m=m, rho=1.0, k0=k0, eps_dp=0.0)
-    state = jf.init_state(jax.random.PRNGKey(0), jnp.zeros(14), cfg)
-    step = jax.jit(lambda s: jf.fedepm_round(s, b, loss, cfg))
-    fobj = jax.jit(lambda w: jf.global_objective(loss, w, b))
-    gsq = jax.jit(lambda w: jf.global_grad_sq_norm(loss, w, b))
-    f_hist = []
-    for _ in range(max_rounds):
-        state, _ = step(state)
-        f_hist.append(float(fobj(state.w_tau)))
-        if termination_reached(f_hist, float(gsq(state.w_tau)), 14):
-            break
-    return f_hist
+def _jax_run(m, k0, d):
+    """JAX's f history at rho = 1, eps = 0 (nothing random)."""
+    return jcommon.run_algorithm("fedepm", m=m, k0=k0, rho=1.0, eps=0.0,
+                                 d=d)["f_hist"]
 
 
 @pytest.mark.parametrize("m,d", [(16, 4000), (8, 2000)])
@@ -50,6 +33,22 @@ def test_run_fedepm_stops_with_jax(m, d):
     n = min(len(want), got["CR"])
     np.testing.assert_allclose(np.asarray(got["f_hist"][:n]) / m,
                                np.asarray(want[:n]) / m, atol=1e-5)
+
+
+@pytest.mark.parametrize("alg", ["fedepm", "sfedavg", "sfedprox"])
+def test_run_algorithm_seeded_like_jax(alg):
+    """Partial participation and eq. (21) noise from PRNGKey(1): the same
+    draws, so the same stopping round and objective history."""
+    kw = dict(m=16, k0=4, rho=0.5, eps=0.1, d=4000, seed=1, max_rounds=60)
+    got = paper.run_algorithm(alg, device="cpu", **kw)
+    want = jcommon.run_algorithm(alg, **kw)
+    assert abs(got["CR"] - want["CR"]) <= 1
+    n = min(want["CR"], got["CR"])
+    np.testing.assert_allclose(np.asarray(got["f_hist"][:n]) / 16,
+                               np.asarray(want["f_hist"][:n]) / 16,
+                               atol=1e-5, rtol=1e-5)
+    assert np.isfinite(got["SNR"]) and got["SNR"] == pytest.approx(
+        want["SNR"], abs=1e-4)
 
 
 def test_run_fedepm_reports_the_paper_factors():
@@ -68,3 +67,7 @@ def test_cli_prints_summary(capsys):
                 "--device", "cpu"])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"CR": ' in line and "f_hist" not in line
+    paper.main(["--alg", "sfedprox", "--m", "4", "--k0", "2", "--d", "400",
+                "--max-rounds", "3", "--device", "cpu"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert '"alg": "sfedprox"' in line

@@ -35,14 +35,19 @@ import chip_smoke
 for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "run_main_path", "run_sim_path", "profile_main_path",
              "profile_sim_path", "check_card_vs_cpu",
-             "check_sim_card_vs_cpu", "reset_counts", "read_counts"):
+             "check_sim_card_vs_cpu", "reset_counts", "read_counts",
+             "check_threefry_kernel", "check_jax_random_table",
+             "run_paper_twins", "profile_baselines"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
 for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.kernels.quant", "repro_torch.launch.simulate",
             "repro_torch.sim.server", "repro_torch.sim.transport",
-            "repro_torch.kernels.quant.quant"):
+            "repro_torch.kernels.quant.quant", "repro_torch.random",
+            "repro_torch.kernels.threefry.threefry",
+            "repro_torch.core.baselines", "repro_torch.core.penalty",
+            "repro_torch.benchmarks.run", "repro_torch.benchmarks.fig4_rho"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -119,7 +124,7 @@ def test_kernel_on_cpu_tensor_raises():
 
 
 def test_build_plan():
-    assert build.sources() == ["ens", "prox", "quant"]
+    assert build.sources() == ["ens", "prox", "quant", "threefry"]
     for flag in ("arch=compute_90a,code=sm_90a", "--fmad=false", "-O3",
                  "-shared"):
         assert flag in build.NVCC_FLAGS

@@ -1,7 +1,8 @@
 """The port's clocked ``FedSim`` against a live JAX ``FedSim`` on the CPU.
 
-Both run FedEPM on the reduced paper task (d = 2000, n = 14, m = 16,
-k0 = 4). The port's sim replays the JAX run's draws (``JaxReplayDraws``):
+Both run FedEPM, SFedAvg or SFedProx on the reduced paper task (d = 2000,
+n = 14, m = 16, k0 = 4). The port's sim replays the JAX run's draws
+(``JaxReplayDraws``):
 the candidate mask from the JAX state's key, the eq. (21) unit-Laplace
 planes of its round, the codec dither from ``fold_in(PRNGKey(seed ^
 0x5EED), round)`` split per plan group, and the privacy unit noise from
@@ -9,8 +10,8 @@ planes of its round, the codec dither from ``fold_in(PRNGKey(seed ^
 the same numpy generator on both sides.
 
 Each round is compared, then the port is re-anchored on the JAX state
-(FedEPM state and EF memory, through ``checkpoint.convert``), so an ulp
-cannot grow from round to round:
+(algorithm state with its key, and EF memory, through
+``checkpoint.convert``), so an ulp cannot grow from round to round:
 
 - ``SimMetrics``, ledger totals and records, the telemetry event stream and
   the accountant's totals exactly (they are host arithmetic on the same
@@ -33,6 +34,7 @@ import pytest
 import torch
 
 from _torch_helpers import jax_round_draws, max_abs_diff, to_np, to_torch
+from repro.core import baselines as jbase
 from repro.core import fedepm as jf
 from repro.core.tasks import make_logistic_loss
 from repro.data import synth
@@ -46,6 +48,8 @@ from repro_torch.checkpoint.convert import (
     sim_state_from_numpy,
     sim_state_to_numpy,
 )
+from repro_torch import random as trandom
+from repro_torch.core import baselines as tbase
 from repro_torch.core import fedepm as tf
 from repro_torch.core.tasks import LogisticLoss
 from repro_torch.privacy import PrivacyConfig as TPrivacyConfig
@@ -67,7 +71,7 @@ class JaxReplayDraws:
 
     def __init__(self, jsim):
         self.jsim = jsim
-        self._round = jax_round_draws(jsim.cfg)
+        self._round = jax_round_draws(jsim.cfg, jserver._ALGS[jsim.alg][1])
 
     def candidates(self, sim):
         return np.asarray(self.jsim._candidates(self.jsim.state))
@@ -113,15 +117,29 @@ def _privacy(kind, cls):
             "sa_only": cls(secure_agg=True)}[kind]
 
 
+def _algorithm(alg, eps_dp):
+    """(JAX cfg and state, port cfg and state), keyed PRNGKey(1)."""
+    if alg == "fedepm":
+        jcfg = jf.FedEPMConfig.paper_defaults(m=M, rho=0.5, k0=K0,
+                                              eps_dp=eps_dp)
+        tcfg = tf.FedEPMConfig.paper_defaults(m=M, rho=0.5, k0=K0,
+                                              eps_dp=eps_dp)
+        jinit, tinit = jf.init_state, tf.init_state
+    else:
+        jcfg = jbase.BaselineConfig(m=M, rho=0.5, k0=K0, eps_dp=eps_dp)
+        tcfg = tbase.BaselineConfig(m=M, rho=0.5, k0=K0, eps_dp=eps_dp)
+        jinit, tinit = jbase.init_state, tbase.init_state
+    return (jcfg, jinit(jax.random.PRNGKey(1), jnp.zeros(N), jcfg), tcfg,
+            tinit(trandom.PRNGKey(1), torch.zeros(N), tcfg))
+
+
 def _pair(task, *, policy, codec="off", privacy="none", eps_dp=0.1,
-          latency="pareto", **sim_kw):
+          latency="pareto", alg="fedepm", **sim_kw):
     jb, tb = task
-    jcfg = jf.FedEPMConfig.paper_defaults(m=M, rho=0.5, k0=K0, eps_dp=eps_dp)
-    tcfg = tf.FedEPMConfig.paper_defaults(m=M, rho=0.5, k0=K0, eps_dp=eps_dp)
+    jcfg, jstate, tcfg, tstate = _algorithm(alg, eps_dp)
     common = dict(policy=policy, latency=latency, seed=1, **sim_kw)
     jsim = jserver.FedSim(
-        alg="fedepm", cfg=jcfg,
-        state=jf.init_state(jax.random.PRNGKey(1), jnp.zeros(N), jcfg),
+        alg=alg, cfg=jcfg, state=jstate,
         batches=jb, loss_fn=make_logistic_loss(),
         profiles=jclients.make_profiles(M, seed=1, availability=0.9),
         sim=jserver.SimConfig(codec=_codec(codec, jtr),
@@ -129,7 +147,7 @@ def _pair(task, *, policy, codec="off", privacy="none", eps_dp=0.1,
                               **common),
         telemetry=JRecorder())
     tsim = tserver.FedSim(
-        alg="fedepm", cfg=tcfg, state=tf.init_state(torch.zeros(N), tcfg),
+        alg=alg, cfg=tcfg, state=tstate,
         batches=tb, loss_fn=LogisticLoss(),
         profiles=tclients.make_profiles(M, seed=1, availability=0.9),
         sim=tserver.SimConfig(codec=_codec(codec, ttr),
@@ -141,8 +159,8 @@ def _pair(task, *, policy, codec="off", privacy="none", eps_dp=0.1,
 
 
 def _jax_sim_state(jsim):
-    out = {f: np.asarray(getattr(jsim.state, f)) for f in ("w_tau", "W", "Z",
-                                                          "k")}
+    out = {f: np.asarray(getattr(jsim.state, f))
+           for f in ("w_tau", "W", "Z", "k", "key")}
     out["H"] = None if jsim._H is None else np.asarray(jsim._H)
     return out
 
@@ -163,6 +181,8 @@ def _run_pair(jsim, tsim, rounds):
         if tsim.H is not None:
             _close(tsim.H, jsim._H)
         assert tsim.state.k == int(jsim.state.k)
+        np.testing.assert_array_equal(to_np(tsim.state.key),
+                                      np.asarray(jsim.state.key))
     assert tsim.ledger.rounds == jsim.ledger.rounds
     assert (tsim.ledger.total_up, tsim.ledger.total_down) == \
         (jsim.ledger.total_up, jsim.ledger.total_down)
@@ -197,6 +217,26 @@ def test_codec_matches_jax(task, policy, codec, kw):
     _run_pair(jsim, tsim, 4)
 
 
+@pytest.mark.parametrize("alg", ["sfedavg", "sfedprox"])
+@pytest.mark.parametrize("policy,kw", [
+    ("sync", {}),
+    ("deadline", {"deadline": 0.004}),
+    ("adaptive", {"deadline_slack": 1.5}),
+    ("overselect", {"overselect_factor": 1.5}),
+])
+def test_baselines_match_jax(task, alg, policy, kw):
+    jsim, tsim = _pair(task, policy=policy, alg=alg, **kw)
+    assert type(tsim.state) is tbase.BaselineState
+    _run_pair(jsim, tsim, 4)
+
+
+@pytest.mark.parametrize("alg", ["sfedavg", "sfedprox"])
+def test_baselines_with_codec_match_jax(task, alg):
+    jsim, tsim = _pair(task, policy="deadline", codec="dense8", alg=alg,
+                       deadline=0.004)
+    _run_pair(jsim, tsim, 3)
+
+
 # upload DP on top of the paper's eq. (21) noise at eps 0.1 makes Z grow
 # without bound in both packages; these runs switch eq. (21) off (the
 # simulate CLI's default) and keep the upload noise bounded by the
@@ -220,13 +260,14 @@ def test_privacy_matches_jax(task, policy, codec, privacy):
 @pytest.mark.parametrize("kw,match", [
     ({"sim": tserver.SimConfig(policy="async")}, "item 11"),
     ({"sim": tserver.SimConfig(faults=object())}, "item 12"),
-    ({"alg": "sfedavg"}, "item 6"),
+    ({"alg": "fedavg"}, "unknown alg"),
     ({"sim": tserver.SimConfig(policy="fastest")}, "unknown policy"),
 ])
 def test_refuses_what_is_not_ported(task, kw, match):
     cfg = tf.FedEPMConfig.paper_defaults(m=M, k0=K0)
     args = dict(alg="fedepm", cfg=cfg,
-                state=tf.init_state(torch.zeros(N), cfg), batches=task[1],
+                state=tf.init_state(trandom.PRNGKey(0), torch.zeros(N), cfg),
+                batches=task[1],
                 loss_fn=LogisticLoss())
     args.update(kw)
     with pytest.raises(ValueError, match=match):
@@ -241,7 +282,8 @@ def test_default_draws_run_and_account(task):
     cfg = tf.FedEPMConfig.paper_defaults(m=M, k0=K0, eps_dp=0.0)
     pv = TPrivacyConfig(eps=10.0, secure_agg=True, seed=2)
     sim = tserver.FedSim(
-        alg="fedepm", cfg=cfg, state=tf.init_state(torch.zeros(N), cfg),
+        alg="fedepm", cfg=cfg,
+        state=tf.init_state(trandom.PRNGKey(0), torch.zeros(N), cfg),
         batches=task[1], loss_fn=LogisticLoss(),
         profiles=tclients.make_profiles(M, seed=0),
         sim=tserver.SimConfig(policy="overselect", latency="lognormal",
@@ -302,6 +344,30 @@ def test_simulate_cli_summary_matches_jax(monkeypatch, capsys):
         assert tsum[k] == jsum[k], k
     assert abs(tsum["f_final"] - jsum["f_final"]) <= STATE_RTOL
     assert abs(tsum["accuracy"] - jsum["accuracy"]) <= 1e-3
+
+
+@pytest.mark.parametrize("alg", ["sfedavg", "sfedprox"])
+def test_simulate_cli_baselines_match_jax(monkeypatch, alg):
+    """``--alg`` with the port's own draws: the state is keyed
+    PRNGKey(--seed) as in the JAX CLI, so partial participation and the
+    eq. (21) noise draw JAX's masks and uniforms; the systems numbers are
+    equal and f/m within the round's tolerance."""
+    from repro.launch import simulate as jsim_cli
+    from repro_torch.launch import simulate as tsim_cli
+    extra = ["--alg", alg, "--policy", "deadline", "--deadline", "0.004",
+             "--latency", "pareto", "--eps", "0.1", "--seed", "2"]
+    jsum = {}
+    monkeypatch.setattr(jsim_cli, "run",
+                        lambda a, _run=jsim_cli.run: jsum.update(_run(a))
+                        or jsum)
+    assert jsim_cli.main(_cli(extra)) == 0
+    tsum, _, _ = tsim_cli.run_sim(tsim_cli.parser().parse_args(
+        _cli(extra + ["--device", "cpu"])))
+    assert tsum["spec_name"] == jsum["spec_name"] == f"cli/{alg}-deadline"
+    for k in ("alg", "rounds", "sim_time_s", "stragglers_dropped",
+              "abandoned_rounds", "bytes_up", "bytes_down"):
+        assert tsum[k] == jsum[k], k
+    assert abs(tsum["f_final"] - jsum["f_final"]) <= STATE_RTOL
 
 
 @pytest.mark.parametrize("extra", [
