@@ -31,12 +31,17 @@ Phases, in order; any failure exits non-zero before the last line:
    overselect + DP uploads, adaptive + top-k error feedback), which must
    launch ``quantize_cols``, ``ef_accumulate`` and
    ``private_quantize_cols``, and a fifth, SFedProx under the deadline
-   policy with the 8-bit codec; then the paper's baselines: the Fig. 2
+   policy with the 8-bit codec; then the clocked engine, ``run_rounds``,
+   in the same five configurations in chunks of 8 and in one chunk, each
+   round a replay of one captured CUDA graph, held bit for bit to the
+   eager sim on the card; then the paper's baselines: the Fig. 2
    twin (all three algorithms at m = 50, d = 45222, 120 rounds) and the
    Table I twin (LCT at k0 in {4, 8, 12, 16, 20}). The paper path, SFedAvg
-   and SFedProx at m = 128 and simulator configuration (a) are then
-   profiled, cut to 10 rounds, under ``torch.profiler`` for the device's
-   busy time and idle share.
+   and SFedProx at m = 128, simulator configuration (a) and the engine in
+   configuration (a) are then profiled, cut to 10 rounds, under
+   ``torch.profiler`` for the device's busy time and idle share; the
+   engine's graph-launched kernels are held to its graph's launch
+   counts.
 5. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
    the same key (masks bitwise).
@@ -607,20 +612,15 @@ def check_jax_random_table() -> dict:
 
 
 def _counters() -> dict:
-    from repro_torch.kernels.ens.ens import ens_cuda
-    from repro_torch.kernels.prox.prox import prox_update_cuda
-    from repro_torch.kernels.quant import quant
-    from repro_torch.kernels.threefry.threefry import threefry_cuda
-    return {"prox_update": prox_update_cuda, "ens": ens_cuda,
-            "quantize_cols": quant.quantize_cols_cuda,
-            "ef_accumulate": quant.ef_accumulate_cuda,
-            "private_quantize_cols": quant.private_quantize_cols_cuda,
-            "quantize": quant.quantize_cuda, "threefry": threefry_cuda}
+    from repro_torch.kernels.counters import launch_counters
+    return launch_counters()
 
 
 def reset_counts() -> None:
+    from repro_torch.core.scan import reset_graph_stats
     for fn in _counters().values():
         fn.launches = 0
+    reset_graph_stats()
 
 
 def read_counts() -> dict:
@@ -710,7 +710,11 @@ def _profile_window(prof, span: str, rounds: int) -> tuple[dict, dict]:
                 if e.device_type() == DeviceType.CPU
                 and e.name().startswith("cu")
                 and any(w in e.name() for w in _RUNTIME_CALLS)}
+    graph_calls = {e.correlation_id() for e in events
+                   if e.device_type() == DeviceType.CPU
+                   and e.name().startswith("cu") and "GraphLaunch" in e.name()}
     by_name: dict[str, list] = {}
+    in_graphs: dict[str, int] = {}
     for e in events:
         if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
                 or not lo <= launched.get(e.correlation_id(), -1) <= hi:
@@ -718,6 +722,8 @@ def _profile_window(prof, span: str, rounds: int) -> tuple[dict, dict]:
         entry = by_name.setdefault(e.name(), [0.0, 0])
         entry[0] += e.duration_ns() / 1e3
         entry[1] += 1
+        if e.correlation_id() in graph_calls:
+            in_graphs[e.name()[:80]] = in_graphs.get(e.name()[:80], 0) + 1
     stray = sorted({e.name()[:60] for e in events
                     if e.device_type() == DeviceType.CUDA
                     and not e.is_user_annotation()
@@ -739,8 +745,30 @@ def _profile_window(prof, span: str, rounds: int) -> tuple[dict, dict]:
                                     "quant_kernel", "threefry_kernel")},
              "top": [{"kernel": name[:80], "us_per_round": t / rounds,
                       "calls_per_round": c / rounds}
-                     for name, (t, c) in top]}
+                     for name, (t, c) in top],
+             # device operations started by a cudaGraphLaunch, by name
+             "graph_ops_per_round": sum(in_graphs.values()) / rounds,
+             "in_graphs": in_graphs}
     return by_name, stats
+
+
+def _kernel_trace(prof, span: str, kernel: str) -> list:
+    """For a failed count: each ``kernel`` device operation of the profile
+    as (correlation id, device start, launching calls and their starts), in
+    us from the span's start."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    lo = [e for e in events if e.name() == span
+          and e.device_type() == DeviceType.CPU][0].start_ns()
+    calls: dict = {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.name().startswith("cu"):
+            calls.setdefault(e.correlation_id(), []).append(
+                (e.name(), (e.start_ns() - lo) / 1e3))
+    return [(e.correlation_id(), (e.start_ns() - lo) / 1e3,
+             calls.get(e.correlation_id()))
+            for e in events
+            if e.device_type() == DeviceType.CUDA and kernel in e.name()]
 
 
 def _launches_in(by_name: dict, kernel: str) -> int:
@@ -803,8 +831,9 @@ def run_sim_path() -> dict:
     ENS and k0 prox launches per merged round; one launch of the
     configuration's quantizer entry per merged round, the state being one
     f32 leaf; three threefry launches per round for the candidates, the
-    3-way split and the permutation, and one per merged round for the
-    round's own split), f/m finite and falling from round 0, and the
+    3-way split and the permutation, and per merged round one for the
+    round's own split and three each for the codec's dither and the upload
+    noise, drawn from their keys), f/m finite and falling from round 0, and the
     ledger equal to the per-round byte arithmetic of the metrics."""
     from repro_torch.launch.simulate import parser, run_sim
     out = {}
@@ -821,7 +850,11 @@ def run_sim_path() -> dict:
         if a.alg == "fedepm":
             want.update(ens=merged, prox_update=a.k0 * merged)
         want[kernel] = merged
-        want["threefry"] = 3 * len(sim.metrics) + merged
+        # a merged round's dither: fold_in, the split per plan group and
+        # the group's bits (one f32 leaf, one group); its privacy noise
+        # the same three
+        per_merged = 1 + (3 if a.bits else 0) + (3 if a.dp_eps else 0)
+        want["threefry"] = 3 * len(sim.metrics) + per_merged * merged
         assert launches == want, (key, launches, want)
         assert np.isfinite(f_hist).all() and f_hist[-1] < f_hist[0], \
             (key, f_hist[0], f_hist[-1])
@@ -863,6 +896,183 @@ def profile_sim_path(rounds: int = 10) -> dict:
     assert _launches_in(by_name, "quant_kernel") == merged
     out["config"] = "a"
     log("profile_sim " + json.dumps(out))
+    return out
+
+
+def _sims_equal(eager, scan) -> None:
+    """The engine's sim against the eager one: state leaves, key and EF
+    memory bitwise; metrics, clock, ledger, events and accountant exactly."""
+    pairs = [(f, getattr(eager.state, f), getattr(scan.state, f))
+             for f in ("w_tau", "W", "Z", "key")]
+    if eager.H is not None:
+        pairs.append(("H", eager.H, scan.H))
+    for f, a, b in pairs:
+        assert torch.equal(a, b), (f, float((a.double() - b.double())
+                                            .abs().max()))
+    assert eager.state.k == scan.state.k
+    assert scan.metrics == eager.metrics
+    assert scan.t == eager.t and scan.round_idx == eager.round_idx
+    assert scan.ledger.total_up == eager.ledger.total_up
+    assert scan.ledger.total_down == eager.ledger.total_down
+    assert scan.ledger.rounds == eager.ledger.rounds
+    assert len(scan.telemetry.events) == len(eager.telemetry.events)
+    assert scan.telemetry.events == eager.telemetry.events
+    if eager.privacy is not None:
+        assert scan.privacy.summary() == eager.privacy.summary()
+
+
+ENGINE_CHUNKS = (8, None)  # chunks of 8, then all rounds in one chunk
+
+
+def run_engine_path() -> dict:
+    """The clocked engine, ``run_rounds``, in simulator configurations (a)
+    to (e) at m = 128, d = 45222, k0 = 12 for ``SIM_ROUNDS`` rounds, in
+    chunks of 8 and in one chunk, each from the same seed as an eager
+    ``FedSim`` on the card and held to it bit for bit: state leaves, key,
+    EF memory, ``SimMetrics``, ledger, telemetry events, accountant. Each
+    chunk layout runs twice from one snapshot: first capturing its graph,
+    then timed. Per configuration the counters are set to 0 before the
+    first run and read after the last: every round is one graph replay,
+    and the graph holds the round's kernels (ENS and k0 prox launches for
+    FedEPM, one of the configuration's quantizer entry), so the counters
+    equal (replays + captures) times that, the captures' warm-up calls
+    included."""
+    from repro_torch.core.scan import GRAPH_STATS
+    from repro_torch.launch.simulate import build_sim, parser
+    from repro_torch.sim import run_rounds
+    out = {}
+    R = SIM_ROUNDS
+    for key, (extra, kernel) in SIM_CONFIGS.items():
+        a = parser().parse_args(SIM_COMMON + extra + ["--telemetry"])
+        eager, _ = build_sim(a, torch.device("cuda"))
+        scan, _ = build_sim(a, torch.device("cuda"))
+        t0 = time.perf_counter()
+        eager.run(R)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / R * 1e3
+        snap = scan.snapshot()
+        reset_counts()
+        res = {"args": " ".join(extra), "alg": a.alg, "kernel": kernel,
+               "rounds": R, "eager_wall_ms_per_round": eager_ms,
+               "eager_host_syncs_per_round": eager.host_syncs / R,
+               "abandoned": sum(mm.abandoned for mm in eager.metrics)}
+        for chunk in ENGINE_CHUNKS:
+            name = f"chunk{chunk or R}"
+            scan.restore(snap)
+            t0 = time.perf_counter()
+            run_rounds(scan, R, chunk=chunk)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            _sims_equal(eager, scan)
+            scan.restore(snap)
+            syncs0 = scan.host_syncs
+            before = read_counts()
+            graph0 = dict(GRAPH_STATS["kernel_launches"])
+            replays0 = GRAPH_STATS["replays"]
+            t0 = time.perf_counter()
+            run_rounds(scan, R, chunk=chunk)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            _sims_equal(eager, scan)
+            after = read_counts()
+            in_graph = sum(GRAPH_STATS["kernel_launches"][k] - graph0[k]
+                           for k in after)
+            total = sum(after[k] - before[k] for k in after)
+            assert GRAPH_STATS["replays"] - replays0 == R
+            res[name] = {
+                "wall_ms_per_round": warm / R * 1e3,
+                "first_run_ms_per_round": cold / R * 1e3,
+                "host_syncs_per_round": (scan.host_syncs - syncs0) / R,
+                "graph_replays": GRAPH_STATS["replays"] - replays0,
+                "port_launches_per_round_in_graphs": in_graph / R,
+                "port_launches_per_round_outside_graphs":
+                    (total - in_graph) / R}
+        launches = read_counts()
+        replays, captures = GRAPH_STATS["replays"], GRAPH_STATS["captures"]
+        assert replays == 2 * len(ENGINE_CHUNKS) * R, replays
+        calls = replays + captures  # the captures' warm-up calls run too
+        want = {k: 0 for k in QUANT}
+        want.update(ens=0, prox_update=0)
+        want[kernel] = calls
+        if a.alg == "fedepm":
+            want.update(ens=calls, prox_update=a.k0 * calls)
+        for k, v in want.items():
+            assert launches[k] == v, (key, k, launches[k], v)
+        res.update(launches=launches, graph_replays=replays,
+                   graph_captures=captures,
+                   graph_kernel_launches=dict(
+                       GRAPH_STATS["kernel_launches"]))
+        out[key] = res
+        log(f"engine[{key}] " + json.dumps(res))
+    return out
+
+
+# a port kernel's name on the device -> the counters of its wrappers (the
+# four quantizer entries launch one templated kernel)
+DEVICE_KERNELS = {"ens_kernel": ("ens",), "prox_kernel": ("prox_update",),
+                  "quant_kernel": tuple(QUANT),
+                  "threefry_kernel": ("threefry",)}
+
+
+def profile_engine_path(key: str, rounds: int = 10) -> dict:
+    """Profile ``rounds`` engine rounds of simulator configuration ``key``,
+    one chunk, after a first run from the same snapshot captured the graph,
+    and read the device inside the span: busy time, idle share, operations
+    per round. The span opens after the card has drained. Every device
+    operation must have a launching call the window knows. Each port
+    kernel the profiler saw started by ``cudaGraphLaunch`` must number
+    exactly the launches the graph's counts add over the replays, and each
+    one it saw started outside the graphs exactly the launches the counters
+    saw outside them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.scan import GRAPH_STATS
+    from repro_torch.launch.simulate import build_sim, parser
+    from repro_torch.sim import run_rounds
+    a = parser().parse_args(SIM_COMMON + SIM_CONFIGS[key][0])
+    sim, _ = build_sim(a, torch.device("cuda"))
+    snap = sim.snapshot()
+    run_rounds(sim, rounds)
+    sim.restore(snap)
+    torch.cuda.synchronize()
+    reset_counts()
+    span = "engine.rounds"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        with record_function(span):
+            t0 = time.perf_counter()
+            run_rounds(sim, rounds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    counts = read_counts()
+    graph = GRAPH_STATS["kernel_launches"]
+    assert GRAPH_STATS["replays"] == rounds and not GRAPH_STATS["captures"]
+    by_name, out = _profile_window(prof, span, rounds)
+    in_graphs = out["in_graphs"]
+    seen = {}  # kernel -> {graph|outside: (profiler, counters)}
+    for kernel, counters in DEVICE_KERNELS.items():
+        in_graph = sum(c for name, c in in_graphs.items() if kernel in name)
+        outside = _launches_in(by_name, kernel) - in_graph
+        want_graph = sum(graph[c] for c in counters)
+        want_outside = sum(counts[c] for c in counters) - want_graph
+        seen[kernel] = {"graph": (in_graph, want_graph),
+                        "outside": (outside, want_outside)}
+        assert (in_graph, outside) == (want_graph, want_outside), (
+            key, kernel, seen[kernel], _kernel_trace(prof, span, kernel))
+    kernel = SIM_CONFIGS[key][1]
+    assert graph[kernel] == rounds, (key, kernel, graph[kernel])
+    if a.alg == "fedepm":
+        assert graph["ens"] == rounds and \
+            graph["prox_update"] == a.k0 * rounds, (key, graph)
+    out.update(config=key, alg=a.alg, chunk=rounds, port_launches=seen,
+               timed_wall_ms_per_round=wall / rounds * 1e3,
+               host_syncs_per_round=(
+                   sim.host_syncs - snap["host_syncs"]) / rounds,
+               device_ops_per_round_outside_graphs=(
+                   out["device_ops_per_round"]
+                   - out["graph_ops_per_round"]))
+    out["in_graphs"] = {k: v / rounds for k, v in in_graphs.items()}
+    log(f"profile_engine[{key}] " + json.dumps(out))
     return out
 
 
@@ -911,20 +1121,22 @@ def check_card_vs_cpu(rounds: int = 5) -> dict:
 
 def check_sim_card_vs_cpu(rounds: int = 5) -> dict:
     """Configurations (b) and (c) at m = 50 for ``rounds`` rounds on the
-    card and on the CPU, both drawing from one seeded set of CPU
-    generators. Each round the card's sim starts from the CPU sim's state;
+    card and on the CPU, both drawing their dither and noise on the CPU
+    from the same keys (``KeyedDraws`` on the CPU), so a log1p that rounds
+    otherwise on the card cannot move a quantizer step. Each round the
+    card's sim starts from the CPU sim's state;
     states must agree within STATE_RTOL of the largest |value|, metrics,
     ledger and telemetry events exactly."""
     from repro_torch.checkpoint.convert import (sim_state_from_numpy,
                                                 sim_state_to_numpy)
     from repro_torch.launch.simulate import build_sim, parser
-    from repro_torch.sim.server import TorchDraws
+    from repro_torch.sim.server import KeyedDraws
     out = {}
     for key in ("b", "c"):
         a = parser().parse_args(
             ["--m", "50", "--d", "45222", "--k0", "12", "--rho", "0.5",
              "--telemetry"] + SIM_CONFIGS[key][0])
-        sims = {dev: build_sim(a, torch.device(dev), draws=TorchDraws(
+        sims = {dev: build_sim(a, torch.device(dev), draws=KeyedDraws(
             a.seed, a.seed, "cpu"))[0] for dev in ("cpu", "cuda")}
         cpu, gpu = sims["cpu"], sims["cuda"]
         worst = 0.0
@@ -1079,10 +1291,13 @@ def main() -> int:
     t = time.perf_counter()
     record = {"card": card, "jax_random_table": jax_table,
               "main_path": run_main_path(), "sim_path": run_sim_path(),
+              "engine_path": run_engine_path(),
               "paper_twins": run_paper_twins()}
     paths = {"run_fedepm": record["main_path"]["launches"]}
     paths.update({f"simulate.{key}": res["launches"]
                   for key, res in record["sim_path"].items()})
+    paths.update({f"engine.{key}": res["launches"]
+                  for key, res in record["engine_path"].items()})
     paths.update({f"twin.{key}": res["launches"]
                   for key, res in record["paper_twins"].items()})
     for k in kernels:
@@ -1094,6 +1309,8 @@ def main() -> int:
     record["profile_main_path"] = profile_main_path()
     record["profile_baselines"] = profile_baselines()
     record["profile_sim_path"] = profile_sim_path()
+    record["profile_engine_path"] = {
+        key: profile_engine_path(key) for key in SIM_CONFIGS}
     record["card_vs_cpu"] = check_card_vs_cpu()
     record["sim_card_vs_cpu"] = check_sim_card_vs_cpu()
     phases["profiles_and_card_vs_cpu_s"] = time.perf_counter() - t

@@ -1,9 +1,10 @@
-"""Benchmark runner of the port's paper twins: prints
-``name,us_per_call,derived`` CSV rows, as ``benchmarks/run.py`` does for
-fig2, fig3, fig4 and table1.
+"""Benchmark runner of the port's twins: prints ``name,us_per_call,derived``
+CSV rows, as ``benchmarks/run.py`` does for fig2, fig3, fig4, table1 and
+the engine benchmark's sync cell.
 
     python -m repro_torch.benchmarks.run --only fig2,fig3,fig4,table1
     python -m repro_torch.benchmarks.run --only fig2 --quick --device cpu
+    python -m repro_torch.benchmarks.run --only engine
 
 runs on the CUDA card unless ``--device`` names another. ``--quick`` takes
 the small-d task and one trial, ``--full`` the paper's complete grids; the
@@ -17,7 +18,8 @@ import argparse
 import sys
 import time
 
-from repro_torch.benchmarks import fig2_accuracy, fig3_k0, fig4_rho, table1_lct
+from repro_torch.benchmarks import (bench_engine, fig2_accuracy, fig3_k0,
+                                    fig4_rho, table1_lct)
 from repro_torch.kernels.common import resolve_device
 
 
@@ -34,6 +36,9 @@ def jobs(quick: bool, full: bool, device) -> dict:
             d=d, trials=trials, device=device,
             rho_grid=(0.2, 0.6, 1.0) if not full
             else (0.2, 0.4, 0.6, 0.8, 1.0)),
+        "engine": lambda: bench_engine.run(
+            device=device, **(bench_engine.QUICK_KW if quick
+                              else dict(d=45222) if full else {})),
     }
 
 

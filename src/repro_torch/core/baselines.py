@@ -22,7 +22,11 @@ may be handed in, as in ``core.fedepm``.
 
 Arithmetic against jitted XLA:CPU:
   * the updates ``a - gamma*g`` and ``v - gamma*(g + mu*(v - w))`` are one
-    FMA each where XLA puts one (``torch.add(a, g, alpha=-gamma)``);
+    FMA each where XLA puts one: ``torch.addcmul(a, g, -gamma)`` with
+    -gamma a 0-d tensor on the device, which rounds once on the CPU and on
+    the card (``torch.add(a, g, alpha=-gamma)`` gives the same bits, but
+    its ``alpha`` is a host number that a captured CUDA graph would
+    freeze);
   * gamma is computed on the host, the f32 rounding of the exact value;
     XLA rewrites the divide into a multiply by its own rsqrt (a hardware
     estimate and two Newton steps), so the two differ by at most one ulp;
@@ -31,6 +35,11 @@ Arithmetic against jitted XLA:CPU:
     count; on the card it is one reduction (another order, within ulps);
   * the noise scale's denominator eps_dp * (tau + 1) is rounded in f32 as
     JAX rounds it.
+
+The two numbers that change from round to round, -gamma per iteration and
+the noise denominator, enter the round as device tensors (``sched``): the
+eager round fills them from ``state.k``, a captured round (``scan_round``)
+reads them from a row of the per-chunk ``schedule_stream``.
 """
 from __future__ import annotations
 
@@ -46,6 +55,8 @@ from repro_torch.core.fedepm import (
     Batch,
     LossFn,
     Params,
+    _device,
+    keep_abandoned,
     need_key,
     split_round_key,
     stacked_grads,
@@ -107,6 +118,32 @@ def _gamma(cfg: BaselineConfig, k: int) -> float:
                      k // cfg.k0)
 
 
+def _denom(cfg: BaselineConfig, k: int) -> float:
+    """The noise scale's denominator eps_dp * (tau_k + 1), rounded in f32
+    as JAX rounds it."""
+    return float(np.float32(cfg.eps_dp) * (np.float32(k // cfg.k0)
+                                           + np.float32(1.0)))
+
+
+def round_schedule(cfg: BaselineConfig, k: int, device):
+    """The round's (-gamma per iteration, noise denominator) for round
+    start ``k``: k0 0-d f32 tensors and one, filled on ``device``."""
+    neg_gamma = [torch.full((), -_gamma(cfg, k + t), dtype=torch.float32,
+                            device=device) for t in range(cfg.k0)]
+    return neg_gamma, torch.full((), _denom(cfg, k), dtype=torch.float32,
+                                 device=device)
+
+
+def schedule_stream(cfg: BaselineConfig, k_starts, device):
+    """``round_schedule`` of several rounds as two stacked tensors,
+    (len, k0) and (len,), the same f32 values, uploaded once."""
+    ng = np.asarray([[-_gamma(cfg, int(k) + t) for t in range(cfg.k0)]
+                     for k in k_starts], np.float32)
+    den = np.asarray([_denom(cfg, int(k)) for k in k_starts], np.float32)
+    return (torch.from_numpy(ng).to(device),
+            torch.from_numpy(den).to(device))
+
+
 def _client_sum(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return torch.sum(x, dim=0)
@@ -127,16 +164,13 @@ def _aggregate_selected_mean(Z, mask: torch.Tensor):
     return tmap(agg, Z)
 
 
-def _noisy_upload(k_noise, W_upd, g, mask, cfg: BaselineConfig, k: int,
-                  unit_noise):
+def _noisy_upload(k_noise, W_upd, g, mask, cfg: BaselineConfig,
+                  denom: torch.Tensor, unit_noise):
     grad_l1 = dp.sensitivity_surrogate(g, per_client=True) / 2.0
     device = grad_l1.device
     if cfg.eps_dp <= 0:
         return W_upd, torch.full((), torch.inf, device=device), grad_l1
-    denom = np.float32(cfg.eps_dp) * (np.float32(k // cfg.k0)
-                                      + np.float32(1.0))
-    scale = (2.0 * (2.0 * grad_l1)) / torch.full((), float(denom),
-                                                  device=device)
+    scale = (2.0 * (2.0 * grad_l1)) / denom
     if unit_noise is None:
         unit_noise = dp.client_unit_laplace(need_key(k_noise, "noise"), W_upd)
     Z_upd, snr = dp.add_client_noise(W_upd, unit_noise, scale, mask)
@@ -144,18 +178,21 @@ def _noisy_upload(k_noise, W_upd, g, mask, cfg: BaselineConfig, k: int,
 
 
 def _round(state: BaselineState, batches: Batch, loss_fn: LossFn,
-           cfg: BaselineConfig, mask, agg_mask, unit_noise, client):
-    """Algorithm 3 around ``client(w_new, W) -> W_upd``."""
+           cfg: BaselineConfig, mask, agg_mask, unit_noise, sched, client):
+    """Algorithm 3 around ``client(w_new, neg_gamma) -> W_upd``."""
+    if sched is None:
+        sched = round_schedule(cfg, state.k, _device(state.W))
+    neg_gamma, denom = sched
     key, k_sel, k_noise = split_round_key(state.key)
     if mask is None:
         mask = sample_uniform(need_key(k_sel, "mask"), cfg.m, cfg.rho)
     w_new = _aggregate_selected_mean(
         state.Z, mask if agg_mask is None else agg_mask)
-    W_upd = client(w_new)
+    W_upd = client(w_new, neg_gamma)
     g = stacked_grads(loss_fn, W_upd, batches)
     W_next = tree_where_client(mask, W_upd, state.W)
     Z_upd, snr, grad_l1 = _noisy_upload(k_noise, W_upd, g, mask, cfg,
-                                        state.k, unit_noise)
+                                        denom, unit_noise)
     Z_next = tree_where_client(mask, Z_upd, state.Z)
     new_state = BaselineState(w_tau=w_new, W=W_next, Z=Z_next,
                               k=state.k + cfg.k0, key=key)
@@ -165,45 +202,74 @@ def _round(state: BaselineState, batches: Batch, loss_fn: LossFn,
 
 def sfedavg_round(state: BaselineState, batches: Batch, loss_fn: LossFn,
                   cfg: BaselineConfig, mask: torch.Tensor | None = None,
-                  agg_mask: torch.Tensor | None = None, *, unit_noise=None):
+                  agg_mask: torch.Tensor | None = None, *, unit_noise=None,
+                  sched=None):
     """k0 iterations of SFedAvg (Algorithm 3 + eq. (35)).
 
     ``mask`` supplies the participation set (the key advances either way);
     ``agg_mask`` decouples eq. (34)'s aggregation support from it, as in
-    JAX; ``unit_noise`` supplies the per-client unit-Laplace planes."""
+    JAX; ``unit_noise`` supplies the per-client unit-Laplace planes;
+    ``sched`` the round's (-gamma per iteration, noise denominator) as
+    device tensors (default: ``round_schedule`` of ``state.k``)."""
 
-    def client(w_new):
+    def client(w_new, neg_gamma):
         W = tree_broadcast_clients(w_new, cfg.m)  # t = 0: the broadcast
         for t in range(cfg.k0):
-            gamma = _gamma(cfg, state.k + t)
             gi = stacked_grads(loss_fn, W, batches)
-            W = tmap(lambda a, g_: torch.add(a, g_, alpha=-gamma), W, gi)
+            W = tmap(lambda a, g_: torch.addcmul(a, g_, neg_gamma[t]), W, gi)
         return W
 
     return _round(state, batches, loss_fn, cfg, mask, agg_mask, unit_noise,
-                  client)
+                  sched, client)
 
 
 def sfedprox_round(state: BaselineState, batches: Batch, loss_fn: LossFn,
                    cfg: BaselineConfig, mask: torch.Tensor | None = None,
-                   agg_mask: torch.Tensor | None = None, *, unit_noise=None):
+                   agg_mask: torch.Tensor | None = None, *, unit_noise=None,
+                   sched=None):
     """k0 iterations of SFedProx (Algorithm 3 + (36), inner solver Alg. 4);
-    ``mask``, ``agg_mask`` and ``unit_noise`` as in ``sfedavg_round``."""
+    ``mask``, ``agg_mask``, ``unit_noise`` and ``sched`` as in
+    ``sfedavg_round``."""
     mu = float(np.float32(cfg.prox_mu))
 
-    def client(w_new):
+    def client(w_new, neg_gamma):
         V = tree_broadcast_clients(w_new, cfg.m)  # Alg. 4: v^1 = w^tau
         for t in range(cfg.k0):
-            gamma = _gamma(cfg, state.k + t)
             for _ in range(cfg.prox_ell):
                 gi = stacked_grads(loss_fn, V, batches)
-                V = tmap(lambda v, g_, wt: torch.add(
-                    v, torch.add(g_, v - wt, alpha=mu), alpha=-gamma),
+                V = tmap(lambda v, g_, wt: torch.addcmul(
+                    v, torch.add(g_, v - wt, alpha=mu), neg_gamma[t]),
                     V, gi, w_new)
         return V
 
     return _round(state, batches, loss_fn, cfg, mask, agg_mask, unit_noise,
-                  client)
+                  sched, client)
+
+
+def scan_round(state: BaselineState, xs, batches: Batch, loss_fn: LossFn,
+               cfg: BaselineConfig, round_fn, post=None):
+    """Scan-compatible round body, as ``core.fedepm.scan_round``: ``xs =
+    (mask, abandoned, neg_gamma, denom, ...)``, the round's (m,) mask, 0-d
+    bool, (k0,) and 0-d ``schedule_stream`` rows; ``round_fn`` is
+    ``sfedavg_round`` or ``sfedprox_round``; ``post`` and the abandoned
+    select as there."""
+    mask, abandoned, neg_gamma, denom = xs[:4]
+    new_state, metrics = round_fn(state, batches, loss_fn, cfg, mask=mask,
+                                  sched=(neg_gamma, denom))
+    if post is not None:
+        new_state = post(state, new_state, mask, xs)
+    return keep_abandoned(abandoned, state, new_state), metrics
+
+
+def make_scan_rounds(batches, loss_fn, cfg: BaselineConfig, round_fn):
+    """K baseline rounds over a precomputed mask stream as one program, as
+    ``core.fedepm.make_scan_rounds``: ``run(state, masks, abandoned) ->
+    (state, stacked BaselineMetrics)``, a CUDA graph of ``scan_round``
+    replayed once per round on the card, a plain loop on the CPU."""
+    from repro_torch.core.scan import state_scan
+    return state_scan(
+        lambda st, xs: scan_round(st, xs, batches, loss_fn, cfg, round_fn),
+        lambda ks, dev: schedule_stream(cfg, ks, dev), cfg.k0)
 
 
 ROUNDS = {"sfedavg": sfedavg_round, "sfedprox": sfedprox_round}

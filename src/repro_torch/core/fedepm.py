@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import random
@@ -36,6 +37,7 @@ from repro_torch.core.treeutil import (
     tree_leaves,
     tree_sq_norm,
     tree_unflatten,
+    tree_where,
     tree_where_client,
 )
 from repro_torch.kernels.ens import ops as ens_ops
@@ -148,18 +150,39 @@ def client_grads(loss_fn: LossFn, w: Params, batches: Batch, m: int):
         batches)
 
 
-def _client_inner(W, w_new, g, k_start: int, cfg: FedEPMConfig):
-    """k0 closed-form prox iterations (20) for all m clients at once.
-
-    mu_{i,k+1} = mu0 (1 + c ||w_i^k - w^{tau+1}||^2) alpha^{k+1} is one
-    value per client, recomputed from the current iterate at every step.
-    Returns (W, mu_last).
-    """
-    device = _device(W)
+def round_pows(cfg: FedEPMConfig, k_start: int, device) -> torch.Tensor:
+    """alpha^(k+1) for the round's k0 iterations k = k_start .. k_start +
+    k0 - 1, (k0,) f32: the growth factor of mu_{i,k+1} in eq. (20)."""
     alpha = torch.full((), cfg.alpha, dtype=torch.float32, device=device)
     exps = torch.arange(k_start + 1, k_start + cfg.k0 + 1,
                         dtype=torch.float32, device=device)
-    pows = torch.pow(alpha, exps)
+    return torch.pow(alpha, exps)
+
+
+def pows_stream(cfg: FedEPMConfig, k_starts, device) -> torch.Tensor:
+    """``round_pows`` of several rounds, (len(k_starts), k0): the scan
+    body's per-round rows. On the card one ``torch.pow`` over the stacked
+    exponents, which computes each element on its own, as the round's does;
+    on the CPU the vector loop and its scalar tail round differently, so
+    each row is the round's own call."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.stack([round_pows(cfg, int(k), device)
+                            for k in k_starts])
+    alpha = torch.full((), cfg.alpha, dtype=torch.float32, device=device)
+    exps = (np.asarray(k_starts, np.float64)[:, None]
+            + np.arange(1, cfg.k0 + 1, dtype=np.float64)[None, :])
+    return torch.pow(alpha, torch.from_numpy(exps.astype(np.float32))
+                     .to(device))
+
+
+def _client_inner(W, w_new, g, pows: torch.Tensor, cfg: FedEPMConfig):
+    """k0 closed-form prox iterations (20) for all m clients at once.
+
+    mu_{i,k+1} = mu0 (1 + c ||w_i^k - w^{tau+1}||^2) alpha^{k+1} is one
+    value per client, recomputed from the current iterate at every step;
+    ``pows`` holds the round's alpha^{k+1}. Returns (W, mu_last).
+    """
     mu = None
     for t in range(cfg.k0):
         sq = tree_sq_norm(tmap(torch.sub, W, w_new), per_client=True)
@@ -170,7 +193,7 @@ def _client_inner(W, w_new, g, k_start: int, cfg: FedEPMConfig):
 
 def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
                  cfg: FedEPMConfig, mask: torch.Tensor | None = None, *,
-                 unit_noise=None):
+                 unit_noise=None, pows: torch.Tensor | None = None):
     """One communication round = k0 iterations of Algorithm 2.
 
     ``batches`` is a tree with a leading client axis m. ``mask`` (m,) bool
@@ -178,7 +201,9 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     ``state.W`` of unit-scale Laplace values (f32), scaled per client by
     b_i as ``repro.core.dp.sample_laplace`` scales its draw. What is not
     supplied is drawn from the state's key, split as JAX splits it; the
-    key advances either way. Returns (new_state, RoundMetrics).
+    key advances either way. ``pows`` (k0,) is the round's
+    ``round_pows(cfg, state.k)`` on the device, handed in by a captured
+    round that cannot read ``state.k``. Returns (new_state, RoundMetrics).
     """
     m = cfg.m
     device = _device(state.W)
@@ -193,7 +218,9 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     g = client_grads(loss_fn, w_new, batches, m)
 
     # ---- k0 inner prox iterations per client (20) ----
-    W_upd, mu_last = _client_inner(state.W, w_new, g, state.k, cfg)
+    if pows is None:
+        pows = round_pows(cfg, state.k, device)
+    W_upd, mu_last = _client_inner(state.W, w_new, g, pows, cfg)
     W_next = tree_where_client(mask, W_upd, state.W)
 
     # ---- DP-noised upload (21)/(39) ----
@@ -217,6 +244,56 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     metrics = RoundMetrics(mu_last=mu_last, grad_l1=grad_l1, snr=snr,
                            drift=drift, selected=mask, noise_scale=scale)
     return new_state, metrics
+
+
+def keep_abandoned(abandoned: torch.Tensor, old, new):
+    """``new`` with the whole carry put back to ``old`` where the 0-d bool
+    ``abandoned`` is set: w_tau, W, Z and the key. ``k`` stays ``old``'s,
+    host bookkeeping that the caller advances past the rounds that were not
+    abandoned. The one abandoned select of every scan body (FedEPM, the
+    baselines, the simulator's engine)."""
+    return type(old)(
+        w_tau=tree_where(abandoned, old.w_tau, new.w_tau),
+        W=tree_where(abandoned, old.W, new.W),
+        Z=tree_where(abandoned, old.Z, new.Z),
+        k=old.k, key=torch.where(abandoned, old.key, new.key))
+
+
+def scan_round(state: FedEPMState, xs, batches: Batch, loss_fn: LossFn,
+               cfg: FedEPMConfig, post=None):
+    """Scan-compatible round body: ``xs = (mask, abandoned, pows, ...)``,
+    the round's (m,) mask, 0-d bool and (k0,) ``round_pows`` row, all
+    tensors on the state's device; what follows is the caller's. An
+    abandoned round leaves the whole state, key included, as it was: the
+    round still runs and ``keep_abandoned`` keeps the old values, so a
+    captured body needs no branch. ``post(state, new_state, mask, xs) ->
+    new_state`` runs between the round and the select (the simulator's
+    engine merges the uploads through its codec there). ``state.k`` is
+    left to the caller. Returns (state, RoundMetrics); the metrics of an
+    abandoned round are to be ignored."""
+    mask, abandoned, pows = xs[:3]
+    new_state, metrics = fedepm_round(state, batches, loss_fn, cfg,
+                                      mask=mask, pows=pows)
+    if post is not None:
+        new_state = post(state, new_state, mask, xs)
+    return keep_abandoned(abandoned, state, new_state), metrics
+
+
+def make_scan_rounds(batches: Batch, loss_fn: LossFn, cfg: FedEPMConfig):
+    """K rounds over a precomputed mask stream as one program.
+
+    Returns ``run(state, masks, abandoned) -> (state, stacked
+    RoundMetrics)`` with ``masks`` (K, m) bool and ``abandoned`` (K,) bool
+    (host arrays or tensors). On the card ``scan_round`` is captured once
+    as a CUDA graph and replayed once per round over the uploaded streams
+    (``repro_torch.core.scan``); on the CPU it runs as a plain loop. The
+    state handed in is copied, never written; the metrics stack on the
+    device.
+    """
+    from repro_torch.core.scan import state_scan
+    return state_scan(
+        lambda st, xs: scan_round(st, xs, batches, loss_fn, cfg),
+        lambda ks, dev: pows_stream(cfg, ks, dev), cfg.k0)
 
 
 def global_objective(loss_fn: LossFn, w: Params,

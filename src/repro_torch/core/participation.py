@@ -9,7 +9,7 @@ the counterpart of ``repro.core.participation``.
 
 Both take a key of the JAX-compatible stream (``repro_torch.random``) and
 return a bool mask of shape (m,) on the key's device, equal to JAX's for
-the same key.
+the same key; ``sample_uniform`` also takes a batch of keys.
 
 ``arrival_mask`` and ``first_arrivals_mask`` turn simulated arrival times
 into the mask the sim's deadline, adaptive, sync and overselect policies
@@ -35,8 +35,11 @@ def _mask(m: int, idx: torch.Tensor) -> torch.Tensor:
 
 
 def sample_uniform(key: torch.Tensor, m: int, rho: float) -> torch.Tensor:
-    """|S| = max(1, round(rho*m)) clients uniformly without replacement."""
-    return _mask(m, random.permutation(key, m)[:_n_selected(m, rho)])
+    """|S| = max(1, round(rho*m)) clients uniformly without replacement;
+    one (..., m) mask per key of a batch (..., 2)."""
+    perm = random.permutation(key, m)
+    mask = torch.zeros(perm.shape, dtype=torch.bool, device=key.device)
+    return mask.scatter_(-1, perm[..., :_n_selected(m, rho)], True)
 
 
 def sample_coverage(key: torch.Tensor, m: int, rho: float, round_idx: int,

@@ -93,7 +93,9 @@ def measure_lct(alg: str, *, m: int, k0: int, rho: float, eps: float,
 
         def steps():
             g = fedepm.client_grads(loss, w, b0, 1)
-            return fedepm._client_inner(w.unsqueeze(0), w, g, 0, cfg)[0]
+            return fedepm._client_inner(w.unsqueeze(0), w, g,
+                                        fedepm.round_pows(cfg, 0, dev),
+                                        cfg)[0]
     elif alg in baselines.ROUNDS:
         def steps():
             v = w.unsqueeze(0)

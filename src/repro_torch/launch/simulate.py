@@ -14,12 +14,17 @@ overselect policies, with its flag names and its summary keys.
         --dp-eps 1.0 --bits 8 --secure-agg
     python -m repro_torch.launch.simulate --alg sfedprox --policy deadline \\
         --deadline 6e-5 --latency pareto --bits 8
+    python -m repro_torch.launch.simulate --engine scan --terminate \\
+        --policy deadline --deadline 6e-5 --latency pareto --bits 8
 
-runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path. Not
-ported yet: ``--spec`` and the scan engine (ROADMAP queue 1 items 10 and
-13), the async policy (item 11) and the fault flags (item 12). The
-algorithm state is keyed by ``PRNGKey(--seed)`` as in JAX, so its masks and
-eq. (21) noise are the JAX CLI's.
+runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
+``--engine scan`` runs the rounds through ``repro_torch.sim.run_rounds``
+(chunks of rounds replayed as a CUDA graph on the card) and prints the
+summary ``--engine eager`` prints; with ``--terminate`` it runs chunks of 8
+and rolls an overshooting chunk back, so it stops at the eager round. Not
+ported yet: ``--spec`` (ROADMAP queue 1 item 13), the async policy (item
+11) and the fault flags (item 12). The sim draws from keys seeded by
+``--seed`` as in JAX, so its masks, noise and dither are the JAX CLI's.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.data.partition import partition_iid
 from repro_torch.kernels.common import resolve_device
 from repro_torch.privacy import PrivacyConfig
 from repro_torch.sim import clients
+from repro_torch.sim.engine import run_rounds
 from repro_torch.sim.server import ALGS, POLICIES, FedSim, SimConfig
 from repro_torch.sim.transport import CodecConfig
 from repro_torch.telemetry.events import EventRecorder
@@ -131,50 +137,88 @@ def build_sim(a, device: torch.device, *, draws=None):
     return sim, task
 
 
-def _terminated(a, sim, task, f_hist) -> bool:
-    """The paper's rule, trusted only after 8 rounds and one aggregation
-    (abandoned rounds leave f at its start)."""
+def _terminated(a, task, f_hist, w, metrics) -> bool:
+    """The paper's rule at broadcast point ``w`` after the rounds of
+    ``metrics``, trusted only after 8 rounds and one aggregation (abandoned
+    rounds leave f at its start)."""
     if not a.terminate or len(f_hist) < 8:
         return False
-    if all(mm.abandoned for mm in sim.metrics):
+    if all(mm.abandoned for mm in metrics):
         return False
-    gsq = float(fedepm.global_grad_sq_norm(task["loss"], sim.state.w_tau,
+    gsq = float(fedepm.global_grad_sq_norm(task["loss"], w,
                                            task["batches"]))
     return termination_reached(f_hist, gsq, a.n)
 
 
+def _report(a, met, f: float) -> None:
+    if not a.quiet:
+        print(f"round {met.round_idx:3d}  f/m={f / a.m:.6f}  "
+              f"t={met.t_total:9.4f}s (+{met.t_round:.4f})  "
+              f"agg={met.n_aggregated}/{met.n_contacted} "
+              f"drop={met.n_dropped}  "
+              f"up={met.bytes_up / 1e3:.1f}kB "
+              f"down={met.bytes_down / 1e3:.1f}kB"
+              + ("  ABANDONED" if met.abandoned else ""), flush=True)
+
+
+def _run_eager(a, sim, task, f_hist) -> int:
+    loss, batches = task["loss"], task["batches"]
+    for _ in range(a.rounds):
+        met = sim.step()
+        f_hist.append(float(fedepm.global_objective(
+            loss, sim.state.w_tau, batches)))
+        _report(a, met, f_hist[-1])
+        if _terminated(a, task, f_hist, sim.state.w_tau, sim.metrics):
+            break
+    return len(f_hist)
+
+
+def _run_scan(a, sim, task, f_hist) -> int:
+    """The spec layer's scan loop: chunks of 8 rounds with --terminate (else
+    all rounds in one), f of each round from the chunk's broadcast points;
+    a chunk that overshoots the stopping round is rolled back with
+    ``snapshot``/``restore`` and its first ``keep`` rounds run again."""
+    loss, batches = task["loss"], task["batches"]
+    chunk = 8 if a.terminate else a.rounds
+    done = 0
+    while done < a.rounds:
+        todo = min(chunk, a.rounds - done)
+        snap = sim.snapshot() if a.terminate else None
+        res = run_rounds(sim, todo, collect_w_tau=True)
+        for i, met in enumerate(res.metrics):
+            w = torch.from_numpy(res.w_tau[i]).to(sim.device)
+            f_hist.append(float(fedepm.global_objective(loss, w, batches)))
+            _report(a, met, f_hist[-1])
+            if _terminated(a, task, f_hist, w,
+                           sim.metrics[:done + i + 1]):
+                keep = i + 1
+                if keep < todo:
+                    sim.restore(snap)
+                    run_rounds(sim, keep)
+                return done + keep
+        done += todo
+    return done
+
+
 def run_sim(a) -> tuple[dict, FedSim, list]:
-    """Run the eager loop of the spec layer's ``RunHandle.run`` for parsed
-    flags ``a``; returns (summary, the sim, f per round)."""
+    """Run the spec layer's ``RunHandle.run`` loop, eager or scan by
+    ``a.engine``, for parsed flags ``a``; returns (summary, the sim, f per
+    round)."""
     dev = resolve_device(a.device)
     sim, task = build_sim(a, dev)
-    loss, batches = task["loss"], task["batches"]
-    m = a.m
     f_hist: list[float] = []
     wall0 = time.perf_counter()
     with torch.profiler.record_function(ROUNDS_SPAN):
-        for _ in range(a.rounds):
-            met = sim.step()
-            f_hist.append(float(fedepm.global_objective(
-                loss, sim.state.w_tau, batches)))
-            if not a.quiet:
-                print(f"round {met.round_idx:3d}  f/m={f_hist[-1] / m:.6f}  "
-                      f"t={met.t_total:9.4f}s (+{met.t_round:.4f})  "
-                      f"agg={met.n_aggregated}/{met.n_contacted} "
-                      f"drop={met.n_dropped}  "
-                      f"up={met.bytes_up / 1e3:.1f}kB "
-                      f"down={met.bytes_down / 1e3:.1f}kB"
-                      + ("  ABANDONED" if met.abandoned else ""), flush=True)
-            if _terminated(a, sim, task, f_hist):
-                break
+        run = _run_scan if a.engine == "scan" else _run_eager
+        rounds = run(a, sim, task, f_hist)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     wall = time.perf_counter() - wall0
     summary = {
         "spec_name": f"cli/{a.alg}-{a.policy}",
-        "alg": a.alg, "policy": a.policy, "engine": "eager",
-        "latency": a.latency, "rounds": len(f_hist),
-        "f_final": f_hist[-1] / m,
+        "alg": a.alg, "policy": a.policy, "engine": a.engine,
+        "latency": a.latency, "rounds": rounds,
+        "f_final": f_hist[-1] / a.m,
         "accuracy": float(accuracy_logistic(sim.state.w_tau, task["X"],
                                             task["y"])),
         "sim_time_s": sim.t,
@@ -193,13 +237,19 @@ def run_sim(a) -> tuple[dict, FedSim, list]:
         kinds: dict[str, int] = {}
         for ev in sim.telemetry.events:
             kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
-        summary["telemetry"] = {"events": kinds, "wall_s": wall}
+        summary["telemetry"] = {"events": kinds, "wall_s": wall,
+                                "host_syncs": sim.host_syncs}
     return summary, sim, f_hist
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--alg", default="fedepm", choices=tuple(ALGS))
+    ap.add_argument("--engine", default="eager", choices=["eager", "scan"],
+                    help="round execution: 'eager' runs FedSim.step per "
+                         "round, 'scan' runs chunks through run_rounds (a "
+                         "CUDA graph per round on the card); same "
+                         "trajectory and summary")
     ap.add_argument("--aggregation", "--policy", dest="policy",
                     default="sync", choices=POLICIES,
                     help="aggregation policy (--policy is an alias)")

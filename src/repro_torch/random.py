@@ -12,9 +12,10 @@ keys (leading axes ``...``) and acts on each key as ``jax.vmap`` would:
 ``bits(key, shape)``      -- (..., *shape) int64: ``y1 ^ y2`` of the hash of
                              each flat index.
 ``uniform(key, shape)``   -- (..., *shape) f32 on [minval, maxval).
-``permutation(key, n)``   -- (n,) int64, for one key: ``jax.random.
-                             permutation``'s rounds of a stable sort by
-                             fresh 32-bit keys.
+``permutation(key, n)``   -- (..., n) int64: ``jax.random.permutation``'s
+                             rounds of a stable sort by fresh 32-bit keys.
+``fold_in_range(key, start, n)`` -- (n, 2): ``fold_in(key, start + i)`` for
+                             i < n, in one launch.
 
 Each hash is one launch of ``kernels/threefry`` on the card (its plain
 version on the CPU), batched over the keys and counters.
@@ -74,20 +75,31 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     return out.reshape(key.shape[:-1] + shape)
 
 
+def fold_in_range(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """``fold_in(key, start + i)`` for i = 0 .. n-1, (n, 2), one hash over
+    consecutive counters; ``key`` is one key (2,)."""
+    if key.shape != (2,) or not 0 <= start and start + n <= 2 ** 32:
+        raise ValueError(f"fold_in_range takes one key (2,) and 32-bit "
+                         f"data; got {tuple(key.shape)}, {start}+{n}")
+    return _hash(key, n, start, "keys")
+
+
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.permutation(key, n)`` for one key (2,).
+    """``jax.random.permutation(key, n)`` for each key of a batch (..., 2):
+    (..., n).
 
     ceil(3 ln n / ln(2**32 - 1)) rounds, one for n <= 1625: split the key,
     draw n 32-bit sort keys from the second half and reorder by a stable
     sort, as ``lax.sort_key_val`` does.
     """
-    if key.shape != (2,):
-        raise ValueError(f"permutation takes one key (2,); got "
-                         f"{tuple(key.shape)}")
-    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    batch = key.shape[:-1]
+    keys = key.reshape(-1, 2)
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(
+        keys.shape[0], n)
     rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_UINT32_MAX)))
     for _ in range(rounds):
-        key, sub = split(key)
-        order = torch.sort(bits(sub, (n,)), stable=True).indices
-        x = x[order]
-    return x
+        ks = split(keys)
+        keys, sub = ks[:, 0], ks[:, 1]
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, 1, order)
+    return x.reshape(batch + (n,))

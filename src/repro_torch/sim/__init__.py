@@ -1,8 +1,9 @@
 """Federated systems runtime on the port: client heterogeneity and latency
 models, the sync/deadline/adaptive/overselect policies over simulated time,
-the upload codec with optional error feedback and DP uploads, and the byte
-ledger; the counterpart of ``repro.sim`` (the async policy, fault injection
-and the compiled engine come with later slices)."""
+the upload codec with optional error feedback and DP uploads, the byte
+ledger, and the clocked engine (``run_rounds``: chunks of rounds replayed as
+a CUDA graph on the card); the counterpart of ``repro.sim`` (the async
+policy and fault injection come with later slices)."""
 from repro_torch.sim.clients import (     # noqa: F401
     AdaptiveDeadlines,
     ClientProfiles,
@@ -13,6 +14,11 @@ from repro_torch.sim.clients import (     # noqa: F401
     register_latency_model,
     round_arrivals,
     uniform_profiles,
+)
+from repro_torch.sim.engine import (      # noqa: F401
+    EngineResult,
+    run_rounds,
+    run_to_objective,
 )
 from repro_torch.sim.server import (      # noqa: F401
     FedSim,

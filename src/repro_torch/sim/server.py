@@ -28,18 +28,27 @@ merged client.
 
 Randomness is data (``SimDraws``): each round the sim asks one object for
 its candidate mask, the round's unit-Laplace planes, the codec's dither
-planes and the privacy unit noise. The default, ``TorchDraws``, draws the
-mask and the planes from the algorithm state's key as the JAX sim does (so
-they are JAX's), and the dither and privacy noise from ``torch.Generator``s
-seeded from the sim's seeds; a test hands in one that replays a JAX run's
-draws. Arrival times come from the numpy generator seeded as JAX's, so they
-are the JAX run's exactly.
+planes and the privacy unit noise. The default, ``KeyedDraws``, draws all
+four from keys of the JAX-compatible stream as the JAX sim does: the mask
+and the planes from the algorithm state's key, the dither from
+``fold_in(PRNGKey(seed ^ 0x5EED), round_idx)`` split per plan group and the
+privacy noise from ``fold_in(PRNGKey(privacy_seed ^ 0x9D1A), round_idx)``
+split per leaf. So a sim seeded like a JAX sim draws the JAX sim's bits
+(the noise within one ulp, log1p). A test may hand in another ``SimDraws``.
+Arrival times come from the numpy generator seeded as JAX's, so they are
+the JAX run's exactly.
+
+``host_syncs`` counts the device-to-host transfers as JAX counts them (two
+per eager round: the candidate mask and the policy's mask), and
+``snapshot``/``restore`` rewind every clocked field exactly, for the
+engine's termination replay (``repro_torch.sim.engine``).
 
 Not ported yet, and refused with a ValueError that names its ROADMAP item:
 ``policy="async"`` and fault injection.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Callable, NamedTuple, Protocol
@@ -47,6 +56,7 @@ from typing import Any, Callable, NamedTuple, Protocol
 import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch.core import baselines, dp, fedepm, participation
 from repro_torch.core.treeutil import tmap, tree_leaves, tree_where_client
 from repro_torch.privacy import PrivacyConfig, build_privacy_model
@@ -54,13 +64,13 @@ from repro_torch.sim import clients as simclients
 from repro_torch.sim.transport import (
     ByteLedger,
     CodecConfig,
+    codec_dither,
     codec_event_attrs,
     dither_shapes,
     draw_unit_noise,
     encoded_client_bytes,
     private_ef_roundtrip,
     private_roundtrip,
-    random_bits,
     tree_client_bytes,
     uses_fused_private,
 )
@@ -226,19 +236,21 @@ class SimDraws(Protocol):
         """Unit-noise tree (f32) shaped like ``tree_like``."""
 
 
-class TorchDraws:
-    """Default draws. The candidate mask and the round's unit-Laplace
+class KeyedDraws:
+    """Default draws, all from keys of the JAX-compatible stream, so they
+    are the JAX sim's. The candidate mask and the round's unit-Laplace
     planes come from the algorithm state's key, split as the round splits
-    it, so they are what the JAX sim draws; the codec dither and the
-    privacy noise come from ``torch.Generator``s on ``device`` seeded with
-    ``seed ^ 0x5EED`` and ``privacy_seed ^ 0x9D1A``, the JAX simulator's
-    stream tags (other numbers than JAX's, the same distributions)."""
+    it; the codec dither from ``fold_in(codec_key, round_idx)`` split once
+    per plan group, and the privacy noise from ``fold_in(privacy_key,
+    round_idx)`` split once per leaf, with ``codec_key = PRNGKey(seed ^
+    0x5EED)`` and ``privacy_key = PRNGKey(privacy_seed ^ 0x9D1A)`` as the
+    JAX ``FedSim`` builds them. Dither and noise are drawn on ``device``."""
 
     def __init__(self, seed: int, privacy_seed: int = 0, device="cpu"):
-        dev = torch.device(device)
-        self._codec = torch.Generator(device=dev).manual_seed(seed ^ 0x5EED)
-        self._privacy = torch.Generator(device=dev).manual_seed(
-            privacy_seed ^ 0x9D1A)
+        self.device = torch.device(device)
+        self.codec_key = random.PRNGKey(seed ^ 0x5EED, device=self.device)
+        self.privacy_key = random.PRNGKey(privacy_seed ^ 0x9D1A,
+                                          device=self.device)
 
     def candidates(self, sim: "FedSim") -> np.ndarray:
         if sim.sim.policy == "overselect":
@@ -255,15 +267,39 @@ class TorchDraws:
                                       sim.state.W)
 
     def dither(self, sim: "FedSim", shapes: list) -> list:
-        return [None if s is None else random_bits(self._codec, s)
-                for s in shapes]
+        return codec_dither(random.fold_in(self.codec_key, sim.round_idx),
+                            shapes)
 
     def privacy_noise(self, sim: "FedSim", tree_like):
-        return draw_unit_noise(self._privacy, tree_like, sim.sim.privacy)
+        return draw_unit_noise(
+            random.fold_in(self.privacy_key, sim.round_idx), tree_like,
+            sim.sim.privacy)
+
+
+def merge_uploads(prev_Z, new_Z, H, mask, dither, noise, codec, privacy,
+                  ef: bool):
+    """What the server holds of a round's uploads: (Z, H). The uploads of
+    the clients in ``mask`` go through the codec (and, with ``privacy``,
+    clip and noise first); the others keep ``prev_Z``. With error feedback
+    the decoded upload is also the clients' new memory H."""
+    if ef:
+        dec = private_ef_roundtrip(new_Z, H, dither, noise, codec, privacy)
+        H = tree_where_client(mask, dec, H)
+    else:
+        dec = private_roundtrip(new_Z, prev_Z, dither, noise, codec, privacy)
+    return tree_where_client(mask, dec, prev_Z), H
 
 
 def _on(tree, device):
     return tmap(lambda x: x.to(device), tree)
+
+
+def copy_state(state):
+    """A copy of an algorithm state whose tensors share nothing with it."""
+    return state._replace(
+        w_tau=tmap(torch.clone, state.w_tau), W=tmap(torch.clone, state.W),
+        Z=tmap(torch.clone, state.Z),
+        key=None if state.key is None else state.key.clone())
 
 
 class FedSim:
@@ -280,7 +316,7 @@ class FedSim:
     sim : SimConfig policy/latency/codec/privacy settings.
     work_flops : override the per-round client compute estimate.
     telemetry : an EventRecorder, or None for the shared NULL_RECORDER.
-    draws : a ``SimDraws``; default ``TorchDraws`` on the state's device.
+    draws : a ``SimDraws``; default ``KeyedDraws`` on the state's device.
     """
 
     def __init__(self, *, alg: str, cfg: Any, state: Any, batches: Any,
@@ -324,9 +360,15 @@ class FedSim:
         # masks but never perturbs values
         self._privacy_tx = (sim.privacy if self._privacy is not None
                             and sim.privacy.eps > 0 else None)
-        self._draws = draws if draws is not None else TorchDraws(
+        self._draws = draws if draws is not None else KeyedDraws(
             sim.seed, sim.privacy.seed if sim.privacy is not None else 0,
             self.device)
+        # device-to-host transfers, counted as JAX counts them
+        self.host_syncs = 0
+        self.last_round_metrics = None
+        # the engine's round body and its captured graph (sim.engine),
+        # built at the first run_rounds
+        self._engine_body = None
         self.rho_eff = min(1.0, cfg.rho * sim.overselect_factor)
         self._n_keep = min(cfg.m, max(1, math.ceil(cfg.rho * cfg.m)))
 
@@ -382,6 +424,7 @@ class FedSim:
         ``core.participation`` (arrival times in f32, as in JAX); the round
         duration is host float64 bookkeeping."""
         pol = self.sim.policy
+        self.host_syncs += 1  # JAX transfers the jitted mask back
         cand_t = torch.from_numpy(candidates)
         arr_t = torch.from_numpy(arrivals)
         t_cand = np.where(candidates, arrivals, np.inf)
@@ -418,25 +461,19 @@ class FedSim:
     # -- one simulated round ------------------------------------------------
 
     def _merge_uploads(self, prev, new, mask_dev):
-        """What the server holds of the round's uploads: the decoded (and,
-        with privacy, clipped and noised) Z, and the new EF memory."""
         codec, privacy = self.sim.codec, self._privacy_tx
         dither = self._draws.dither(self, dither_shapes(
             new.Z, codec, fused_private=self._fused_private))
         noise = (_on(self._draws.privacy_noise(self, prev.Z), self.device)
                  if privacy is not None else None)
         dither = [None if u is None else u.to(self.device) for u in dither]
-        if self._ef:
-            dec = private_ef_roundtrip(new.Z, self.H, dither, noise, codec,
-                                       privacy)
-            self.H = tree_where_client(mask_dev, dec, self.H)
-        else:
-            dec = private_roundtrip(new.Z, prev.Z, dither, noise, codec,
-                                    privacy)
-        return new._replace(Z=tree_where_client(mask_dev, dec, prev.Z))
+        Z, self.H = merge_uploads(prev.Z, new.Z, self.H, mask_dev, dither,
+                                  noise, codec, privacy, self._ef)
+        return new._replace(Z=Z)
 
     def step(self) -> SimMetrics:
         candidates = np.array(self._draws.candidates(self), bool)
+        self.host_syncs += 1
         arrivals = simclients.round_arrivals(
             self.profiles, self._rng, self._latency,
             work_flops=self._work, down_bytes=self._down_bytes,
@@ -452,12 +489,13 @@ class FedSim:
             mask_dev = torch.from_numpy(mask).to(self.device)
             unit = (_on(self._draws.unit_noise(self), self.device)
                     if self.cfg.eps_dp > 0 else None)
-            new, _ = self._round_fn(
+            new, rm = self._round_fn(
                 prev, self._batches, self._loss_fn, self.cfg, mask=mask_dev,
                 unit_noise=unit)
             if self.sim.codec is not None or self._privacy_tx is not None:
                 new = self._merge_uploads(prev, new, mask_dev)
             self.state = new
+            self.last_round_metrics = rm
             # uploads that completed within the round window (kept clients
             # plus over-selection ties); stragglers cut at the deadline never
             # finish their upload, offline clients never start one
@@ -492,3 +530,47 @@ class FedSim:
 
     def run(self, rounds: int) -> list[SimMetrics]:
         return [self.step() for _ in range(rounds)]
+
+    # -- exact rewind (the engine's termination replay) ---------------------
+
+    def snapshot(self) -> dict:
+        """A copy of everything ``restore`` needs to replay the sim exactly
+        from here: the algorithm state and EF memory (fresh tensors, so the
+        engine's in-place buffers cannot touch them), the arrival RNG, the
+        clock and round counters, the metrics, ``host_syncs``, the ledger,
+        the telemetry position, the adaptive EWMA and the accountant. It
+        stays valid across several restores."""
+        snap = {
+            "state": copy_state(self.state),
+            "H": None if self.H is None else tmap(torch.clone, self.H),
+            "rng": copy.deepcopy(self._rng.bit_generator.state),
+            "t": self.t,
+            "round_idx": self.round_idx,
+            "n_metrics": len(self.metrics),
+            "last_rm": self.last_round_metrics,
+            "host_syncs": self.host_syncs,
+            "ledger": self.ledger.checkpoint(),
+            "tel_mark": self.telemetry.mark(),
+        }
+        if self.sim.policy == "adaptive":
+            snap["ewma"] = self.deadlines.ewma.copy()
+        if self._privacy is not None:
+            snap["privacy"] = self._privacy.state_snapshot()
+        return snap
+
+    def restore(self, snap: dict) -> None:
+        """Rewind to a ``snapshot``; the snapshot stays reusable."""
+        self.state = copy_state(snap["state"])
+        self.H = None if snap["H"] is None else tmap(torch.clone, snap["H"])
+        self._rng.bit_generator.state = copy.deepcopy(snap["rng"])
+        self.t = snap["t"]
+        self.round_idx = snap["round_idx"]
+        del self.metrics[snap["n_metrics"]:]
+        self.last_round_metrics = snap["last_rm"]
+        self.host_syncs = snap["host_syncs"]
+        self.ledger.restore(snap["ledger"])
+        self.telemetry.rewind(snap["tel_mark"])
+        if self.sim.policy == "adaptive":
+            self.deadlines.ewma = snap["ewma"].copy()
+        if self._privacy is not None:
+            self._privacy.state_restore(snap["privacy"])

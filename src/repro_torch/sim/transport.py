@@ -30,6 +30,9 @@ the key would have drawn: ``dither``, one uint32 plane (carried in int32)
 per dtype group of the plan in plan order, shaped as ``dither_shapes`` says
 (None for a group that draws nothing), and ``noise``, the unit-noise tree
 of ``draw_unit_noise``. A group that needs a plane and gets None raises.
+``codec_dither`` and ``draw_unit_noise`` draw them from keys of the
+JAX-compatible stream (``repro_torch.random``) as the JAX functions do, so
+the dither is JAX's bit for bit and the noise within one ulp (log1p).
 
 Ties in the top-k select go to the lowest index, as ``lax.top_k`` breaks
 them (a stable descending sort). Where jitted XLA contracts a multiply-add
@@ -46,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch.core.treeutil import tree_leaves, tree_unflatten
 from repro_torch.kernels.quant import ops as quant_ops
 from repro_torch.kernels.quant.ref import laplace_from_u32, u32_to_unit
@@ -566,22 +570,31 @@ def _gaussian_from_u32(u32: torch.Tensor) -> torch.Tensor:
     return torch.special.ndtri(u)
 
 
-def draw_unit_noise(generator: torch.Generator, tree_like, privacy):
-    """Unit-scale DP noise tree: f32 leaves shaped like ``tree_like``, each
-    from uint32 bits drawn on the generator's device and mapped through the
-    mechanism's inverse CDF."""
+def codec_dither(key: torch.Tensor, shapes: list) -> list:
+    """The codec's dither planes for one round: ``key`` split once per plan
+    group, as ``codec_roundtrip`` splits it in JAX, and each group's
+    ``jax.random.bits`` drawn from its own key where ``shapes``
+    (``dither_shapes``) asks for a plane, the 32 bits carried in int32 as
+    the quantizer kernels take them; None elsewhere."""
+    if all(s is None for s in shapes):
+        return [None] * len(shapes)
+    keys = random.split(key, len(shapes))
+    return [None if s is None else random.bits(keys[g], s).to(torch.int32)
+            for g, s in enumerate(shapes)]
+
+
+def draw_unit_noise(pkey: torch.Tensor, tree_like, privacy):
+    """Unit-scale DP noise tree, f32 leaves shaped like ``tree_like``: JAX's
+    ``_draw_noise_leaves``, ``pkey`` split once per leaf in flatten order
+    and each leaf's bits mapped through the mechanism's inverse CDF. Drawn
+    on ``pkey``'s device."""
     to_noise = (laplace_from_u32 if privacy.mechanism == "laplace"
                 else _gaussian_from_u32)
+    leaves = tree_leaves(tree_like)
+    keys = random.split(pkey, len(leaves))
     return tree_unflatten(tree_like, [
-        to_noise(random_bits(generator, tuple(x.shape)))
-        for x in tree_leaves(tree_like)])
-
-
-def random_bits(generator: torch.Generator, shape) -> torch.Tensor:
-    """Uniform uint32 bits carried in int32, drawn on the generator's
-    device."""
-    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=generator,
-                         dtype=torch.int32, device=generator.device)
+        to_noise(random.bits(keys[i], tuple(x.shape)))
+        for i, x in enumerate(leaves)])
 
 
 # the JAX package's per-client l1 (abs(x) @ ones under jit) sums a one-leaf
@@ -608,7 +621,9 @@ def _client_l1(leaves, m: int) -> torch.Tensor:
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    # a fill on the device, not a copy from the host: a captured CUDA graph
+    # takes no host-to-device copy
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def privacy_row_params(l1: torch.Tensor, privacy):

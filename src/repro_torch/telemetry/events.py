@@ -58,6 +58,12 @@ class NullRecorder:
               client: int | None = None, **attrs) -> None:
         pass
 
+    def mark(self) -> int:
+        return 0
+
+    def rewind(self, mark: int) -> None:
+        pass
+
 
 #: the shared default recorder every FedSim starts with
 NULL_RECORDER = NullRecorder()
@@ -80,3 +86,12 @@ class EventRecorder:
             ts=float(ts), kind=kind, round_idx=int(round_idx),
             client=None if client is None else int(client),
             attrs={k: _scalar(v) for k, v in attrs.items()}))
+
+    def mark(self) -> int:
+        """Position in the event stream, for :meth:`rewind`."""
+        return len(self.events)
+
+    def rewind(self, mark: int) -> None:
+        """Truncate the stream back to ``mark``: the engine's termination
+        replay rolls an overshooting chunk back with its events."""
+        del self.events[mark:]

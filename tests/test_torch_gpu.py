@@ -235,16 +235,17 @@ def test_quant_counters_count_launches(gen):
     ["--alg", "sfedprox", "--policy", "sync", "--bits", "8"],
 ])
 def test_sim_on_card_matches_cpu(gen, extra):
-    """One seeded set of CPU draws for both sims; each round the card's sim
-    starts from the CPU sim's state."""
+    """Both sims draw their dither and noise on the CPU from the same keys
+    (``KeyedDraws`` on the CPU); each round the card's sim starts from the
+    CPU sim's state."""
     from repro_torch.checkpoint.convert import (sim_state_from_numpy,
                                                 sim_state_to_numpy)
     from repro_torch.launch.simulate import build_sim, parser
-    from repro_torch.sim.server import TorchDraws
+    from repro_torch.sim.server import KeyedDraws
     a = parser().parse_args(["--m", "16", "--d", "2000", "--k0", "4",
                              "--telemetry"] + extra)
-    cpu, _ = build_sim(a, torch.device("cpu"), draws=TorchDraws(0, 0))
-    card, _ = build_sim(a, torch.device("cuda"), draws=TorchDraws(0, 0))
+    cpu, _ = build_sim(a, torch.device("cpu"), draws=KeyedDraws(0, 0))
+    card, _ = build_sim(a, torch.device("cuda"), draws=KeyedDraws(0, 0))
     for _ in range(3):
         sim_state_from_numpy(card, sim_state_to_numpy(cpu))
         assert cpu.step() == card.step()
@@ -253,3 +254,103 @@ def test_sim_on_card_matches_cpu(gen, extra):
                 1.0, float(x.abs().max()))
     assert cpu.telemetry.events == card.telemetry.events
     assert cpu.ledger.total == card.ledger.total
+
+
+def _sims_on_card(extra, n=2):
+    from repro_torch.launch.simulate import build_sim, parser
+    a = parser().parse_args(["--m", "16", "--d", "2000", "--k0", "4",
+                             "--telemetry"] + extra)
+    return [build_sim(a, torch.device("cuda"))[0] for _ in range(n)]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--policy", "deadline", "--deadline", "0.004", "--latency", "pareto",
+     "--bits", "8"],
+    ["--alg", "sfedprox", "--policy", "sync", "--bits", "4",
+     "--error-feedback"],
+    # round 2 of 6 abandoned: the graph's select keeps the old state
+    ["--policy", "deadline", "--deadline", "0.004", "--latency", "pareto",
+     "--bits", "8", "--availability", "0.1"],
+])
+def test_engine_graph_matches_eager_on_card(gen, extra):
+    """``run_rounds`` on the card replays one captured graph per round and
+    leaves the sim as the eager loop does, bit for bit."""
+    from repro_torch.core.scan import GRAPH_STATS, reset_graph_stats
+    from repro_torch.sim import run_rounds
+    eager, scan = _sims_on_card(extra)
+    eager.run(6)
+    reset_graph_stats()
+    run_rounds(scan, 6, chunk=4)
+    assert GRAPH_STATS["replays"] == 6 and GRAPH_STATS["captures"] >= 1
+    for f in ("w_tau", "W", "Z", "key"):
+        assert torch.equal(getattr(scan.state, f), getattr(eager.state, f))
+    if eager.H is not None:
+        assert torch.equal(scan.H, eager.H)
+    assert scan.metrics == eager.metrics
+    assert scan.telemetry.events == eager.telemetry.events
+    assert scan.ledger.rounds == eager.ledger.rounds
+    assert scan.host_syncs < eager.host_syncs
+
+
+@pytest.mark.parametrize("alg", ["fedepm", "sfedprox"])
+def test_make_scan_rounds_graph_matches_eager_on_card(gen, alg):
+    """``make_scan_rounds`` on the card captures its round once and replays
+    it once per round, and ends where the eager loop of the round on the
+    same mask stream ends, bit for bit; the abandoned round carries the
+    state and key through."""
+    from repro_torch.core.scan import GRAPH_STATS, reset_graph_stats
+    m, n, k0 = 16, 14, 4
+    loss = LogisticLoss()
+    _, _, b_cpu = get_task(m, d=2000, device="cpu")
+    batches = {k: v.cuda() for k, v in b_cpu.items()}
+    masks = torch.zeros((5, m), dtype=torch.bool)
+    masks[:, ::2] = True
+    masks[3] = False
+    abandoned = torch.tensor([False, False, False, True, False])
+    key = random.PRNGKey(3, device="cuda")
+    if alg == "fedepm":
+        cfg = fedepm.FedEPMConfig.paper_defaults(m=m, rho=0.5, k0=k0,
+                                                 eps_dp=0.1)
+        s0 = fedepm.init_state(key, torch.zeros(n, device="cuda"), cfg)
+        step = fedepm.fedepm_round
+        run = fedepm.make_scan_rounds(batches, loss, cfg)
+    else:
+        cfg = baselines.BaselineConfig(m=m, k0=k0, rho=0.5, eps_dp=0.1)
+        s0 = baselines.init_state(key, torch.zeros(n, device="cuda"), cfg)
+        step = baselines.ROUNDS[alg]
+        run = baselines.make_scan_rounds(batches, loss, cfg, step)
+    ref = s0
+    for t in range(5):
+        if not abandoned[t]:
+            ref, _ = step(ref, batches, loss, cfg, mask=masks[t].cuda())
+    reset_graph_stats()
+    out, _ = run(s0, masks, abandoned)
+    out2, _ = run(s0, masks, abandoned)  # replays the captured graph
+    assert GRAPH_STATS["captures"] == 1 and GRAPH_STATS["replays"] == 10
+    for name in ("w_tau", "W", "Z", "key"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        assert torch.equal(getattr(out2, name), getattr(ref, name)), name
+    assert out.k == ref.k == 4 * k0
+
+
+def test_engine_capture_refuses_a_host_sync(gen, monkeypatch):
+    """A host sync inside the round body makes the capture raise; the
+    engine neither replays nor runs the round eagerly instead."""
+    from repro_torch.core import dp
+    from repro_torch.core.scan import GRAPH_STATS
+    from repro_torch.sim import run_rounds
+    real = dp.sensitivity_surrogate
+
+    def syncing(g, per_client=False):
+        out = real(g, per_client)
+        float(out.sum())  # waits for the card: not allowed under capture
+        return out
+
+    monkeypatch.setattr(dp, "sensitivity_surrogate", syncing)
+    (sim,) = _sims_on_card(["--policy", "sync", "--seed", "5"], n=1)
+    replays = GRAPH_STATS["replays"]
+    with pytest.raises(RuntimeError):
+        run_rounds(sim, 2)
+    assert GRAPH_STATS["replays"] == replays
+    assert sim.round_idx == 0 and not sim.metrics
+    assert sim.telemetry.events == []

@@ -37,7 +37,8 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "profile_sim_path", "check_card_vs_cpu",
              "check_sim_card_vs_cpu", "reset_counts", "read_counts",
              "check_threefry_kernel", "check_jax_random_table",
-             "run_paper_twins", "profile_baselines"):
+             "run_paper_twins", "profile_baselines", "run_engine_path",
+             "profile_engine_path"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
@@ -47,7 +48,9 @@ for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.kernels.quant.quant", "repro_torch.random",
             "repro_torch.kernels.threefry.threefry",
             "repro_torch.core.baselines", "repro_torch.core.penalty",
-            "repro_torch.benchmarks.run", "repro_torch.benchmarks.fig4_rho"):
+            "repro_torch.benchmarks.run", "repro_torch.benchmarks.fig4_rho",
+            "repro_torch.sim.engine", "repro_torch.core.scan",
+            "repro_torch.benchmarks.bench_engine"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"

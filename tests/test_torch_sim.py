@@ -134,7 +134,7 @@ def _algorithm(alg, eps_dp):
 
 
 def _pair(task, *, policy, codec="off", privacy="none", eps_dp=0.1,
-          latency="pareto", alg="fedepm", **sim_kw):
+          latency="pareto", alg="fedepm", replay=True, **sim_kw):
     jb, tb = task
     jcfg, jstate, tcfg, tstate = _algorithm(alg, eps_dp)
     common = dict(policy=policy, latency=latency, seed=1, **sim_kw)
@@ -154,7 +154,8 @@ def _pair(task, *, policy, codec="off", privacy="none", eps_dp=0.1,
                               privacy=_privacy(privacy, TPrivacyConfig),
                               **common),
         telemetry=TRecorder(), draws=None)
-    tsim._draws = JaxReplayDraws(jsim)
+    if replay:
+        tsim._draws = JaxReplayDraws(jsim)
     return jsim, tsim
 
 
@@ -253,6 +254,45 @@ def test_privacy_matches_jax(task, policy, codec, privacy):
     jsim, tsim = _pair(task, policy=policy, codec=codec, privacy=privacy,
                        eps_dp=0.0, **kw)
     _run_pair(jsim, tsim, 4)
+
+
+# --- the port's own keyed draws are the JAX sim's ---
+
+@pytest.mark.parametrize("policy,codec,privacy", [
+    ("overselect", "dense8", "dp"),             # fused private dither
+    ("adaptive", "topk_ef", "dp_clip_sa"),      # sequential noise, EF
+    ("deadline", "dense8", "none"),             # codec dither alone
+])
+def test_default_draws_match_jax_without_replay(task, policy, codec,
+                                                privacy):
+    """With its default ``KeyedDraws`` and nothing replayed, the port's sim
+    draws what a live JAX ``FedSim`` seeded alike draws: each round's codec
+    dither bit for bit, its privacy unit noise within one ulp (log1p), and
+    the run's masks, ledger, events and accountant exactly."""
+    kw = {"deadline": 0.004} if policy == "deadline" else {}
+    jsim, tsim = _pair(task, policy=policy, codec=codec, privacy=privacy,
+                       eps_dp=0.0, replay=False, **kw)
+    replay = JaxReplayDraws(jsim)
+    for _ in range(4):
+        # the round's draws, then the round itself (``_run_pair`` anchors
+        # the port on the JAX state, steps both and compares)
+        sim_state_from_numpy(tsim, _jax_sim_state(jsim))
+        shapes = ttr.dither_shapes(tsim.state.Z, tsim.sim.codec,
+                                   fused_private=tsim._fused_private)
+        for got, want in zip(tsim._draws.dither(tsim, shapes),
+                             replay.dither(tsim, shapes)):
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert torch.equal(got, want)
+        if tsim._privacy_tx is not None:
+            got = tsim._draws.privacy_noise(tsim, tsim.state.Z)
+            want = to_np(replay.privacy_noise(tsim, tsim.state.Z))
+            ulp = np.spacing(np.abs(want).astype(np.float32))
+            assert np.max(np.abs(to_np(got) - want) / ulp) <= 1
+        np.testing.assert_array_equal(tsim._draws.candidates(tsim),
+                                      replay.candidates(tsim))
+        _run_pair(jsim, tsim, 1)
+    assert tsim.round_idx == jsim.round_idx == 4
 
 
 # --- what is not ported is refused, never ignored ---

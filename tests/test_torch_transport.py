@@ -21,6 +21,7 @@ import torch
 from _torch_helpers import assert_bitwise, to_np, to_torch
 from repro.privacy import PrivacyConfig as JPrivacy
 from repro.sim import transport as jtr
+from repro_torch import random as trandom
 from repro_torch.core.treeutil import tree_leaves
 from repro_torch.privacy import PrivacyConfig as TPrivacy
 from repro_torch.sim import transport as ttr
@@ -309,8 +310,8 @@ def test_gaussian_transform_within_8_ulp():
 @pytest.mark.parametrize("mechanism", ["laplace", "gaussian"])
 def test_draw_unit_noise_shapes_and_law(mechanism):
     _, tt = _tree(17)
-    gen = torch.Generator().manual_seed(0)
-    noise = ttr.draw_unit_noise(gen, {"w": torch.zeros(200, 100)},
+    key = trandom.PRNGKey(0)
+    noise = ttr.draw_unit_noise(key, {"w": torch.zeros(200, 100)},
                                 TPrivacy(eps=1.0, mechanism=mechanism))
     x = noise["w"]
     assert x.dtype == torch.float32 and torch.isfinite(x).all()
@@ -318,6 +319,48 @@ def test_draw_unit_noise_shapes_and_law(mechanism):
     # unit Laplace has variance 2, the unit Gaussian 1
     want_var = 2.0 if mechanism == "laplace" else 1.0
     assert abs(float(x.var()) - want_var) < 0.1 * want_var
-    tree = ttr.draw_unit_noise(gen, tt, TPrivacy(eps=1.0))
+    tree = ttr.draw_unit_noise(key, tt, TPrivacy(eps=1.0))
     assert [tuple(v.shape) for v in tree_leaves(tree)] == \
         [tuple(v.shape) for v in tree_leaves(tt)]
+
+
+# the Laplace map's log1p and the Gaussian's ndtri are other libraries'
+# than XLA's: within 1 and 8 ulp (test_gaussian_transform_within_8_ulp)
+NOISE_ULPS = {"laplace": 1, "gaussian": 8}
+
+
+@pytest.mark.parametrize("mechanism", ["laplace", "gaussian"])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_draw_unit_noise_is_jax_draw(mechanism, seed):
+    """The port's keyed draw is JAX's ``draw_unit_noise`` from the same
+    key: the key split once per leaf, each leaf's bits mapped through the
+    inverse CDF."""
+    jt, tt = _tree(18)
+    jp = JPrivacy(eps=1.0, mechanism=mechanism)
+    want = jtr.draw_unit_noise(jax.random.PRNGKey(seed), jt, jp)
+    got = ttr.draw_unit_noise(trandom.PRNGKey(seed), tt,
+                              TPrivacy(eps=1.0, mechanism=mechanism))
+    for g, w in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        w = to_np(w)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        ulp = np.spacing(np.abs(w).astype(np.float32))
+        assert np.max(np.abs(g.numpy() - w) / ulp,
+                      initial=0.0) <= NOISE_ULPS[mechanism]
+
+
+@pytest.mark.parametrize("codec", ["dense8", "topk8", "dense8_det"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_codec_dither_is_jax_bits(codec, fused):
+    """``codec_dither`` draws the planes JAX's round-trip draws from the
+    same key, bit for bit: one split per plan group, ``bits`` per group."""
+    jt, tt = _tree(19)
+    _, tc = _codecs(codec)
+    key = jax.random.PRNGKey(21)
+    want = _dither(key, tt, tc, fused)
+    got = ttr.codec_dither(trandom.PRNGKey(21),
+                           ttr.dither_shapes(tt, tc, fused_private=fused))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == torch.int32 and torch.equal(g, w)
