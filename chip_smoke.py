@@ -9,13 +9,23 @@ Phases, in order; any failure exits non-zero before the last line:
    off for matmul and cuDNN.
 2. build: every kernel in ``src/repro_torch/kernels/csrc`` with nvcc for
    sm_90a, one nvcc per source, all at once.
-3. kernels: each kernel's wrapper against its plain PyTorch version on the
+3. profiles, first, in a process that has run nothing else (run after the
+   main paths, profiler sessions lost device records): the clocked engine
+   in all five simulator configurations below and the async engine in
+   configuration (f), 10 rounds or events in one chunk each, their
+   graph-launched and outside-graph kernels held exactly to the graphs'
+   counts and the counters; then the paper path, SFedAvg and SFedProx at
+   m = 128 and simulator configuration (a), cut to 10 rounds. Each gives
+   the device's busy time and idle share under ``torch.profiler``.
+4. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main path's shape, edge shapes and a full smollm-135m
    embedding leaf (49152 x 576); bitwise expected. Times by CUDA events.
    ENS also runs tie-heavy inputs, lam = 0, eta = 1e-9, a negative lam/eta
-   and m = 100 and 128 in both launch layouts, and is timed by the
-   profiler's device time beside ``torch.median`` at the main path's shape
-   and the wide leaves. The four quantizer entries run at every bit width
+   and m = 100 and 128 in both launch layouts, m = 129, 200, 256 and 1000
+   at n = 14 and 1,048,576 in the block layout, and is timed by the
+   profiler's device time beside ``torch.median`` at the main path's shape,
+   at the ``--m 200`` path's (200, 14) and the wide leaves. The four
+   quantizer entries run at every bit width
    (2, 4, 8, 16), with and without dither, with an all-zero row and a row
    with no live column. The threefry hash (``csrc/threefry.cu``) against its
    plain version, bitwise, in all three modes at one key x 3 and x 128
@@ -23,7 +33,7 @@ Phases, in order; any failure exits non-zero before the last line:
    ``repro_torch.random`` on the card against a table of JAX's own answers
    (``PRNGKey``, ``split``, ``fold_in``, ``bits``, ``uniform``,
    ``permutation``) computed with jax 0.9.0 and committed below.
-4. main paths, each with every launch counter set to 0 just before it and
+5. main paths, each with every launch counter set to 0 just before it and
    read just after: ``run_fedepm`` (FedEPM, Algorithm 2) on the paper's
    task at m = 128, d = 45222 to the paper's stopping rule; then the
    simulator, ``launch/simulate.py``'s ``run_sim`` at the same size in four
@@ -34,15 +44,18 @@ Phases, in order; any failure exits non-zero before the last line:
    policy with the 8-bit codec; then the clocked engine, ``run_rounds``,
    in the same five configurations in chunks of 8 and in one chunk, each
    round a replay of one captured CUDA graph, held bit for bit to the
-   eager sim on the card; then the paper's baselines: the Fig. 2
+   eager sim on the card; then the async policy at m = 128, d = 45222,
+   40 aggregation events in three configurations ((f) FedEPM, 8-bit codec;
+   (g) FedEPM, 4-bit error feedback with DP uploads; (h) SFedAvg), eager
+   against the record/replay engine (fires and merges replayed as CUDA
+   graphs) in chunks of 8 and in one chunk, bit for bit; then the paper
+   path at m = 200 (the ENS block layout) beside the port's CPU run of the
+   same seed; then the five Fig. 4 trials whose CR is more than a round
+   from JAX's on the CPU, their card CR printed beside JAX's and the port
+   CPU run's; then the paper's baselines: the Fig. 2
    twin (all three algorithms at m = 50, d = 45222, 120 rounds) and the
-   Table I twin (LCT at k0 in {4, 8, 12, 16, 20}). The paper path, SFedAvg
-   and SFedProx at m = 128, simulator configuration (a) and the engine in
-   configuration (a) are then profiled, cut to 10 rounds, under
-   ``torch.profiler`` for the device's busy time and idle share; the
-   engine's graph-launched kernels are held to its graph's launch
-   counts.
-5. card against CPU: 5 rounds at m = 50 of the paper round, of two
+   Table I twin (LCT at k0 in {4, 8, 12, 16, 20}).
+6. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
    the same key (masks bitwise).
 
@@ -163,6 +176,7 @@ def _prox_case(m, n, dtype, gen, reps):
 # half-integers and makes every other column sum to exactly 0, so its mean
 # is 0 and client values equal candidates; "eta_to_0" sends the candidates
 # towards +-inf (eq. (5)); "negative_ratio" gives descending offsets
+ENS_BLOCK_M = (129, 200, 256, 1000)  # the block layout's clients
 ENS_KINDS = {"random": (0.3, 0.9, False), "ties": (0.5, 1.0, True),
              "lam0": (0.0, 0.9, False), "eta_to_0": (0.3, 1e-9, False),
              "negative_ratio": (0.3, -0.9, False)}
@@ -281,9 +295,18 @@ def check_kernels(card: str) -> list[dict]:
     ens_plan += [(8, SMOLLM_LEAF, f32, 3, "random", True),
                  (8, SMOLLM_LEAF, bf16, 3, "random", True),
                  (128, 1 << 20, f32, 3, "random", True)]
+    # the block layout (m > 128): the --m 200 path's shape, then every
+    # m at both widths in both dtypes, random and tie-heavy
+    ens_plan += [(200, 14, f32, 50, "random", True)]
+    ens_plan += [(m, n, dt, 0, kind, False) for m in ENS_BLOCK_M
+                 for n in (14, 1 << 20) for dt in (f32, bf16)
+                 for kind in ("random", "ties")]
+    ens_plan += [(1000, 1 << 20, f32, 3, "random", True)]
     ens_cases = []
     for m, n, dt, reps, kind, profiled in ens_plan:
         ens_cases.append(_ens_case(m, n, dt, gen, reps, kind, profiled))
+        if m * n >= 1 << 27:  # hand the plain version's sort buffers back
+            torch.cuda.empty_cache()
         c = ens_cases[-1]
         if "device_ms" in c:
             log(f"  ens {c['shape']} {c['dtype']}: mismatches "
@@ -296,11 +319,21 @@ def check_kernels(card: str) -> list[dict]:
     log(f"kernels: {len(prox_cases)} prox and {len(ens_cases)} ENS shapes "
         f"agree with their plain versions ({card}); prox has no single "
         f"PyTorch call computing eq. (20), so its library_ms is null")
+    ens_row = _summary("ens", "src/repro_torch/kernels/csrc/ens.cu",
+                       "src/repro/kernels/ens/ens.py:54", ens_cases)
+    block = [c for c in ens_cases if c["shape"][0] > 128]
+    ens_row["block_layout"] = {
+        "shapes_checked": len(block),
+        "mismatches": sum(c["mismatches"] for c in block),
+        "timed": {f"{c['shape'][0]}x{c['shape'][1]}": {
+            k: c[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "library_device_ms")}
+            for c in block if "device_ms" in c}}
+    log("  ens block layout " + json.dumps(ens_row["block_layout"]))
     return [
         _summary("prox_update", "src/repro_torch/kernels/csrc/prox.cu",
                  "src/repro/kernels/prox/prox.py:26", prox_cases),
-        _summary("ens", "src/repro_torch/kernels/csrc/ens.cu",
-                 "src/repro/kernels/ens/ens.py:54", ens_cases),
+        ens_row,
     ]
 
 
@@ -646,6 +679,33 @@ JAX_TRIALS = {
                       "f": 0.6926033782958985},
 }
 CR_SLACK, F_ATOL = 1, 1e-5
+
+# Trials of the Fig. 4 grid (m = 50, k0 = 12, eps = 0.1, d = 45222) whose
+# CR is more than one round from JAX's on the CPU: the JAX CPU run
+# (``benchmarks.common.run_algorithm``, jax 0.9.0) and the port's CPU run
+# (``repro_torch.launch.paper.run_algorithm(..., device="cpu")``). The
+# port's loss rounds otherwise than XLA:CPU's (its exp, log1p and the
+# per-client sum), and the stopping rule's variance test turns on ulps of
+# f; tests/test_torch_bench.py recomputes both columns live. The card's
+# CRs are printed beside them, not held to them.
+QUEUE3_TRIALS = {
+    "fedepm/rho=1.0/seed=2": {"alg": "fedepm", "rho": 1.0, "seed": 2,
+                              "jax": (101, 0.6923197937011719),
+                              "port_cpu": (86, 0.6923307800292968)},
+    "sfedavg/rho=0.2/seed=2": {"alg": "sfedavg", "rho": 0.2, "seed": 2,
+                               "jax": (50, 0.6930828857421875),
+                               "port_cpu": (52, 0.6930825805664063)},
+    "sfedavg/rho=1.0/seed=2": {"alg": "sfedavg", "rho": 1.0, "seed": 2,
+                               "jax": (175, 0.6926597595214844),
+                               "port_cpu": (179, 0.692655258178711)},
+    "sfedprox/rho=0.6/seed=0": {"alg": "sfedprox", "rho": 0.6, "seed": 0,
+                                "jax": (162, 0.6924942016601563),
+                                "port_cpu": (164, 0.6924919891357422)},
+    "sfedprox/rho=0.6/seed=2": {"alg": "sfedprox", "rho": 0.6, "seed": 2,
+                                "jax": (163, 0.6924992370605468),
+                                "port_cpu": (158, 0.6925050354003907)},
+}
+QUEUE3_SETTINGS = {"m": 50, "k0": 12, "eps": 0.1, "d": 45222}
 
 
 def check_against_jax(trial: str, cr: int, f: float) -> None:
@@ -1007,6 +1067,308 @@ def run_engine_path() -> dict:
     return out
 
 
+# the async policy at the paper task's full width (SIM_COMMON): a pareto
+# fleet at availability 0.9, aggregation every 16 uploads with at most 48
+# clients in flight (the cohort is 64), and the quantizer entry each
+# configuration's merges run; (g)'s DP uploads at eps 10 as (c)'s
+ASYNC_COMMON = ["--aggregation", "async", "--latency", "pareto",
+                "--availability", "0.9", "--buffer-size", "16",
+                "--max-concurrency", "48"]
+ASYNC_CONFIGS = {
+    "f": (["--bits", "8"], "quantize_cols"),
+    "g": (["--bits", "4", "--error-feedback", "--dp-eps", "10"],
+          "ef_accumulate"),
+    "h": (["--alg", "sfedavg"], None),
+}
+ASYNC_EVENTS = 40
+
+
+def _async_work(sim, snap) -> tuple[int, int]:
+    """(fires, merges) since ``snap``: each fire advances k by k0, each
+    merge is one aggregated upload."""
+    fires = (sim.state.k - snap["state"].k) // sim.cfg.k0
+    merges = sum(mm.n_aggregated for mm in sim.metrics[snap["n_metrics"]:])
+    return fires, merges
+
+
+def _async_want(a, kernel, fires: int, merges: int) -> dict:
+    """Launches of the port's ENS, prox and quantizer entries for this much
+    work: ENS once and prox k0 times per FedEPM fire, the configuration's
+    quantizer entry once per merge."""
+    want = {k: 0 for k in QUANT}
+    want.update(ens=0, prox_update=0)
+    if a.alg == "fedepm":
+        want.update(ens=fires, prox_update=a.k0 * fires)
+    if kernel is not None:
+        want[kernel] = merges
+    return want
+
+
+def run_async_path() -> dict:
+    """The async policy in configurations (f)-(h): an eager ``FedSim`` on
+    the card for ``ASYNC_EVENTS`` aggregation events, then ``run_rounds``
+    from the same seed in chunks of 8 and in one chunk, each layout run
+    twice from one snapshot (capture, then timed) and held bit for bit to
+    the eager sim: state, key, EF memory, the payload table's rows in
+    flight, metrics, ledger, events and accountant. The counters are set
+    to 0 before the eager run and read after the last engine run; in each
+    timed run, which captures nothing, every ENS, prox and quantizer launch
+    is a graph replay's, and they number the eager run's work: ENS and k0
+    prox per FedEPM fire, one quantizer launch per merge."""
+    from repro_torch.core.scan import GRAPH_STATS
+    from repro_torch.core import fedepm as tfedepm
+    from repro_torch.launch.simulate import build_sim, parser
+    from repro_torch.sim import run_rounds
+    out = {}
+    R = ASYNC_EVENTS
+    for key, (extra, kernel) in ASYNC_CONFIGS.items():
+        a = parser().parse_args(SIM_COMMON + ASYNC_COMMON + extra
+                                + ["--telemetry"])
+        eager, task = build_sim(a, torch.device("cuda"))
+        scan, _ = build_sim(a, torch.device("cuda"))
+        snap = scan.snapshot()
+        reset_counts()
+        t0 = time.perf_counter()
+        eager.run(R)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / R * 1e3
+        fires, merges = _async_work(eager, snap)
+        f_final = float(tfedepm.global_objective(
+            task["loss"], eager.state.w_tau, task["batches"])) / a.m
+        assert np.isfinite(f_final) and f_final < np.log(2.0), (key, f_final)
+        res = {"args": " ".join(ASYNC_COMMON + extra), "alg": a.alg,
+               "kernel": kernel, "events": R, "fires": fires,
+               "merges": merges, "f_final": f_final,
+               "staleness_mean": float(np.mean(
+                   [mm.staleness_mean for mm in eager.metrics])),
+               "staleness_max": max(mm.staleness_max
+                                    for mm in eager.metrics),
+               "eager_wall_ms_per_event": eager_ms,
+               "eager_host_syncs_per_event": eager.host_syncs / R}
+        for chunk in ENGINE_CHUNKS:
+            name = f"chunk{chunk or R}"
+            scan.restore(snap)
+            t0 = time.perf_counter()
+            run_rounds(scan, R, chunk=chunk)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            _async_sims_equal(eager, scan)
+            scan.restore(snap)
+            syncs0 = scan.host_syncs
+            before = read_counts()
+            graph0 = dict(GRAPH_STATS["kernel_launches"])
+            replays0, captures0 = GRAPH_STATS["replays"], \
+                GRAPH_STATS["captures"]
+            t0 = time.perf_counter()
+            run_rounds(scan, R, chunk=chunk)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            _async_sims_equal(eager, scan)
+            after = read_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            in_graph = {k: GRAPH_STATS["kernel_launches"][k] - graph0[k]
+                        for k in after}
+            assert GRAPH_STATS["captures"] == captures0, (key, name)
+            assert GRAPH_STATS["replays"] - replays0 == fires + merges
+            want = _async_want(a, kernel, fires, merges)
+            for k, v in want.items():
+                assert delta[k] == in_graph[k] == v, (key, name, k, delta[k],
+                                                     in_graph[k], v)
+            res[name] = {
+                "wall_ms_per_event": warm / R * 1e3,
+                "first_run_ms_per_event": cold / R * 1e3,
+                "host_syncs_per_event": (scan.host_syncs - syncs0) / R,
+                "graph_replays": GRAPH_STATS["replays"] - replays0,
+                "port_launches_in_graphs": {k: v for k, v in
+                                            in_graph.items() if v},
+                "port_launches_outside_graphs": {
+                    k: delta[k] - in_graph[k] for k in delta
+                    if delta[k] != in_graph[k]}}
+        res["launches"] = read_counts()
+        out[key] = res
+        log(f"async[{key}] " + json.dumps(res))
+    return out
+
+
+def _async_sims_equal(eager, scan) -> None:
+    """``_sims_equal`` and the async event loop's own state: the heap's
+    order, the stalled FIFO and the counters; each upload still in flight
+    holds the eager run's rows bit for bit."""
+    from repro_torch.sim.server import _EV_UPLOAD
+    _sims_equal(eager, scan)
+    assert (scan._version, scan._serial, scan._eseq, scan._n_inflight,
+            list(scan._stalled)) == (eager._version, eager._serial,
+                                     eager._eseq, eager._n_inflight,
+                                     list(eager._stalled))
+    assert len(scan._events) == len(eager._events)
+    for (t, q, kind, p), (et, eq, ekind, ep) in zip(scan._events,
+                                                     eager._events):
+        assert (t, q, kind) == (et, eq, ekind)
+        if kind == _EV_UPLOAD:
+            assert (p.client, p.version, p.serial) == \
+                (ep.client, ep.version, ep.serial)
+            for mine, theirs in ((p.z_batch, ep.z_batch),
+                                 (p.w_batch, ep.w_batch)):
+                assert torch.equal(mine[p.row], theirs[ep.row])
+
+
+class ProfilerShortfall(AssertionError):
+    """The profiler saw fewer launches of a port kernel than its counters
+    and the graphs' counts say ran, and none more: CUPTI lost device
+    records (seen when the profiles ran after the main paths, never when
+    they ran first)."""
+
+
+def _hold_profile_to_counts(by_name, in_graphs, counts, graph, tag, trace):
+    """Each port kernel's launches the profiler saw started by
+    ``cudaGraphLaunch`` and outside the graphs, against the graphs' counts
+    and the counters; exact, else ``ProfilerShortfall`` when the profiler
+    only saw fewer, else an AssertionError."""
+    seen = {}
+    for kernel, counters in DEVICE_KERNELS.items():
+        in_graph = sum(c for name, c in in_graphs.items() if kernel in name)
+        outside = _launches_in(by_name, kernel) - in_graph
+        want_graph = sum(graph[c] for c in counters)
+        want_outside = sum(counts[c] for c in counters) - want_graph
+        seen[kernel] = {"graph": (in_graph, want_graph),
+                        "outside": (outside, want_outside)}
+        if (in_graph, outside) == (want_graph, want_outside):
+            continue
+        err = ProfilerShortfall if (in_graph <= want_graph
+                                    and outside <= want_outside) \
+            else AssertionError
+        raise err(tag, kernel, seen[kernel], trace(kernel))
+    return seen
+
+
+def _profiled(fn, *args, attempts: int = 3) -> dict:
+    """``fn(*args)``, run again (up to ``attempts`` runs) only when the
+    profiler lost device records; every run is held exactly, and the
+    lost-record runs are kept in the result."""
+    lost = []
+    for _ in range(attempts):
+        try:
+            out = fn(*args)
+        except ProfilerShortfall as e:
+            log(f"profiler lost device records, running again: {e.args[:3]}")
+            lost.append([str(a)[:200] for a in e.args[:3]])
+            continue
+        out["profiler_lost_records_runs"] = lost
+        return out
+    raise AssertionError(f"profiler lost device records in all {attempts} "
+                         f"runs: {lost}")
+
+
+def profile_async_path(rounds: int = 10) -> dict:
+    """Profile ``rounds`` aggregation events of async configuration (f)
+    through the engine, one chunk, after a first run from the same
+    snapshot captured the graphs, and read the device inside the span as
+    ``profile_engine_path`` does: each port kernel the profiler saw started
+    by ``cudaGraphLaunch`` numbers exactly the launches the graphs' counts
+    add over the replays, and each one started outside the graphs exactly
+    what the counters saw outside them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.scan import GRAPH_STATS
+    from repro_torch.launch.simulate import build_sim, parser
+    from repro_torch.sim import run_rounds
+    a = parser().parse_args(SIM_COMMON + ASYNC_COMMON + ASYNC_CONFIGS["f"][0])
+    sim, _ = build_sim(a, torch.device("cuda"))
+    snap = sim.snapshot()
+    run_rounds(sim, rounds)
+    sim.restore(snap)
+    torch.cuda.synchronize()
+    reset_counts()
+    span = "async_engine.events"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        with record_function(span):
+            t0 = time.perf_counter()
+            run_rounds(sim, rounds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    counts = read_counts()
+    graph = GRAPH_STATS["kernel_launches"]
+    fires, merges = _async_work(sim, snap)
+    assert GRAPH_STATS["replays"] == fires + merges
+    assert not GRAPH_STATS["captures"]
+    by_name, out = _profile_window(prof, span, rounds)
+    in_graphs = out["in_graphs"]
+    seen = _hold_profile_to_counts(
+        by_name, in_graphs, counts, graph, "f",
+        lambda kernel: _kernel_trace(prof, span, kernel))
+    want = _async_want(a, ASYNC_CONFIGS["f"][1], fires, merges)
+    for k, v in want.items():
+        assert graph[k] == v, (k, graph[k], v)
+    out.update(config="f", events=rounds, fires=fires, merges=merges,
+               port_launches=seen,
+               timed_wall_ms_per_event=wall / rounds * 1e3,
+               host_syncs_per_event=(
+                   sim.host_syncs - snap["host_syncs"]) / rounds,
+               device_ops_per_event_outside_graphs=(
+                   out["device_ops_per_round"]
+                   - out["graph_ops_per_round"]))
+    out["in_graphs"] = {k: v / rounds for k, v in in_graphs.items()}
+    log("profile_async[f] " + json.dumps(out))
+    return out
+
+
+# the port's CPU run of the m = 200 paper path (``python -m
+# repro_torch.launch.paper --alg fedepm --m 200 --device cpu``, seed 0,
+# d = 45222): the card's run of the same seed is printed beside it and
+# held to it within CR_SLACK rounds and F_ATOL, the port's CPU/card limits
+PORT_CPU_M200 = {"CR": 163, "f": 0.6923181915283203}
+
+
+def run_paper_m200() -> dict:
+    """The paper path at m = 200, where ENS runs its block layout: ENS once
+    and prox k0 times per round (the warm-up included) and per LCT call."""
+    from repro_torch.launch.paper import run_fedepm
+    k0 = 12
+    reset_counts()
+    res = run_fedepm(m=200, k0=k0, rho=0.5, eps=0.1, seed=0, max_rounds=400,
+                     d=45222, device="cuda")
+    launches = read_counts()
+    out = {k: res[k] for k in ("f", "CR", "TCT", "acc", "LCT_calls")}
+    out.update(m=200, cpu=PORT_CPU_M200, launches=launches)
+    log(f"paper_m200: card CR {res['CR']} f/m {res['f']} | port CPU CR "
+        f"{PORT_CPU_M200['CR']} f/m {PORT_CPU_M200['f']}")
+    assert res["f"] < 0.6925 and res["acc"] > 0.70, res
+    assert abs(res["CR"] - PORT_CPU_M200["CR"]) <= CR_SLACK and \
+        abs(res["f"] - PORT_CPU_M200["f"]) <= F_ATOL, (res, PORT_CPU_M200)
+    assert launches["ens"] == res["CR"] + 1, launches
+    assert launches["prox_update"] == \
+        (res["CR"] + 1 + res["LCT_calls"]) * k0, launches
+    return out
+
+
+def run_queue3_trials() -> dict:
+    """The five Fig. 4 trials of ``QUEUE3_TRIALS`` on the card, each a path
+    of its own (counters set to 0 before, read after: ENS once and prox k0
+    times per FedEPM round and LCT call, six threefry launches per round);
+    their CR and f/m printed beside JAX's and the port CPU run's."""
+    from repro_torch.launch.paper import run_algorithm
+    k0 = QUEUE3_SETTINGS["k0"]
+    out = {}
+    for name, t in QUEUE3_TRIALS.items():
+        reset_counts()
+        res = run_algorithm(t["alg"], rho=t["rho"], seed=t["seed"],
+                            device="cuda", **QUEUE3_SETTINGS)
+        launches = read_counts()
+        cr, f = res["CR"], res["f"]
+        assert np.isfinite(f) and f < np.log(2.0), (name, f)
+        fedepm_run = t["alg"] == "fedepm"
+        assert launches["ens"] == (cr + 1) * fedepm_run, (name, launches)
+        assert launches["prox_update"] == \
+            (cr + 1 + res["LCT_calls"]) * k0 * fedepm_run, (name, launches)
+        assert launches["threefry"] == 6 * (cr + 1), (name, launches)
+        out[name] = {"card": (cr, f), "jax": t["jax"],
+                     "port_cpu": t["port_cpu"], "launches": launches}
+        log(f"queue3 {name}: card CR {cr} f/m {f} | JAX {t['jax']} | "
+            f"port CPU {t['port_cpu']}")
+    return out
+
+
 # a port kernel's name on the device -> the counters of its wrappers (the
 # four quantizer entries launch one templated kernel)
 DEVICE_KERNELS = {"ens_kernel": ("ens",), "prox_kernel": ("prox_update",),
@@ -1049,16 +1411,10 @@ def profile_engine_path(key: str, rounds: int = 10) -> dict:
     assert GRAPH_STATS["replays"] == rounds and not GRAPH_STATS["captures"]
     by_name, out = _profile_window(prof, span, rounds)
     in_graphs = out["in_graphs"]
-    seen = {}  # kernel -> {graph|outside: (profiler, counters)}
-    for kernel, counters in DEVICE_KERNELS.items():
-        in_graph = sum(c for name, c in in_graphs.items() if kernel in name)
-        outside = _launches_in(by_name, kernel) - in_graph
-        want_graph = sum(graph[c] for c in counters)
-        want_outside = sum(counts[c] for c in counters) - want_graph
-        seen[kernel] = {"graph": (in_graph, want_graph),
-                        "outside": (outside, want_outside)}
-        assert (in_graph, outside) == (want_graph, want_outside), (
-            key, kernel, seen[kernel], _kernel_trace(prof, span, kernel))
+    # kernel -> {graph|outside: (profiler, counters)}
+    seen = _hold_profile_to_counts(
+        by_name, in_graphs, counts, graph, key,
+        lambda kernel: _kernel_trace(prof, span, kernel))
     kernel = SIM_CONFIGS[key][1]
     assert graph[kernel] == rounds, (key, kernel, graph[kernel])
     if a.alg == "fedepm":
@@ -1284,6 +1640,21 @@ def main() -> int:
     phases = {}
     t = time.perf_counter()
     phases["build"] = build_kernels()
+    phases["build_s"] = time.perf_counter() - t
+    # the profiles run first, in a process that has run nothing else: in
+    # runs where they came after the main paths, sessions lost device
+    # records of outside-graph launches (4 to 5 in a row), the same ones
+    # in every retry; run first, none ever did
+    t = time.perf_counter()
+    profiles = {
+        "profile_engine_path": {key: _profiled(profile_engine_path, key)
+                                for key in SIM_CONFIGS},
+        "profile_async_path": _profiled(profile_async_path),
+        "profile_main_path": profile_main_path(),
+        "profile_baselines": profile_baselines(),
+        "profile_sim_path": profile_sim_path()}
+    phases["profiles_s"] = time.perf_counter() - t
+    t = time.perf_counter()
     kernels = (check_kernels(card) + check_quant_kernels(card)
                + check_threefry_kernel(card))
     jax_table = check_jax_random_table()
@@ -1292,12 +1663,20 @@ def main() -> int:
     record = {"card": card, "jax_random_table": jax_table,
               "main_path": run_main_path(), "sim_path": run_sim_path(),
               "engine_path": run_engine_path(),
+              "async_path": run_async_path(),
+              "paper_m200": run_paper_m200(),
+              "queue3_trials": run_queue3_trials(),
               "paper_twins": run_paper_twins()}
     paths = {"run_fedepm": record["main_path"]["launches"]}
     paths.update({f"simulate.{key}": res["launches"]
                   for key, res in record["sim_path"].items()})
     paths.update({f"engine.{key}": res["launches"]
                   for key, res in record["engine_path"].items()})
+    paths.update({f"async.{key}": res["launches"]
+                  for key, res in record["async_path"].items()})
+    paths["run_fedepm.m200"] = record["paper_m200"]["launches"]
+    paths.update({f"queue3.{key}": res["launches"]
+                  for key, res in record["queue3_trials"].items()})
     paths.update({f"twin.{key}": res["launches"]
                   for key, res in record["paper_twins"].items()})
     for k in kernels:
@@ -1306,14 +1685,10 @@ def main() -> int:
         k["card"] = card
     phases["main_paths_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    record["profile_main_path"] = profile_main_path()
-    record["profile_baselines"] = profile_baselines()
-    record["profile_sim_path"] = profile_sim_path()
-    record["profile_engine_path"] = {
-        key: profile_engine_path(key) for key in SIM_CONFIGS}
+    record.update(profiles)
     record["card_vs_cpu"] = check_card_vs_cpu()
     record["sim_card_vs_cpu"] = check_sim_card_vs_cpu()
-    phases["profiles_and_card_vs_cpu_s"] = time.perf_counter() - t
+    phases["card_vs_cpu_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_start
     log("phases " + json.dumps(phases))
 

@@ -1,10 +1,10 @@
 """Engine benchmark on the port: the eager ``FedSim.step`` loop against
 ``repro_torch.sim.run_rounds``; the twin of ``benchmarks/bench_engine.py``'s
-sync cell.
+two cells.
 
-FedEPM on the paper's logistic task under the sync policy with a uniform
-fleet and no noise (the JAX benchmark's sync cell, built here without the spec
-layer, which the port does not have yet). Per engine:
+FedEPM on the paper's logistic task with no noise, built here without the
+spec layer, which the port does not have yet. The sync cell: a uniform
+fleet under the sync policy. Per engine:
 
   * rounds per second over ``rounds`` rounds of a fresh sim, the median of
     ``repeats`` runs, after a warm-up that builds the kernels and captures
@@ -16,14 +16,20 @@ layer, which the port does not have yet). Per engine:
     round counts agree);
   * ``host_syncs``, the device-to-host transfers, as JAX counts them.
 
+The async cell: a synthetic fleet at availability 0.9 with pareto latency
+(alpha 1.3) under the async policy, buffer 4, at most 6 clients in
+flight; ``rounds`` aggregation events per run, eager against the engine's
+record/replay, rounds per second and host_syncs (no race: the two
+trajectories are the same bit for bit).
+
     python -m repro_torch.benchmarks.bench_engine --json engine.json
     python -m repro_torch.benchmarks.bench_engine --quick --device cpu
 
 runs on the CUDA card unless ``--device`` names another. ``--quick`` is the
 JAX benchmark's quick cell (d 2000, m 16, k0 4, 120 rounds), ``--full`` the
 paper's d = 45222; the default is d 4000, m 50, k0 8, 60 rounds. The
-summary has the ``BENCH_engine.json`` schema without its async cell (ROADMAP
-queue 1 item 11) and goes only to the ``--json`` path the caller names.
+summary has the ``BENCH_engine.json`` schema, the async cell under
+``"async"``, and goes only to the ``--json`` path the caller names.
 """
 from __future__ import annotations
 
@@ -41,8 +47,8 @@ from repro_torch.core.tasks import LogisticLoss
 from repro_torch.data import synth
 from repro_torch.data.partition import partition_iid
 from repro_torch.kernels.common import resolve_device
-from repro_torch.sim import (FedSim, SimConfig, run_rounds, run_to_objective,
-                             uniform_profiles)
+from repro_torch.sim import (FedSim, SimConfig, make_profiles, run_rounds,
+                             run_to_objective, uniform_profiles)
 
 QUICK_KW = dict(d=2000, m=16, k0=4, rounds=120, repeats=3)
 RACE_CHUNK = 16
@@ -134,6 +140,69 @@ def bench(d: int = 4000, m: int = 50, k0: int = 8, rho: float = 0.5,
     }
 
 
+def bench_async(d: int = 4000, m: int = 50, k0: int = 8, rho: float = 0.5,
+                n: int = 14, rounds: int = 60, repeats: int = 3,
+                seed: int = 0, device=None) -> dict:
+    """The async cell: the summary dict (``BENCH_engine.json``'s
+    ``"async"`` entry)."""
+    dev = resolve_device(device)
+    X, y = synth.adult_like(d=d, n=n, seed=seed)
+    batches = {k: torch.from_numpy(v).to(dev)
+               for k, v in partition_iid(X, y, m=m, seed=seed).items()}
+    cfg = fedepm.FedEPMConfig.paper_defaults(m=m, rho=rho, k0=k0, eps_dp=0.0)
+    state = fedepm.init_state(random.PRNGKey(seed, device=dev),
+                              torch.zeros(n, device=dev), cfg)
+    sim = FedSim(alg="fedepm", cfg=cfg, state=state, batches=batches,
+                 loss_fn=LogisticLoss(),
+                 profiles=make_profiles(m, seed=seed, availability=0.9),
+                 sim=SimConfig(policy="async", latency="pareto",
+                               latency_alpha=1.3, seed=seed, buffer_size=4,
+                               max_concurrency=6))
+    start = sim.snapshot()
+
+    def timed(drive):
+        sim.restore(start)
+        _sync(dev)
+        t0 = time.perf_counter()
+        drive(sim)
+        _sync(dev)
+        return time.perf_counter() - t0, sim.host_syncs
+
+    timed(lambda s: s.run(2))                     # build the kernels
+    timed(lambda s: run_rounds(s, rounds))        # capture the graphs
+    eager_t, eager_syncs = zip(*(timed(lambda s: s.run(rounds))
+                                 for _ in range(repeats)))
+    scan_t, scan_syncs = zip(*(timed(lambda s: run_rounds(s, rounds))
+                               for _ in range(repeats)))
+    eager_rps = rounds / statistics.median(eager_t)
+    scan_rps = rounds / statistics.median(scan_t)
+
+    def eng(rps, syncs):
+        return {"rounds_per_sec": rps,
+                "host_syncs": int(statistics.median(syncs)),
+                "host_syncs_per_round": statistics.median(syncs) / rounds}
+
+    backend = dev.type
+    return {
+        "config": {"task": "paper_logreg", "policy": "async", "d": d,
+                   "m": m, "k0": k0, "rho": rho, "n": n, "rounds": rounds,
+                   "buffer_size": 4, "max_concurrency": 6,
+                   "repeats": repeats, "seed": seed, "backend": backend,
+                   "device": (torch.cuda.get_device_name(dev)
+                              if backend == "cuda" else "cpu")},
+        "engines": {"eager": eng(eager_rps, eager_syncs),
+                    "scan": eng(scan_rps, scan_syncs)},
+        "speedup_rounds_per_sec": scan_rps / eager_rps,
+    }
+
+
+def summarize(device=None, **kw) -> dict:
+    """Both cells: the sync summary with the async one under ``"async"``."""
+    summary = bench(device=device, **kw)
+    summary["async"] = bench_async(device=device, **kw)
+    return summary
+
+
 def rows_from(summary: dict) -> list:
     """CSV rows ``name,us_per_call,derived`` of a summary."""
     rows = []
@@ -146,12 +215,21 @@ def rows_from(summary: dict) -> list:
     rows.append(("engine/speedup", 0,
                  f"rps={summary['speedup_rounds_per_sec']:.2f},"
                  f"wall={summary['speedup_wall_to_target']:.2f}"))
+    if "async" in summary:
+        a = summary["async"]
+        for eng, e in a["engines"].items():
+            rows.append((f"engine/async/{eng}/round",
+                         1e6 / e["rounds_per_sec"],
+                         f"rps={e['rounds_per_sec']:.1f},"
+                         f"syncs_per_round={e['host_syncs_per_round']:.3f}"))
+        rows.append(("engine/async/speedup", 0,
+                     f"rps={a['speedup_rounds_per_sec']:.2f}"))
     return rows
 
 
 def run(device=None, **kw) -> list:
     """``repro_torch.benchmarks.run`` entry point: CSV rows."""
-    return rows_from(bench(device=device, **kw))
+    return rows_from(summarize(device=device, **kw))
 
 
 def main(argv=None) -> int:
@@ -167,7 +245,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     kw = dict(QUICK_KW) if args.quick else (
         dict(d=45222) if args.full else {})
-    summary = bench(device=args.device, **kw)
+    summary = summarize(device=args.device, **kw)
     print("name,us_per_call,derived")
     for r in rows_from(summary):
         print(",".join(map(str, r)))

@@ -1,6 +1,7 @@
 """Fig. 3 twin: effect of k0 on CR and TCT. Claim: bigger k0 => fewer
 communication rounds; FedEPM uses the fewest. Rows as
-``benchmarks/fig3_k0.py`` prints them."""
+``benchmarks/fig3_k0.py`` prints them, each also with its trial's final
+f/m."""
 from __future__ import annotations
 
 from repro_torch.launch.paper import run_algorithm
@@ -18,7 +19,8 @@ def run(m=50, k0_grid=(4, 12, 20), rho=0.5, eps=0.1, d=45222, device=None):
             crs[(alg, k0)] = r["CR"]
             rows.append((f"fig3/{alg}/k0={k0}",
                          r["TCT"] * 1e6 / max(r["CR"], 1),
-                         f"CR={r['CR']},TCT={r['TCT']:.3f}s"))
+                         f"CR={r['CR']},TCT={r['TCT']:.3f}s,"
+                         f"f={r['f']:.8f}"))
     for alg in ALGS:
         mono = crs[(alg, k0_grid[-1])] <= crs[(alg, k0_grid[0])]
         rows.append((f"fig3/{alg}/k0_reduces_CR", 0.0, str(mono)))

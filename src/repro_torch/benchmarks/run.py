@@ -1,6 +1,6 @@
 """Benchmark runner of the port's twins: prints ``name,us_per_call,derived``
 CSV rows, as ``benchmarks/run.py`` does for fig2, fig3, fig4, table1 and
-the engine benchmark's sync cell.
+the engine benchmark's sync and async cells.
 
     python -m repro_torch.benchmarks.run --only fig2,fig3,fig4,table1
     python -m repro_torch.benchmarks.run --only fig2 --quick --device cpu

@@ -93,11 +93,17 @@ def first_arrivals_mask(candidates: torch.Tensor, arrivals: torch.Tensor,
     return (rank < n_keep) & torch.isfinite(t)
 
 
-def staleness_weight(staleness, exp: float) -> torch.Tensor:
+def staleness_weight(staleness, exp: float):
     """FedBuff-style down-weighting of stale async contributions,
-    gamma = (1 + s)^(-exp) in f32; s = 0 gives exactly 1.0."""
-    s = torch.as_tensor(staleness, dtype=torch.float32)
-    return torch.pow(1.0 + s, -exp)
+    gamma = (1 + s)^(-exp); s = 0 gives exactly 1.0. On a Python number
+    it is JAX's Python float (the async server's gamma, rounded to f32 only
+    at the merge); on a tensor it is f32, computed in f64 and rounded once,
+    which is XLA:CPU's f32 pow bit for bit (torch's f32 pow is not at
+    exp = 0.5)."""
+    if not isinstance(staleness, torch.Tensor):
+        return (1.0 + staleness) ** (-exp)
+    s = staleness.to(torch.float64)
+    return torch.pow(1.0 + s, -exp).to(torch.float32)
 
 
 def max_selection_gap(masks: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,12 @@ Whatever in the step waits for the host (``.item()``, ``.cpu()``, a copy
 from pageable memory to the card) makes the capture raise; nothing falls
 back to running the step eagerly.
 
+Two programs may share one carry (``ScanProgram(step, share=other)``): the
+async engine's fire and merge bodies both read and write the algorithm
+state, and the host replays them one row at a time in the order it
+recorded (``begin``, then ``advance`` once per row, then ``outputs``).
+New carry shapes drop every captured graph on that carry.
+
 Launch counters: a kernel's wrapper adds to its ``.launches`` when it is
 called, and under capture it is called without launching. The program
 takes those counts off again after the capture and adds them back once per
@@ -53,33 +59,57 @@ def reset_graph_stats() -> None:
 reset_graph_stats()
 
 
+class _CarryBox:
+    """The carry that one or more programs step: its tensors and a version
+    that changes whenever they are made anew (a graph captured on older
+    buffers is stale)."""
+
+    def __init__(self):
+        self.carry: list | None = None
+        self.version = 0
+        self.captured = False  # some program holds a graph on this version
+
+
 class ScanProgram:
     """``step`` over the rows of a stream; see the module docstring. A
-    subclass may define ``step`` as a method instead of passing it."""
+    subclass may define ``step`` as a method instead of passing it;
+    ``share`` is another program whose carry this one steps too."""
 
-    def __init__(self, step=None):
+    def __init__(self, step=None, share: "ScanProgram | None" = None):
         if step is not None:
             self.step = step
-        self.carry: list | None = None
+        self._box = share._box if share is not None else _CarryBox()
         self.graph_launches: dict = {}  # kernel -> launches per replay
         self._graph = None
+        self._graph_version = -1
         self._xs: list = []
         self._ys: list = []
+        self._rows: list = []
+        self._t = 0
         self._cursor = None
+
+    @property
+    def carry(self) -> list | None:
+        return self._box.carry
+
+    @carry.setter
+    def carry(self, value) -> None:
+        self._box.carry = value
 
     def load(self, carry) -> None:
         """Make ``carry`` (a list of tensors) the program's carry. On the
         card it is copied into the static buffers while their shapes
-        match; new shapes drop the captured graph."""
+        match; new shapes drop the captured graphs."""
         carry = list(carry)
-        if self._graph is not None and [
-                (c.shape, c.dtype) for c in carry] == [
-                (b.shape, b.dtype) for b in self.carry]:
-            for b, c in zip(self.carry, carry):
+        box = self._box
+        if box.captured and [(c.shape, c.dtype) for c in carry] == [
+                (b.shape, b.dtype) for b in box.carry]:
+            for b, c in zip(box.carry, carry):
                 b.copy_(c)
             return
-        self._graph = None
-        self.carry = [c.clone() for c in carry]
+        box.carry = [c.clone() for c in carry]
+        box.version += 1
+        box.captured = False
 
     def run(self, xs, n: int, capacity: int = 0) -> list:
         """Step through rows 0..n-1 of the stream tensors ``xs`` (leading
@@ -87,26 +117,46 @@ class ScanProgram:
         (n, ...) each. On the card they are views of the static stacks,
         overwritten by the next run; a capture sizes the stream buffers
         for ``max(n, capacity)`` rows, and a longer run captures again."""
+        self.begin(xs, n, capacity)
+        for _ in range(n):
+            self.advance()
+        return self.outputs(n)
+
+    def begin(self, xs, n: int, capacity: int = 0) -> None:
+        """Take the streams of a run of n rows (``run``'s arguments); the
+        rows are then stepped one ``advance`` at a time."""
+        self._t = 0
         if not self.carry[0].is_cuda:
-            rows = []
-            for t in range(n):
-                self.carry, ys = self.step(self.carry, [x[t] for x in xs])
-                rows.append(list(ys))
-            return [torch.stack(col) for col in zip(*rows)]
+            self._xs, self._rows = list(xs), []
+            return
         sig = [(x.shape[1:], x.dtype) for x in xs]
-        if self._graph is None or n > self._xs[0].shape[0] or sig != [
+        if self._graph is None or self._graph_version != self._box.version \
+                or n > self._xs[0].shape[0] or sig != [
                 (b.shape[1:], b.dtype) for b in self._xs]:
             self._capture(xs, n, max(n, capacity))
         for b, x in zip(self._xs, xs):
             b[:n].copy_(x[:n])
         self._cursor.zero_()
+
+    def advance(self) -> None:
+        """Step the next row: the step on the CPU, one replay on the card."""
+        t = self._t
+        self._t += 1
+        if not self.carry[0].is_cuda:
+            self.carry, ys = self.step(self.carry, [x[t] for x in self._xs])
+            self._rows.append(list(ys))
+            return
+        self._graph.replay()
         counters = launch_counters()
-        for _ in range(n):
-            self._graph.replay()
-            for name, k in self.graph_launches.items():
-                counters[name].launches += k
-                GRAPH_STATS["kernel_launches"][name] += k
-        GRAPH_STATS["replays"] += n
+        for name, k in self.graph_launches.items():
+            counters[name].launches += k
+            GRAPH_STATS["kernel_launches"][name] += k
+        GRAPH_STATS["replays"] += 1
+
+    def outputs(self, n: int) -> list:
+        """The stacked ``ys`` of the n rows stepped since ``begin``."""
+        if not self.carry[0].is_cuda:
+            return [torch.stack(col) for col in zip(*self._rows)]
         return [y[:n] for y in self._ys]
 
     def _capture(self, xs, n: int, cap: int) -> None:
@@ -150,6 +200,8 @@ class ScanProgram:
             for name, fn in counters.items():
                 fn.launches = before[name]
         self._graph = graph
+        self._graph_version = self._box.version
+        self._box.captured = True
         GRAPH_STATS["captures"] += 1
 
 

@@ -43,8 +43,20 @@
 //   __shfl_xor_sync. Every lane sums the mean from values shuffled to it in
 //   row order, and the selection is a min within each lane, then over the
 //   warp.
-// - m <= 128 (MAX_CLIENTS in ens.py): the thread layout keeps the column in
-//   P registers of a thread's 255.
+// - The thread and warp layouts take m <= 128 (kMaxClients): the thread
+//   layout keeps the column in P registers of a thread's 255.
+//   ens_kernel_block, for m > 128: one block of 256 threads per group of C
+//   columns. Each column's m values, padded to P with +inf, sit in shared
+//   memory (row stride P + 1, so the per-column mean's threads hit distinct
+//   banks); one thread per column sums its mean in row order, the block
+//   sorts all C columns with one bitonic network (each step one pass over
+//   the C*P/2 pairs, then a barrier), writes max(A[i], C[m-1-i]) in place
+//   and min-reduces it as a tree. C is chosen by the wrapper (ens.py) so
+//   the columns fill about 64 KB, and a narrow leaf gets one block per
+//   column, spread over the SMs; a column too large for the 227 KB a
+//   block may hold (m > 32768) sorts in a device scratch buffer the wrapper
+//   allocates, one slice per block, with the blocks striding over the
+//   column groups.
 #include "common.cuh"
 
 namespace {
@@ -200,6 +212,107 @@ __global__ void __launch_bounds__(kBlock)
   if (lane == 0) out[j] = from_f32<T>(med);
 }
 
+// The block layout for m > 128: see the note at the top.
+template <typename T>
+__global__ void __launch_bounds__(kBlock * 2)
+    ens_kernel_block(const T* __restrict__ z, const float* __restrict__ offs,
+                     T* __restrict__ out, int m, long long n, int P, int C,
+                     float* scratch) {
+  extern __shared__ float smem[];
+  const int stride = P + 1;
+  const int half = P / 2;
+  float* s_mean = smem;
+  float* cols = scratch != nullptr
+                    ? scratch + static_cast<long long>(blockIdx.x) * C * stride
+                    : smem + C;
+  const bool desc = offs[0] > offs[m];
+  const long long groups = (n + C - 1) / C;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long j0 = g * C;
+    const int live = static_cast<int>(n - j0 < C ? n - j0 : C);
+    // load: neighbouring threads read neighbouring columns of one row
+    for (int e = threadIdx.x; e < P * C; e += blockDim.x) {
+      const int i = e / C, c = e - i * C;
+      cols[c * stride + i] =
+          i < m && c < live
+              ? to_f32(z[static_cast<long long>(i) * n + j0 + c])
+              : pos_inf();
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < live; c += blockDim.x) {
+      const float* col = cols + c * stride;
+      float sum = 0.0f;
+      for (int i = 0; i < m; ++i) sum = __fadd_rn(sum, col[i]);
+      s_mean[c] = mean_of(sum, m);
+    }
+    __syncthreads();
+    // bitonic sort, ascending: stage k merges runs of k, step s pairs
+    // i, i + s where i has bit s clear
+    for (int k = 2; k <= P; k <<= 1) {
+      for (int s = k >> 1; s > 0; s >>= 1) {
+        for (int e = threadIdx.x; e < half * C; e += blockDim.x) {
+          const int c = e / half, p = e - c * half;
+          const int i = ((p & ~(s - 1)) << 1) | (p & (s - 1));
+          float* col = cols + c * stride;
+          const float a = col[i], b = col[i + s];
+          const float lo = fminf(a, b), hi = fmaxf(a, b);
+          const bool asc = (i & k) == 0;
+          col[i] = asc ? lo : hi;
+          col[i + s] = asc ? hi : lo;
+        }
+        __syncthreads();
+      }
+    }
+    // selection: min over i of max(A[i], C[m-1-i]), as a tree of mins
+    for (int e = threadIdx.x; e < P * C; e += blockDim.x) {
+      const int c = e / P, i = e - c * P;
+      float* col = cols + c * stride;
+      col[i] = i < m && c < live
+                   ? fmaxf(col[i], __fadd_rn(s_mean[c],
+                                             offs[desc ? i + 1 : m - 1 - i]))
+                   : pos_inf();
+    }
+    __syncthreads();
+    for (int s = half; s > 0; s >>= 1) {
+      for (int e = threadIdx.x; e < s * C; e += blockDim.x) {
+        const int c = e / s, i = e - c * s;
+        float* col = cols + c * stride;
+        col[i] = fminf(col[i], col[i + s]);
+      }
+      __syncthreads();
+    }
+    for (int c = threadIdx.x; c < live; c += blockDim.x) {
+      const float top = __fadd_rn(s_mean[c], offs[desc ? 0 : m]);
+      out[j0 + c] = from_f32<T>(fminf(top, cols[c * stride]));
+    }
+    __syncthreads();  // the next group overwrites the columns and means
+  }
+}
+
+template <typename T>
+int launch_block(const void* zp, const void* offsp, void* outp, int m,
+                 long long n, int P, int C, int blocks, void* scratch,
+                 void* streamp) {
+  if (m < 1 || n < 1 || P < m || C < 1 || blocks < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(C) +
+                       (scratch != nullptr
+                            ? 0
+                            : static_cast<size_t>(C) * (P + 1)));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ens_kernel_block<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ens_kernel_block<T><<<blocks, kBlock * 2, smem,
+                        static_cast<cudaStream_t>(streamp)>>>(
+      static_cast<const T*>(zp), static_cast<const float*>(offsp),
+      static_cast<T*>(outp), m, n, P, C, static_cast<float*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int P>
 void launch_thread(const T* z, const float* offs, T* out, int m, long long n,
                    cudaStream_t stream) {
@@ -251,4 +364,18 @@ extern "C" int ens_f32(const void* z, const void* offs, void* out, int m,
 extern "C" int ens_bf16(const void* z, const void* offs, void* out, int m,
                         long long n, int per_warp, void* stream) {
   return launch<__nv_bfloat16>(z, offs, out, m, n, per_warp, stream);
+}
+
+extern "C" int ens_block_f32(const void* z, const void* offs, void* out,
+                             int m, long long n, int P, int C, int blocks,
+                             void* scratch, void* stream) {
+  return launch_block<float>(z, offs, out, m, n, P, C, blocks, scratch,
+                             stream);
+}
+
+extern "C" int ens_block_bf16(const void* z, const void* offs, void* out,
+                              int m, long long n, int P, int C, int blocks,
+                              void* scratch, void* stream) {
+  return launch_block<__nv_bfloat16>(z, offs, out, m, n, P, C, blocks,
+                                     scratch, stream);
 }

@@ -3,8 +3,12 @@ on the paper's logistic task under one clocked aggregation policy over
 simulated time,
 reporting per-round and summary systems metrics (simulated time, stragglers
 dropped, bytes moved) beside the objective and accuracy. The counterpart of
-``python -m repro.launch.simulate`` for the sync, deadline, adaptive and
-overselect policies, with its flag names and its summary keys.
+``python -m repro.launch.simulate`` for the sync, deadline, adaptive,
+overselect and async policies, with its flag names and its summary keys.
+Under ``--aggregation async`` one reported round is one aggregation event
+of ``--buffer-size`` contributions (0 = the cohort), merged at weight
+(1 + staleness)^-``--staleness-exp``, with at most ``--max-concurrency``
+clients in flight (0 = no cap).
 
     python -m repro_torch.launch.simulate --policy deadline --deadline 0.002 \\
         --latency pareto --m 128 --d 45222 --k0 12 --bits 8 --rounds 30
@@ -16,15 +20,18 @@ overselect policies, with its flag names and its summary keys.
         --deadline 6e-5 --latency pareto --bits 8
     python -m repro_torch.launch.simulate --engine scan --terminate \\
         --policy deadline --deadline 6e-5 --latency pareto --bits 8
+    python -m repro_torch.launch.simulate --alg sfedavg --aggregation async \\
+        --max-concurrency 6 --buffer-size 4 --latency pareto --engine scan
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
 ``--engine scan`` runs the rounds through ``repro_torch.sim.run_rounds``
 (chunks of rounds replayed as a CUDA graph on the card) and prints the
-summary ``--engine eager`` prints; with ``--terminate`` it runs chunks of 8
-and rolls an overshooting chunk back, so it stops at the eager round. Not
-ported yet: ``--spec`` (ROADMAP queue 1 item 13), the async policy (item
-11) and the fault flags (item 12). The sim draws from keys seeded by
-``--seed`` as in JAX, so its masks, noise and dither are the JAX CLI's.
+summary ``--engine eager`` prints (the async policy records its events per
+chunk and replays them as CUDA graphs); with ``--terminate`` it runs
+chunks of 8 and rolls an overshooting chunk back, so it stops at the eager
+round. Not ported yet: ``--spec`` (ROADMAP queue 1 item 13) and the fault
+flags (item 12). The sim draws from keys seeded by ``--seed`` as in JAX,
+so its masks, noise and dither are the JAX CLI's.
 """
 from __future__ import annotations
 
@@ -54,8 +61,10 @@ from repro_torch.telemetry.events import EventRecorder
 # reads the device's share of exactly that window
 ROUNDS_SPAN = "simulate.rounds"
 # SimConfig's defaults for the policy-scoped knobs; a knob at its default
-# counts as not given when the ownership rules are checked
+# counts as not given when the ownership rules are checked (the async
+# knobs default to None instead: given at all, they need the async policy)
 _DEFAULTS = SimConfig()
+ASYNC_KNOBS = ("buffer_size", "max_concurrency", "staleness_exp")
 
 
 def check_args(a) -> str | None:
@@ -63,6 +72,18 @@ def check_args(a) -> str | None:
     refuse; returns the message, or None."""
     if a.rounds < 1:
         return "--rounds must be >= 1"
+    if a.buffer_size is not None and a.buffer_size < 0:
+        return "--buffer-size must be >= 0 (0 = cohort size)"
+    if a.max_concurrency is not None and a.max_concurrency < 0:
+        return "--max-concurrency must be >= 0 (0 = unlimited)"
+    if a.staleness_exp is not None and a.staleness_exp < 0:
+        return "--staleness-exp must be >= 0"
+    if a.policy != "async":
+        passed = [f"--{k.replace('_', '-')}" for k in sorted(ASYNC_KNOBS)
+                  if getattr(a, k) is not None]
+        if passed:
+            return (f"{', '.join(passed)} only valid with --aggregation "
+                    f"async; got --aggregation {a.policy}")
     if a.deadline > 0 and a.policy != "deadline":
         return f"--deadline only applies to --policy deadline; got {a.policy}"
     if a.overselect != _DEFAULTS.overselect_factor and \
@@ -129,7 +150,9 @@ def build_sim(a, device: torch.device, *, draws=None):
         overselect_factor=a.overselect, latency=a.latency,
         latency_sigma=a.latency_sigma, latency_alpha=a.latency_alpha,
         seed=a.seed, codec=codec, deadline_slack=a.deadline_slack,
-        ewma_beta=a.ewma_beta, privacy=privacy)
+        ewma_beta=a.ewma_beta, privacy=privacy,
+        **{k: getattr(a, k) for k in ASYNC_KNOBS
+           if getattr(a, k) is not None})
     sim = FedSim(alg=a.alg, cfg=cfg, state=state, batches=batches,
                  loss_fn=task["loss"], profiles=profiles, sim=sim_cfg,
                  telemetry=EventRecorder() if a.telemetry else None,
@@ -260,6 +283,13 @@ def parser() -> argparse.ArgumentParser:
                     default=_DEFAULTS.overselect_factor,
                     help="contact a uniform candidate set at rate rho*f, "
                          "keep the first ceil(rho*m) arrivals")
+    ap.add_argument("--buffer-size", type=int, default=None,
+                    help="async: contributions per aggregation event "
+                         "(0 = cohort size)")
+    ap.add_argument("--staleness-exp", type=float, default=None,
+                    help="async: stale merges weighted (1+s)^-exp")
+    ap.add_argument("--max-concurrency", type=int, default=None,
+                    help="async: cap on in-flight clients (0 = no cap)")
     ap.add_argument("--deadline-slack", type=float,
                     default=_DEFAULTS.deadline_slack,
                     help="adaptive: per-client wait budget = slack * EWMA")

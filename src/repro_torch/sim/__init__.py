@@ -1,9 +1,10 @@
 """Federated systems runtime on the port: client heterogeneity and latency
-models, the sync/deadline/adaptive/overselect policies over simulated time,
-the upload codec with optional error feedback and DP uploads, the byte
-ledger, and the clocked engine (``run_rounds``: chunks of rounds replayed as
-a CUDA graph on the card); the counterpart of ``repro.sim`` (the async
-policy and fault injection come with later slices)."""
+models, the sync/deadline/adaptive/overselect policies over simulated time
+and the buffered, staleness-weighted async policy, the upload codec with
+optional error feedback and DP uploads, the byte ledger, and the engine
+(``run_rounds``: chunks of rounds, or of recorded async fires and merges,
+replayed as CUDA graphs on the card); the counterpart of ``repro.sim``
+(fault injection comes with a later slice)."""
 from repro_torch.sim.clients import (     # noqa: F401
     AdaptiveDeadlines,
     ClientProfiles,

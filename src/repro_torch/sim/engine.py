@@ -41,12 +41,37 @@ and, with ``collect_w_tau``, one per chunk for the broadcast points. On
 CUDA the body always runs as a graph: a capture or replay error raises,
 and nothing runs the chunk eagerly or on the CPU instead.
 
-Not ported yet: the async record/replay (``event_table_capacity``, ROADMAP
-queue 1 item 11) and the client-axis mesh (``mesh``, item 14); a sim with
-its own ``SimDraws`` runs under ``FedSim.step`` only.
+The async policy is event-driven, so it cannot be masked into the round
+body; the engine records it instead (``_record_replay_chunk``), as JAX
+does. ``FedSim._step_async``, the one event loop, runs C aggregation
+events with a recording executor in its device seam: cohort draws come
+from a stream of candidate masks indexed by the number of fires
+(``_CandStream``: the key and k advance only when a group fires, so the
+stream is a function of the chunk-entry state, made 64 fires at a time
+with one transfer each), and each fire and merge appends a row of host
+data (masks, table slots, staleness weight, upload serial) to an op
+list. Then the ops replay in recorded order on two programs that share
+one carry (state, EF memory and the payload table, ``_AsyncTable``): a
+fire body (the round function on the group's mask, then the group's
+fresh Z/W rows written into their table slots) and a merge body
+(``server.merge_contribution`` of one table row into one client, with the
+serial's codec key and privacy key). On the card each body is a CUDA
+graph captured once per configuration and replayed once per op, reading
+its row of the chunk's stream through a device cursor; on the CPU each
+runs as a plain call. Unlike JAX's padded scan, no padded or invalid
+step runs: the host branches between the two replays. Every host-side
+quantity (clock, heap, staleness, metrics, ledger, events, accountant) is
+the eager loop's own code, and every device value the same operations on
+the same bits, so the run is the eager one bit for bit.
+``event_table_capacity`` pins the table's size (an overflow raises and
+names the knob); unset, the table doubles on demand.
+
+Not ported yet: the client-axis mesh (``mesh``, ROADMAP queue 1 item 14);
+a sim with its own ``SimDraws`` runs under ``FedSim.step`` only.
 """
 from __future__ import annotations
 
+import heapq
 import math
 from typing import NamedTuple
 
@@ -59,10 +84,12 @@ from repro_torch.core.scan import ScanProgram, StateCarry, round_starts
 from repro_torch.core.treeutil import (tmap, tree_leaves, tree_unflatten,
                                        tree_where)
 from repro_torch.sim import clients as simclients
-from repro_torch.sim.server import (FedSim, KeyedDraws, SimMetrics,
+from repro_torch.sim.server import (_EAGER_ASYNC_EXEC, _EV_UPLOAD, FedSim,
+                                    KeyedDraws, SimMetrics,
                                     apply_clocked_privacy,
                                     emit_clocked_round_events,
-                                    make_sim_metrics, merge_uploads)
+                                    make_sim_metrics, merge_contribution,
+                                    merge_uploads)
 from repro_torch.sim.transport import (codec_dither, dither_shapes,
                                        draw_unit_noise)
 
@@ -295,13 +322,16 @@ def _check(sim: FedSim, rounds: int, chunk, mesh, event_table_capacity):
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be >= 1 (None = all rounds in one "
                          f"chunk); got {chunk}")
+    if event_table_capacity is not None and event_table_capacity < 1:
+        raise ValueError(f"event_table_capacity must be >= 1; "
+                         f"got {event_table_capacity}")
     if mesh is not None:
         raise ValueError("run_rounds(mesh=...) is not ported yet (ROADMAP "
                          "queue 1 item 14)")
-    if event_table_capacity is not None:
-        raise ValueError("event_table_capacity belongs to the async engine, "
-                         "which is not ported yet (ROADMAP queue 1 item 11)")
-    if sim.sim.policy not in _SCAN_POLICIES:
+    if sim.sim.policy != "async" and event_table_capacity is not None:
+        raise ValueError("event_table_capacity is owned by policy='async'; "
+                         f"policy is {sim.sim.policy!r}")
+    if sim.sim.policy not in _SCAN_POLICIES + ("async",):
         raise ValueError(f"unknown policy {sim.sim.policy!r}")
     d = sim._draws
     if type(d) is not KeyedDraws or d.device != sim.device:
@@ -330,6 +360,10 @@ def run_rounds(sim: FedSim, rounds: int, *, chunk: int | None = None,
     copies it into its own buffers and hands back fresh tensors.
     """
     _check(sim, rounds, chunk, mesh, event_table_capacity)
+    if sim.sim.policy == "async":
+        return _run_async(sim, rounds, chunk=chunk,
+                          collect_w_tau=collect_w_tau,
+                          event_table_capacity=event_table_capacity)
     body = _body(sim, collect_w_tau)
     body.load(body.carry_of(sim))
     dev, cfg = sim.device, sim.cfg
@@ -419,6 +453,381 @@ def run_rounds(sim: FedSim, rounds: int, *, chunk: int | None = None,
         w_tau = tree_unflatten(sim.state.w_tau, [
             np.concatenate(parts) for parts in zip(*w_parts)])
     return EngineResult(out_metrics, w_tau)
+
+
+# ---------------------------------------------------------------------------
+# async record/replay (policy="async")
+# ---------------------------------------------------------------------------
+
+#: async candidate masks are made this many fires at a time, one transfer
+#: to the host each
+_ASYNC_STREAM_BLOCK = 64
+
+
+class _CandStream:
+    """Async candidate masks indexed by fire count. The selection key and k
+    advance only when a dispatch group fires, so mask ``n`` is what the
+    eager server draws after ``n`` fires of the chunk; a dry cohort's
+    retry draws the same index again (no fire happened)."""
+
+    def __init__(self, sim: FedSim):
+        self._sim = sim
+        self._key = sim.state.key
+        self._k = int(sim.state.k)
+        self._masks: list[np.ndarray] = []
+
+    def mask(self, n_fires: int) -> np.ndarray:
+        sim = self._sim
+        while n_fires >= len(self._masks):
+            ks = [self._k + sim.cfg.k0 * t
+                  for t in range(_ASYNC_STREAM_BLOCK)]
+            k_sels = []
+            for _ in ks:
+                nxt = random.split(self._key, 3)
+                k_sels.append(nxt[1])
+                self._key = nxt[0]
+            self._k = ks[-1] + sim.cfg.k0
+            self._masks.extend(_select(sim, torch.stack(k_sels), ks)
+                               .cpu().numpy())
+            sim.host_syncs += 1
+        return self._masks[n_fires]
+
+
+class _AsyncTable:
+    """The payload table: one row per in-flight upload. ``z`` and ``w`` are
+    lists of (cap, ...) tensors, one per leaf of Z and W; row ``slot``
+    holds a dispatched client's upload and iterate rows, written by the
+    fire that dispatched it and read by the merge that folds it in. A
+    table is a contribution batch (slot = batch row). Slots are taken
+    lowest first and freed at the merge, a fixed rule, so a recording's
+    slots are reproducible. With ``fixed`` the table never grows (an
+    overflow raises and names the knob); else it doubles on demand."""
+
+    def __init__(self, Z, W, cap: int, *, fixed: bool):
+        self.cap = cap
+        self.fixed = fixed
+        self.z = [torch.zeros((cap,) + x.shape[1:], dtype=x.dtype,
+                              device=x.device) for x in tree_leaves(Z)]
+        self.w = [torch.zeros((cap,) + x.shape[1:], dtype=x.dtype,
+                              device=x.device) for x in tree_leaves(W)]
+        self._free = list(range(cap))
+
+    def alloc(self) -> int:
+        if not self._free:
+            if self.fixed:
+                raise ValueError(
+                    f"async event table overflow: all {self.cap} slots "
+                    f"hold in-flight uploads; raise the engine's "
+                    f"event_table_capacity knob (or unset it to let the "
+                    f"table grow on demand)")
+            grow = self.cap
+            self.z = [torch.cat([x, torch.zeros_like(x)]) for x in self.z]
+            self.w = [torch.cat([x, torch.zeros_like(x)]) for x in self.w]
+            self._free = list(range(self.cap, self.cap + grow))
+            self.cap += grow
+        return heapq.heappop(self._free)
+
+    def free(self, slot: int) -> None:
+        heapq.heappush(self._free, slot)
+
+    def trees(self, Z_like, W_like) -> tuple:
+        """(z, w) as trees shaped like the state's Z and W: the batches of
+        the table-backed contributions."""
+        return (tree_unflatten(Z_like, self.z),
+                tree_unflatten(W_like, self.w))
+
+    def clone(self) -> "_AsyncTable":
+        t = object.__new__(_AsyncTable)
+        t.cap, t.fixed = self.cap, self.fixed
+        t.z = [x.clone() for x in self.z]
+        t.w = [x.clone() for x in self.w]
+        t._free = list(self._free)
+        return t
+
+
+class _RecordAsyncExec:
+    """The recording executor: cohort draws from the fire-count stream;
+    fires and merges append their row of host data to ``ops`` and run
+    nothing. Slots are taken at the fire and freed at the merge while
+    recording; the replay runs the ops in recorded order, so a slot a later
+    fire takes again is written after the merge that read it."""
+
+    recording = True
+
+    def __init__(self, stream: _CandStream, table: _AsyncTable):
+        self.stream = stream
+        self.table = table
+        self.ops: list[dict] = []
+        self.n_fires = 0
+        self.cur_step = 0
+
+    def draw_candidates(self, sim) -> np.ndarray:
+        return self.stream.mask(self.n_fires)
+
+    def fire(self, sim, group, mask: np.ndarray, contribs) -> None:
+        slots = []
+        for c in contribs:
+            c.slot = self.table.alloc()
+            slots.append((c.slot, c.client))
+        self.ops.append({
+            "kind": 0, "step": self.cur_step, "mask": mask,
+            "agg": (sim._cohort_live | mask) if sim.alg != "fedepm"
+            else mask, "slots": slots})
+        self.n_fires += 1
+
+    def merge(self, sim, c, staleness: int, gamma: float) -> None:
+        self.ops.append({
+            "kind": 1, "step": self.cur_step, "slot": c.slot,
+            "client": c.client, "serial": c.serial,
+            "gamma": np.float32(gamma)})
+        self.table.free(c.slot)
+
+
+class _AsyncPrograms:
+    """The engine's two async bodies for one sim, sharing one carry: the
+    state's leaves and key (``StateCarry``), the EF memory's leaves, then
+    the table's z and w leaves. ``sig`` is what they were built for. The
+    bodies close over plain values only, never over this object or the
+    sim: nothing here is in a reference cycle, so the graphs go as soon
+    as the sim does (a graph destroyed later, by the cycle collector, may
+    be destroyed inside another program's capture or profile)."""
+
+    def __init__(self, sim: FedSim, sig):
+        self.sig = sig
+        batches, loss_fn, cfg = sim._batches, sim._loss_fn, sim.cfg
+        round_fn, alg = sim._round_fn, sim.alg
+        codec, privacy = sim.sim.codec, sim._privacy_tx
+        ef, fused, collect = sim._ef, sim._fused_private, sig[0]
+        sc = self.sc = StateCarry(sim.state)
+        a = self.n_state = len(sc.leaves(sim.state))
+        b = a + (len(tree_leaves(sim.H)) if sim.H is not None else 0)
+        H_like, Z_like, W_like = sim.H, sim.state.Z, sim.state.W
+        n_z = len(tree_leaves(Z_like))
+        self.n_h, self.n_z = b - a, n_z
+        self.keyed = codec is not None or privacy is not None
+        self.collect = collect
+        # the fire body's metrics type and count, known after its first call
+        self.info = info = {}
+
+        def split(carry):
+            st = sc.state(carry[:a], 0)
+            H = tree_unflatten(H_like, carry[a:b]) if b > a else None
+            return st, H, carry[b:b + n_z], carry[b + n_z:]
+
+        def fire(carry, x):
+            # x: mask, agg, schedule row(s), slot_src
+            st, _, tz, tw = split(carry)
+            mask, agg, slot_src = x[0], x[1], x[-1]
+            if alg == "fedepm":
+                new, rm = round_fn(st, batches, loss_fn, cfg, mask=mask,
+                                   pows=x[2])
+            else:
+                new, rm = round_fn(st, batches, loss_fn, cfg, mask=mask,
+                                   agg_mask=agg, sched=(x[2], x[3]))
+            src = torch.clamp_min(slot_src, 0)
+            upd = slot_src >= 0
+
+            def write(table, rows):
+                out = []
+                for t, r in zip(table, tree_leaves(rows)):
+                    u = upd.reshape((-1,) + (1,) * (t.dim() - 1))
+                    out.append(torch.where(u, r.index_select(0, src), t))
+                return out
+
+            out = sc.leaves(st._replace(w_tau=new.w_tau, key=new.key))
+            out += carry[a:b] + write(tz, new.Z) + write(tw, new.W)
+            info.update(metrics_type=type(rm), n_metrics=len(rm))
+            ys = list(rm)
+            if collect:
+                ys += tree_leaves(new.w_tau)
+            return out, ys
+
+        def merge(carry, x):
+            # x: slot (1,), client (1,), gamma (), [codec key, privacy key]
+            st, H, tz, tw = split(carry)
+            slot, client, gamma = x[:3]
+            zt = tree_unflatten(Z_like, tz)
+            wt = tree_unflatten(W_like, tw)
+            like = tmap(lambda v: v[:1], zt)
+            dither, noise = [], None
+            if codec is not None:
+                dither = codec_dither(x[3], dither_shapes(
+                    like, codec, fused_private=fused))
+            if privacy is not None:
+                noise = draw_unit_noise(x[4], like, privacy)
+            Z, W, H2 = merge_contribution(
+                st.Z, st.W, H, zt, wt, slot, client, gamma, dither, noise,
+                codec=codec, ef=ef, privacy=privacy)
+            out = sc.leaves(st._replace(Z=Z, W=W))
+            out += tree_leaves(H2) if H2 is not None else []
+            return out + list(tz) + list(tw), []
+
+        self.fire = ScanProgram(fire)
+        self.merge = ScanProgram(merge, share=self.fire)
+
+    def carry_of(self, sim: FedSim, table: _AsyncTable) -> list:
+        return (self.sc.leaves(sim.state)
+                + (tree_leaves(sim.H) if sim.H is not None else [])
+                + list(table.z) + list(table.w))
+
+
+def _async_programs(sim: FedSim, collect_w_tau: bool) -> _AsyncPrograms:
+    """The sim's async programs, kept on the sim so that later calls replay
+    the graphs they captured; built anew when ``collect_w_tau`` or the
+    state's shapes change."""
+    sig = (collect_w_tau, tuple((tuple(x.shape), x.dtype) for x in
+                                tree_leaves(sim.state.W)
+                                + tree_leaves(sim.state.w_tau)))
+    progs = sim._engine_async
+    if progs is None or progs.sig != sig:
+        progs = sim._engine_async = _AsyncPrograms(sim, sig)
+    return progs
+
+
+def _rows_capacity(n: int) -> int:
+    """Stream rows a capture is sized for: the next power of two, at least
+    8, so that chunks of similar size replay one graph."""
+    return max(8, 1 << max(0, n - 1).bit_length())
+
+
+def _record_replay_chunk(sim: FedSim, C: int, progs: _AsyncPrograms,
+                         table: _AsyncTable, w_parts) -> list[SimMetrics]:
+    """Record C async aggregation events, then replay their ops."""
+    dev, cfg = sim.device, sim.cfg
+    rec = _RecordAsyncExec(_CandStream(sim), table)
+    # uploads dispatched by an earlier eager phase enter the table: their
+    # batch rows become table rows (exact copies)
+    for _, _, kind, c in sim._events:
+        if kind == _EV_UPLOAD and c.slot < 0:
+            s = table.alloc()
+            idx = torch.tensor([s], dtype=torch.int64, device=dev)
+            table.z = [t.index_copy(0, idx, b[c.row:c.row + 1])
+                       for t, b in zip(table.z, tree_leaves(c.z_batch))]
+            table.w = [t.index_copy(0, idx, b[c.row:c.row + 1])
+                       for t, b in zip(table.w, tree_leaves(c.w_batch))]
+            c.slot, c.z_batch, c.w_batch = s, None, None
+
+    sim._exec = rec
+    try:
+        mets = []
+        for t in range(C):
+            rec.cur_step = t
+            mets.append(sim.step())
+    finally:
+        sim._exec = _EAGER_ASYNC_EXEC
+
+    fires = [op for op in rec.ops if op["kind"] == 0]
+    merges = [op for op in rec.ops if op["kind"] == 1]
+    fire_steps = [op["step"] for op in fires]
+    entry_w = None
+    if progs.collect and len(set(fire_steps)) < C:
+        # events without a fire keep the previous broadcast, from the
+        # chunk-entry w_tau onwards
+        entry_w = [x.cpu().numpy() for x in tree_leaves(sim.state.w_tau)]
+        sim.host_syncs += 1
+
+    k = int(sim.state.k)
+    progs.fire.load(progs.carry_of(sim, table))
+    fire_ys = []
+    if rec.ops:
+        cap = table.cap
+        F, M_ = len(fires), len(merges)
+        if F:
+            slot_src = np.full((F, cap), -1, np.int64)
+            for i, op in enumerate(fires):
+                for slot, cl in op["slots"]:
+                    slot_src[i, slot] = cl
+            ks = [k + cfg.k0 * i for i in range(F)]
+            fx = [torch.from_numpy(np.stack([op["mask"] for op in fires]))
+                  .to(dev),
+                  torch.from_numpy(np.stack([op["agg"] for op in fires]))
+                  .to(dev)]
+            fx += _schedule(sim, ks, dev)
+            fx.append(torch.from_numpy(slot_src).to(dev))
+            progs.fire.begin(fx, F, _rows_capacity(F))
+        if M_:
+            serial = np.asarray([op["serial"] for op in merges], np.int64)
+            mx = [torch.from_numpy(np.asarray(
+                      [[op["slot"]] for op in merges], np.int64)).to(dev),
+                  torch.from_numpy(np.asarray(
+                      [[op["client"]] for op in merges], np.int64)).to(dev),
+                  torch.from_numpy(np.asarray(
+                      [op["gamma"] for op in merges], np.float32)).to(dev)]
+            if progs.keyed:
+                lo = int(serial.min())
+                sel = torch.from_numpy(serial - lo).to(dev)
+                n = int(serial.max()) - lo + 1
+                mx += [random.fold_in_range(sim._draws.codec_key, lo, n)
+                       .index_select(0, sel),
+                       random.fold_in_range(sim._draws.privacy_key, lo, n)
+                       .index_select(0, sel)]
+            progs.merge.begin(mx, M_, _rows_capacity(M_))
+        for op in rec.ops:
+            (progs.fire if op["kind"] == 0 else progs.merge).advance()
+        if F:
+            fire_ys = progs.fire.outputs(F)
+            n_met = progs.info["n_metrics"]
+            sim.last_round_metrics = progs.info["metrics_type"](*[
+                y[F - 1].clone() for y in fire_ys[:n_met]])
+
+    carry = [c.clone() for c in progs.fire.carry]
+    a, b = progs.n_state, progs.n_state + progs.n_h
+    sim.state = progs.sc.state(carry[:a], k + cfg.k0 * len(fires))
+    if sim.H is not None:
+        sim.H = tree_unflatten(sim.H, carry[a:b])
+    table.z = carry[b:b + progs.n_z]
+    table.w = carry[b + progs.n_z:]
+    # in-flight table-backed uploads read the table as it now stands
+    z_tree, w_tree = table.trees(sim.state.Z, sim.state.W)
+    for _, _, kind, c in sim._events:
+        if kind == _EV_UPLOAD and c.slot >= 0:
+            c.z_batch, c.w_batch, c.row = z_tree, w_tree, c.slot
+
+    if progs.collect:
+        w_np = None
+        if fires:
+            w_np = [y.cpu().numpy()
+                    for y in fire_ys[progs.info["n_metrics"]:]]
+            sim.host_syncs += 1
+        rows, last, f = [], entry_w, 0
+        for t in range(C):
+            while f < len(fires) and fire_steps[f] == t:
+                last = [w[f] for w in w_np]
+                f += 1
+            rows.append(last)
+        w_parts.append([np.stack(col) for col in zip(*rows)])
+    return mets
+
+
+def _run_async(sim: FedSim, rounds: int, *, chunk, collect_w_tau: bool,
+               event_table_capacity) -> EngineResult:
+    if sim._async_table is None:
+        if event_table_capacity is not None:
+            cap, fixed = int(event_table_capacity), True
+        else:
+            # capped: at most max_concurrency in flight plus a buffer's
+            # worth awaiting merge; uncapped: about two cohorts (the table
+            # grows past that on demand)
+            conc = sim._max_conc if math.isfinite(sim._max_conc) \
+                else 2 * sim._cohort
+            cap, fixed = int(conc) + sim._buffer_k, False
+        sim._async_table = _AsyncTable(sim.state.Z, sim.state.W,
+                                       max(1, cap), fixed=fixed)
+    table = sim._async_table
+    progs = _async_programs(sim, collect_w_tau)
+    chunk = rounds if chunk is None else min(chunk, rounds)
+    mets: list[SimMetrics] = []
+    w_parts: list = []
+    done = 0
+    while done < rounds:
+        C = min(chunk, rounds - done)
+        mets += _record_replay_chunk(sim, C, progs, table, w_parts)
+        done += C
+    w_tau = None
+    if collect_w_tau:
+        w_tau = tree_unflatten(sim.state.w_tau, [
+            np.concatenate(parts) for parts in zip(*w_parts)])
+    return EngineResult(mets, w_tau)
 
 
 def run_to_objective(sim: FedSim, objective_fn, target: float, *,

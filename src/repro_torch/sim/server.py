@@ -43,13 +43,35 @@ per eager round: the candidate mask and the policy's mask), and
 ``snapshot``/``restore`` rewind every clocked field exactly, for the
 engine's termination replay (``repro_torch.sim.engine``).
 
+Asynchronous client-level dispatch (``policy="async"``), FedBuff-style,
+as in JAX: the server keeps one time-ordered heap of per-client events,
+``start`` (client i receives the broadcast, while fewer than
+``max_concurrency`` clients are in flight; otherwise it waits in a FIFO)
+and ``upload`` (its contribution arrives). Cohorts are drawn from the
+algorithm's key stream whenever fewer than one cohort of clients is owed
+work; same-instant starts fire as one round-function call (one key
+advance). One ``step`` is one aggregation event: the heap is pumped until
+``buffer_size`` contributions are in, and each is folded into Z with
+weight gamma = (1 + staleness)^-staleness_exp
+(``merge_contribution``). Every device operation goes through a
+three-method executor (draw_candidates / fire / merge): ``_EagerAsyncExec``
+runs it at the event, and the engine (``repro_torch.sim.engine``) swaps in
+a recording one and replays the recorded fires and merges as CUDA graphs.
+The codec dither of an upload comes from ``fold_in(codec_key, serial)``
+and its privacy noise from ``fold_in(privacy_key, serial)``, the upload
+serial counting dispatched clients. With buffer equal to the cohort,
+concurrency of at least the cohort, full availability and no codec, every
+merge is at staleness 0 and the run is the sync run bit for bit.
+
 Not ported yet, and refused with a ValueError that names its ROADMAP item:
-``policy="async"`` and fault injection.
+fault injection.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
+import heapq
 import math
 from typing import Any, Callable, NamedTuple, Protocol
 
@@ -76,11 +98,15 @@ from repro_torch.sim.transport import (
 )
 from repro_torch.telemetry.events import NULL_RECORDER
 
-POLICIES = ("sync", "deadline", "adaptive", "overselect")
+POLICIES = ("sync", "deadline", "adaptive", "overselect", "async")
 _NOT_PORTED = {
-    "async": "policy='async' is not ported yet (ROADMAP queue 1 item 11)",
     "faults": "fault injection is not ported yet (ROADMAP queue 1 item 12)",
 }
+# async: consecutive all-offline cohort draws before a step gives up
+_MAX_DRY_DISPATCHES = 3
+# async event kinds (heap entries sort by (time, push sequence, kind))
+_EV_START = 0    # payload: (client index, round-trip duration seconds)
+_EV_UPLOAD = 1   # payload: _Contribution
 # alg -> (round function, the mask it would draw from a state)
 ALGS = {
     "fedepm": (fedepm.fedepm_round, fedepm.default_round_mask),
@@ -99,6 +125,10 @@ class SimConfig:
     latency_alpha: float = 1.2
     seed: int = 0
     codec: CodecConfig | None = None
+    # async (buffered) aggregation
+    buffer_size: int = 0            # contributions per aggregation; 0 = cohort
+    staleness_exp: float = 0.5      # gamma = (1 + staleness)^-exp
+    max_concurrency: int = 0        # async: in-flight client cap; 0 = no cap
     # adaptive per-client deadlines
     deadline_slack: float = 2.0     # wait budget = slack * ewma_i
     ewma_beta: float = 0.3          # EWMA weight of the newest observation
@@ -124,15 +154,21 @@ class SimMetrics(NamedTuple):
 
 def make_sim_metrics(*, round_idx: int, t_round: float, t_total: float,
                      n_contacted: int, n_aggregated: int, brec: dict,
-                     abandoned: bool) -> SimMetrics:
-    """The one SimMetrics constructor of a clocked round; ``brec`` is the
-    ByteLedger record of the round."""
+                     abandoned: bool, staleness=(),
+                     n_dropped: int | None = None) -> SimMetrics:
+    """The one SimMetrics constructor; ``brec`` is the ByteLedger record of
+    the round, ``staleness`` the versions-behind of each merged
+    contribution (clocked rounds merge at staleness 0 and pass none)."""
+    staleness = list(staleness)
     return SimMetrics(
         round_idx=round_idx, t_round=t_round, t_total=t_total,
         n_contacted=int(n_contacted), n_aggregated=int(n_aggregated),
-        n_dropped=int(n_contacted) - int(n_aggregated),
+        n_dropped=int(n_contacted) - int(n_aggregated)
+        if n_dropped is None else int(n_dropped),
         bytes_down=brec["down"], bytes_up=brec["up"],
-        abandoned=bool(abandoned))
+        abandoned=bool(abandoned),
+        staleness_mean=float(np.mean(staleness)) if staleness else 0.0,
+        staleness_max=int(max(staleness)) if staleness else 0)
 
 
 def emit_clocked_round_events(rec, *, policy: str, round_idx: int,
@@ -220,7 +256,10 @@ def _batches_d_local(batches) -> float:
 class SimDraws(Protocol):
     """The four things a clocked round draws, asked for in this order and
     only when the round needs them (an abandoned round asks for the mask
-    alone)."""
+    alone). The async policy asks for the mask and the unit-Laplace planes
+    at each cohort draw and fire, and for an upload's dither and noise
+    (``merge_dither``, ``merge_noise``, which ``KeyedDraws`` has) at each
+    merge."""
 
     def candidates(self, sim: "FedSim") -> np.ndarray:
         """(m,) bool candidate mask."""
@@ -275,6 +314,15 @@ class KeyedDraws:
             random.fold_in(self.privacy_key, sim.round_idx), tree_like,
             sim.sim.privacy)
 
+    def merge_dither(self, serial: int, shapes: list) -> list:
+        """Async: the dither planes of upload ``serial``."""
+        return codec_dither(random.fold_in(self.codec_key, serial), shapes)
+
+    def merge_noise(self, serial: int, tree_like, privacy):
+        """Async: the unit-noise tree of upload ``serial``."""
+        return draw_unit_noise(random.fold_in(self.privacy_key, serial),
+                               tree_like, privacy)
+
 
 def merge_uploads(prev_Z, new_Z, H, mask, dither, noise, codec, privacy,
                   ef: bool):
@@ -288,6 +336,141 @@ def merge_uploads(prev_Z, new_Z, H, mask, dither, noise, codec, privacy,
     else:
         dec = private_roundtrip(new_Z, prev_Z, dither, noise, codec, privacy)
     return tree_where_client(mask, dec, prev_Z), H
+
+
+@dataclasses.dataclass
+class _Contribution:
+    """One in-flight client upload (async policy).
+
+    The dispatch group's upload and iterate rows are gathered into one
+    batch per group; each contribution references its row of it. Under
+    the engine the batch is the engine's payload table (``slot`` is the
+    table row; the batch refs are set once the recorded fire has been
+    replayed), so an eager merge takes a table-backed contribution through
+    the same ``merge_contribution``.
+    """
+
+    client: int
+    version: int   # server version at dispatch (staleness anchor)
+    serial: int    # global upload serial (dither and noise streams)
+    z_batch: Any   # (g_pad, ...) upload rows of the dispatch group
+    w_batch: Any   # (g_pad, ...) iterate rows of the dispatch group
+    row: int       # this client's row within the batch
+    slot: int = -1  # engine: payload-table row (-1 = eager batch)
+
+
+def merge_contribution(Z, W, H, z_batch, w_batch, batch_row, idx, gamma,
+                       dither, noise, *, codec: CodecConfig | None,
+                       ef: bool, privacy: PrivacyConfig | None = None):
+    """Fold one arrived upload into the server's stacked state: (Z, W, H).
+
+    The one merge both engines run. ``batch_row`` and ``idx`` are (1,)
+    int64 tensors on the state's device: the upload's row of its batch and
+    the client; ``gamma`` a 0-d f32 tensor; ``dither`` the upload's planes
+    (``dither_shapes`` of a (1, ...) row) and ``noise`` its unit-noise
+    tree, or None
+    without noisy privacy. The row is decoded first (the memoryless
+    codec's fallback is the server's current row of Z; with error
+    feedback the client's memory row of H, which it then replaces), then
+    merged: Z_i <- gamma * z_hat + (1 - gamma) * Z_i, with one rounding
+    where jitted XLA has one, fma(1 - gamma, Z_i, gamma * z_hat), in f32;
+    gamma >= 1 replaces the row exactly. W_i is replaced outright.
+    """
+    def row(tree, i):
+        return tmap(lambda x: x.index_select(0, i), tree)
+
+    def set_row(tree, r):
+        return tmap(lambda x, rr: x.index_copy(0, idx, rr.to(x.dtype)),
+                    tree, r)
+
+    z_row, w_row = row(z_batch, batch_row), row(w_batch, batch_row)
+    noisy = privacy is not None and privacy.eps > 0
+    if codec is None and not noisy:
+        z_hat, H_new = z_row, H
+    elif ef:
+        z_hat = private_ef_roundtrip(z_row, row(H, idx), dither, noise,
+                                     codec, privacy if noisy else None)
+        H_new = set_row(H, z_hat)
+    else:
+        z_hat = private_roundtrip(z_row, row(Z, idx), dither, noise, codec,
+                                  privacy if noisy else None)
+        H_new = H
+    replace = gamma >= 1.0
+    keep = 1.0 - gamma
+
+    def zmerge(zl, r):
+        r32 = r.to(torch.float32)
+        cur = zl.index_select(0, idx).to(torch.float32)
+        new = torch.where(replace, r32,
+                          torch.addcmul(gamma * r32, keep, cur))
+        return zl.index_copy(0, idx, new.to(zl.dtype))
+
+    return tmap(zmerge, Z, z_hat), set_row(W, w_row), H_new
+
+
+class _EagerAsyncExec:
+    """The async event loop's device work, done at the event (the
+    reference semantics); the engine swaps in a recording executor."""
+
+    recording = False
+
+    def draw_candidates(self, sim) -> np.ndarray:
+        cand = np.array(sim._draws.candidates(sim), bool)
+        sim.host_syncs += 1
+        return cand
+
+    def fire(self, sim, group, mask: np.ndarray, contribs) -> None:
+        """Run the round function for a dispatch group now; gather the
+        group's upload and iterate rows into one batch, padded to a power
+        of two with the last row, as JAX gathers them."""
+        unit = (_on(sim._draws.unit_noise(sim), sim.device)
+                if sim.cfg.eps_dp > 0 else None)
+        kw = {}
+        if sim.alg != "fedepm":
+            # baselines: eq. (34)'s mean over the whole live cohort, so a
+            # capped sub-group still mixes across clients
+            kw["agg_mask"] = sim._dev_mask(sim._cohort_live | mask)
+        new, rm = sim._round_fn(sim.state, sim._batches, sim._loss_fn,
+                                sim.cfg, mask=sim._dev_mask(mask),
+                                unit_noise=unit, **kw)
+        sim.state = sim.state._replace(w_tau=new.w_tau, k=new.k, key=new.key)
+        sim.last_round_metrics = rm
+        idx = [i for i, _ in group]
+        pad = 1 << (len(group) - 1).bit_length() if len(group) > 1 else 1
+        rows = torch.tensor(idx + [idx[-1]] * (pad - len(group)),
+                            dtype=torch.int64, device=sim.device)
+        z_batch = tmap(lambda x: x.index_select(0, rows), new.Z)
+        w_batch = tmap(lambda x: x.index_select(0, rows), new.W)
+        for j, c in enumerate(contribs):
+            c.z_batch, c.w_batch, c.row = z_batch, w_batch, j
+
+    def merge(self, sim, c: _Contribution, staleness: int,
+              gamma: float) -> None:
+        """Staleness-merge one arrived contribution into the server state."""
+        dev = sim.device
+        like = tmap(lambda x: x[:1], c.z_batch)
+        codec = sim.sim.codec
+        dither = (sim._draws.merge_dither(c.serial, dither_shapes(
+            like, codec, fused_private=sim._fused_private))
+            if codec is not None else [])
+        noise = (_on(sim._draws.merge_noise(c.serial, like, sim._privacy_tx),
+                     dev) if sim._privacy_tx is not None else None)
+        dither = [None if u is None else u.to(dev) for u in dither]
+        Z, W, H = merge_contribution(
+            sim.state.Z, sim.state.W, sim.H, c.z_batch, c.w_batch,
+            torch.tensor([c.row], dtype=torch.int64, device=dev),
+            torch.tensor([c.client], dtype=torch.int64, device=dev),
+            torch.tensor(gamma, dtype=torch.float32, device=dev), dither,
+            noise, codec=codec, ef=sim._ef, privacy=sim._privacy_tx)
+        sim.state = sim.state._replace(Z=Z, W=W)
+        sim.H = H
+        if c.slot >= 0 and sim._async_table is not None:
+            # dispatched under the engine, merged eagerly: the slot is free
+            sim._async_table.free(c.slot)
+            c.slot = -1
+
+
+_EAGER_ASYNC_EXEC = _EagerAsyncExec()
 
 
 def _on(tree, device):
@@ -327,11 +510,15 @@ class FedSim:
         if alg not in ALGS:
             raise ValueError(f"unknown alg {alg!r}; expected one of "
                              f"{tuple(ALGS)}")
-        if sim.policy == "async":
-            raise ValueError(_NOT_PORTED["async"])
         if sim.policy not in POLICIES:
             raise ValueError(
                 f"unknown policy {sim.policy!r}; expected one of {POLICIES}")
+        if sim.buffer_size < 0:
+            raise ValueError(f"buffer_size must be >= 0 (0 = cohort size); "
+                             f"got {sim.buffer_size}")
+        if sim.max_concurrency < 0:
+            raise ValueError(f"max_concurrency must be >= 0 (0 = unlimited); "
+                             f"got {sim.max_concurrency}")
         if sim.faults is not None:
             raise ValueError(_NOT_PORTED["faults"])
         if sim.policy == "overselect" and \
@@ -393,6 +580,25 @@ class FedSim:
             self.deadlines = simclients.AdaptiveDeadlines(
                 cfg.m, beta=sim.ewma_beta, slack=sim.deadline_slack)
 
+        self._mask_cache: dict = {}
+        self._async_table = None   # the engine's payload table
+        self._engine_async = None  # the engine's fire and merge programs
+        if sim.policy == "async":
+            # cohort size of the selection stream: the in-system top-up
+            # target and the default buffer size
+            self._cohort = max(1, int(self.default_mask(state, cfg).sum()))
+            self._buffer_k = sim.buffer_size or self._cohort
+            self._max_conc = sim.max_concurrency or math.inf
+            self._version = 0          # server model version (aggregations)
+            self._serial = 0           # upload serial (dither/noise streams)
+            self._eseq = 0             # event push sequence (heap tie-break)
+            self._events: list = []    # heap of (t, eseq, kind, payload)
+            self._stalled: collections.deque = collections.deque()
+            self._n_inflight = 0       # started clients awaiting arrival
+            self._n_queued_starts = 0  # start events sitting in the heap
+            self._cohort_live = np.zeros(cfg.m, bool)  # newest draw, live
+            self._exec = _EAGER_ASYNC_EXEC  # device-work executor seam
+
         self._work = work_flops if work_flops is not None else \
             client_work_flops(alg, k0=cfg.k0,
                               n_params=sum(x.numel() for x in
@@ -416,6 +622,18 @@ class FedSim:
     def privacy(self):
         """The privacy accountant (PrivacyModel), or None."""
         return self._privacy
+
+    def _dev_mask(self, mask: np.ndarray) -> torch.Tensor:
+        """Device copy of a host mask, cached by value (the async loop
+        dispatches the same masks again and again)."""
+        key = mask.tobytes()
+        buf = self._mask_cache.get(key)
+        if buf is None:
+            if len(self._mask_cache) >= 1024:
+                self._mask_cache.pop(next(iter(self._mask_cache)))
+            buf = self._mask_cache[key] = torch.from_numpy(
+                np.array(mask, bool)).to(self.device)
+        return buf
 
     # -- policy -------------------------------------------------------------
 
@@ -472,6 +690,8 @@ class FedSim:
         return new._replace(Z=Z)
 
     def step(self) -> SimMetrics:
+        if self.sim.policy == "async":
+            return self._step_async()
         candidates = np.array(self._draws.candidates(self), bool)
         self.host_syncs += 1
         arrivals = simclients.round_arrivals(
@@ -531,6 +751,189 @@ class FedSim:
     def run(self, rounds: int) -> list[SimMetrics]:
         return [self.step() for _ in range(rounds)]
 
+    # -- asynchronous client-level dispatch (policy="async") ----------------
+
+    def _free_slots(self) -> float:
+        return self._max_conc - self._n_inflight
+
+    def _in_system(self) -> int:
+        """Clients the server owes work to: in flight, stalled on a
+        concurrency slot, or queued as unfired start events."""
+        return self._n_inflight + len(self._stalled) + self._n_queued_starts
+
+    def _select_cohort(self) -> int:
+        """Draw the next cohort from the algorithm's key stream and queue one
+        start event per live member at the current simulated time; returns
+        the live count. Unreachable members cost their broadcast at once
+        and never take a slot. The live mask is the baselines' aggregation
+        anchor."""
+        candidates = self._exec.draw_candidates(self)
+        durations = simclients.round_arrivals(
+            self.profiles, self._rng, self._latency,
+            work_flops=self._work, down_bytes=self._down_bytes,
+            up_bytes=self._up_bytes)
+        live = candidates & np.isfinite(durations)
+        self._cohort_live = live
+        offline = candidates & ~live
+        self._ev_contacted += int(offline.sum())
+        self._ev_dropped += int(offline.sum())
+        self._ev_down += offline.astype(np.int64)
+        if self.telemetry.enabled:
+            for i in np.flatnonzero(offline):
+                self.telemetry.event("dispatch", ts=self.t,
+                                     round_idx=self.round_idx,
+                                     client=int(i), live=False)
+        live_idx = np.flatnonzero(live)
+        if live_idx.size:
+            base = self._eseq
+            entries = [(self.t, base + j, _EV_START,
+                        (int(i), float(durations[i])))
+                       for j, i in enumerate(live_idx)]
+            # one heapify when the group is a sizeable share of the heap,
+            # else a push per entry (the heap's order is the same)
+            n_heap = len(self._events)
+            if live_idx.size * max(1, n_heap.bit_length()) >= n_heap:
+                self._events.extend(entries)
+                heapq.heapify(self._events)
+            else:
+                for e in entries:
+                    heapq.heappush(self._events, e)
+            self._eseq += int(live_idx.size)
+            self._n_queued_starts += int(live_idx.size)
+        return int(live_idx.size)
+
+    def _fire_group(self, group: list) -> None:
+        """Broadcast to ``group`` now: one round-function call over its
+        members advances w_tau, k and the key; their W/Z rows reach the
+        server's state only when their uploads merge."""
+        mask = np.zeros(self.cfg.m, bool)
+        mask[[i for i, _ in group]] = True
+        self._ev_contacted += len(group)
+        self._ev_down += mask.astype(np.int64)
+        contribs = [
+            _Contribution(client=i, version=self._version,
+                          serial=self._serial + j, z_batch=None,
+                          w_batch=None, row=j)
+            for j, (i, _) in enumerate(group)]
+        self._serial += len(group)
+        self._exec.fire(self, group, mask, contribs)
+        self._n_inflight += len(group)
+        if self.telemetry.enabled:
+            for i, dur in group:
+                self.telemetry.event(
+                    "dispatch", ts=self.t, round_idx=self.round_idx,
+                    client=int(i), dur_s=float(dur), version=self._version,
+                    in_flight=self._n_inflight,
+                    stalled=len(self._stalled))
+        for (i, dur), c in zip(group, contribs):
+            heapq.heappush(self._events,
+                           (self.t + dur, self._eseq, _EV_UPLOAD, c))
+            self._eseq += 1
+
+    def _step_async(self) -> SimMetrics:
+        """One aggregation event: pump the event heap until the buffer holds
+        ``buffer_size`` contributions, merge them in arrival order at their
+        staleness weight, and advance the server version."""
+        t_start = self.t
+        self._ev_down = np.zeros(self.cfg.m, np.int64)
+        self._ev_up = np.zeros(self.cfg.m, np.int64)
+        self._ev_contacted = 0
+        self._ev_dropped = 0
+        tel = self.telemetry
+        if tel.enabled:
+            tel.event("round_start", ts=self.t, round_idx=self.round_idx,
+                      policy="async", version=self._version)
+        if self._in_system() < self._cohort:
+            self._select_cohort()
+        buffer: list[_Contribution] = []
+        dry = 0
+        while len(buffer) < self._buffer_k and dry < _MAX_DRY_DISPATCHES:
+            # slot-blocked dispatches first: they outrank anything queued
+            if self._stalled and self._free_slots() >= 1:
+                group = [self._stalled.popleft()]
+                while self._stalled and len(group) < self._free_slots():
+                    group.append(self._stalled.popleft())
+                self._fire_group(group)
+                continue
+            if not self._events:
+                # nothing in flight and nothing startable: fresh work
+                dry = dry + 1 if self._select_cohort() == 0 else 0
+                continue
+            t_ev, _, kind, payload = heapq.heappop(self._events)
+            self.t = max(self.t, t_ev)
+            if kind == _EV_START:
+                self._n_queued_starts -= 1
+                if self._free_slots() < 1:
+                    self._stalled.append(payload)
+                    continue
+                group = [payload]
+                # same-instant starts fire as one round-function call
+                while (self._events and len(group) < self._free_slots()
+                       and self._events[0][0] == t_ev
+                       and self._events[0][2] == _EV_START):
+                    group.append(heapq.heappop(self._events)[3])
+                    self._n_queued_starts -= 1
+                self._fire_group(group)
+                continue
+            c = payload
+            self._n_inflight -= 1
+            self._ev_up[c.client] += 1
+            buffer.append(c)
+            if tel.enabled:
+                tel.event("upload_arrival", ts=self.t,
+                          round_idx=self.round_idx, client=int(c.client),
+                          version=c.version, in_flight=self._n_inflight,
+                          stalled=len(self._stalled))
+
+        staleness = [self._version - c.version for c in buffer]
+        for c, s in zip(buffer, staleness):
+            gamma = participation.staleness_weight(s, self.sim.staleness_exp)
+            self._exec.merge(self, c, s, gamma)
+            if tel.enabled:
+                if self.sim.codec is not None:
+                    tel.event("codec_encode", ts=self.t,
+                              round_idx=self.round_idx, client=int(c.client),
+                              **codec_event_attrs(self.sim.codec,
+                                                  n_clients=1,
+                                                  up_bytes=self._up_bytes))
+                tel.event("merge", ts=self.t, round_idx=self.round_idx,
+                          client=int(c.client), staleness=int(s),
+                          gamma=float(gamma))
+            if self._privacy is not None and self.sim.privacy.eps > 0:
+                # charged when the noisy payload is consumed
+                tot = self._privacy.charge(int(c.client))
+                if tel.enabled:
+                    tel.event("privacy_charge", ts=self.t,
+                              round_idx=self.round_idx, client=int(c.client),
+                              eps=self.sim.privacy.eps, eps_total=tot,
+                              staleness=int(s))
+        if buffer:
+            self._version += 1
+        elif tel.enabled:
+            tel.event("abandon", ts=self.t, round_idx=self.round_idx,
+                      n_contacted=self._ev_contacted)
+
+        if self._privacy is not None:
+            # every billed upload carried one mask-pair exchange
+            attempts = int(self._ev_up.sum())
+            mbytes = self._privacy.bill_masks(attempts)
+            if self.sim.privacy.secure_agg and attempts and tel.enabled:
+                tel.event("mask_exchange", ts=self.t,
+                          round_idx=self.round_idx, attempts=attempts,
+                          bytes=mbytes)
+        brec = self.ledger.record_counts(
+            down_counts=self._ev_down, up_counts=self._ev_up,
+            down_bytes=self._down_bytes, up_bytes=self._up_bytes,
+            ts=self.t, round_idx=self.round_idx)
+        m = make_sim_metrics(
+            round_idx=self.round_idx, t_round=self.t - t_start,
+            t_total=self.t, n_contacted=self._ev_contacted,
+            n_aggregated=len(buffer), n_dropped=self._ev_dropped,
+            brec=brec, abandoned=not buffer, staleness=staleness)
+        self.metrics.append(m)
+        self.round_idx += 1
+        return m
+
     # -- exact rewind (the engine's termination replay) ---------------------
 
     def snapshot(self) -> dict:
@@ -556,6 +959,24 @@ class FedSim:
             snap["ewma"] = self.deadlines.ewma.copy()
         if self._privacy is not None:
             snap["privacy"] = self._privacy.state_snapshot()
+        if self.sim.policy == "async":
+            snap["async"] = {
+                "version": self._version,
+                "serial": self._serial,
+                "eseq": self._eseq,
+                # upload payloads are mutable (the executors rewrite their
+                # batch refs): each gets its own copy
+                "events": [
+                    (t, seq, kind,
+                     dataclasses.replace(p) if kind == _EV_UPLOAD else p)
+                    for (t, seq, kind, p) in self._events],
+                "stalled": collections.deque(self._stalled),
+                "n_inflight": self._n_inflight,
+                "n_queued_starts": self._n_queued_starts,
+                "cohort_live": self._cohort_live.copy(),
+                "table": None if self._async_table is None
+                else self._async_table.clone(),
+            }
         return snap
 
     def restore(self, snap: dict) -> None:
@@ -574,3 +995,24 @@ class FedSim:
             self.deadlines.ewma = snap["ewma"].copy()
         if self._privacy is not None:
             self._privacy.state_restore(snap["privacy"])
+        if self.sim.policy == "async":
+            a = snap["async"]
+            self._version = a["version"]
+            self._serial = a["serial"]
+            self._eseq = a["eseq"]
+            self._events = [
+                (t, seq, kind,
+                 dataclasses.replace(p) if kind == _EV_UPLOAD else p)
+                for (t, seq, kind, p) in a["events"]]
+            self._stalled = collections.deque(a["stalled"])
+            self._n_inflight = a["n_inflight"]
+            self._n_queued_starts = a["n_queued_starts"]
+            self._cohort_live = a["cohort_live"].copy()
+            table = a["table"]
+            self._async_table = None if table is None else table.clone()
+            if self._async_table is not None:
+                # table-backed uploads read this restore's table clone
+                z, w = self._async_table.trees(self.state.Z, self.state.W)
+                for _, _, kind, p in self._events:
+                    if kind == _EV_UPLOAD and p.slot >= 0:
+                        p.z_batch, p.w_batch, p.row = z, w, p.slot

@@ -132,6 +132,27 @@ def test_chip_smoke_jax_trials(trial):
     assert (res["CR"], res["f"]) == (t["CR"], t["f"])
 
 
+@pytest.mark.parametrize("trial", [
+    "fedepm/rho=1.0/seed=2", "sfedavg/rho=0.2/seed=2",
+    "sfedavg/rho=1.0/seed=2", "sfedprox/rho=0.6/seed=0",
+    "sfedprox/rho=0.6/seed=2"])
+def test_queue3_trials_pinned(trial):
+    """The five Fig. 4 trials (m = 50, d = 45222) that stop more than one
+    round from JAX's on the CPU: a live ``benchmarks.common.run_algorithm``
+    and the port's CPU run each give the CR and f/m ``chip_smoke.py``
+    records for them. The port does not reproduce XLA:CPU's loss
+    arithmetic (ROADMAP queue 3 item 1), so the two columns differ; this
+    pins both, so that a change to either shows."""
+    import chip_smoke
+    t = chip_smoke.QUEUE3_TRIALS[trial]
+    kw = dict(chip_smoke.QUEUE3_SETTINGS, rho=t["rho"], seed=t["seed"])
+    want = jcommon.run_algorithm(t["alg"], **kw)
+    assert (want["CR"], want["f"]) == t["jax"]
+    got = paper.run_algorithm(t["alg"], device="cpu", **kw)
+    assert got["CR"] == t["port_cpu"][0]
+    assert abs(got["f"] - t["port_cpu"][1]) <= 2e-7
+
+
 def test_average_trials_matches_jax():
     kw = dict(m=M, k0=2, rho=0.5, eps=0.1, d=D, max_rounds=10)
     want = jcommon.average_trials("sfedavg", trials=2, **kw)

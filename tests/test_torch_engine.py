@@ -7,7 +7,11 @@ accountant exactly; states within ``STATE_RTOL`` of the largest |value|,
 the bound of ``tests/test_torch_sim.py``, since the round's sums run in
 another order than XLA's). Both sims draw from their own keys: the port's
 ``KeyedDraws`` draw JAX's bits. The mirror of ``tests/test_engine.py``
-without the async policy, the golden NPZ and the mesh.
+without the golden NPZ and the mesh. The async record/replay engine is held
+bit for bit to the port's eager async loop (JAX's async scan is red on
+this tree, so it is no oracle), through chunks, eager/engine interop,
+``snapshot``/``restore``, ``collect_w_tau`` and a pinned
+``event_table_capacity``.
 """
 import json
 
@@ -434,7 +438,7 @@ def test_run_rounds_matches_jax(task, alg, policy, kw, codec, privacy, eps):
 
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": 1}, "item 14"),
-    ({"event_table_capacity": 4}, "item 11"),
+    ({"event_table_capacity": 4}, "owned by policy='async'"),
     ({"chunk": 0}, "chunk"),
 ])
 def test_refuses_what_is_not_ported(task, kw, match):
@@ -523,12 +527,206 @@ def test_bench_engine_quick_schema(tmp_path, monkeypatch):
         f"rounds={s['engines']['scan']['rounds_to_target']}"
     assert f"rps={s['speedup_rounds_per_sec']:.2f}" in rows["engine/speedup"]
 
-    seen = {}
+    a = bench_engine.bench_async(device="cpu", d=2000, m=16, k0=4,
+                                 rounds=6, repeats=1)
+    assert a["config"]["policy"] == "async"
+    assert (a["config"]["buffer_size"], a["config"]["max_concurrency"]) \
+        == (4, 6)
+    for eng in ("eager", "scan"):
+        assert set(a["engines"][eng]) == {"rounds_per_sec", "host_syncs",
+                                          "host_syncs_per_round"}
+    assert a["engines"]["scan"]["host_syncs"] < \
+        a["engines"]["eager"]["host_syncs"]
+    rows = dict((name, derived) for name, _, derived in
+                bench_engine.rows_from({**s, "async": a}))
+    assert f"rps={a['speedup_rounds_per_sec']:.2f}" in \
+        rows["engine/async/speedup"]
+
+    seen, seen_async = {}, {}
     monkeypatch.setattr(bench_engine, "bench",
-                        lambda **kw: seen.update(kw) or s)
+                        lambda **kw: seen.update(kw) or dict(s))
+    monkeypatch.setattr(bench_engine, "bench_async",
+                        lambda **kw: seen_async.update(kw) or a)
     out = tmp_path / "engine.json"
     assert bench_engine.main(["--quick", "--device", "cpu", "--json",
                               str(out)]) == 0
-    assert seen == dict(bench_engine.QUICK_KW, device="cpu")
-    assert json.loads(out.read_text()) == s
+    assert seen == seen_async == dict(bench_engine.QUICK_KW, device="cpu")
+    assert json.loads(out.read_text()) == {**s, "async": a}
     assert [p.name for p in tmp_path.iterdir()] == ["engine.json"]
+
+
+# ---------------------------------------------------------------------------
+# the async record/replay engine against the port's eager async loop
+# ---------------------------------------------------------------------------
+
+ASYNC_CASES = [  # (id, alg, SimConfig kwargs, codec, privacy)
+    ("buf4-cap5", "fedepm", {"buffer_size": 4, "max_concurrency": 5},
+     None, None),
+    ("cap-splits-dispatch", "fedepm",
+     {"buffer_size": 3, "max_concurrency": 2}, None, None),
+    ("uncapped", "fedepm", {"buffer_size": 3}, None, None),
+    ("stale-exp0", "fedepm",
+     {"buffer_size": 3, "max_concurrency": 4, "staleness_exp": 0.0},
+     None, None),
+    ("codec-memoryless", "fedepm",
+     {"buffer_size": 3, "max_concurrency": 4}, "topk8", None),
+    ("codec-ef-dp", "fedepm", {"buffer_size": 3, "max_concurrency": 4},
+     "topk8_ef", "dp"),
+    ("dense8-dp-clip-sa", "fedepm", {"buffer_size": 3, "max_concurrency": 4},
+     "dense8", "dp_clip_sa"),
+    ("sfedavg-dp", "sfedavg", {"buffer_size": 3, "max_concurrency": 4},
+     "dense4_ef", "dp"),
+    ("sfedprox", "sfedprox", {"buffer_size": 3, "max_concurrency": 4},
+     None, None),
+]
+
+
+def _async_pair(task, case):
+    _, alg, kw, codec, privacy = case
+    return [_build(task, "async", kw, alg=alg, codec=codec, privacy=privacy)
+            for _ in range(2)]
+
+
+def _assert_async_bitforbit(eager: FedSim, scan: FedSim):
+    """Everything of ``_assert_bitforbit``, and the events, the accountant,
+    the last round's metrics and the event loop's own state."""
+    _assert_bitforbit(eager, scan)
+    assert [tuple(e) for e in scan.telemetry.events] == \
+        [tuple(e) for e in eager.telemetry.events]
+    if eager.privacy is not None:
+        assert scan.privacy.summary() == eager.privacy.summary()
+    for a, b in zip(scan.last_round_metrics, eager.last_round_metrics):
+        assert torch.equal(a, b)
+    assert (scan._version, scan._serial, scan._eseq, scan._n_inflight,
+            list(scan._stalled)) == (eager._version, eager._serial,
+                                     eager._eseq, eager._n_inflight,
+                                     list(eager._stalled))
+
+
+@pytest.mark.parametrize("case", ASYNC_CASES, ids=[c[0] for c in
+                                                   ASYNC_CASES])
+@pytest.mark.parametrize("chunk", [2, 3, None])
+def test_async_engine_matches_eager(task, case, chunk):
+    """Six aggregation events through ``run_rounds`` in chunks of 2, 3 and
+    one chunk: bit for bit the eager async loop."""
+    eager, scan = _async_pair(task, case)
+    eager.run(6)
+    res = run_rounds(scan, 6, chunk=chunk)
+    assert res.metrics == eager.metrics
+    _assert_async_bitforbit(eager, scan)
+
+
+def test_async_engine_interop(task):
+    """Eager steps, engine chunks and eager steps again, in any order, give
+    the pure eager run: uploads dispatched eagerly enter the engine's
+    table, and table-backed uploads merge eagerly."""
+    eager, mixed = _async_pair(task, ASYNC_CASES[5])
+    eager.run(9)
+    mixed.run(2)
+    run_rounds(mixed, 3, chunk=2)
+    mixed.run(2)
+    run_rounds(mixed, 2)
+    _assert_async_bitforbit(eager, mixed)
+
+
+def test_async_snapshot_restore_replays_exactly(task):
+    """A rewind restores the heap (with its uploads' rows), the stalled
+    FIFO, the counters, the live cohort and the table: the engine run
+    repeats bit for bit, and so does an eager run from the same point."""
+    eager, sim = _async_pair(task, ASYNC_CASES[1])
+    eager.run(7)
+    run_rounds(sim, 3)
+    snap = sim.snapshot()
+    run_rounds(sim, 4, chunk=3)
+    _assert_async_bitforbit(eager, sim)
+    sim.restore(snap)
+    run_rounds(sim, 4, chunk=2)
+    _assert_async_bitforbit(eager, sim)
+    sim.restore(snap)
+    sim.run(4)
+    _assert_async_bitforbit(eager, sim)
+
+
+def test_async_collect_w_tau(task):
+    """The collected broadcast points are the eager sim's w_tau after each
+    aggregation event (events without a fire keep the last one); host_syncs
+    count one per 64-fire block of the candidate stream and one per
+    transfer of broadcast points, as JAX counts them."""
+    eager, scan = _async_pair(task, ASYNC_CASES[0])
+    res = run_rounds(scan, 6, chunk=4, collect_w_tau=True)
+    assert res.w_tau.shape == (6, N)
+    for t in range(6):
+        eager.step()
+        np.testing.assert_array_equal(res.w_tau[t],
+                                      eager.state.w_tau.numpy())
+    one = _async_pair(task, ASYNC_CASES[0])[1]
+    run_rounds(one, 6)
+    assert one.host_syncs == 1  # one block of 64 fires covers the run
+    assert scan.host_syncs == 2 * 2  # per chunk: a block and a transfer
+
+
+def test_event_table_capacity(task):
+    """A pinned table that holds every in-flight upload runs bit for bit
+    like the growing one; one slot too few raises and names the knob."""
+    eager, pinned = _async_pair(task, ASYNC_CASES[0])
+    eager.run(6)
+    run_rounds(pinned, 6, chunk=3, event_table_capacity=9)
+    _assert_async_bitforbit(eager, pinned)
+    assert pinned._async_table.cap == 9
+    small = _async_pair(task, ASYNC_CASES[0])[1]
+    with pytest.raises(ValueError, match="event_table_capacity"):
+        run_rounds(small, 6, event_table_capacity=2)
+    with pytest.raises(ValueError, match="event_table_capacity must be"):
+        run_rounds(_async_pair(task, ASYNC_CASES[0])[1], 2,
+                   event_table_capacity=0)
+
+
+def test_async_programs_go_with_the_sim(task):
+    """The async engine's two programs (on the card, their graphs) live on
+    the sim and in no reference cycle: dropping the sim frees them at
+    once, without a garbage collection."""
+    import gc
+    import weakref
+    sim = _async_pair(task, ASYNC_CASES[4])[0]
+    run_rounds(sim, 2)
+    progs = sim._engine_async
+    refs = [weakref.ref(x) for x in (progs, progs.fire, progs.merge)]
+    run_rounds(sim, 1)
+    assert sim._engine_async is progs  # repeated calls reuse them
+    del progs
+    gc.disable()
+    try:
+        del sim
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
+def test_async_table_grows_on_demand(task):
+    """Unpinned, a table too small for the in-flight uploads doubles (the
+    engine's graphs follow the new shapes) and the run stays eager's."""
+    from repro_torch.sim import engine as eng
+    eager, scan = _async_pair(task, ASYNC_CASES[2])
+    eager.run(6)
+    scan._async_table = eng._AsyncTable(scan.state.Z, scan.state.W, 2,
+                                        fixed=False)
+    run_rounds(scan, 6, chunk=2)
+    assert scan._async_table.cap > 2
+    _assert_async_bitforbit(eager, scan)
+
+
+def test_async_cli_terminate_scan_matches_eager():
+    """``--engine scan --terminate`` under async rolls an overshooting
+    chunk back and stops where eager stops, with the same summary."""
+    from repro_torch.launch import simulate as tcli
+    extra = ["--aggregation", "async", "--buffer-size", "4",
+             "--max-concurrency", "6", "--latency", "pareto",
+             "--availability", "0.9", "--rounds", "30", "--terminate"]
+    outs = {}
+    for engine in ("eager", "scan"):
+        a = tcli.parser().parse_args(_CLI + extra + [
+            "--engine", engine, "--device", "cpu"])
+        outs[engine] = tcli.run_sim(a)
+    (a, _, fa), (b, _, fb) = outs["eager"], outs["scan"]
+    assert fa == fb and a.pop("engine") == "eager"
+    assert b.pop("engine") == "scan" and a == b

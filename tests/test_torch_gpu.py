@@ -86,13 +86,37 @@ def test_ens_kernel_bitwise(gen, monkeypatch, m, n, dtype, kind, layout):
 
 
 def test_ens_kernel_limits(gen):
-    """m = MAX_CLIENTS runs; one more client raises before any launch."""
-    Z = torch.randn(ens_mod.MAX_CLIENTS + 1, 5000, generator=gen,
+    """The register layouts' last m and the block layout's first equal the
+    plain version bit for bit; no m is refused."""
+    Z = torch.randn(ens_mod.REGISTER_LAYOUT_MAX_M + 1, 5000, generator=gen,
                     device="cuda")
-    got = ens_ops.ens(Z[1:], 0.3, 0.9)
-    torch.testing.assert_close(got, ens_ref(Z[1:], 0.3, 0.9), rtol=0, atol=0)
-    with pytest.raises(ValueError, match="clients"):
-        ens_ops.ens(Z, 0.3, 0.9)
+    for z in (Z[1:], Z):
+        got = ens_ops.ens(z, 0.3, 0.9)
+        torch.testing.assert_close(got, ens_ref(z, 0.3, 0.9), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [129, 200, 256, 1000])
+@pytest.mark.parametrize("n", [14, 4097])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kind", ["random", "ties", "negative_ratio"])
+@pytest.mark.parametrize("scratch", [False, True])
+def test_ens_block_layout_bitwise(gen, monkeypatch, m, n, dtype, kind,
+                                  scratch):
+    """The block layout (m > 128) equals the plain version bit for bit, its
+    columns in shared memory or (forced here) in device scratch."""
+    if scratch:
+        monkeypatch.setattr(ens_mod, "BLOCK_SMEM_LIMIT", 0)
+    lam, eta, tied = ENS_KINDS[kind]
+    Z = torch.randn(m, n, generator=gen, device="cuda") * 3
+    if tied:
+        Z = torch.round(Z * 2) / 2
+        h = m // 2
+        Z[h:2 * h, ::2] = -Z[:h, ::2]
+        Z[2 * h:, ::2] = 0.0
+    Z = Z.to(DTYPES[dtype])
+    got = ens_ops.ens(Z, lam, eta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ens_ref(Z, lam, eta), rtol=0, atol=0)
 
 
 def test_counters_count_launches(gen):
@@ -290,6 +314,66 @@ def test_engine_graph_matches_eager_on_card(gen, extra):
     assert scan.telemetry.events == eager.telemetry.events
     assert scan.ledger.rounds == eager.ledger.rounds
     assert scan.host_syncs < eager.host_syncs
+
+
+ASYNC = ["--aggregation", "async", "--latency", "pareto", "--availability",
+         "0.9", "--buffer-size", "3", "--max-concurrency", "4"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--bits", "8"],
+    ["--bits", "4", "--error-feedback", "--dp-eps", "10"],
+    ["--alg", "sfedprox", "--topk", "0.5", "--bits", "8"],
+    ["--dp-eps", "10", "--bits", "8", "--secure-agg"],
+])
+@pytest.mark.parametrize("chunk", [2, None])
+def test_async_engine_graphs_match_eager_on_card(gen, extra, chunk):
+    """The async engine on the card replays its fire and merge graphs in the
+    recorded order and leaves the sim as the eager event loop does, bit
+    for bit, the in-flight uploads' rows included; an eager step after it
+    merges table-backed uploads as the eager run does."""
+    from repro_torch.core.scan import GRAPH_STATS, reset_graph_stats
+    from repro_torch.sim import run_rounds
+    eager, scan = _sims_on_card(ASYNC + extra)
+    eager.run(7)
+    reset_graph_stats()
+    run_rounds(scan, 6, chunk=chunk)
+    fires = scan.state.k // scan.cfg.k0
+    merges = sum(mm.n_aggregated for mm in scan.metrics)
+    assert GRAPH_STATS["captures"] >= 2
+    assert GRAPH_STATS["replays"] == fires + merges
+    scan.run(1)
+    for f in ("w_tau", "W", "Z", "key"):
+        assert torch.equal(getattr(scan.state, f), getattr(eager.state, f))
+    if eager.H is not None:
+        assert torch.equal(scan.H, eager.H)
+    assert scan.metrics == eager.metrics
+    assert scan.telemetry.events == eager.telemetry.events
+    assert scan.ledger.rounds == eager.ledger.rounds
+    for (_, _, kind, p), (_, _, _, q) in zip(scan._events, eager._events):
+        if kind == 1:
+            assert torch.equal(p.z_batch[p.row], q.z_batch[q.row])
+            assert torch.equal(p.w_batch[p.row], q.w_batch[q.row])
+
+
+def test_async_engine_collect_and_rewind_on_card(gen):
+    """On the card the async engine's collected broadcast points are the
+    eager sim's w_tau after each event, and a rewind through
+    ``snapshot``/``restore`` replays the same graphs to the same bits."""
+    from repro_torch.sim import run_rounds
+    eager, scan = _sims_on_card(ASYNC + ["--bits", "8"])
+    snap = scan.snapshot()
+    res = run_rounds(scan, 5, chunk=2, collect_w_tau=True)
+    first = (scan.state.W.clone(), scan.state.Z.clone(), list(scan.metrics))
+    for t in range(5):
+        eager.step()
+        assert torch.equal(torch.from_numpy(res.w_tau[t]),
+                           eager.state.w_tau.cpu())
+    scan.restore(snap)
+    run_rounds(scan, 5, chunk=3)
+    assert torch.equal(scan.state.W, first[0])
+    assert torch.equal(scan.state.Z, first[1])
+    assert scan.metrics == first[2] == eager.metrics
 
 
 @pytest.mark.parametrize("alg", ["fedepm", "sfedprox"])

@@ -116,7 +116,7 @@ def _obj64(Z, w, lam, eta):
     return np.sum(lam * np.abs(d) + eta / 2 * d * d, axis=0)
 
 
-ENS_M = [1, 2, 3, 5, 8, 16, 33, 50, 128]
+ENS_M = [1, 2, 3, 5, 8, 16, 33, 50, 128, 129, 200]
 
 
 @pytest.mark.parametrize("m", ENS_M)
@@ -379,3 +379,76 @@ def test_ens_kernel_selection_mirror(m, case):
     assert_bitwise(got, jens_ref.ens_ref(jnp.asarray(Z), lam, eta))
     if tied and m > 1:  # mean 0, so candidates are the offsets: ties
         assert np.isin(Z[:, ::2], offs).any()
+
+
+def _kernel_ens_block(Z, offs, mean, C):
+    """ens_kernel_block: groups of C columns, each padded to P with +inf;
+    every bitonic step pairs i and i + s, i the pair index p with a zero
+    bit inserted at s; then max(A[i], C[m-1-i]) in place and a tree of
+    mins over the halves, against the top candidate."""
+    m, n = Z.shape
+    P = 1 << (m - 1).bit_length()
+    inf = np.float32(np.inf)
+    desc = offs[0] > offs[m]
+    out = np.empty(n, np.float32)
+    p = np.arange(P // 2)
+    for j0 in range(0, n, C):
+        live = min(C, n - j0)
+        cols = np.full((C, P), inf, np.float32)
+        cols[:live, :m] = Z[:, j0:j0 + live].T
+        mu = np.zeros(C, np.float32)
+        mu[:live] = mean[j0:j0 + live]
+        k = 2
+        while k <= P:
+            s = k // 2
+            while s:
+                i = ((p & ~(s - 1)) << 1) | (p & (s - 1))
+                a, b = cols[:, i], cols[:, i + s]
+                lo, hi = np.minimum(a, b), np.maximum(a, b)
+                asc = (i & k) == 0
+                cols[:, i] = np.where(asc, lo, hi)
+                cols[:, i + s] = np.where(asc, hi, lo)
+                s //= 2
+            k *= 2
+        np.testing.assert_array_equal(cols[:live, :m],
+                                      np.sort(Z[:, j0:j0 + live].T, axis=1))
+        i = np.arange(P)
+        cand = mu[:, None] + offs[np.where(desc, i + 1, m - 1 - i) % (m + 1)]
+        v = np.where(i < m, np.maximum(cols, cand), inf)
+        s = P // 2
+        while s:
+            v = np.minimum(v[:, :s], v[:, s:2 * s])
+            s //= 2
+        top = mu + offs[0 if desc else m]
+        out[j0:j0 + live] = np.minimum(top, v[:, 0])[:live]
+    return out
+
+
+@pytest.mark.parametrize("m", [129, 200])
+@pytest.mark.parametrize("case", sorted(ENS_CASES))
+def test_ens_block_layout_mirror(m, case):
+    """The block layout (m > 128), with the kernel's mean, equals the port's
+    ``ens_ref`` bit for bit, at the wrapper's columns per block and at a
+    group that leaves the last block short."""
+    lam, eta, tied = ENS_CASES[case]
+    Z = _ens_case_Z(m, 37, tied, seed=200 + m)
+    offs = to_np(tens_ref.ens_offsets(m, lam, eta))
+    want = to_np(tens_ref.ens_ref(to_torch(Z), lam, eta))
+    P, C, blocks, scratch = tens_ens.block_layout(m, 37)
+    assert (P, scratch) == (1 << (m - 1).bit_length(), False)
+    for cols in (C, 5):
+        assert_bitwise(_kernel_ens_block(Z, offs, _kernel_mean(Z), cols),
+                       want)
+
+
+def test_ens_block_layout_shape():
+    """Columns per block fill about 64 KB of shared memory, and a narrow
+    leaf takes one block per column, so that it spreads over the SMs; past
+    the 227 KB a block may hold, one column per block sorts in scratch."""
+    assert tens_ens.block_layout(129, 14) == (256, 1, 14, False)
+    assert tens_ens.block_layout(129, 4097) == (256, 32, 129, False)
+    assert tens_ens.block_layout(200, 1 << 20) == (256, 32, 1 << 15, False)
+    assert tens_ens.block_layout(1000, 1 << 20) == (1024, 15, 69906, False)
+    assert tens_ens.block_layout(32768, 14)[3] is False
+    assert tens_ens.block_layout(32769, 14) == (65536, 1, 14, True)
+    assert tens_ens.block_layout(40000, 1 << 20) == (65536, 1, 528, True)

@@ -298,7 +298,8 @@ def test_default_draws_match_jax_without_replay(task, policy, codec,
 # --- what is not ported is refused, never ignored ---
 
 @pytest.mark.parametrize("kw,match", [
-    ({"sim": tserver.SimConfig(policy="async")}, "item 11"),
+    ({"sim": tserver.SimConfig(policy="async", buffer_size=-1)},
+     "buffer_size must be >= 0"),
     ({"sim": tserver.SimConfig(faults=object())}, "item 12"),
     ({"alg": "fedavg"}, "unknown alg"),
     ({"sim": tserver.SimConfig(policy="fastest")}, "unknown policy"),
