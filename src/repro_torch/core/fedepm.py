@@ -184,9 +184,13 @@ def _client_inner(W, w_new, g, pows: torch.Tensor, cfg: FedEPMConfig):
     ``pows`` holds the round's alpha^{k+1}. Returns (W, mu_last).
     """
     mu = None
+    one = torch.ones((), dtype=torch.float32, device=pows.device)
+    c = torch.full((), cfg.c, dtype=torch.float32, device=pows.device)
     for t in range(cfg.k0):
         sq = tree_sq_norm(tmap(torch.sub, W, w_new), per_client=True)
-        mu = cfg.mu0 * (1.0 + cfg.c * sq) * pows[t]
+        # jitted XLA:CPU computes mu0 (1 + c sq) alpha^(k+1) as
+        # (mu0 alpha^(k+1)) fma(c, sq, 1); addcmul rounds once
+        mu = (cfg.mu0 * pows[t]) * torch.addcmul(one, sq, c)
         W = prox_ops.prox_update_tree(W, w_new, g, mu, cfg.lam, cfg.eta)
     return W, mu
 

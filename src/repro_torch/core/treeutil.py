@@ -36,12 +36,43 @@ def tree_unflatten(tree, leaves):
     return tmap(lambda _: next(it), tree)
 
 
-def _reduce(tree, per_client: bool, fn) -> torch.Tensor:
-    parts = [fn(x.to(torch.float32)) for x in tree_leaves(tree)]
-    if per_client:
-        parts = [p.reshape(p.shape[0], -1).sum(dim=1) for p in parts]
-    else:
-        parts = [p.sum() for p in parts]
+# XLA:CPU sums a row of up to this many elements in order, one element
+# after another; longer rows it sums in vector lanes. Squaring a
+# difference, as the round's ||w_i - w||^2 does, it contracts each square
+# into the sum: fma(x_j, x_j, acc). Read off jitted ``jnp.sum(jnp.square(a
+# - b))`` and ``jnp.sum(jnp.abs(x))``, vmapped or not, at 1-32 elements (0
+# of 2048 rows differ at each width). Its contraction is code generation's
+# choice: on a row that is a jit argument of 7 or 8 elements it rounds the
+# squares first. The plain (CPU) version follows the round's case, so a
+# client's norm over the paper's 14 features is JAX's bit for bit. On the
+# card torch's reduction stands.
+SEQUENTIAL_MAX = 32
+
+
+def _sequential(rows: torch.Tensor, square: bool) -> torch.Tensor:
+    """Row sums of ``rows`` (r, c) of squares or of |values|, in XLA:CPU's
+    order; ``addcmul`` rounds once, as the FMA does."""
+    if square:
+        acc = rows[:, 0] * rows[:, 0]
+        for j in range(1, rows.shape[1]):
+            acc = torch.addcmul(acc, rows[:, j], rows[:, j])
+        return acc
+    acc = rows[:, 0].abs()
+    for j in range(1, rows.shape[1]):
+        acc = acc + rows[:, j].abs()
+    return acc
+
+
+def _reduce(tree, per_client: bool, square: bool) -> torch.Tensor:
+    parts = []
+    for x in tree_leaves(tree):
+        x = x.to(torch.float32)
+        rows = x.reshape(x.shape[0], -1) if per_client else x.reshape(1, -1)
+        if not x.is_cuda and 0 < rows.shape[1] <= SEQUENTIAL_MAX:
+            part = _sequential(rows, square)
+        else:
+            part = (torch.square(rows) if square else rows.abs()).sum(dim=1)
+        parts.append(part if per_client else part[0])
     total = parts[0]
     for p in parts[1:]:
         total = total + p
@@ -50,12 +81,12 @@ def _reduce(tree, per_client: bool, fn) -> torch.Tensor:
 
 def tree_sq_norm(a, per_client: bool = False) -> torch.Tensor:
     """||a||^2 summed over all leaves, in f32; (m,) with ``per_client``."""
-    return _reduce(a, per_client, torch.square)
+    return _reduce(a, per_client, square=True)
 
 
 def tree_l1_norm(a, per_client: bool = False) -> torch.Tensor:
     """||a||_1 summed over all leaves, in f32; (m,) with ``per_client``."""
-    return _reduce(a, per_client, torch.abs)
+    return _reduce(a, per_client, square=False)
 
 
 def tree_where(mask_scalar, a, b):

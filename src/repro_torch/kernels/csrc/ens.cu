@@ -379,3 +379,13 @@ extern "C" int ens_block_bf16(const void* z, const void* offs, void* out,
   return launch_block<__nv_bfloat16>(z, offs, out, m, n, P, C, blocks,
                                      scratch, stream);
 }
+
+// The card's multiprocessor count and the shared memory a block may opt in
+// to, which decide the block layout's shape (the wrapper's block_layout).
+extern "C" int ens_device_limits(int device, int* sms, int* smem_optin) {
+  cudaError_t e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                         device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaDeviceGetAttribute(
+      smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+}

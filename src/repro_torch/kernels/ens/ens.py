@@ -37,14 +37,13 @@ _BLOCK_ENTRIES = {torch.float32: "ens_block_f32",
 REGISTER_LAYOUT_MAX_M = 128
 # the block layout: its columns fill about this many bytes of shared memory,
 # at most BLOCK_MAX_COLS columns, and no more than spreads the leaf over
-# the card's SMS multiprocessors (132 on an H100); a column that needs more
-# than a block may hold (227 KB on an H100) sorts in device scratch
-# instead, with SCRATCH_BLOCKS blocks striding over the column groups
+# the card's multiprocessors; a column that needs more than a block may
+# hold sorts in device scratch instead, with SCRATCH_BLOCKS_PER_SM blocks
+# per multiprocessor striding over the column groups (``device_limits``
+# reads both numbers from the card)
 BLOCK_SMEM_TARGET = 64 * 1024
 BLOCK_MAX_COLS = 32
-BLOCK_SMEM_LIMIT = 232448
-SMS = 132
-SCRATCH_BLOCKS = 4 * SMS
+SCRATCH_BLOCKS_PER_SM = 4
 # below this n the thread layout would put fewer warps on the card than it
 # has SMs (132 on an H100), so a warp takes each coordinate instead
 WARP_LAYOUT_MAX_N = 4096
@@ -68,21 +67,40 @@ def _fn(dtype: torch.dtype, block: bool = False):
     return _FNS[dtype, block]
 
 
-def block_layout(m: int, n: int) -> tuple[int, int, int, bool]:
-    """The block layout's shape for (m, n): (P, C, blocks, scratch) with P
-    the column length padded to a power of two, C the columns per block,
-    the number of blocks, and whether the columns sort in device scratch
-    (one slice of C columns per block) rather than in shared memory."""
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int]:
+    """(multiprocessors, opt-in shared memory per block in bytes) of CUDA
+    device ``index``, read from the card once."""
+    lib = build.load("ens")
+    fn = lib.ens_device_limits
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    build.check(lib, fn(index, ctypes.byref(sms), ctypes.byref(smem)),
+                "ENS device query")
+    return sms.value, smem.value
+
+
+def block_layout(m: int, n: int, sms: int,
+                 smem_limit: int) -> tuple[int, int, int, bool]:
+    """The block layout's shape for (m, n) on a card of ``sms``
+    multiprocessors whose blocks may hold ``smem_limit`` bytes of shared
+    memory: (P, C, blocks, scratch) with P the column length padded to a
+    power of two, C the columns per block, the number of blocks, and
+    whether the columns sort in device scratch (one slice of C columns per
+    block) rather than in shared memory."""
     P = 1 << (m - 1).bit_length()
     col_bytes = 4 * (P + 1)
     C = max(1, min(BLOCK_MAX_COLS, BLOCK_SMEM_TARGET // col_bytes,
-                   -(-n // SMS)))
+                   -(-n // sms)))
     groups = -(-n // C)
-    scratch = 4 * C + C * col_bytes > BLOCK_SMEM_LIMIT
+    scratch = 4 * C + C * col_bytes > smem_limit
     if scratch:
         C = 1
         groups = n
-    blocks = min(groups, SCRATCH_BLOCKS if scratch else (1 << 30))
+    blocks = min(groups, SCRATCH_BLOCKS_PER_SM * sms if scratch
+                 else (1 << 30))
     return P, C, blocks, scratch
 
 
@@ -118,7 +136,10 @@ def ens_cuda(Z: torch.Tensor, lam, eta) -> torch.Tensor:
         err = fn(Z.data_ptr(), offs.data_ptr(), out.data_ptr(), m, n,
                  per_warp, stream)
     else:
-        P, C, blocks, use_scratch = block_layout(m, n)
+        P, C, blocks, use_scratch = block_layout(
+            m, n, *device_limits(Z.device.index
+                                 if Z.device.index is not None
+                                 else torch.cuda.current_device()))
         scratch = (torch.empty(blocks * C * (P + 1), dtype=torch.float32,
                                device=Z.device) if use_scratch else None)
         lib, fn = _fn(Z.dtype, block=True)

@@ -67,6 +67,7 @@ def _codec(kind, cls):
     return {None: None,
             "topk8": cls(topk_frac=0.5, bits=8),
             "topk8_ef": cls(topk_frac=0.5, bits=8, error_feedback=True),
+            "dense4_ef": cls(bits=4, error_feedback=True),
             "dense8": cls(bits=8)}[kind]
 
 
@@ -163,11 +164,8 @@ def run_pair(sim, jsim, events=EVENTS):
 
 
 # (id, alg, SimConfig kwargs, codec, privacy): the fedepm cases of JAX's
-# tests/test_engine_async.py, its baselines, and DP uploads. EF with DP
-# uploads is held engine-to-eager only (tests/test_torch_engine.py): against
-# JAX its W leaves STATE_RTOL by 1.29x in one element (64 ulp at 65.7), the
-# per-client gradient's summation order divided by mu ~ 0.05 in eq. (20)
-# (ROADMAP queue 3 item 4)
+# tests/test_engine_async.py, its baselines, and DP uploads, memoryless and
+# with error feedback (chip_smoke.py's async configuration (g): 4-bit EF)
 CASES = [
     ("buf4-cap5", "fedepm", {"buffer_size": 4, "max_concurrency": 5},
      None, None),
@@ -186,6 +184,10 @@ CASES = [
      {"buffer_size": 3, "max_concurrency": 4}, "topk8_ef", None),
     ("dp-uploads", "fedepm",
      {"buffer_size": 3, "max_concurrency": 4}, "dense8", "dp"),
+    ("ef-dp-uploads", "fedepm",
+     {"buffer_size": 3, "max_concurrency": 4}, "dense4_ef", "dp"),
+    ("topk-ef-dp-uploads", "fedepm",
+     {"buffer_size": 3, "max_concurrency": 4}, "topk8_ef", "dp"),
     ("sfedavg", "sfedavg", {"buffer_size": 3, "max_concurrency": 4},
      None, None),
     ("sfedprox", "sfedprox", {"buffer_size": 3, "max_concurrency": 4},

@@ -9,8 +9,9 @@ in nothing: the port's state, keyed like JAX's, draws JAX's masks and
 uniforms itself (the Laplace values differ from JAX's by at most one ulp,
 ``tests/test_torch_random.py``).
 
-Tolerances, and why: round 0's w_tau and W agree bit for bit (m = 16);
-Z differs by an ulp where the l1 sum in the noise scale does. From there the
+Tolerances, and why: round 0's w_tau, W, mu, the gradient's l1 sum and
+the noise scale agree bit for bit (m = 16 and 50); Z differs by an ulp in
+a few elements where the noise is added. From there the
 per-client gradients (matmul and sums in another order than XLA's), the
 ENS mean above m = 32, and pow/log1p drift by ulps, and the round feeds
 each drift forward. Over these 10 rounds at d = 4000 the largest drift
@@ -93,7 +94,7 @@ def test_round_by_round_vs_jax(m, eps):
         js, jm = step(js)
         ts, tm = tf.fedepm_round(ts, tb, tloss, tcfg, mask=to_torch(mask),
                                  unit_noise=to_torch(unit))
-        if r == 0 and m == 16:  # Z carries the noise scale's l1 sum
+        if r == 0 and m == 16:  # Z differs where the noise is added
             for name in ("w_tau", "W"):
                 assert_bitwise(getattr(ts, name), getattr(js, name))
         _check_round(js, jm, ts, tm)
@@ -284,3 +285,52 @@ def test_round_needs_a_generator_for_what_it_draws(task):
     with pytest.raises(ValueError, match="noise"):
         tf.fedepm_round(state, batches, loss, cfg,
                         mask=torch.ones(m, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("n", [1, 7, 14, 32])
+def test_tree_norms_bitwise(n):
+    """On the CPU a row of up to 32 elements sums as XLA:CPU sums the
+    round's norms: in order, the square of a difference contracted into the
+    sum. The per-client ||w_i - w||^2 and l1 norms, and the whole-vector
+    ones, equal jitted JAX bit for bit."""
+    from repro.core.treeutil import tree_l1_norm as jl1
+    from repro.core.treeutil import tree_sq_norm as jsq
+    from repro_torch.core.treeutil import tree_l1_norm, tree_sq_norm
+    rng = np.random.default_rng(n)
+    X = (rng.standard_normal((257, n))
+         * rng.uniform(1, 1e4, (257, 1))).astype(np.float32)
+    w = (rng.standard_normal(n) * 5000).astype(np.float32)
+    jX, jw, tX, tw = jnp.asarray(X), jnp.asarray(w), to_torch(X), to_torch(w)
+    assert_bitwise(tree_sq_norm(tX - tw, per_client=True),
+                   jax.jit(jax.vmap(lambda x, v: jsq(x - v),
+                                    in_axes=(0, None)))(jX, jw))
+    assert_bitwise(tree_sq_norm(tX[0] - tw),
+                   jax.jit(lambda x, v: jsq(x - v))(jX[0], jw))
+    assert_bitwise(tree_l1_norm(tX, per_client=True),
+                   jax.jit(jax.vmap(jl1))(jX))
+    assert_bitwise(tree_l1_norm(tX[0]), jax.jit(jl1)(jX[0]))
+
+
+@pytest.mark.parametrize("k_start", [0, 37])
+def test_client_inner_bitwise(k_start):
+    """The k0 prox iterations (20) equal jitted JAX's bit for bit, mu
+    included, where the round's mu is (mu0 alpha^(k+1)) fma(c, sq, 1) (XLA's
+    placement) and w^{tau+1} is large enough that (1 + c sq) leaves 1: the
+    state an async run with DP uploads reaches, where an ulp of mu became
+    64 ulps of W after the prox's cancellation."""
+    m = 16
+    rng = np.random.default_rng(k_start)
+    W = (rng.standard_normal((m, 14)) * 100).astype(np.float32)
+    wn = (rng.standard_normal(14) * 5000).astype(np.float32)
+    g = (rng.standard_normal((m, 14)) * 5).astype(np.float32)
+    cfg = jf.FedEPMConfig.paper_defaults(m=m, rho=0.5, k0=3, eps_dp=0.1)
+    tcfg = tf.FedEPMConfig.paper_defaults(m=m, rho=0.5, k0=3, eps_dp=0.1)
+    want_W, want_mu = jax.jit(lambda W, wn, g, k: jax.vmap(
+        lambda wi, gi: jf._client_inner(wi, wn, gi, k, cfg))(W, g))(
+        jnp.asarray(W), jnp.asarray(wn), jnp.asarray(g), jnp.int32(k_start))
+    got_W, got_mu = tf._client_inner(to_torch(W), to_torch(wn), to_torch(g),
+                                     tf.round_pows(tcfg, k_start, "cpu"),
+                                     tcfg)
+    assert float(np.min(np.asarray(want_mu))) > 2 * cfg.mu0
+    assert_bitwise(got_mu, want_mu)
+    assert_bitwise(got_W, want_W)

@@ -105,7 +105,8 @@ def test_ens_block_layout_bitwise(gen, monkeypatch, m, n, dtype, kind,
     """The block layout (m > 128) equals the plain version bit for bit, its
     columns in shared memory or (forced here) in device scratch."""
     if scratch:
-        monkeypatch.setattr(ens_mod, "BLOCK_SMEM_LIMIT", 0)
+        sms = ens_mod.device_limits(torch.cuda.current_device())[0]
+        monkeypatch.setattr(ens_mod, "device_limits", lambda index: (sms, 0))
     lam, eta, tied = ENS_KINDS[kind]
     Z = torch.randn(m, n, generator=gen, device="cuda") * 3
     if tied:
@@ -117,6 +118,15 @@ def test_ens_block_layout_bitwise(gen, monkeypatch, m, n, dtype, kind,
     got = ens_ops.ens(Z, lam, eta)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ens_ref(Z, lam, eta), rtol=0, atol=0)
+
+
+def test_ens_device_limits(gen):
+    """The block layout reads the card's multiprocessors and opt-in shared
+    memory per block, as torch reports the first."""
+    index = torch.cuda.current_device()
+    sms, smem = ens_mod.device_limits(index)
+    assert sms == torch.cuda.get_device_properties(index).multi_processor_count
+    assert smem >= 48 * 1024
 
 
 def test_counters_count_launches(gen):

@@ -424,6 +424,11 @@ def _kernel_ens_block(Z, offs, mean, C):
     return out
 
 
+# an H100's multiprocessors and opt-in shared memory per block
+# (``ens.device_limits`` reads them from the card)
+H100_LIMITS = (132, 232448)
+
+
 @pytest.mark.parametrize("m", [129, 200])
 @pytest.mark.parametrize("case", sorted(ENS_CASES))
 def test_ens_block_layout_mirror(m, case):
@@ -434,7 +439,7 @@ def test_ens_block_layout_mirror(m, case):
     Z = _ens_case_Z(m, 37, tied, seed=200 + m)
     offs = to_np(tens_ref.ens_offsets(m, lam, eta))
     want = to_np(tens_ref.ens_ref(to_torch(Z), lam, eta))
-    P, C, blocks, scratch = tens_ens.block_layout(m, 37)
+    P, C, blocks, scratch = tens_ens.block_layout(m, 37, *H100_LIMITS)
     assert (P, scratch) == (1 << (m - 1).bit_length(), False)
     for cols in (C, 5):
         assert_bitwise(_kernel_ens_block(Z, offs, _kernel_mean(Z), cols),
@@ -444,11 +449,22 @@ def test_ens_block_layout_mirror(m, case):
 def test_ens_block_layout_shape():
     """Columns per block fill about 64 KB of shared memory, and a narrow
     leaf takes one block per column, so that it spreads over the SMs; past
-    the 227 KB a block may hold, one column per block sorts in scratch."""
-    assert tens_ens.block_layout(129, 14) == (256, 1, 14, False)
-    assert tens_ens.block_layout(129, 4097) == (256, 32, 129, False)
-    assert tens_ens.block_layout(200, 1 << 20) == (256, 32, 1 << 15, False)
-    assert tens_ens.block_layout(1000, 1 << 20) == (1024, 15, 69906, False)
-    assert tens_ens.block_layout(32768, 14)[3] is False
-    assert tens_ens.block_layout(32769, 14) == (65536, 1, 14, True)
-    assert tens_ens.block_layout(40000, 1 << 20) == (65536, 1, 528, True)
+    the shared memory a block may hold, one column per block sorts in
+    scratch. The H100's limits, then a card of half its SMs and shared
+    memory."""
+    def layout(m, n):
+        return tens_ens.block_layout(m, n, *H100_LIMITS)
+
+    assert layout(129, 14) == (256, 1, 14, False)
+    assert layout(129, 4097) == (256, 32, 129, False)
+    assert layout(200, 1 << 20) == (256, 32, 1 << 15, False)
+    assert layout(1000, 1 << 20) == (1024, 15, 69906, False)
+    assert layout(32768, 14)[3] is False
+    assert layout(32769, 14) == (65536, 1, 14, True)
+    assert layout(40000, 1 << 20) == (65536, 1, 528, True)
+    assert tens_ens.block_layout(129, 4097, 66, 116224) == (256, 32, 129,
+                                                            False)
+    assert tens_ens.block_layout(129, 2000, 66, 116224) == (256, 31, 65,
+                                                            False)
+    assert tens_ens.block_layout(16385, 14, 66, 116224) == (32768, 1, 14,
+                                                            True)
