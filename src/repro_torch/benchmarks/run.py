@@ -1,10 +1,12 @@
 """Benchmark runner of the port's twins: prints ``name,us_per_call,derived``
-CSV rows, as ``benchmarks/run.py`` does for fig2, fig3, fig4, table1 and
-the engine benchmark's sync and async cells.
+CSV rows, as ``benchmarks/run.py`` does for fig2, fig3, fig4, table1, fig8
+(through the sweep runner) and the engine benchmark's sync and async
+cells.
 
     python -m repro_torch.benchmarks.run --only fig2,fig3,fig4,table1
     python -m repro_torch.benchmarks.run --only fig2 --quick --device cpu
     python -m repro_torch.benchmarks.run --only engine
+    python -m repro_torch.benchmarks.run --only fig8 --quick --device cpu
 
 runs on the CUDA card unless ``--device`` names another. ``--quick`` takes
 the small-d task and one trial, ``--full`` the paper's complete grids; the
@@ -19,7 +21,7 @@ import sys
 import time
 
 from repro_torch.benchmarks import (bench_engine, fig2_accuracy, fig3_k0,
-                                    fig4_rho, table1_lct)
+                                    fig4_rho, fig8_faults, table1_lct)
 from repro_torch.kernels.common import resolve_device
 
 
@@ -36,6 +38,8 @@ def jobs(quick: bool, full: bool, device) -> dict:
             d=d, trials=trials, device=device,
             rho_grid=(0.2, 0.6, 1.0) if not full
             else (0.2, 0.4, 0.6, 0.8, 1.0)),
+        "fig8": lambda: fig8_faults.run(
+            device=device, **(fig8_faults.QUICK_KW if quick else {})),
         "engine": lambda: bench_engine.run(
             device=device, **(bench_engine.QUICK_KW if quick
                               else dict(d=45222) if full else {})),

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random
+from repro_torch.core import xla_cpu
 from repro_torch.core.treeutil import (
     tmap,
     tree_l1_norm,
@@ -27,7 +28,9 @@ _U_HI = 0.5
 
 
 def _unit_laplace(u: torch.Tensor) -> torch.Tensor:
-    return -torch.sign(u) * torch.log1p(-2.0 * torch.abs(u))
+    # on the CPU XLA:CPU's log1p, so the noise is jitted JAX's bit for bit
+    log1p = torch.log1p if u.is_cuda else xla_cpu.log1p
+    return -torch.sign(u) * log1p(-2.0 * torch.abs(u))
 
 
 def laplace_from_uniform(u: torch.Tensor, scale) -> torch.Tensor:

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import random
-from repro_torch.core import dp
+from repro_torch.core import dp, xla_cpu
 from repro_torch.core.participation import sample_coverage, sample_uniform
 from repro_torch.core.treeutil import (
     tmap,
@@ -62,6 +62,11 @@ class FedEPMConfig:
     eps_dp: float = 0.1          # DP epsilon; <= 0 disables noise
     s0: int = 10                 # coverage window (Setup VI.1)
     sampler: str = "uniform"     # "uniform" | "coverage" | "full"
+    # Laplace scale of the noise on the first upload Z^0; 0 uploads W^0
+    init_noise_scale: float = 0.0
+    # cap on the sensitivity surrogate Delta_hat = 2 ||g||_1 (the JAX
+    # package's LM-scale hardening); 0 disables
+    sensitivity_clip: float = 0.0
 
     @staticmethod
     def paper_defaults(m: int, rho: float = 0.5, k0: int = 12,
@@ -110,10 +115,18 @@ def split_round_key(key):
 
 def init_state(key, params0: Params, cfg: FedEPMConfig) -> FedEPMState:
     """All clients start from the same w_i^0 = params0 (paper: w_i^0 = 0)
-    and upload it unnoised: Z^0 = W^0. ``key`` is a ``random.PRNGKey``
-    (or None when the caller supplies every draw)."""
+    and upload it: Z^0 = W^0, plus Laplace noise of scale
+    ``init_noise_scale`` from a split of the key when that is > 0. ``key``
+    is a ``random.PRNGKey`` (or None when the caller supplies every
+    draw)."""
     W = tree_broadcast_clients(params0, cfg.m)
-    return FedEPMState(w_tau=params0, W=W, Z=W, k=0, key=key)
+    Z = W
+    if cfg.init_noise_scale > 0:
+        ks = random.split(need_key(key, "initial noise"), 2)
+        key = ks[0]
+        Z = tmap(torch.add, W, dp.laplace_tree(ks[1], W,
+                                               cfg.init_noise_scale))
+    return FedEPMState(w_tau=params0, W=W, Z=Z, k=0, key=key)
 
 
 def _select(key, cfg: FedEPMConfig, round_idx: int, device):
@@ -230,6 +243,8 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     # ---- DP-noised upload (21)/(39) ----
     grad_l1 = dp.sensitivity_surrogate(g, per_client=True) / 2.0
     delta_hat = 2.0 * grad_l1
+    if cfg.sensitivity_clip > 0:
+        delta_hat = torch.clamp_max(delta_hat, cfg.sensitivity_clip)
     if cfg.eps_dp > 0:
         scale = dp.fedepm_noise_scale(delta_hat, cfg.eps_dp, mu_last)  # (m,)
         if unit_noise is None:
@@ -302,10 +317,12 @@ def make_scan_rounds(batches: Batch, loss_fn: LossFn, cfg: FedEPMConfig):
 
 def global_objective(loss_fn: LossFn, w: Params,
                      batches: Batch) -> torch.Tensor:
-    """f(w) = sum_i f_i(w) over the stacked client batches (paper eq. (1))."""
+    """f(w) = sum_i f_i(w) over the stacked client batches (paper eq. (1));
+    on the CPU the m terms are summed in XLA:CPU's order."""
     m = tree_leaves(batches)[0].shape[0]
     W = tmap(lambda x: x.unsqueeze(0).expand((m,) + x.shape), w)
-    return loss_fn(W, batches).sum()
+    f = loss_fn(W, batches)
+    return f.sum() if f.is_cuda else xla_cpu.row_sum(f)
 
 
 def global_grad_sq_norm(loss_fn: LossFn, w: Params,

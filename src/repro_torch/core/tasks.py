@@ -10,11 +10,16 @@ with beta = 1e-3. Where JAX ``vmap``s the loss over clients, the port's
 module takes the stacked client weights W (m, n) and the stacked client
 batches {x (m, d, n), y (m, d), mask (m, d)} and returns the m per-client
 losses. The validity mask zeroes padded rows of ragged shards.
+
+On the CPU the loss and its gradient are jitted XLA:CPU's bit for bit
+(``core/xla_cpu.py``); on the card torch's ops and reductions stand.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.core import xla_cpu
 
 
 def _logits(W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -23,6 +28,40 @@ def _logits(W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _d_i(mask: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(mask.sum(dim=-1), 1.0)
+
+
+class _XlaCpuLogistic(torch.autograd.Function):
+    """The plain (CPU) loss: per-client f_i and, backward, grad f_i as the
+    jitted JAX loss and its vmapped ``jax.grad`` compute them on XLA:CPU.
+
+    Forward: z by XLA's gemv, ``softplus(z) - y z`` with the product
+    contracted, times the mask, the shard's row sum, then fma(sum, 1/d_i,
+    (beta/2) ||w||^2). Backward (``logaddexp``'s JVP): dz = fma(c, exp(z -
+    softplus(z)), -c y) with c = mask / d_i, then x_i^T dz in sample order,
+    plus beta w as (beta/2) w doubled.
+    """
+
+    @staticmethod
+    def forward(ctx, W, x, y, mask, half_beta):
+        z = xla_cpu.gemv(x, W)
+        sp = xla_cpu.softplus(z)
+        per = xla_cpu.fma(z, -y, sp) * mask
+        inv = 1.0 / torch.clamp_min(mask.sum(dim=-1), 1.0)
+        reg = xla_cpu.sq_sum(W) * half_beta
+        ctx.save_for_backward(W, x, y, mask, z, sp, inv)
+        ctx.half_beta = half_beta
+        return xla_cpu.fma(xla_cpu.row_sum(per), inv, reg)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        W, x, y, mask, z, sp, inv = ctx.saved_tensors
+        c = (g_out * inv).unsqueeze(-1) * mask
+        inf = float("inf")
+        zz = torch.where(z == inf, torch.zeros_like(z), z)
+        ss = torch.where(sp == inf, torch.zeros_like(sp), sp)
+        dz = xla_cpu.fma(c, xla_cpu.exp(zz - ss), (-c) * y)
+        reg = W * (g_out.unsqueeze(-1) * ctx.half_beta)
+        return xla_cpu.gemv_t(x, dz) + (reg + reg), None, None, None, None
 
 
 class LogisticLoss(nn.Module):
@@ -34,6 +73,8 @@ class LogisticLoss(nn.Module):
 
     def forward(self, W: torch.Tensor, batch) -> torch.Tensor:
         x, y, mask = batch["x"], batch["y"], batch["mask"]
+        if not W.is_cuda:
+            return _XlaCpuLogistic.apply(W, x, y, mask, 0.5 * self.beta)
         z = _logits(W, x)
         # ln(1 + e^z) - b z; logaddexp(z, 0) is jax.nn.softplus exactly
         # (F.softplus switches to z above a threshold)

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import xla_cpu
+
 _INV_2_32 = 2.0 ** -32
 
 
@@ -77,11 +79,13 @@ def quantize_cols_ref(X: torch.Tensor, F: torch.Tensor, scale: torch.Tensor,
 
 def laplace_from_u32(u32: torch.Tensor) -> torch.Tensor:
     """Unit-scale Laplace noise from uint32 bits: u = bits * 2^-32 - 0.5,
-    eps = -sign(u) * log1p(-min(2|u|, 1 - 1e-7)). ``log1p`` may differ from
-    XLA's by one ulp."""
+    eps = -sign(u) * log1p(-min(2|u|, 1 - 1e-7)). On the CPU ``log1p`` is
+    XLA:CPU's, so the plane is JAX's bit for bit; on the card it is torch's,
+    which the kernel is held to."""
     u = u32_to_unit(u32) - 0.5
     a = torch.clamp_max(2.0 * torch.abs(u), 1.0 - 1e-7)
-    return -torch.sign(u) * torch.log1p(-a)
+    log1p = torch.log1p if u.is_cuda else xla_cpu.log1p
+    return -torch.sign(u) * log1p(-a)
 
 
 def private_quantize_cols_ref(X: torch.Tensor, F: torch.Tensor,

@@ -22,40 +22,52 @@ clients in flight (0 = no cap).
         --policy deadline --deadline 6e-5 --latency pareto --bits 8
     python -m repro_torch.launch.simulate --alg sfedavg --aggregation async \\
         --max-concurrency 6 --buffer-size 4 --latency pareto --engine scan
+    python -m repro_torch.launch.simulate --spec examples/specs/fig8_faults.toml
+    python -m repro_torch.launch.simulate --policy deadline --deadline 0.002 \\
+        --fault-drop 0.1 --fault-transient 0.2 --fault-corrupt 0.05
 
-runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
-``--engine scan`` runs the rounds through ``repro_torch.sim.run_rounds``
-(chunks of rounds replayed as a CUDA graph on the card) and prints the
-summary ``--engine eager`` prints (the async policy records its events per
-chunk and replays them as CUDA graphs); with ``--terminate`` it runs
-chunks of 8 and rolls an overshooting chunk back, so it stops at the eager
-round. Not ported yet: ``--spec`` (ROADMAP queue 1 item 13) and the fault
-flags (item 12). The sim draws from keys seeded by ``--seed`` as in JAX,
-so its masks, noise and dither are the JAX CLI's.
+runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path. As in
+JAX the CLI is a shim over the spec layer (``repro_torch.spec``): the flags
+map onto an ``ExperimentSpec`` (``spec_from_args``), or ``--spec`` loads
+one from a file, which only ``--engine``, ``--rounds``, ``--terminate``,
+``--seed`` and the telemetry flags override (any other flag given beside
+it is an error); both build through ``spec.build`` and run
+``RunHandle.run``. ``--engine scan`` runs the rounds through
+``repro_torch.sim.run_rounds`` (chunks of rounds replayed as a CUDA graph
+on the card) and prints the summary ``--engine eager`` prints (the async
+policy records its events per chunk and replays them as CUDA graphs); with
+``--terminate`` it runs chunks of 8 and rolls an overshooting chunk back,
+so it stops at the eager round. The ``--fault-*`` flags fill the spec's
+``[faults]`` table; ``--events-out`` and ``--trace-out`` write the
+telemetry sinks, and ``--torch-profile DIR`` takes the place of the JAX
+CLI's ``--jax-profile``. ``--quant-impl`` is replaced by dispatch by
+device. The sim draws from keys seeded by ``--seed`` as in JAX, so its
+masks, noise and dither are the JAX CLI's.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-import time
 
-import numpy as np
 import torch
 
-from repro_torch.configs.paper_logreg import termination_reached
-from repro_torch import random
-from repro_torch.core import baselines, fedepm
-from repro_torch.core.tasks import LogisticLoss, accuracy_logistic
-from repro_torch.data import synth
-from repro_torch.data.partition import partition_iid
-from repro_torch.kernels.common import resolve_device
-from repro_torch.privacy import PrivacyConfig
 from repro_torch.sim import clients
-from repro_torch.sim.engine import run_rounds
-from repro_torch.sim.server import ALGS, POLICIES, FedSim, SimConfig
-from repro_torch.sim.transport import CodecConfig
-from repro_torch.telemetry.events import EventRecorder
+from repro_torch.sim.server import ALGS, POLICIES, SimConfig
+from repro_torch.spec import (
+    AlgorithmSpec,
+    CodecSpec,
+    EngineSpec,
+    ExperimentSpec,
+    FaultSpec,
+    FleetSpec,
+    PolicySpec,
+    PrivacySpec,
+    SpecError,
+    TaskSpec,
+)
+from repro_torch.spec.build import build
+from repro_torch.spec.registry import ASYNC_KNOBS
 
 # a profiler span over the simulated rounds, so that a profile of a run
 # reads the device's share of exactly that window
@@ -64,12 +76,33 @@ ROUNDS_SPAN = "simulate.rounds"
 # counts as not given when the ownership rules are checked (the async
 # knobs default to None instead: given at all, they need the async policy)
 _DEFAULTS = SimConfig()
-ASYNC_KNOBS = ("buffer_size", "max_concurrency", "staleness_exp")
+# the flags a --spec file's values yield to only when given, and their
+# defaults without one (JAX's ``*_flag`` dests)
+_OVERRIDE_DEFAULTS = {"engine": "eager", "rounds": 30, "seed": 0}
+# CLI fault flags (args attribute -> FaultSpec field); unset flags leave
+# the FaultSpec default (all rates zero: no fault model)
+_FAULT_FLAGS = {
+    "fault_drop": "drop_rate",
+    "fault_transient": "transient_rate",
+    "fault_corrupt": "corrupt_rate",
+    "fault_duplicate": "duplicate_rate",
+    "fault_max_retries": "max_retries",
+    "fault_seed": "seed",
+}
+# the experiment flags a --spec file replaces: given beside it (off their
+# defaults) they are an error, as in JAX
+_SPEC_CONFLICTS = ("alg", "policy", "deadline", "overselect",
+                   "deadline_slack", "ewma_beta", "latency", "latency_sigma",
+                   "latency_alpha", "availability", "trace_file", "m", "n",
+                   "d", "rho", "k0", "eps", "topk", "bits", "error_feedback",
+                   *sorted(_FAULT_FLAGS), "dp_eps", "dp_clip", "secure_agg",
+                   "privacy_seed", *sorted(ASYNC_KNOBS))
 
 
-def check_args(a) -> str | None:
-    """The flag conflicts ``repro.launch.simulate`` and its spec layer
-    refuse; returns the message, or None."""
+def check_args(a, ap: argparse.ArgumentParser) -> str | None:
+    """The flag conflicts ``repro.launch.simulate`` refuses before its spec
+    layer; returns the message, or None. ``ap`` (the parser) finds the
+    flags given beside ``--spec``."""
     if a.rounds < 1:
         return "--rounds must be >= 1"
     if a.buffer_size is not None and a.buffer_size < 0:
@@ -78,23 +111,19 @@ def check_args(a) -> str | None:
         return "--max-concurrency must be >= 0 (0 = unlimited)"
     if a.staleness_exp is not None and a.staleness_exp < 0:
         return "--staleness-exp must be >= 0"
-    if a.policy != "async":
+    if a.spec:
+        ignored = [f"--{k.replace('_', '-')}" for k in _SPEC_CONFLICTS
+                   if getattr(a, k) != ap.get_default(k)]
+        if ignored:
+            return (f"{', '.join(ignored)} cannot be combined with --spec "
+                    f"(the file defines the experiment; only --engine/"
+                    f"--rounds/--terminate/--seed override it)")
+    elif a.policy != "async":
         passed = [f"--{k.replace('_', '-')}" for k in sorted(ASYNC_KNOBS)
                   if getattr(a, k) is not None]
         if passed:
             return (f"{', '.join(passed)} only valid with --aggregation "
                     f"async; got --aggregation {a.policy}")
-    if a.deadline > 0 and a.policy != "deadline":
-        return f"--deadline only applies to --policy deadline; got {a.policy}"
-    if a.overselect != _DEFAULTS.overselect_factor and \
-            a.policy != "overselect":
-        return (f"--overselect only applies to --policy overselect; got "
-                f"{a.policy}")
-    if a.policy != "adaptive" and (
-            a.deadline_slack != _DEFAULTS.deadline_slack
-            or a.ewma_beta != _DEFAULTS.ewma_beta):
-        return ("--deadline-slack/--ewma-beta only apply to --policy "
-                f"adaptive; got {a.policy}")
     if a.error_feedback and a.topk >= 1.0 and a.bits == 0:
         return ("--error-feedback needs a lossy codec: set --topk < 1 "
                 "and/or --bits > 0")
@@ -111,168 +140,157 @@ def check_args(a) -> str | None:
     return None
 
 
-def build_sim(a, device: torch.device, *, draws=None):
-    """(FedSim, task) from parsed flags; the task holds the loss, the client
-    batches and the full data on ``device``."""
-    X, y = synth.adult_like(d=a.d, n=a.n, seed=a.seed)
-    batches = {k: torch.from_numpy(v).to(device)
-               for k, v in partition_iid(X, y, m=a.m, seed=a.seed).items()}
-    task = {"loss": LogisticLoss(), "batches": batches,
-            "X": torch.from_numpy(X).to(device),
-            "y": torch.from_numpy(y).to(device)}
-    key = random.PRNGKey(a.seed, device=device)
-    params0 = torch.zeros(a.n, device=device)
-    if a.alg == "fedepm":
-        cfg = fedepm.FedEPMConfig.paper_defaults(m=a.m, rho=a.rho, k0=a.k0,
-                                                 eps_dp=a.eps)
-        state = fedepm.init_state(key, params0, cfg)
+def spec_from_args(a) -> ExperimentSpec:
+    """Map the flag surface onto an ExperimentSpec, as
+    ``repro.launch.simulate.spec_from_args`` maps it (a knob at its default
+    counts as not given, so ownership validation fires only for knobs the
+    caller supplied)."""
+    policy_kw = {}
+    if a.deadline > 0:                           # <= 0 means infinite
+        policy_kw["deadline"] = a.deadline
+    if a.policy == "overselect" \
+            or a.overselect != _DEFAULTS.overselect_factor:
+        policy_kw["overselect_factor"] = a.overselect
+    if a.policy == "adaptive":
+        policy_kw["deadline_slack"] = a.deadline_slack
+        policy_kw["ewma_beta"] = a.ewma_beta
     else:
-        cfg = baselines.BaselineConfig(m=a.m, k0=a.k0, rho=a.rho,
-                                       eps_dp=a.eps)
-        state = baselines.init_state(key, params0, cfg)
+        for knob in ("deadline_slack", "ewma_beta"):
+            if getattr(a, knob) != getattr(_DEFAULTS, knob):
+                policy_kw[knob] = getattr(a, knob)
+    for knob in sorted(ASYNC_KNOBS):             # None = not passed
+        if getattr(a, knob) is not None:
+            policy_kw[knob] = getattr(a, knob)
     if a.trace_file:
-        profiles = clients.LatencyTrace.load(a.trace_file).sample_profiles(
-            a.m, seed=a.seed)
+        fleet = FleetSpec(kind="trace", trace_file=a.trace_file,
+                          latency=a.latency, latency_sigma=a.latency_sigma,
+                          latency_alpha=a.latency_alpha)
     else:
-        profiles = clients.make_profiles(a.m, seed=a.seed,
-                                         availability=a.availability)
-    codec = None if a.topk >= 1.0 and a.bits == 0 else CodecConfig(
-        topk_frac=a.topk, bits=a.bits, error_feedback=a.error_feedback)
-    privacy = None
-    if (a.dp_eps and a.dp_eps > 0) or a.secure_agg:
-        privacy = PrivacyConfig(
-            eps=a.dp_eps or 0.0,
-            sensitivity="clip" if a.dp_clip is not None else "surrogate",
-            clip=a.dp_clip or 0.0, secure_agg=a.secure_agg,
-            seed=a.privacy_seed if a.privacy_seed is not None else a.seed)
-    sim_cfg = SimConfig(
-        policy=a.policy, deadline=a.deadline if a.deadline > 0 else np.inf,
-        overselect_factor=a.overselect, latency=a.latency,
-        latency_sigma=a.latency_sigma, latency_alpha=a.latency_alpha,
-        seed=a.seed, codec=codec, deadline_slack=a.deadline_slack,
-        ewma_beta=a.ewma_beta, privacy=privacy,
-        **{k: getattr(a, k) for k in ASYNC_KNOBS
-           if getattr(a, k) is not None})
-    sim = FedSim(alg=a.alg, cfg=cfg, state=state, batches=batches,
-                 loss_fn=task["loss"], profiles=profiles, sim=sim_cfg,
-                 telemetry=EventRecorder() if a.telemetry else None,
-                 draws=draws)
-    return sim, task
+        fleet = FleetSpec(
+            kind="synthetic",
+            availability=a.availability if a.availability != 1.0 else None,
+            latency=a.latency, latency_sigma=a.latency_sigma,
+            latency_alpha=a.latency_alpha)
+    fault_kw = {field: getattr(a, flag)
+                for flag, field in _FAULT_FLAGS.items()
+                if getattr(a, flag) is not None}
+    privacy_kw = {}
+    if a.dp_eps is not None:
+        privacy_kw["eps"] = a.dp_eps
+    if a.dp_clip is not None:
+        privacy_kw["sensitivity"] = "clip"
+        privacy_kw["clip"] = a.dp_clip
+    if a.secure_agg:
+        privacy_kw["secure_agg"] = True
+    if a.privacy_seed is not None:
+        privacy_kw["seed"] = a.privacy_seed
+    return ExperimentSpec(
+        name=f"cli/{a.alg}-{a.policy}", seed=a.seed,
+        task=TaskSpec(kind="logreg", d=a.d, n=a.n, m=a.m),
+        algorithm=AlgorithmSpec(name=a.alg, rho=a.rho, k0=a.k0,
+                                eps_dp=a.eps),
+        fleet=fleet, policy=PolicySpec(name=a.policy, **policy_kw),
+        codec=CodecSpec(topk_frac=a.topk, bits=a.bits,
+                        error_feedback=a.error_feedback),
+        faults=FaultSpec(**fault_kw), privacy=PrivacySpec(**privacy_kw),
+        engine=EngineSpec(name=a.engine, rounds=a.rounds,
+                          terminate=a.terminate))
 
 
-def _terminated(a, task, f_hist, w, metrics) -> bool:
-    """The paper's rule at broadcast point ``w`` after the rounds of
-    ``metrics``, trusted only after 8 rounds and one aggregation (abandoned
-    rounds leave f at its start)."""
-    if not a.terminate or len(f_hist) < 8:
-        return False
-    if all(mm.abandoned for mm in metrics):
-        return False
-    gsq = float(fedepm.global_grad_sq_norm(task["loss"], w,
-                                           task["batches"]))
-    return termination_reached(f_hist, gsq, a.n)
+def _telemetry_overrides(a) -> dict:
+    """--telemetry and the sink flags -> dotted spec overrides; any sink
+    implies ``telemetry.enabled``."""
+    overrides = {}
+    if a.events_out:
+        overrides["telemetry.events_jsonl"] = a.events_out
+    if a.trace_out:
+        overrides["telemetry.trace_out"] = a.trace_out
+    if a.torch_profile:
+        overrides["telemetry.jax_profiler_dir"] = a.torch_profile
+    if a.telemetry or overrides:
+        overrides["telemetry.enabled"] = True
+    return overrides
 
 
-def _report(a, met, f: float) -> None:
-    if not a.quiet:
-        print(f"round {met.round_idx:3d}  f/m={f / a.m:.6f}  "
-              f"t={met.t_total:9.4f}s (+{met.t_round:.4f})  "
-              f"agg={met.n_aggregated}/{met.n_contacted} "
-              f"drop={met.n_dropped}  "
-              f"up={met.bytes_up / 1e3:.1f}kB "
-              f"down={met.bytes_down / 1e3:.1f}kB"
-              + ("  ABANDONED" if met.abandoned else ""), flush=True)
+def resolve_spec(a) -> ExperimentSpec:
+    """--spec file (with the overrides given) or the flags' mapping."""
+    overrides = _telemetry_overrides(a)
+    if not a.spec:
+        exp = spec_from_args(a)
+    else:
+        exp = ExperimentSpec.load(a.spec)
+        for flag, key in (("engine", "engine.name"),
+                          ("rounds", "engine.rounds"), ("seed", "seed")):
+            if flag in a.given:
+                overrides[key] = getattr(a, flag)
+        if a.terminate:
+            overrides["engine.terminate"] = True
+    return (exp.replace(**overrides) if overrides else exp).validate()
 
 
-def _run_eager(a, sim, task, f_hist) -> int:
-    loss, batches = task["loss"], task["batches"]
-    for _ in range(a.rounds):
-        met = sim.step()
-        f_hist.append(float(fedepm.global_objective(
-            loss, sim.state.w_tau, batches)))
-        _report(a, met, f_hist[-1])
-        if _terminated(a, task, f_hist, sim.state.w_tau, sim.metrics):
-            break
-    return len(f_hist)
+def build_sim(a, device: torch.device, *, draws=None):
+    """(FedSim, task) from parsed flags through the spec layer; the task
+    holds the loss, the client batches and the full data on ``device``."""
+    h = build(resolve_spec(a), device, draws=draws)
+    task = {"loss": h.data.loss_fn, "batches": h.data.batches,
+            "X": torch.from_numpy(h.data.aux["X"]).to(h.sim.device),
+            "y": torch.from_numpy(h.data.aux["y"]).to(h.sim.device)}
+    return h.sim, task
 
 
-def _run_scan(a, sim, task, f_hist) -> int:
-    """The spec layer's scan loop: chunks of 8 rounds with --terminate (else
-    all rounds in one), f of each round from the chunk's broadcast points;
-    a chunk that overshoots the stopping round is rolled back with
-    ``snapshot``/``restore`` and its first ``keep`` rounds run again."""
-    loss, batches = task["loss"], task["batches"]
-    chunk = 8 if a.terminate else a.rounds
-    done = 0
-    while done < a.rounds:
-        todo = min(chunk, a.rounds - done)
-        snap = sim.snapshot() if a.terminate else None
-        res = run_rounds(sim, todo, collect_w_tau=True)
-        for i, met in enumerate(res.metrics):
-            w = torch.from_numpy(res.w_tau[i]).to(sim.device)
-            f_hist.append(float(fedepm.global_objective(loss, w, batches)))
-            _report(a, met, f_hist[-1])
-            if _terminated(a, task, f_hist, w,
-                           sim.metrics[:done + i + 1]):
-                keep = i + 1
-                if keep < todo:
-                    sim.restore(snap)
-                    run_rounds(sim, keep)
-                return done + keep
-        done += todo
-    return done
-
-
-def run_sim(a) -> tuple[dict, FedSim, list]:
-    """Run the spec layer's ``RunHandle.run`` loop, eager or scan by
-    ``a.engine``, for parsed flags ``a``; returns (summary, the sim, f per
-    round)."""
-    dev = resolve_device(a.device)
-    sim, task = build_sim(a, dev)
+def run_sim(a) -> tuple[dict, object, list]:
+    """``RunHandle.run`` of the flags' (or file's) spec on ``a.device``;
+    returns (summary, the sim, f per round)."""
+    h = build(resolve_spec(a), a.device)
+    m = h.spec.task.m
     f_hist: list[float] = []
-    wall0 = time.perf_counter()
+
+    def report(met, f):
+        f_hist.append(f)
+        if not a.quiet:
+            print(f"round {met.round_idx:3d}  f/m={f / m:.6f}  "
+                  f"t={met.t_total:9.4f}s (+{met.t_round:.4f})  "
+                  f"agg={met.n_aggregated}/{met.n_contacted} "
+                  f"drop={met.n_dropped}  "
+                  f"up={met.bytes_up / 1e3:.1f}kB "
+                  f"down={met.bytes_down / 1e3:.1f}kB"
+                  + ("  ABANDONED" if met.abandoned else ""), flush=True)
+
     with torch.profiler.record_function(ROUNDS_SPAN):
-        run = _run_scan if a.engine == "scan" else _run_eager
-        rounds = run(a, sim, task, f_hist)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - wall0
-    summary = {
-        "spec_name": f"cli/{a.alg}-{a.policy}",
-        "alg": a.alg, "policy": a.policy, "engine": a.engine,
-        "latency": a.latency, "rounds": rounds,
-        "f_final": f_hist[-1] / a.m,
-        "accuracy": float(accuracy_logistic(sim.state.w_tau, task["X"],
-                                            task["y"])),
-        "sim_time_s": sim.t,
-        "stragglers_dropped": sum(mm.n_dropped for mm in sim.metrics),
-        "abandoned_rounds": sum(mm.abandoned for mm in sim.metrics),
-        "bytes_up": sim.ledger.total_up,
-        "bytes_down": sim.ledger.total_down,
-        "bytes_total": sim.ledger.total,
-        "up_bytes_per_client_round": sim.up_bytes_per_client,
-    }
-    if sim.privacy is not None:
-        summary["privacy"] = sim.privacy.summary()
-    if a.telemetry:
-        # the JAX summary's metric snapshot waits for the port's metrics
-        # registry; this block counts the recorded events by kind
-        kinds: dict[str, int] = {}
-        for ev in sim.telemetry.events:
-            kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
-        summary["telemetry"] = {"events": kinds, "wall_s": wall,
-                                "host_syncs": sim.host_syncs}
-    return summary, sim, f_hist
+        summary = h.run(report=report)
+        if h.sim.device.type == "cuda":
+            torch.cuda.synchronize(h.sim.device)
+    return summary, h.sim, f_hist
+
+
+class _Parser(argparse.ArgumentParser):
+    """Fills ``--engine``/``--rounds``/``--seed`` after parsing and keeps
+    in ``given`` the ones the caller gave: only those override ``--spec``,
+    as JAX's ``*_flag`` dests do."""
+
+    def parse_known_args(self, args=None, namespace=None):
+        a, rest = super().parse_known_args(args, namespace)
+        a.given = {k for k in _OVERRIDE_DEFAULTS if getattr(a, k) is not None}
+        for k, v in _OVERRIDE_DEFAULTS.items():
+            if getattr(a, k) is None:
+                setattr(a, k, v)
+        return a, rest
 
 
 def parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = _Parser(description=__doc__.splitlines()[0])
+    ap.add_argument("--spec", default=None,
+                    help="ExperimentSpec file (.toml/.json); replaces the "
+                         "experiment flags: only --engine/--rounds/"
+                         "--terminate/--seed and the telemetry flags "
+                         "override it")
     ap.add_argument("--alg", default="fedepm", choices=tuple(ALGS))
-    ap.add_argument("--engine", default="eager", choices=["eager", "scan"],
+    ap.add_argument("--engine", default=None, choices=["eager", "scan"],
                     help="round execution: 'eager' runs FedSim.step per "
                          "round, 'scan' runs chunks through run_rounds (a "
                          "CUDA graph per round on the card); same "
-                         "trajectory and summary")
+                         "trajectory and summary (default eager, or the "
+                         "spec file's)")
     ap.add_argument("--aggregation", "--policy", dest="policy",
                     default="sync", choices=POLICIES,
                     help="aggregation policy (--policy is an alias)")
@@ -307,7 +325,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--n", type=int, default=14)
     ap.add_argument("--d", type=int, default=4000,
                     help="dataset size (4000 = reduced task; paper: 45222)")
-    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="round budget (default 30, or the spec file's)")
     ap.add_argument("--rho", type=float, default=0.5)
     ap.add_argument("--k0", type=int, default=8)
     ap.add_argument("--eps", type=float, default=0.0,
@@ -318,6 +337,26 @@ def parser() -> argparse.ArgumentParser:
                     help="codec: quantization bits (0 = raw values)")
     ap.add_argument("--error-feedback", action="store_true",
                     help="codec: EF21-style memory")
+    ap.add_argument("--fault-drop", type=float, default=None,
+                    help="fault injection: P(an upload attempt is lost "
+                         "mid-flight); billed, never arrives")
+    ap.add_argument("--fault-transient", type=float, default=None,
+                    help="fault injection: P(an upload attempt fails "
+                         "transiently); retried after exponential backoff, "
+                         "each attempt billed")
+    ap.add_argument("--fault-corrupt", type=float, default=None,
+                    help="fault injection: P(an upload arrives corrupted); "
+                         "screened and rejected, repeat offenders "
+                         "quarantined")
+    ap.add_argument("--fault-duplicate", type=float, default=None,
+                    help="fault injection: P(a clean upload is delivered "
+                         "twice); the copy is billed and discarded")
+    ap.add_argument("--fault-max-retries", type=int, default=None,
+                    help="fault injection: retries per upload before the "
+                         "client is lost for the round (default 2)")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="fault injection: the fault stream's seed "
+                         "(default derived from --seed)")
     ap.add_argument("--dp-eps", type=float, default=None,
                     help="upload privacy: per-round per-client epsilon")
     ap.add_argument("--dp-clip", type=float, default=None,
@@ -329,12 +368,21 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--privacy-seed", type=int, default=None,
                     help="upload privacy: noise-stream seed (default "
                          "--seed)")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=None,
+                    help="master seed (default 0, or the spec file's)")
     ap.add_argument("--terminate", action="store_true",
                     help="stop at the paper's termination rule")
     ap.add_argument("--telemetry", action="store_true",
-                    help="record the event stream; the summary gains a "
-                         "'telemetry' block")
+                    help="attach the event recorder; the summary gains a "
+                         "'telemetry' block (implied by the sinks below)")
+    ap.add_argument("--events-out", default=None,
+                    help="telemetry sink: the event stream as JSONL")
+    ap.add_argument("--trace-out", default=None,
+                    help="telemetry sink: a Perfetto/Chrome trace_event "
+                         "JSON of the simulated timeline")
+    ap.add_argument("--torch-profile", default=None, metavar="DIR",
+                    help="wrap the run in torch.profiler and write its "
+                         "Chrome trace under DIR")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--json", default=None,
                     help="write the summary dict to this path")
@@ -346,10 +394,13 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = parser()
     a = ap.parse_args(argv)
-    err = check_args(a)
+    err = check_args(a, ap)
     if err:
         ap.error(err)
-    summary, _, _ = run_sim(a)
+    try:
+        summary, _, _ = run_sim(a)
+    except SpecError as e:
+        ap.error(str(e))
     if not a.quiet:
         print("\nsummary:")
         for k, v in summary.items():

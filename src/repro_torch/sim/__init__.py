@@ -3,8 +3,8 @@ models, the sync/deadline/adaptive/overselect policies over simulated time
 and the buffered, staleness-weighted async policy, the upload codec with
 optional error feedback and DP uploads, the byte ledger, and the engine
 (``run_rounds``: chunks of rounds, or of recorded async fires and merges,
-replayed as CUDA graphs on the card); the counterpart of ``repro.sim``
-(fault injection comes with a later slice)."""
+replayed as CUDA graphs on the card), and seeded fault injection
+(``faults.py``); the counterpart of ``repro.sim``."""
 from repro_torch.sim.clients import (     # noqa: F401
     AdaptiveDeadlines,
     ClientProfiles,
@@ -15,6 +15,11 @@ from repro_torch.sim.clients import (     # noqa: F401
     register_latency_model,
     round_arrivals,
     uniform_profiles,
+)
+from repro_torch.sim.faults import (      # noqa: F401
+    FaultConfig,
+    FaultModel,
+    build_fault_model,
 )
 from repro_torch.sim.engine import (      # noqa: F401
     EngineResult,

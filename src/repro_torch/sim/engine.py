@@ -66,6 +66,12 @@ the same bits, so the run is the eager one bit for bit.
 ``event_table_capacity`` pins the table's size (an overflow raises and
 names the knob); unset, the table doubles on demand.
 
+Faults resolve on the host in both engines: a clocked chunk resolves each
+round's fault chains inside the abandoned-round fixpoint (the fault model
+rewinds between passes), uploads the effective masks and bills and emits
+from the outcomes; the async recording pass makes the eager pump's fault
+decisions, and a lost upload only frees its table slot.
+
 Not ported yet: the client-axis mesh (``mesh``, ROADMAP queue 1 item 14);
 a sim with its own ``SimDraws`` runs under ``FedSim.step`` only.
 """
@@ -161,15 +167,32 @@ def _policy_round_host(sim: FedSim, candidates: np.ndarray,
 
 def _policy_stream_host(sim: FedSim, candidates: np.ndarray,
                         arrivals: np.ndarray):
-    """C rounds of policy: (masks, durations, abandoned, received uploads),
-    the last as the eager step derives it."""
+    """C rounds of policy: (masks, durations, abandoned, received uploads,
+    effective candidates, effective arrivals, fault outcomes). With a fault
+    model each round's fault chains resolve first, as the eager step
+    resolves them before its policy, and the policy sees the effective
+    streams; the outcomes are None without one. Advances the fault model
+    in round order: fixpoint callers rewind it around passes, as they do
+    the adaptive EWMA."""
     C, m = candidates.shape
     masks = np.zeros((C, m), bool)
     rec_ups = np.zeros((C, m), bool)
     durs = np.zeros(C, np.float64)
     abandoned = np.zeros(C, bool)
+    fm = sim._faults
+    cands_eff = np.array(candidates, bool)
+    arrs_eff = np.array(arrivals, np.float64)
+    fouts: list = [None] * C
     for t in range(C):
-        cand, arr = candidates[t], arrivals[t]
+        cand, arr = cands_eff[t], arrs_eff[t]
+        if fm is not None:
+            fo = fm.apply_clocked(
+                round_idx=sim.round_idx + t, candidates=cand, arrivals=arr,
+                cutoff=sim.sim.deadline
+                if sim.sim.policy == "deadline" else math.inf)
+            cand, arr = fo.candidates, fo.arrivals
+            cands_eff[t], arrs_eff[t] = cand, arr
+            fouts[t] = fo
         mask, dur = _policy_round_host(sim, cand, arr)
         ab = bool(cand.any() and not mask.any())
         if ab:
@@ -179,7 +202,7 @@ def _policy_stream_host(sim: FedSim, candidates: np.ndarray,
         else:
             rec = cand & np.isfinite(arr) & (arr <= dur + 1e-12)
         masks[t], durs[t], abandoned[t], rec_ups[t] = mask, dur, ab, rec
-    return masks, durs, abandoned, rec_ups
+    return masks, durs, abandoned, rec_ups, cands_eff, arrs_eff, fouts
 
 
 # ---------------------------------------------------------------------------
@@ -385,14 +408,20 @@ def run_rounds(sim: FedSim, rounds: int, *, chunk: int | None = None,
         key = body.carry[body.n_state - 1]
         ewma0 = sim.deadlines.ewma.copy() \
             if sim.sim.policy == "adaptive" else None
+        # the fault model rewinds with each pass, as the EWMA does: the
+        # last pass leaves the state C eager steps would
+        fstate0 = sim._faults.state_snapshot() \
+            if sim._faults is not None else None
         abandoned = np.zeros(C, bool)
         for _ in range(C + 1):
             ks = round_starts(k, cfg.k0, abandoned)
             cands = _candidate_stream(sim, key, ks, abandoned)
             if ewma0 is not None:
                 sim.deadlines.ewma = ewma0.copy()
-            masks, durs, ab_new, rec_ups = _policy_stream_host(
-                sim, cands, arrivals)
+            if fstate0 is not None:
+                sim._faults.state_restore(fstate0)
+            (masks, durs, ab_new, rec_ups, cands, arrs,
+             fouts) = _policy_stream_host(sim, cands, arrivals)
             if np.array_equal(ab_new, abandoned):
                 break
             abandoned = ab_new
@@ -423,17 +452,15 @@ def run_rounds(sim: FedSim, rounds: int, *, chunk: int | None = None,
                 emit_clocked_round_events(
                     sim.telemetry, policy=sim.sim.policy,
                     round_idx=sim.round_idx, t0=sim.t,
-                    candidates=cands[t], arrivals=arrivals[t],
+                    candidates=cands[t], arrivals=arrs[t],
                     mask=masks[t], dur=dur, rec_up=rec_ups[t],
                     abandoned=bool(abandoned[t]), codec=sim.sim.codec,
-                    up_bytes=sim._up_bytes)
+                    up_bytes=sim._up_bytes, faults=fouts[t])
             apply_clocked_privacy(
                 sim._privacy, sim.telemetry, round_idx=sim.round_idx,
-                t_end=sim.t + dur, mask=masks[t], rec_up=rec_ups[t])
-            brec = sim.ledger.record_round(
-                down_mask=cands[t], up_mask=rec_ups[t],
-                down_bytes=sim._down_bytes, up_bytes=sim._up_bytes,
-                ts=sim.t + dur, round_idx=sim.round_idx)
+                t_end=sim.t + dur, mask=masks[t], rec_up=rec_ups[t],
+                faults=fouts[t])
+            brec = sim._bill_round(cands[t], rec_ups[t], fouts[t], dur)
             sim.t += dur
             m = make_sim_metrics(
                 round_idx=sim.round_idx, t_round=dur, t_total=sim.t,
@@ -582,6 +609,12 @@ class _RecordAsyncExec:
             "gamma": np.float32(gamma)})
         self.table.free(c.slot)
 
+    def release(self, sim, c) -> None:
+        """Fault injection: a lost or rejected upload frees its slot and
+        records no op, so no device work runs for it."""
+        self.table.free(c.slot)
+        c.slot = -1
+
 
 class _AsyncPrograms:
     """The engine's two async bodies for one sim, sharing one carry: the
@@ -696,9 +729,10 @@ def _record_replay_chunk(sim: FedSim, C: int, progs: _AsyncPrograms,
     dev, cfg = sim.device, sim.cfg
     rec = _RecordAsyncExec(_CandStream(sim), table)
     # uploads dispatched by an earlier eager phase enter the table: their
-    # batch rows become table rows (exact copies)
+    # batch rows become table rows (exact copies); a duplicate's ghost
+    # carries no payload
     for _, _, kind, c in sim._events:
-        if kind == _EV_UPLOAD and c.slot < 0:
+        if kind == _EV_UPLOAD and c.slot < 0 and not c.dup:
             s = table.alloc()
             idx = torch.tensor([s], dtype=torch.int64, device=dev)
             table.z = [t.index_copy(0, idx, b[c.row:c.row + 1])

@@ -63,8 +63,15 @@ serial counting dispatched clients. With buffer equal to the cohort,
 concurrency of at least the cohort, full availability and no codec, every
 merge is at staleness 0 and the run is the sync run bit for bit.
 
-Not ported yet, and refused with a ValueError that names its ROADMAP item:
-fault injection.
+Fault injection (``SimConfig.faults``, ``sim/faults.py``), as in JAX: a
+seeded ``FaultModel`` on its own numpy stream resolves drops, retries with
+backoff, duplicates, corrupt payloads and quarantine on the host. Clocked
+rounds resolve each candidate's attempt chain before the policy, which then
+sees the effective candidates and arrivals; every attempt is billed. The
+async pump resolves each popped upload (``_handle_faulty_upload``),
+deduplicates on (client, serial, attempt) and stops drawing cohorts after
+``_MAX_FAULT_SELECTS`` draws in one event. No corrupted value reaches the
+device state, so the engine needs no device-side change.
 """
 from __future__ import annotations
 
@@ -83,6 +90,8 @@ from repro_torch.core import baselines, dp, fedepm, participation
 from repro_torch.core.treeutil import tmap, tree_leaves, tree_where_client
 from repro_torch.privacy import PrivacyConfig, build_privacy_model
 from repro_torch.sim import clients as simclients
+from repro_torch.sim.faults import (FaultConfig, FaultRoundOutcome,
+                                    build_fault_model)
 from repro_torch.sim.transport import (
     ByteLedger,
     CodecConfig,
@@ -99,11 +108,12 @@ from repro_torch.sim.transport import (
 from repro_torch.telemetry.events import NULL_RECORDER
 
 POLICIES = ("sync", "deadline", "adaptive", "overselect", "async")
-_NOT_PORTED = {
-    "faults": "fault injection is not ported yet (ROADMAP queue 1 item 12)",
-}
 # async: consecutive all-offline cohort draws before a step gives up
 _MAX_DRY_DISPATCHES = 3
+# fault injection only: in-loop cohort draws one aggregation event may
+# make before it gives up and merges what it has (a fleet whose every
+# upload is lost would otherwise draw forever)
+_MAX_FAULT_SELECTS = 8
 # async event kinds (heap entries sort by (time, push sequence, kind))
 _EV_START = 0    # payload: (client index, round-trip duration seconds)
 _EV_UPLOAD = 1   # payload: _Contribution
@@ -132,8 +142,8 @@ class SimConfig:
     # adaptive per-client deadlines
     deadline_slack: float = 2.0     # wait budget = slack * ewma_i
     ewma_beta: float = 0.3          # EWMA weight of the newest observation
-    # fault injection: not ported yet, refused when set
-    faults: Any = None
+    # fault injection (sim/faults.py); None = the fault-free simulator
+    faults: FaultConfig | None = None
     # upload privacy; None = no noise, no accountant
     privacy: PrivacyConfig | None = None
 
@@ -177,10 +187,14 @@ def emit_clocked_round_events(rec, *, policy: str, round_idx: int,
                               dur: float, rec_up: np.ndarray,
                               abandoned: bool,
                               codec: CodecConfig | None,
-                              up_bytes: float) -> None:
+                              up_bytes: float,
+                              faults: FaultRoundOutcome | None = None
+                              ) -> None:
     """Emit one clocked round's telemetry events. Dispatches are stamped at
     the round's start ``t0``, each upload at ``t0 + min(arrival, dur)``,
-    merge or abandon at ``t0 + dur``."""
+    merge or abandon at ``t0 + dur``; fault events at the attempt chain's
+    times from the round start (a lost upload's may pass ``dur``),
+    quarantines at the round's end."""
     rec.event("round_start", ts=t0, round_idx=round_idx, policy=policy)
     for i in np.flatnonzero(candidates):
         a = float(arrivals[i])
@@ -194,6 +208,19 @@ def emit_clocked_round_events(rec, *, policy: str, round_idx: int,
         rec.event("upload_arrival", ts=t0 + min(float(arrivals[i]), dur),
                   round_idx=round_idx, client=int(i))
     t_end = t0 + dur
+    if faults is not None:
+        for cl, t_ev, att in faults.retries:
+            rec.event("retry", ts=t0 + t_ev, round_idx=round_idx,
+                      client=cl, attempt=att)
+        for cl, t_ev, reason in faults.drops:
+            rec.event("upload_drop", ts=t0 + t_ev, round_idx=round_idx,
+                      client=cl, reason=reason)
+        for cl, t_ev in faults.duplicates:
+            rec.event("duplicate_discard", ts=t0 + t_ev,
+                      round_idx=round_idx, client=cl)
+        for cl, until in faults.quarantines:
+            rec.event("quarantine", ts=t_end, round_idx=round_idx,
+                      client=cl, until_round=until)
     if abandoned:
         rec.event("abandon", ts=t_end, round_idx=round_idx,
                   n_contacted=int(candidates.sum()))
@@ -207,14 +234,18 @@ def emit_clocked_round_events(rec, *, policy: str, round_idx: int,
 
 
 def apply_clocked_privacy(privacy, rec, *, round_idx: int, t_end: float,
-                          mask: np.ndarray, rec_up: np.ndarray) -> None:
+                          mask: np.ndarray, rec_up: np.ndarray,
+                          faults: FaultRoundOutcome | None = None) -> None:
     """One clocked round's privacy bookkeeping: mask billing for every
-    received upload (the ledger's upload count) and one accountant charge
-    per MERGED client. ``privacy`` is the PrivacyModel, or None."""
+    billed upload (received uploads plus every fault attempt that reached
+    the wire: the ledger's upload count) and one accountant charge per
+    MERGED client. ``privacy`` is the PrivacyModel, or None."""
     if privacy is None:
         return
     cfg = privacy.cfg
     attempts = int(np.asarray(rec_up).sum())
+    if faults is not None:
+        attempts += int(faults.extra_up.sum())
     mbytes = privacy.bill_masks(attempts)
     if cfg.secure_agg and attempts and rec.enabled:
         rec.event("mask_exchange", ts=t_end, round_idx=round_idx,
@@ -357,6 +388,9 @@ class _Contribution:
     w_batch: Any   # (g_pad, ...) iterate rows of the dispatch group
     row: int       # this client's row within the batch
     slot: int = -1  # engine: payload-table row (-1 = eager batch)
+    attempt: int = 1   # fault injection: delivery attempt (1 = original)
+    dup: bool = False  # fault injection: a duplicate's ghost (never
+    #                    merged; holds no batch refs and no table slot)
 
 
 def merge_contribution(Z, W, H, z_batch, w_batch, batch_row, idx, gamma,
@@ -464,8 +498,14 @@ class _EagerAsyncExec:
             noise, codec=codec, ef=sim._ef, privacy=sim._privacy_tx)
         sim.state = sim.state._replace(Z=Z, W=W)
         sim.H = H
+        self.release(sim, c)
+
+    def release(self, sim, c: _Contribution) -> None:
+        """Drop an in-flight contribution without merging it (fault
+        injection: the upload was lost or rejected). Eager batch refs go
+        with the contribution; a table-backed one (dispatched under the
+        engine) frees its slot."""
         if c.slot >= 0 and sim._async_table is not None:
-            # dispatched under the engine, merged eagerly: the slot is free
             sim._async_table.free(c.slot)
             c.slot = -1
 
@@ -519,8 +559,6 @@ class FedSim:
         if sim.max_concurrency < 0:
             raise ValueError(f"max_concurrency must be >= 0 (0 = unlimited); "
                              f"got {sim.max_concurrency}")
-        if sim.faults is not None:
-            raise ValueError(_NOT_PORTED["faults"])
         if sim.policy == "overselect" and \
                 getattr(cfg, "sampler", "uniform") != "uniform":
             raise ValueError(
@@ -542,6 +580,9 @@ class FedSim:
         self._latency = simclients.make_latency_model(
             sim.latency, sigma=sim.latency_sigma, alpha=sim.latency_alpha)
         self._rng = np.random.default_rng(sim.seed)
+        # the fault model draws from its OWN seeded stream, never the
+        # arrival stream; None whenever no fault process can fire
+        self._faults = build_fault_model(sim.faults, cfg.m)
         self._privacy = build_privacy_model(sim.privacy, cfg.m)
         # the noise transform: eps == 0 privacy (secure-agg only) bills
         # masks but never perturbs values
@@ -698,6 +739,17 @@ class FedSim:
             self.profiles, self._rng, self._latency,
             work_flops=self._work, down_bytes=self._down_bytes,
             up_bytes=self._up_bytes)
+        fo = None
+        if self._faults is not None:
+            # fault chains resolve BEFORE the policy, which then sees the
+            # effective candidates (quarantine removed) and arrivals
+            # (retry-delayed or lost)
+            fo = self._faults.apply_clocked(
+                round_idx=self.round_idx, candidates=candidates,
+                arrivals=arrivals,
+                cutoff=self.sim.deadline
+                if self.sim.policy == "deadline" else math.inf)
+            candidates, arrivals = fo.candidates, fo.arrivals
         mask, dur = self._apply_policy(candidates, arrivals)
 
         abandoned = candidates.any() and not mask.any()
@@ -731,14 +783,11 @@ class FedSim:
                 round_idx=self.round_idx, t0=self.t, candidates=candidates,
                 arrivals=arrivals, mask=mask, dur=dur, rec_up=rec_up,
                 abandoned=bool(abandoned), codec=self.sim.codec,
-                up_bytes=self._up_bytes)
+                up_bytes=self._up_bytes, faults=fo)
         apply_clocked_privacy(
             self._privacy, self.telemetry, round_idx=self.round_idx,
-            t_end=self.t + dur, mask=mask, rec_up=rec_up)
-        brec = self.ledger.record_round(
-            down_mask=candidates, up_mask=rec_up,
-            down_bytes=self._down_bytes, up_bytes=self._up_bytes,
-            ts=self.t + dur, round_idx=self.round_idx)
+            t_end=self.t + dur, mask=mask, rec_up=rec_up, faults=fo)
+        brec = self._bill_round(candidates, rec_up, fo, dur)
         self.t += dur
         m = make_sim_metrics(
             round_idx=self.round_idx, t_round=dur, t_total=self.t,
@@ -747,6 +796,18 @@ class FedSim:
         self.metrics.append(m)
         self.round_idx += 1
         return m
+
+    def _bill_round(self, candidates, rec_up, fo, dur) -> dict:
+        """The ledger record of a clocked round: failed attempts and
+        discarded duplicates sent real bytes, billed on top of the
+        delivered-upload mask."""
+        up = rec_up.astype(np.int64)
+        if fo is not None:
+            up = up + fo.extra_up
+        return self.ledger.record_counts(
+            down_counts=candidates.astype(np.int64), up_counts=up,
+            down_bytes=self._down_bytes, up_bytes=self._up_bytes,
+            ts=self.t + dur, round_idx=self.round_idx)
 
     def run(self, rounds: int) -> list[SimMetrics]:
         return [self.step() for _ in range(rounds)]
@@ -766,8 +827,12 @@ class FedSim:
         start event per live member at the current simulated time; returns
         the live count. Unreachable members cost their broadcast at once
         and never take a slot. The live mask is the baselines' aggregation
-        anchor."""
+        anchor. Quarantined clients are not contacted at all: no bytes, no
+        slot, no dispatch event."""
         candidates = self._exec.draw_candidates(self)
+        if self._faults is not None:
+            candidates = candidates \
+                & ~self._faults.quarantine_mask(self.round_idx)
         durations = simclients.round_arrivals(
             self.profiles, self._rng, self._latency,
             work_flops=self._work, down_bytes=self._down_bytes,
@@ -830,6 +895,70 @@ class FedSim:
                            (self.t + dur, self._eseq, _EV_UPLOAD, c))
             self._eseq += 1
 
+    def _handle_faulty_upload(self, c: _Contribution) -> bool:
+        """Resolve one popped upload against the fault model: True when the
+        event is consumed here (lost, retried, rejected or deduplicated)
+        and must not be buffered, False for a clean delivery. Every attempt
+        that reached the wire, duplicates and rejected payloads included,
+        bills one upload. Both engines run this same pump, and the model
+        draws from its own stream, so the engine's recording pass makes
+        every decision made here."""
+        fm = self._faults
+        tel = self.telemetry
+        if c.dup or (c.client, c.serial, c.attempt) in fm.seen:
+            # a duplicate: billed and counted when discarded (a ghost still
+            # queued at the run's end is neither), never merged; it holds
+            # no slot, so in-flight is untouched
+            self._ev_up[c.client] += 1
+            fm.total_duplicates += 1
+            if tel.enabled:
+                tel.event("duplicate_discard", ts=self.t,
+                          round_idx=self.round_idx, client=int(c.client))
+            return True
+        fate = fm.draw_outcome()
+        if fate == "ok":
+            delay = fm.draw_duplicate()
+            if delay is not None:
+                # the duplicate arrives reorder_jitter * U[0, 1) late as a
+                # payload-free ghost that dedup discards
+                ghost = dataclasses.replace(c, dup=True, slot=-1,
+                                            z_batch=None, w_batch=None)
+                heapq.heappush(self._events, (self.t + delay, self._eseq,
+                                              _EV_UPLOAD, ghost))
+                self._eseq += 1
+            return False
+        self._ev_up[c.client] += 1   # the failed attempt sent real bytes
+        if fate == "transient" and c.attempt <= fm.cfg.max_retries:
+            fm.total_retries += 1
+            if tel.enabled:
+                tel.event("retry", ts=self.t, round_idx=self.round_idx,
+                          client=int(c.client), attempt=c.attempt + 1)
+            delay = fm.backoff(c.attempt)
+            c.attempt += 1
+            # still in flight, slot held: redelivered after the backoff
+            heapq.heappush(self._events,
+                           (self.t + delay, self._eseq, _EV_UPLOAD, c))
+            self._eseq += 1
+            return True
+        # lost for good: dropped, retries exhausted, or screened as corrupt
+        reason = {"drop": "drop", "transient": "exhausted",
+                  "corrupt": "corrupt"}[fate]
+        self._n_inflight -= 1
+        self._ev_dropped += 1
+        self._exec.release(self, c)
+        fm.total_drops += 1
+        if fate == "corrupt":
+            fm.total_corrupt += 1
+            until = fm.record_offense(int(c.client), self.round_idx)
+            if until is not None and tel.enabled:
+                tel.event("quarantine", ts=self.t, round_idx=self.round_idx,
+                          client=int(c.client), until_round=until)
+        if tel.enabled:
+            tel.event("upload_drop", ts=self.t, round_idx=self.round_idx,
+                      client=int(c.client), reason=reason,
+                      in_flight=self._n_inflight, stalled=len(self._stalled))
+        return True
+
     def _step_async(self) -> SimMetrics:
         """One aggregation event: pump the event heap until the buffer holds
         ``buffer_size`` contributions, merge them in arrival order at their
@@ -847,6 +976,7 @@ class FedSim:
             self._select_cohort()
         buffer: list[_Contribution] = []
         dry = 0
+        n_selects = 0
         while len(buffer) < self._buffer_k and dry < _MAX_DRY_DISPATCHES:
             # slot-blocked dispatches first: they outrank anything queued
             if self._stalled and self._free_slots() >= 1:
@@ -856,6 +986,12 @@ class FedSim:
                 self._fire_group(group)
                 continue
             if not self._events:
+                if self._faults is not None \
+                        and n_selects >= _MAX_FAULT_SELECTS:
+                    # heavy loss: merge what survived (an empty buffer
+                    # abandons the event, like a missed deadline)
+                    break
+                n_selects += 1
                 # nothing in flight and nothing startable: fresh work
                 dry = dry + 1 if self._select_cohort() == 0 else 0
                 continue
@@ -876,6 +1012,8 @@ class FedSim:
                 self._fire_group(group)
                 continue
             c = payload
+            if self._faults is not None and self._handle_faulty_upload(c):
+                continue
             self._n_inflight -= 1
             self._ev_up[c.client] += 1
             buffer.append(c)
@@ -888,6 +1026,10 @@ class FedSim:
         staleness = [self._version - c.version for c in buffer]
         for c, s in zip(buffer, staleness):
             gamma = participation.staleness_weight(s, self.sim.staleness_exp)
+            if self._faults is not None:
+                # the merged delivery's sequence number: a later redelivery
+                # of the same attempt is discarded on arrival
+                self._faults.seen.add((c.client, c.serial, c.attempt))
             self._exec.merge(self, c, s, gamma)
             if tel.enabled:
                 if self.sim.codec is not None:
@@ -957,6 +1099,8 @@ class FedSim:
         }
         if self.sim.policy == "adaptive":
             snap["ewma"] = self.deadlines.ewma.copy()
+        if self._faults is not None:
+            snap["faults"] = self._faults.state_snapshot()
         if self._privacy is not None:
             snap["privacy"] = self._privacy.state_snapshot()
         if self.sim.policy == "async":
@@ -993,6 +1137,8 @@ class FedSim:
         self.telemetry.rewind(snap["tel_mark"])
         if self.sim.policy == "adaptive":
             self.deadlines.ewma = snap["ewma"].copy()
+        if self._faults is not None:
+            self._faults.state_restore(snap["faults"])
         if self._privacy is not None:
             self._privacy.state_restore(snap["privacy"])
         if self.sim.policy == "async":

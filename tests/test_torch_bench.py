@@ -137,20 +137,33 @@ def test_chip_smoke_jax_trials(trial):
     "sfedavg/rho=1.0/seed=2", "sfedprox/rho=0.6/seed=0",
     "sfedprox/rho=0.6/seed=2"])
 def test_queue3_trials_pinned(trial):
-    """The five Fig. 4 trials (m = 50, d = 45222) that stop more than one
-    round from JAX's on the CPU: a live ``benchmarks.common.run_algorithm``
-    and the port's CPU run each give the CR and f/m ``chip_smoke.py``
-    records for them. The port does not reproduce XLA:CPU's loss
-    arithmetic (ROADMAP queue 3 item 1), so the two columns differ; this
-    pins both, so that a change to either shows."""
+    """The five Fig. 4 trials (m = 50, d = 45222) that stopped more than
+    one round from JAX's while the port's loss rounded otherwise than
+    XLA:CPU's: a live ``benchmarks.common.run_algorithm`` gives the CR and
+    f/m ``chip_smoke.py`` records, and the port's CPU run, whose plain loss
+    and gradient are XLA:CPU's bit for bit, stops at the same round with
+    the same f/m."""
     import chip_smoke
     t = chip_smoke.QUEUE3_TRIALS[trial]
     kw = dict(chip_smoke.QUEUE3_SETTINGS, rho=t["rho"], seed=t["seed"])
     want = jcommon.run_algorithm(t["alg"], **kw)
     assert (want["CR"], want["f"]) == t["jax"]
     got = paper.run_algorithm(t["alg"], device="cpu", **kw)
-    assert got["CR"] == t["port_cpu"][0]
-    assert abs(got["f"] - t["port_cpu"][1]) <= 2e-7
+    assert (got["CR"], got["f"]) == t["port_cpu"] == t["jax"]
+
+
+def test_bench_engine_quick_race_matches_jax():
+    """The ``bench_engine`` twin's ``--quick`` race (d 2000, m 16, 120
+    rounds) against a live JAX ``benchmarks/bench_engine.bench``: the same
+    target objective and the same rounds to it, eager and scan."""
+    from repro_torch.benchmarks import bench_engine as tbench
+    import benchmarks.bench_engine as jbench
+    got = tbench.bench(device="cpu", **dict(tbench.QUICK_KW, repeats=1))
+    want = jbench.bench(**dict(jbench.QUICK_KW, repeats=1))
+    assert got["target_objective"] == want["target_objective"]
+    for eng in ("eager", "scan"):
+        assert got["engines"][eng]["rounds_to_target"] == \
+            want["engines"][eng]["rounds_to_target"]
 
 
 def test_average_trials_matches_jax():
@@ -175,3 +188,26 @@ def test_runner_needs_a_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         trun.main(["--only", "table1", "--quick"])
+
+
+def test_fig8_twin_matches_jax():
+    """The Fig. 8 twin's quick grid through the port's sweep runner against
+    ``benchmarks/fig8_faults.run``: the same rows; simulated times to the
+    target, ledger bytes and fault counters exact (host numbers), the
+    final f within STATE_RTOL."""
+    import benchmarks.fig8_faults as jfig8
+    from repro_torch.benchmarks import fig8_faults
+    got = fig8_faults.run(**fig8_faults.QUICK_KW, device="cpu")
+    want = jfig8.run(**jfig8.QUICK_KW)
+    assert [r[0] for r in got] == [r[0] for r in want]
+    for g, w in zip(got, want):
+        assert g[1] == w[1], g[0]
+        gd, wd = dict(kv.split("=") for kv in g[2].split(";") if "=" in kv), \
+            dict(kv.split("=") for kv in w[2].split(";") if "=" in kv)
+        assert gd.keys() == wd.keys() and ("NOT_REACHED" in g[2]) == \
+            ("NOT_REACHED" in w[2]), g[0]
+        for k in gd:
+            if k in ("f", "f_target"):
+                assert abs(float(gd[k]) - float(wd[k])) <= 2e-6, (g[0], k)
+            else:
+                assert gd[k] == wd[k], (g[0], k)

@@ -448,3 +448,38 @@ def test_engine_capture_refuses_a_host_sync(gen, monkeypatch):
     assert GRAPH_STATS["replays"] == replays
     assert sim.round_idx == 0 and not sim.metrics
     assert sim.telemetry.events == []
+
+
+FAULTS = ["--fault-drop", "0.1", "--fault-transient", "0.15",
+          "--fault-corrupt", "0.05", "--fault-duplicate", "0.1"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--policy", "deadline", "--deadline", "0.004", "--latency", "pareto",
+     "--bits", "8"] + FAULTS,
+    ["--policy", "sync", "--bits", "4", "--error-feedback",
+     "--fault-drop", "0.3", "--fault-corrupt", "0.2"],
+    ASYNC + ["--bits", "8"] + FAULTS,
+    ASYNC + ["--rho", "0.25", "--fault-drop", "0.6"],
+])
+def test_faulted_engine_matches_eager_on_card(gen, extra):
+    """Under faults ``run_rounds`` on the card (clocked: one graph replay
+    per round over the effective masks; async: the recorded fires and
+    merges, a lost upload freeing its slot with no replay) leaves the sim
+    as the eager loop does, bit for bit: state, metrics, ledger, events
+    and the fault model's counters and quarantine state."""
+    from repro_torch.sim import run_rounds
+    eager, scan = _sims_on_card(extra)
+    eager.run(8)
+    run_rounds(scan, 8, chunk=3)
+    for f in ("w_tau", "W", "Z", "key"):
+        assert torch.equal(getattr(scan.state, f), getattr(eager.state, f))
+    if eager.H is not None:
+        assert torch.equal(scan.H, eager.H)
+    assert scan.metrics == eager.metrics
+    assert scan.telemetry.events == eager.telemetry.events
+    assert scan.ledger.rounds == eager.ledger.rounds
+    assert scan._faults.summary() == eager._faults.summary()
+    assert eager._faults.summary()["upload_drops"] > 0
+    assert (scan._faults.quarantined_until.tolist()
+            == eager._faults.quarantined_until.tolist())

@@ -38,7 +38,8 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "check_sim_card_vs_cpu", "reset_counts", "read_counts",
              "check_threefry_kernel", "check_jax_random_table",
              "run_paper_twins", "profile_baselines", "run_engine_path",
-             "profile_engine_path"):
+             "profile_engine_path", "run_faults_clocked", "run_faults_async",
+             "run_faults_spec", "fault_host_numbers"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
@@ -50,7 +51,14 @@ for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.core.baselines", "repro_torch.core.penalty",
             "repro_torch.benchmarks.run", "repro_torch.benchmarks.fig4_rho",
             "repro_torch.sim.engine", "repro_torch.core.scan",
-            "repro_torch.benchmarks.bench_engine"):
+            "repro_torch.benchmarks.bench_engine", "repro_torch.sim.faults",
+            "repro_torch.spec", "repro_torch.spec.build",
+            "repro_torch.spec.registry", "repro_torch.spec.types",
+            "repro_torch.spec.serialize", "repro_torch.spec.sweep",
+            "repro_torch.launch.sweep_run", "repro_torch.telemetry.metrics",
+            "repro_torch.telemetry.sinks", "repro_torch.telemetry.trace",
+            "repro_torch.telemetry.profiler", "repro_torch.core.xla_cpu",
+            "repro_torch.benchmarks.fig8_faults"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"

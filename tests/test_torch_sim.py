@@ -300,7 +300,8 @@ def test_default_draws_match_jax_without_replay(task, policy, codec,
 @pytest.mark.parametrize("kw,match", [
     ({"sim": tserver.SimConfig(policy="async", buffer_size=-1)},
      "buffer_size must be >= 0"),
-    ({"sim": tserver.SimConfig(faults=object())}, "item 12"),
+    ({"sim": tserver.SimConfig(policy="async", max_concurrency=-1)},
+     "max_concurrency must be >= 0"),
     ({"alg": "fedavg"}, "unknown alg"),
     ({"sim": tserver.SimConfig(policy="fastest")}, "unknown policy"),
 ])
