@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero before the last line:
    configuration (f), 10 rounds or events in one chunk each, their
    graph-launched and outside-graph kernels held exactly to the graphs'
    counts and the counters; then the paper path, SFedAvg and SFedProx at
-   m = 128 and simulator configuration (a), cut to 10 rounds. Each gives
-   the device's busy time and idle share under ``torch.profiler``.
+   m = 128 and simulator configuration (a), cut to 10 rounds; then the
+   full-width LM spec, 2 eager rounds and 2 engine rounds. Each gives the
+   device's busy time and idle share under ``torch.profiler``.
 4. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main path's shape, edge shapes and a full smollm-135m
    embedding leaf (49152 x 576); bitwise expected. Times by CUDA events.
@@ -67,10 +68,24 @@ Phases, in order; any failure exits non-zero before the last line:
    CR printed beside JAX's and the port CPU run's (now JAX's); then the
    paper's baselines: the Fig. 2
    twin (all three algorithms at m = 50, d = 45222, 120 rounds) and the
-   Table I twin (LCT at k0 in {4, 8, 12, 16, 20}).
+   Table I twin (LCT at k0 in {4, 8, 12, 16, 20}); then the Fig. 9 twin's
+   privacy grid at ``--quick`` and ``examples/specs/fig9_privacy.toml``
+   through the simulate CLI (the fused ``private_quantize_cols`` once per
+   merged round, host numbers equal to ``JAX_FIG9``) and the ENS twin;
+   then the federated LM path, ``examples/specs/lm_federated.toml`` at
+   smollm-135m's full width (``reduced = false``: 30 layers, 134,515,008
+   parameters, bf16 compute), 3 rounds per case: eager twice (the same
+   bits), the scan engine in chunks of 1 and 3 (CUDA graphs) bit for bit
+   to eager, and eager with the 8-bit codec; ENS 11 and prox 22 launches
+   a round, ``quantize_cols`` one; f/m per round, wall per round and peak
+   device memory printed. The kernel phase holds prox and ENS at its
+   (4, 28,311,552) and ``quantize_cols`` at its (44, 28,311,552).
 6. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
-   the same key (masks bitwise).
+   the same key (masks bitwise); the reduced LM spec (f32) on the card
+   against the CPU and ``JAX_LM_REDUCED``, and the full-width LM run
+   against the port's CPU path on this host from the card's initial params
+   and noise planes (f/m within ``LM_F_RTOL``).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -302,6 +317,8 @@ def check_kernels(card: str) -> list[dict]:
     prox_plan += [(4, n, f32, 50) for n in (1, 7, 130, 513)]
     prox_plan += [(1, 14, f32, 50), (8, SMOLLM_LEAF, f32, 10),
                   (8, SMOLLM_LEAF, bf16, 10)]
+    # the LM path's widest leaf: 4 clients of the tied embedding
+    prox_plan += [(LM_M, SMOLLM_LEAF, f32, 10)]
     prox_cases = []
     for m, n, dt, reps in prox_plan:
         prox_cases.append(_prox_case(m, n, dt, gen, reps))
@@ -321,6 +338,7 @@ def check_kernels(card: str) -> list[dict]:
                  for dt in (f32, bf16)]
     ens_plan += [(8, SMOLLM_LEAF, f32, 3, "random", True),
                  (8, SMOLLM_LEAF, bf16, 3, "random", True),
+                 (LM_M, SMOLLM_LEAF, f32, 3, "random", True),
                  (128, 1 << 20, f32, 3, "random", True)]
     # the block layout (m > 128): the --m 200 path's shape, then every
     # m at both widths in both dtypes, random and tie-heavy
@@ -389,11 +407,11 @@ QUANT_SHAPES = [(1, 7), (5, 300), (32, 1024), (3, 513)]
 QUANT_BITS = (2, 4, 8, 16)
 
 
-def _quant_inputs(m, n, dtype, gen, all_live):
-    """Values, dither, Laplace plane and per-row operands. Unless
-    ``all_live`` (the simulator's dense codec: every column live, as the
-    timed cases take it), row 0 is all zero, the live-column counts are
-    random and the last row has none."""
+def _quant_inputs(m, n, dtype, gen, all_live, lap=True):
+    """Values, dither, Laplace plane (``lap``) and per-row operands.
+    Unless ``all_live`` (the simulator's dense codec: every column live, as
+    the timed cases take it), row 0 is all zero, the live-column counts
+    are random and the last row has none."""
     from repro_torch.kernels.quant.ref import laplace_from_u32
     dev = "cuda"
     X = torch.randn(m, n, generator=gen, device=dev) * 2
@@ -411,7 +429,7 @@ def _quant_inputs(m, n, dtype, gen, all_live):
                              device=dev, dtype=torch.int32)
 
     return {"X": X.to(dtype), "F": F.to(dtype), "kcols": kcols,
-            "u32": bits(), "lap": laplace_from_u32(bits()),
+            "u32": bits(), "lap": laplace_from_u32(bits()) if lap else None,
             "clipf": 0.2 + 0.8 * torch.rand(m, generator=gen, device=dev),
             "b": 2.0 * torch.rand(m, generator=gen, device=dev)}
 
@@ -440,7 +458,8 @@ def _quant_calls(name, inp, bits, stochastic):
 def _quant_case(name, m, n, dtype, bits, stochastic, reps, gen,
                 all_live=None):
     inp = _quant_inputs(m, n, dtype, gen,
-                        all_live=reps > 0 if all_live is None else all_live)
+                        all_live=reps > 0 if all_live is None else all_live,
+                        lap=name == "private_quantize_cols")
     kernel, plain, args = _quant_calls(name, inp, bits, stochastic)
     got = kernel(*args)
     want = plain(*args)
@@ -485,7 +504,15 @@ def check_quant_kernels(card: str) -> list[dict]:
                  for st in (True, False)]
         plan += [(8, SMOLLM_LEAF, f32, 8, True, 10),
                  (8, SMOLLM_LEAF, bf16, 8, True, 10)]
-        cases = [_quant_case(name, *p, gen) for p in plan]
+        if name == "quantize_cols":
+            # the LM path's codec: 11 leaves x 4 clients padded to the
+            # embedding's width, one launch a round
+            plan += [(LM_LEAVES * LM_M, SMOLLM_LEAF, f32, 8, True, 3)]
+        cases = []
+        for p in plan:
+            cases.append(_quant_case(name, *p, gen))
+            if p[0] * p[1] > 1 << 30:
+                torch.cuda.empty_cache()
         cases += [_quant_case(name, 1, 14, f32, bits, st, 0, gen,
                               all_live=True)
                   for bits in QUANT_BITS for st in (True, False)]
@@ -1655,6 +1682,326 @@ def run_faults_spec() -> dict:
     return out
 
 
+# The federated dense-LM path (``python -m repro_torch.launch.train --spec
+# examples/specs/lm_federated.toml``) at smollm-135m's full width
+# (``reduced = false``: 30 layers, d_model 576, vocab 49152, 134,515,008
+# params, bf16 compute over f32 params), LM_ROUNDS rounds a case. Per round
+# and leaf (11 leaves) FedEPM launches ENS once and prox k0 = 2 times; the
+# 8-bit codec adds one ``quantize_cols`` over the padded (44, 28,311,552)
+# rows. The reduced spec (f32) is held on the card to JAX's numbers,
+# ``python -m repro.launch.train --spec examples/specs/lm_federated.toml
+# --engine eager`` with jax 0.9.0 on the CPU (tests/test_torch_lm.py
+# recomputes them).
+LM_SPEC = ROOT / "examples/specs/lm_federated.toml"
+LM_ROUNDS = 3
+LM_LEAVES, LM_K0, LM_M = 11, 2, 4
+LM_PARAMS = 134_515_008
+JAX_LM_REDUCED = {"f_per_m": [6.2607903480529785, 6.309771537780762,
+                              6.349121570587158],
+                  "sim_time_s": 3.8736660931708493,
+                  "bytes_total": 12999168.0}
+# card against the port's CPU path at full width: both compute in bf16
+# (one bf16 ulp is 2^-8 of a value), cuBLAS and the CPU's bf16 matmuls
+# round their outputs at different places; f/m is a mean over 256
+# positions of a cross-entropy near ln(49152) = 10.8, held within 2e-3 of
+# itself
+LM_F_RTOL = 2e-3
+
+
+def _lm_spec(reduced: bool = False, **over):
+    from repro_torch.spec import ExperimentSpec
+    return ExperimentSpec.load(LM_SPEC).replace(**{
+        "task.reduced": reduced, "engine.rounds": LM_ROUNDS, **over})
+
+
+def _lm_state(sim) -> list:
+    from repro_torch.core.treeutil import tree_leaves
+    st = sim.state
+    return tree_leaves(st.w_tau) + tree_leaves(st.W) + tree_leaves(st.Z) \
+        + [st.key]
+
+
+def _lm_case(spec, device="cuda") -> tuple:
+    """Build and run one spec; (handle, record) with f/m per round (None
+    per round under the scan engine, as in JAX), wall per round, peak
+    device memory and the launch counters of the build and the run. The
+    scan engine runs twice from one snapshot: the first run captures its
+    graph, the second (timed) replays it."""
+    from repro_torch.core.scan import GRAPH_STATS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    h = spec.build(device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cold = None
+    if spec.engine.name == "scan":
+        snap = h.sim.snapshot()
+        t0 = time.perf_counter()
+        h.run()
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t0) / LM_ROUNDS * 1e3
+        h.sim.restore(snap)
+        del snap
+    f: list = []
+    t0 = time.perf_counter()
+    h.run(report=lambda met, v: f.append(v))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    f_m = [None if v is None else v / spec.task.m for v in f]
+    assert all(v is None or np.isfinite(v) for v in f_m), f_m
+    rec = {"engine": spec.engine.name, "chunk": spec.engine.chunk,
+           "bits": spec.codec.bits, "f_per_m": f_m,
+           "wall_ms_per_round": wall / LM_ROUNDS * 1e3,
+           "first_run_ms_per_round": cold, "build_s": build_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "graph_replays": GRAPH_STATS["replays"],
+           "graph_captures": GRAPH_STATS["captures"],
+           "bytes_total": h.sim.ledger.total, "launches": read_counts()}
+    return h, rec
+
+
+def run_lm_path() -> dict:
+    """smollm-135m at full width through the spec layer and ``train``'s
+    entry (``RunHandle.run``), LM_ROUNDS rounds per case, each with the
+    counters set to 0 just before it: eager twice (a backward that gives
+    the same bits on every run), the scan engine in chunks of 1 and of 3
+    (each round one replay of a captured CUDA graph) held bit for bit to
+    eager, and eager with the 8-bit codec. ENS launches once and prox k0
+    times per leaf and round, ``quantize_cols`` once per codec round, each
+    CUDA graph counting its warm-up call and its replays."""
+    from repro_torch.core.treeutil import tree_leaves
+    out = {}
+    h, rec = _lm_case(_lm_spec(**{"engine.name": "eager"}))
+    n_params = sum(x.numel() for x in tree_leaves(h.data.params0))
+    assert n_params == LM_PARAMS, n_params
+    ref = [t.clone() for t in _lm_state(h.sim)]
+    ref_ledger = (h.sim.ledger.total, h.sim.t)
+    out["eager"] = rec
+    del h
+    h, rec = _lm_case(_lm_spec(**{"engine.name": "eager"}))
+    assert rec["f_per_m"] == out["eager"]["f_per_m"]
+    assert all(torch.equal(a, b) for a, b in zip(_lm_state(h.sim), ref))
+    out["eager_again"] = rec
+    del h
+    for chunk in (1, LM_ROUNDS):
+        h, rec = _lm_case(_lm_spec(**{"engine.name": "scan",
+                                      "engine.chunk": chunk}))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(_lm_state(h.sim), ref)), chunk
+        assert (h.sim.ledger.total, h.sim.t) == ref_ledger
+        assert rec["graph_replays"] == 2 * LM_ROUNDS, rec
+        out[f"scan_chunk{chunk}"] = rec
+        del h
+    h, rec = _lm_case(_lm_spec(**{"engine.name": "eager", "codec.bits": 8}))
+    assert rec["bytes_total"] < ref_ledger[0]
+    out["codec8"] = rec
+    del h
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        calls = LM_ROUNDS if rec["engine"] == "eager" \
+            else rec["graph_replays"] + rec["graph_captures"]
+        want = {"ens": LM_LEAVES * calls,
+                "prox_update": LM_LEAVES * LM_K0 * calls,
+                "quantize_cols": calls if rec["bits"] else 0,
+                "ef_accumulate": 0, "private_quantize_cols": 0,
+                "quantize": 0}
+        got = {k: rec["launches"][k] for k in want}
+        assert got == want, (name, got, want)
+        log(f"lm[{name}] " + json.dumps(
+            {k: rec[k] for k in ("f_per_m", "wall_ms_per_round",
+                                 "first_run_ms_per_round", "peak_mem_gb",
+                                 "launches")}))
+    return out
+
+
+def profile_lm_path(rounds: int = 2) -> dict:
+    """Profile the full-width LM spec's rounds: ``rounds`` eager
+    ``FedSim.step`` calls after one unprofiled step, then ``rounds`` rounds
+    of ``run_rounds`` after a first chunk that captured its graph. Each
+    window holds ENS once and prox k0 times per leaf and round."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.sim import run_rounds
+    h = _lm_spec(**{"engine.name": "eager"}).build(device="cuda")
+    sim = h.sim
+    sim.step()
+    run_rounds(sim, rounds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("lm.eager"):
+            for _ in range(rounds):
+                sim.step()
+            torch.cuda.synchronize()
+        with record_function("lm.engine"):
+            run_rounds(sim, rounds)
+            torch.cuda.synchronize()
+    out = {}
+    for name in ("eager", "engine"):
+        by_name, stats = _profile_window(prof, f"lm.{name}", rounds)
+        assert _launches_in(by_name, "ens_kernel") == LM_LEAVES * rounds, \
+            (name, stats)
+        assert _launches_in(by_name, "prox_kernel") == \
+            LM_LEAVES * LM_K0 * rounds, (name, stats)
+        out[name] = stats
+        log(f"profile lm.{name} " + json.dumps(
+            {k: stats[k] for k in ("wall_ms_per_round",
+                                   "device_busy_ms_per_round",
+                                   "device_idle_share",
+                                   "device_ops_per_round",
+                                   "port_kernels_us_per_round")}))
+    return out
+
+
+class _CardNoise:
+    """The draws of a CPU sim whose round noise comes from the card: the
+    same keys (``KeyedDraws`` on the CPU), the unit-Laplace planes drawn by
+    the threefry kernel on the card and copied over (the plain hash over
+    four copies of 134.5M parameters would take minutes a round)."""
+
+    def __init__(self, seed: int):
+        from repro_torch.sim.server import KeyedDraws
+        self.keyed = KeyedDraws(seed, 0, device="cpu")
+
+    def __getattr__(self, name):
+        return getattr(self.keyed, name)
+
+    def unit_noise(self, sim):
+        from repro_torch.core import dp, fedepm
+        from repro_torch.core.treeutil import tmap
+        _, _, k_noise = fedepm.split_round_key(sim.state.key)
+        like = tmap(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="cuda"), sim.state.W)
+        return tmap(lambda t: t.cpu(),
+                    dp.client_unit_laplace(k_noise.cuda(), like))
+
+
+def check_lm_card_vs_cpu(lm: dict) -> dict:
+    """The LM path on the card against the port's plain path on this
+    host's CPU. Reduced (f32): ``init`` on the card equals the CPU's bit
+    for bit; LM_ROUNDS eager rounds, f/m per round within STATE_RTOL of
+    the CPU's and of ``JAX_LM_REDUCED``, ``w_tau`` within STATE_RTOL of
+    each leaf's largest value, ledger and events exact. Full width (bf16):
+    the eager run of ``run_lm_path`` against the CPU sim from the card's
+    initial params (the reduced check shows the init is the CPU's) with
+    the card's noise planes, f/m per round within LM_F_RTOL."""
+    import dataclasses
+    import importlib
+    from repro_torch.core.treeutil import tmap, tree_leaves
+    spec_build = importlib.import_module("repro_torch.spec.build")
+    out = {}
+    over = {"engine.name": "eager", "telemetry.enabled": True}
+    spec = _lm_spec(reduced=True, **over)
+    hs = {dev: spec.build(device=dev) for dev in ("cpu", "cuda")}
+    for a, b in zip(tree_leaves(hs["cpu"].data.params0),
+                    tree_leaves(hs["cuda"].data.params0)):
+        assert torch.equal(a, b.cpu())
+    fs = {}
+    for dev, h in hs.items():
+        f: list = []
+        h.run(report=lambda met, v: f.append(v / spec.task.m))
+        fs[dev] = f
+    worst = 0.0
+    for a, b in zip(tree_leaves(hs["cpu"].sim.state.w_tau),
+                    tree_leaves(hs["cuda"].sim.state.w_tau)):
+        d = float((a - b.cpu()).abs().max())
+        worst = max(worst, d)
+        assert d <= STATE_RTOL * max(1.0, float(a.abs().max())), d
+    for g, c, j in zip(fs["cuda"], fs["cpu"], JAX_LM_REDUCED["f_per_m"]):
+        assert abs(g - c) <= STATE_RTOL * abs(c), (g, c)
+        assert abs(g - j) <= STATE_RTOL * abs(j), (g, j)
+    assert hs["cuda"].sim.ledger.total == hs["cpu"].sim.ledger.total \
+        == JAX_LM_REDUCED["bytes_total"]
+    assert hs["cuda"].sim.t == JAX_LM_REDUCED["sim_time_s"]
+    assert hs["cuda"].sim.telemetry.events == hs["cpu"].sim.telemetry.events
+    out["reduced"] = {"f_per_m_card": fs["cuda"], "f_per_m_cpu": fs["cpu"],
+                      "f_per_m_jax": JAX_LM_REDUCED["f_per_m"],
+                      "w_tau_max_abs_diff": worst}
+    del hs
+    # full width: the CPU sim from the card's task data and noise
+    spec = _lm_spec(**{"engine.name": "eager"})
+    card = spec_build.task_data(spec, torch.device("cuda"))
+    task = dataclasses.replace(spec.task, seed=spec.seed)
+    key = (task, "cpu")
+    spec_build._TASK_CACHE[key] = card._replace(
+        batches={k: v.cpu() for k, v in card.batches.items()},
+        params0=tmap(lambda t: t.cpu(), card.params0))
+    try:
+        t0 = time.perf_counter()
+        h = spec_build.build(spec, "cpu", draws=_CardNoise(spec.seed))
+        f: list = []
+        h.run(report=lambda met, v: f.append(v / spec.task.m))
+        cpu_s = time.perf_counter() - t0
+    finally:
+        spec_build._TASK_CACHE.pop(key, None)
+    card_f = lm["eager"]["f_per_m"]
+    for g, c in zip(card_f, f):
+        assert abs(g - c) <= LM_F_RTOL * abs(c), (card_f, f)
+    out["full"] = {"f_per_m_card": card_f, "f_per_m_cpu": f,
+                   "rtol": LM_F_RTOL, "cpu_s": cpu_s,
+                   "max_rel_diff": max(abs(g - c) / abs(c)
+                                       for g, c in zip(card_f, f))}
+    log("lm_card_vs_cpu " + json.dumps(out))
+    return out
+
+
+# JAX's host numbers for examples/specs/fig9_privacy.toml (deadline,
+# 8-bit codec, Laplace transport DP with clip and secure aggregation):
+# ``repro.spec.ExperimentSpec.load(...).build().run()`` with jax 0.9.0 on
+# the CPU; tests/test_torch_spec.py holds the port's CPU run to JAX live
+JAX_FIG9 = {"rounds": 30, "sim_time_s": 0.012500524326402498,
+            "stragglers_dropped": 1, "bytes_total": 50830.0,
+            "privacy": {"eps_per_round": 2.0, "eps_spent_max": 40.0,
+                        "eps_spent_mean": 29.9375, "charges": 479,
+                        "mask_attempts": 479, "mask_bytes": 15328}}
+
+
+def run_twins_path() -> dict:
+    """The Fig. 9 and ENS twins on the card, each a path with the counters
+    set to 0 just before it: the Fig. 9 privacy grid at the JAX runner's
+    ``--quick`` (no codec in its cells, so its uploads are clipped and
+    noised by torch ops) and ``examples/specs/fig9_privacy.toml`` through
+    the simulate CLI, whose 8-bit codec and Laplace DP take the fused
+    ``private_quantize_cols`` entry once per round with a merge, its host
+    numbers equal to ``JAX_FIG9``; then the ENS micro-benchmark."""
+    from repro_torch.benchmarks import ens_kernel, fig9_privacy
+    from repro_torch.launch import simulate
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = fig9_privacy.run(**fig9_privacy.QUICK_KW)
+    out["fig9_quick"] = {"wall_s": time.perf_counter() - t0,
+                         "rows": len(rows), "launches": read_counts()}
+    OUT_DIR.mkdir(exist_ok=True)
+    summ = OUT_DIR / "fig9_privacy.json"
+    reset_counts()
+    t0 = time.perf_counter()
+    assert simulate.main(["--spec", str(ROOT / "examples/specs/"
+                                        "fig9_privacy.toml"),
+                          "--quiet", "--json", str(summ)]) == 0
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    s = json.loads(summ.read_text())
+    got = {k: s[k] for k in JAX_FIG9}
+    assert got == JAX_FIG9, got
+    merged = s["rounds"] - s["abandoned_rounds"]
+    assert launches["private_quantize_cols"] == merged, launches
+    assert (launches["ens"], launches["prox_update"]) == \
+        (merged, 8 * merged), launches
+    out["fig9_privacy_toml"] = {"wall_ms_per_round": wall / s["rounds"] * 1e3,
+                                "launches": launches, "summary": got}
+    reset_counts()
+    rows = ens_kernel.run()
+    launches = read_counts()
+    err = [r for r in rows if r[0] == "ens/cuda_allclose"][0][2]
+    assert err == "maxerr=0.00e+00", err
+    out["ens_kernel"] = {"rows": [list(r) for r in rows],
+                         "launches": launches}
+    log("twins " + json.dumps({k: v.get("launches") for k, v in out.items()}))
+    return out
+
+
 # the port's CPU run of the m = 200 paper path (``python -m
 # repro_torch.launch.paper --alg fedepm --m 200 --device cpu``, seed 0,
 # d = 45222), its plain loss XLA:CPU's: the card's run of the same seed is
@@ -1977,6 +2324,7 @@ PROFILES = {
     "main": (profile_main_path, (), ("profile_main_path",)),
     "baselines": (profile_baselines, (), ("profile_baselines",)),
     "sim.a": (profile_sim_path, (), ("profile_sim_path",)),
+    "lm": (profile_lm_path, (), ("profile_lm_path",)),
 }
 
 
@@ -2059,7 +2407,9 @@ def main() -> int:
               "faults_spec": run_faults_spec(),
               "paper_m200": run_paper_m200(),
               "queue3_trials": run_queue3_trials(),
-              "paper_twins": run_paper_twins()}
+              "paper_twins": run_paper_twins(),
+              "twins": run_twins_path(),
+              "lm_path": run_lm_path()}
     paths = {"run_fedepm": record["main_path"]["launches"]}
     paths.update({f"simulate.{key}": res["launches"]
                   for key, res in record["sim_path"].items()})
@@ -2077,6 +2427,10 @@ def main() -> int:
                   for key, res in record["queue3_trials"].items()})
     paths.update({f"twin.{key}": res["launches"]
                   for key, res in record["paper_twins"].items()})
+    paths.update({f"twins.{key}": res["launches"]
+                  for key, res in record["twins"].items()})
+    paths.update({f"lm.{key}": res["launches"]
+                  for key, res in record["lm_path"].items()})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2086,6 +2440,7 @@ def main() -> int:
     record.update(profiles)
     record["card_vs_cpu"] = check_card_vs_cpu()
     record["sim_card_vs_cpu"] = check_sim_card_vs_cpu()
+    record["lm_card_vs_cpu"] = check_lm_card_vs_cpu(record["lm_path"])
     phases["card_vs_cpu_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_start
     log("phases " + json.dumps(phases))

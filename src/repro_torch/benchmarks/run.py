@@ -1,12 +1,13 @@
 """Benchmark runner of the port's twins: prints ``name,us_per_call,derived``
-CSV rows, as ``benchmarks/run.py`` does for fig2, fig3, fig4, table1, fig8
-(through the sweep runner) and the engine benchmark's sync and async
-cells.
+CSV rows, as ``benchmarks/run.py`` does for fig2, fig3, fig4, table1,
+ens, fig6, fig7, fig8, fig9 (the last four through the sweep runner) and
+the engine benchmark's sync and async cells.
 
     python -m repro_torch.benchmarks.run --only fig2,fig3,fig4,table1
     python -m repro_torch.benchmarks.run --only fig2 --quick --device cpu
     python -m repro_torch.benchmarks.run --only engine
     python -m repro_torch.benchmarks.run --only fig8 --quick --device cpu
+    python -m repro_torch.benchmarks.run --only fig6,fig7,fig9,ens --quick
 
 runs on the CUDA card unless ``--device`` names another. ``--quick`` takes
 the small-d task and one trial, ``--full`` the paper's complete grids; the
@@ -20,8 +21,10 @@ import argparse
 import sys
 import time
 
-from repro_torch.benchmarks import (bench_engine, fig2_accuracy, fig3_k0,
-                                    fig4_rho, fig8_faults, table1_lct)
+from repro_torch.benchmarks import (bench_engine, ens_kernel, fig2_accuracy,
+                                    fig3_k0, fig4_rho, fig6_stragglers,
+                                    fig7_async, fig8_faults, fig9_privacy,
+                                    table1_lct)
 from repro_torch.kernels.common import resolve_device
 
 
@@ -38,8 +41,22 @@ def jobs(quick: bool, full: bool, device) -> dict:
             d=d, trials=trials, device=device,
             rho_grid=(0.2, 0.6, 1.0) if not full
             else (0.2, 0.4, 0.6, 0.8, 1.0)),
+        "ens": lambda: ens_kernel.run(
+            n=(1 << 12) if quick else (1 << 16), device=device),
+        "fig6": lambda: fig6_stragglers.run(
+            d=d, m=16 if quick else 32, rounds=30 if quick else 80,
+            device=device),
+        "fig7": lambda: fig7_async.run(
+            device=device, **(fig7_async.QUICK_KW if quick
+                              else dict(d=d, m=32, rounds=60))),
         "fig8": lambda: fig8_faults.run(
             device=device, **(fig8_faults.QUICK_KW if quick else {})),
+        "fig9": lambda: fig9_privacy.run(
+            device=device, **(fig9_privacy.QUICK_KW if quick
+                              else dict(d=d, m=32, rounds=60,
+                                        eps_grid=fig9_privacy.EPS_GRID
+                                        if not full
+                                        else (0.2, 0.5, 2.0, 8.0, 32.0)))),
         "engine": lambda: bench_engine.run(
             device=device, **(bench_engine.QUICK_KW if quick
                               else dict(d=45222) if full else {})),

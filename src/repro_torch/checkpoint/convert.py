@@ -67,3 +67,15 @@ def sim_state_from_numpy(sim, leaves: Mapping) -> None:
     if sim.H is not None:
         sim.H = tmap(lambda a: torch.from_numpy(np.array(a, copy=True))
                      .to(sim.device), leaves["H"])
+
+
+def lm_params_from_numpy(tree, device="cpu"):
+    """An LM param tree of numpy arrays (for example JAX's params through
+    ``jax.device_get``) as tensors on ``device``, same keys and shapes."""
+    return tmap(lambda a: torch.from_numpy(np.array(a, copy=True))
+                .to(device), tree)
+
+
+def lm_params_to_numpy(tree):
+    """The port's LM param tree as numpy arrays, for JAX or ``npz.save``."""
+    return tmap(lambda t: t.detach().cpu().numpy(), tree)

@@ -13,6 +13,14 @@ losses. The validity mask zeroes padded rows of ragged shards.
 
 On the CPU the loss and its gradient are jitted XLA:CPU's bit for bit
 (``core/xla_cpu.py``); on the card torch's ops and reductions stand.
+
+``LMLoss`` is the next-token cross-entropy of a decoder model, the
+counterpart of ``make_lm_loss``, and ``ChunkedLMLoss`` the one of
+``make_chunked_lm_loss``, which never holds more than one chunk of the
+(B, T, V) logits. Both take the model's params stacked (m, ...) and the
+client batches {tokens, targets, loss_mask} (m, B, T) and return the m
+per-client losses; the m forwards run as one program
+(``models/registry.py::Model.apply_clients``).
 """
 from __future__ import annotations
 
@@ -95,6 +103,72 @@ class LeastSquaresLoss(nn.Module):
         r = (_logits(W, x) - y) * mask
         return (0.5 * torch.sum(r * r, dim=-1) / _d_i(mask)
                 + 0.5 * self.beta * torch.sum(W * W, dim=-1))
+
+
+def _nll(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[tgt] in f32, per position."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, tgt.unsqueeze(-1).to(torch.int64))[..., 0]
+
+
+def _client_mean(nll: torch.Tensor, mask) -> torch.Tensor:
+    """(m, B, T) -> (m,): the mean, or the masked sum over max(sum(mask),
+    1), over each client's positions."""
+    if mask is None:
+        return nll.flatten(1).mean(dim=1)
+    return (nll * mask).flatten(1).sum(dim=1) \
+        / torch.clamp_min(mask.flatten(1).sum(dim=1), 1.0)
+
+
+class LMLoss(nn.Module):
+    """Next-token CE of the ``cfg`` arch: (m, ...) params, client batches
+    {tokens, targets, loss_mask} (m, B, T) -> (m,) losses."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        from repro_torch.models.registry import get_model
+        self.cfg = cfg
+        self.model = get_model(cfg)
+
+    def forward(self, W, batches) -> torch.Tensor:
+        logits = self.model.apply_clients(W, batches)  # (m, B, T, V)
+        return _client_mean(_nll(logits, batches["targets"]),
+                            batches.get("loss_mask"))
+
+
+class ChunkedLMLoss(nn.Module):
+    """``LMLoss`` without the full (m, B, T, V) logits: the final-norm
+    hidden states go through the unembedding ``chunk`` positions at a
+    time, padded to a multiple of it with masked positions."""
+
+    def __init__(self, cfg, chunk: int = 512):
+        super().__init__()
+        from repro_torch.models.registry import get_model
+        get_model(cfg)  # refuses the families that are not ported
+        self.cfg = cfg
+        self.chunk = chunk
+
+    def forward(self, W, batches) -> torch.Tensor:
+        from repro_torch.models import dense
+        h = dense.hidden(W, batches, self.cfg)  # (m, B, T, d)
+        tgt = batches["targets"]
+        mask = batches.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(tgt.shape, dtype=torch.float32,
+                              device=h.device)
+        T = h.shape[2]
+        c = min(self.chunk, T)
+        pad = (-T) % c
+        if pad:
+            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+            tgt = torch.nn.functional.pad(tgt, (0, pad))
+            mask = torch.nn.functional.pad(mask, (0, pad))
+        total = torch.zeros(h.shape[0], dtype=torch.float32, device=h.device)
+        for s in range(0, h.shape[2], c):
+            logits = dense.unembed(h[:, :, s:s + c], W, self.cfg)
+            nll = _nll(logits, tgt[:, :, s:s + c])
+            total = total + (nll * mask[:, :, s:s + c]).flatten(1).sum(dim=1)
+        return total / torch.clamp_min(mask.flatten(1).sum(dim=1), 1.0)
 
 
 def accuracy_logistic(w: torch.Tensor, X: torch.Tensor,

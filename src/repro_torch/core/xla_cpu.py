@@ -8,7 +8,9 @@ jitted logistic loss, its vmapped gradient and ``jnp.exp``/``log1p``/``log``
 multiply whose one use is an add or a subtract becomes a fused multiply-add;
 ``fma`` below rounds once, as that instruction does (``addcmul`` with a unit
 value). On the card none of this applies: CUDA's ``expf``/``log1pf`` and
-torch's reductions stand.
+torch's reductions stand. The exception is ``erfinv``, which
+``random.normal`` runs on whatever device its key is on, so that a model's
+init on the card is the CPU's (and JAX's) bit for bit.
 """
 from __future__ import annotations
 
@@ -20,9 +22,9 @@ FLT_MIN = 1.1754943508222875e-38
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """round(a * b + c), rounded once; ``b`` and ``c`` may be floats."""
     if not torch.is_tensor(b):
-        b = torch.tensor(b, dtype=a.dtype)
+        b = torch.tensor(b, dtype=a.dtype, device=a.device)
     if not torch.is_tensor(c):
-        c = torch.tensor(c, dtype=a.dtype)
+        c = torch.tensor(c, dtype=a.dtype, device=a.device)
     return torch.addcmul(c, a, b)
 
 
@@ -101,6 +103,34 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
         q = fma(q, x, c)
     small = x + fma(x2, -0.5, (x * x2) * (q / p))
     return torch.where(x.abs() < _L1P_SMALL, small, log(x + 1.0))
+
+
+# --- erf_inv: Giles' single-precision polynomials (CHLO's f32 erf_inv) -------
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` of f32 on XLA:CPU: w = -log1p(-x^2), then a degree-8
+    Horner chain in w - 2.5 (w < 5) or sqrt(w) - 3, each step one FMA,
+    times x; +-1 maps to +-inf."""
+    w = -log1p(x * -x)
+    lt = w < 5.0
+    # XLA's sqrt is correctly rounded; torch's f32 sqrt on the CPU is not
+    # always, the f64 one rounded to f32 is
+    sq = torch.sqrt(w.to(torch.float64)).to(torch.float32)
+    t = torch.where(lt, w - 2.5, sq - 3.0)
+    lo = torch.tensor(_ERFINV_LT5, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(_ERFINV_GE5, dtype=x.dtype, device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        p = fma(p, t, torch.where(lt, lo[i], hi[i]))
+    r = p * x
+    return torch.where(x.abs() == 1.0, x * torch.finfo(x.dtype).max, r)
 
 
 def softplus(z: torch.Tensor) -> torch.Tensor:

@@ -40,8 +40,10 @@ LCT_PROX_ELL = 3
 LCT_PROX_MU = 1e-5
 
 def get_task(m: int, d: int = 45222, n: int = 14, seed: int = 0,
-             device="cpu"):
-    """(X, y, batches): the full data as tensors and the m client shards."""
+             device=None):
+    """(X, y, batches): the full data as tensors and the m client shards,
+    on the card unless ``device`` names another."""
+    device = resolve_device(device)
     X, y = synth.adult_like(d=d, n=n, seed=seed)
     batches = {k: torch.from_numpy(v).to(device)
                for k, v in partition_iid(X, y, m=m, seed=seed).items()}

@@ -1,0 +1,180 @@
+"""Dense GQA transformer family; the counterpart of ``repro.models.dense``
+for the training forward.
+
+Covers: phi3-mini / phi3-medium (RoPE+SwiGLU+GQA, pre-RMSNorm),
+smollm-135m (llama-arch), command-r-35b (parallel attn+ffn block,
+LayerNorm, no biases), llava-next-34b (the same decoder consuming
+patch-embedding prefixes), hubert-xlarge (encoder-only, bidirectional
+attention, GELU, biases).
+
+``init(key, cfg)`` makes JAX's param tree for the same key: the layer
+leaves stacked on a leading L axis, as JAX's vmapped ``init_layer`` and
+``lax.scan`` hold them. The forward functions take the params with a
+leading client axis m and the batch as (m, B, T) (a single model is
+m = 1; ``models/registry.py`` adds and removes that axis), and run the
+layers in order over the L axis. ``prefill`` and ``decode_step`` wait for
+a later slice (ROADMAP queue 1 item 14).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import random
+from repro_torch.core.treeutil import tree_leaves, tree_unflatten
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_norm,
+    attention,
+    dense_init,
+    embed_init,
+    init_attention,
+    init_mlp,
+    init_norm,
+    out_proj,
+    qkv_proj,
+    rope,
+)
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_layer(key, cfg: ArchConfig):
+    """One layer's params per key of a batch (L, 2): leaves (L, ...)."""
+    ks = random.split(key, 4)
+    lead = tuple(key.shape[:-1])
+    p = {
+        "ln_attn": init_norm(cfg.norm, cfg.d_model, cfg.param_dtype, lead,
+                             key.device),
+        "attn": init_attention(ks[..., 0, :], cfg.d_model, cfg.n_heads,
+                               cfg.n_kv_heads, cfg.hd, cfg.bias,
+                               cfg.param_dtype),
+        "mlp": init_mlp(ks[..., 1, :], cfg.d_model, cfg.d_ff, cfg.mlp,
+                        cfg.bias, cfg.param_dtype),
+    }
+    if not cfg.parallel_block:
+        p["ln_mlp"] = init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                lead, key.device)
+    return p
+
+
+def init(key, cfg: ArchConfig):
+    """The param tree ``repro.models.dense.init`` makes for the same key
+    (``random.PRNGKey(seed)`` on the device the params should land on)."""
+    ks = random.split(key, 3)
+    k_emb, k_layers, k_out = ks[0], ks[1], ks[2]
+    params = {
+        "embed": embed_init(k_emb, cfg.vocab, cfg.d_model, cfg.param_dtype),
+        "layers": init_layer(random.split(k_layers, cfg.n_layers), cfg),
+        "ln_f": init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                          device=key.device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(k_out, (cfg.d_model, cfg.vocab),
+                                       cfg.param_dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# block
+# ---------------------------------------------------------------------------
+
+
+def _attn_full(x, p, cfg: ArchConfig, positions):
+    q, k, v = qkv_proj(x, p)
+    if cfg.rope_theta > 0 and cfg.attention == "causal":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    mode = "bidirectional" if cfg.attention == "bidirectional" else "causal"
+    o = attention(q, k, v, mode=mode, window=cfg.sliding_window,
+                  positions=positions)
+    return out_proj(o, p)
+
+
+def block_forward(x, lp, cfg: ArchConfig, positions):
+    """One layer over x (m, B, T, d); ``lp`` holds that layer's leaves
+    (m, ...)."""
+    h = apply_norm(x, lp["ln_attn"], cfg.norm)
+    attn_out = _attn_full(h, lp["attn"], cfg, positions)
+    if cfg.parallel_block:
+        return x + attn_out + apply_mlp(h, lp["mlp"], cfg.mlp)
+    x = x + attn_out
+    h2 = apply_norm(x, lp["ln_mlp"], cfg.norm)
+    return x + apply_mlp(h2, lp["mlp"], cfg.mlp)
+
+
+# ---------------------------------------------------------------------------
+# full forward
+# ---------------------------------------------------------------------------
+
+
+class _EmbedGather(torch.autograd.Function):
+    """``embed[i, tokens[i]]`` for each client i: an exact gather forward;
+    backward, the scatter-add of the rows' gradients as a one-hot matmul,
+    whose sums run in a fixed order (an indexed accumulate on the card
+    adds with atomics, in whatever order they land)."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens):
+        m, V = embed.shape[0], embed.shape[1]
+        flat = tokens.reshape(m, -1)
+        ctx.save_for_backward(flat)
+        ctx.vocab = V
+        rows = torch.arange(m, device=embed.device)[:, None]
+        return embed[rows, flat].reshape(tokens.shape + embed.shape[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        m = flat.shape[0]
+        vocab = torch.arange(ctx.vocab, device=flat.device)
+        onehot = (flat[..., None] == vocab).to(g.dtype)  # (m, B T, V)
+        gd = g.reshape(m, flat.shape[1], -1)
+        return torch.bmm(onehot.transpose(1, 2), gd), None
+
+
+def embed_inputs(params, batch, cfg: ArchConfig):
+    """Token embedding, with the optional stub-frontend prefix (vlm/audio).
+
+    batch["tokens"]: (m, B, T) int. For vlm, batch["patch_embeds"]
+    (m, B, n_patches, d_model) is prepended; for audio,
+    batch["frame_embeds"] (m, B, T, d_model) replaces the token embeds.
+    Returns x (m, B, T', d) and the positions (T',).
+    """
+    if cfg.family == "audio":
+        x = batch["frame_embeds"].to(cfg.dtype)
+        return x, torch.arange(x.shape[2], device=x.device)
+    x = _EmbedGather.apply(params["embed"], batch["tokens"]).to(cfg.dtype)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(cfg.dtype), x], dim=2)
+    return x, torch.arange(x.shape[2], device=x.device)
+
+
+def unembed(x, params, cfg: ArchConfig):
+    """(m, B, T, d) -> (m, B, T, V) logits, the tied embedding transposed
+    when there is no ``unembed`` leaf."""
+    w = params.get("unembed")
+    if w is None:
+        w = params["embed"].transpose(1, 2)
+    logits = torch.einsum("mbtd,mdv->mbtv", x, w.to(x.dtype))
+    return logits * cfg.logit_scale
+
+
+def hidden(params, batch, cfg: ArchConfig):
+    """Forward to the final norm, without the unembedding (for the chunked
+    CE)."""
+    x, positions = embed_inputs(params, batch, cfg)
+    layers = params["layers"]
+    # one unbind per leaf: its backward stacks the L layer gradients in one
+    # write, where a slice per layer would add L zero-padded full copies
+    per_layer = [t.unbind(1) for t in tree_leaves(layers)]
+    for i in range(cfg.n_layers):
+        lp = tree_unflatten(layers, [u[i] for u in per_layer])
+        x = block_forward(x, lp, cfg, positions)
+    return apply_norm(x, params["ln_f"], cfg.norm)
+
+
+def apply(params, batch, cfg: ArchConfig):
+    return unembed(hidden(params, batch, cfg), params, cfg)

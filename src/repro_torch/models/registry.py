@@ -1,0 +1,77 @@
+"""Model registry: family -> implementation module; the counterpart of
+``repro.models.registry``.
+
+``get_model(cfg)`` returns a :class:`Model` whose ``init(key)`` makes JAX's
+param tree for the same key and whose ``apply(params, batch)`` runs one
+model's forward to logits (B, T, V); ``apply_clients(W, batches)`` runs m
+clients' params stacked (m, ...) over their batches (m, B, T) as one
+program, which the LM loss needs. The families ``dense``, ``vlm`` and
+``audio`` use ``models/dense.py``. The ``moe``, ``xlstm``, ``hybrid`` and
+``ssm`` families, and prefill and decode, are not ported yet (ROADMAP
+queue 1 item 14): asking for them raises.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from repro_torch.core.treeutil import tmap
+from repro_torch.models import dense
+from repro_torch.models.config import ArchConfig
+
+_FAMILY_MODULES = {
+    "dense": dense,
+    "vlm": dense,
+    "audio": dense,
+}
+NOT_PORTED_FAMILIES = ("moe", "xlstm", "hybrid", "ssm")
+
+
+class Model(NamedTuple):
+    cfg: ArchConfig
+    init: Callable
+    apply: Callable
+    apply_clients: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_decode_state: Callable
+
+    @property
+    def has_decode(self) -> bool:
+        return self.cfg.attention != "bidirectional"
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if long-context decode state is bounded (SSM/xLSTM/SWA)."""
+        if self.cfg.family in ("xlstm", "hybrid", "ssm"):
+            return True
+        return self.cfg.sliding_window is not None
+
+
+def get_model(cfg: ArchConfig) -> Model:
+    if cfg.family in NOT_PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} ({cfg.name}) is not ported yet "
+            "(ROADMAP queue 1 item 14); the port runs dense, vlm and audio")
+    mod = _FAMILY_MODULES.get(cfg.family)
+    if mod is None:
+        raise KeyError(f"unknown model family {cfg.family!r}")
+
+    def init(key):
+        return mod.init(key, cfg)
+
+    def apply_clients(W, batches):
+        return mod.apply(W, batches, cfg)
+
+    def apply(params, batch):
+        one = tmap(lambda t: t.unsqueeze(0), params)
+        return mod.apply(one, tmap(lambda t: t.unsqueeze(0), batch),
+                         cfg)[0]
+
+    def _not_ported(*a, **kw):
+        raise NotImplementedError(
+            f"prefill and decode ({cfg.name}) are not ported yet (ROADMAP "
+            "queue 1 item 14)")
+
+    return Model(cfg=cfg, init=init, apply=apply,
+                 apply_clients=apply_clients, prefill=_not_ported,
+                 decode_step=_not_ported, init_decode_state=_not_ported)

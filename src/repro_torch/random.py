@@ -12,6 +12,8 @@ keys (leading axes ``...``) and acts on each key as ``jax.vmap`` would:
 ``bits(key, shape)``      -- (..., *shape) int64: ``y1 ^ y2`` of the hash of
                              each flat index.
 ``uniform(key, shape)``   -- (..., *shape) f32 on [minval, maxval).
+``normal(key, shape)``    -- (..., *shape) f32: sqrt(2) erfinv(u), u on
+                             (-1, 1), with XLA:CPU's f32 erf_inv.
 ``permutation(key, n)``   -- (..., n) int64: ``jax.random.permutation``'s
                              rounds of a stable sort by fresh 32-bit keys.
 ``fold_in_range(key, start, n)`` -- (n, 2): ``fold_in(key, start + i)`` for
@@ -26,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch.core.xla_cpu import erfinv
 from repro_torch.kernels.threefry.ops import threefry
 from repro_torch.kernels.threefry.ref import MASK
 
@@ -73,6 +76,19 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     out = _hash(key, math.prod(shape), 0, "uniform", float(minval),
                 float(maxval))
     return out.reshape(key.shape[:-1] + shape)
+
+
+_NEXT_BELOW_NEG1 = -0.9999999403953552  # nextafter(-1, 0) in f32
+_SQRT2 = 1.4142135381698608             # sqrt(2) rounded to f32
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32: a uniform on
+    [nextafter(-1, 0), 1) through XLA:CPU's f32 ``erf_inv``
+    (``core/xla_cpu.erfinv``), times sqrt(2). The same ops run on the
+    card, where the init's draws need no other form."""
+    u = uniform(key, shape, _NEXT_BELOW_NEG1, 1.0)
+    return erfinv(u) * _SQRT2
 
 
 def fold_in_range(key: torch.Tensor, start: int, n: int) -> torch.Tensor:

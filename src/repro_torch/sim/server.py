@@ -88,6 +88,7 @@ import torch
 from repro_torch import random
 from repro_torch.core import baselines, dp, fedepm, participation
 from repro_torch.core.treeutil import tmap, tree_leaves, tree_where_client
+from repro_torch.kernels.common import resolve_device
 from repro_torch.privacy import PrivacyConfig, build_privacy_model
 from repro_torch.sim import clients as simclients
 from repro_torch.sim.faults import (FaultConfig, FaultRoundOutcome,
@@ -314,10 +315,11 @@ class KeyedDraws:
     per plan group, and the privacy noise from ``fold_in(privacy_key,
     round_idx)`` split once per leaf, with ``codec_key = PRNGKey(seed ^
     0x5EED)`` and ``privacy_key = PRNGKey(privacy_seed ^ 0x9D1A)`` as the
-    JAX ``FedSim`` builds them. Dither and noise are drawn on ``device``."""
+    JAX ``FedSim`` builds them. Dither and noise are drawn on ``device``,
+    the card unless the caller names another."""
 
-    def __init__(self, seed: int, privacy_seed: int = 0, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, seed: int, privacy_seed: int = 0, device=None):
+        self.device = resolve_device(device)
         self.codec_key = random.PRNGKey(seed ^ 0x5EED, device=self.device)
         self.privacy_key = random.PRNGKey(privacy_seed ^ 0x9D1A,
                                           device=self.device)

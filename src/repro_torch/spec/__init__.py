@@ -9,8 +9,9 @@ packages (``examples/specs/*.toml``):
 
 Module map: ``types``, ``serialize`` and ``sweep`` are copies of the JAX
 package's (JSON, TOML and numpy only); ``registry`` and ``build`` build
-torch tasks, states and a ``FedSim``. Task kind ``lm`` is refused until
-the LM-scale path is ported (ROADMAP queue 1 item 14).
+torch tasks, states and a ``FedSim``. Task kind ``lm`` builds the arch's
+dense model (``repro_torch.models``), its federated token batches and the
+LM loss, as JAX's does.
 """
 from repro_torch.spec.build import RunHandle, build          # noqa: F401
 from repro_torch.spec.registry import (                      # noqa: F401

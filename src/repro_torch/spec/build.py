@@ -247,6 +247,16 @@ class RunHandle:
         kw = dict(mesh=eng.mesh,
                   event_table_capacity=eng.event_table_capacity)
         done = 0
+        if not torch.is_tensor(self.data.params0):
+            # a param tree (the LM task): as in JAX, no per-round
+            # broadcast points are collected, the rounds report no f
+            while done < eng.rounds:
+                todo = min(chunk, eng.rounds - done)
+                for met in run_rounds(sim, todo, **kw).metrics:
+                    if report is not None:
+                        report(met, None)
+                done += todo
+            return done
         while done < eng.rounds:
             todo = min(chunk, eng.rounds - done)
             snap = sim.snapshot() if eng.terminate else None

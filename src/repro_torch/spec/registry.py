@@ -40,6 +40,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import random
 from repro_torch.core import baselines, fedepm
 from repro_torch.spec.types import (
     AlgorithmSpec,
@@ -87,12 +88,26 @@ def _build_logreg(task: TaskSpec, seed: int, device) -> TaskData:
                     supports_accuracy=True, supports_termination=True)
 
 
-LM_NOT_PORTED = ("task kind 'lm' (the LM-scale path) is not ported yet "
-                 "(ROADMAP queue 1 item 14)")
-
-
 def _build_lm(task: TaskSpec, seed: int, device) -> TaskData:
-    raise ValueError(LM_NOT_PORTED)
+    # one fixed federated token batch is each client's local dataset --
+    # the FedSim contract (static batches), as in JAX
+    from repro_torch import configs
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.models import registry as model_registry
+
+    arch_cfg = (configs.get_reduced(task.arch) if task.reduced
+                else configs.get_config(task.arch))
+    model = model_registry.get_model(arch_cfg)
+    raw = next(federated_token_batches(
+        arch_cfg.vocab, task.m, task.batch_per_client, task.seq_len,
+        steps=1, seed=seed, heterogeneous=task.heterogeneous))
+    batches = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    params0 = model.init(random.PRNGKey(seed, device=device))
+    return TaskData(batches=batches, loss_fn=LMLoss(arch_cfg),
+                    params0=params0, n_features=None,
+                    aux={"arch_cfg": arch_cfg},
+                    supports_accuracy=False, supports_termination=False)
 
 
 TASKS: dict[str, TaskEntry] = {
@@ -312,7 +327,19 @@ def _validate_task(task: TaskSpec) -> None:
         _require(task.n >= 1, f"[task] n must be >= 1; got {task.n}")
         _require(task.arch is None,
                  "[task] arch is an lm-task field; kind is 'logreg'")
-    _require(task.kind != "lm", f"[task] {LM_NOT_PORTED}")
+    if task.kind == "lm":
+        from repro_torch import configs
+        _require(task.arch is not None,
+                 "[task] kind='lm' requires arch (one of "
+                 f"{configs.ALL_ARCHS})")
+        _require(task.arch in configs.ALL_ARCHS,
+                 f"[task] unknown arch {task.arch!r}; "
+                 f"known: {configs.ALL_ARCHS}")
+        _require(task.batch_per_client >= 1,
+                 f"[task] batch_per_client must be >= 1; "
+                 f"got {task.batch_per_client}")
+        _require(task.seq_len >= 1,
+                 f"[task] seq_len must be >= 1; got {task.seq_len}")
 
 
 def _validate_algorithm(spec: ExperimentSpec) -> None:

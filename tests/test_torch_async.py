@@ -249,7 +249,7 @@ def test_merge_contribution_bitwise(codec, gamma, privacy):
     want = _jit_merge(Z, W, H if ef else None, zb, wb, jnp.int32(row),
                       jnp.int32(client), jnp.float32(gamma), jkey, jnoise,
                       codec=jc, ef=ef, privacy=jp)
-    draws = tserver.KeyedDraws(9)
+    draws = tserver.KeyedDraws(9, device="cpu")
     like = torch.zeros(1, N)
     dither = draws.merge_dither(serial, tserver.dither_shapes(
         like, tc, fused_private=tp is not None and not ef

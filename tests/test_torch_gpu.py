@@ -278,8 +278,10 @@ def test_sim_on_card_matches_cpu(gen, extra):
     from repro_torch.sim.server import KeyedDraws
     a = parser().parse_args(["--m", "16", "--d", "2000", "--k0", "4",
                              "--telemetry"] + extra)
-    cpu, _ = build_sim(a, torch.device("cpu"), draws=KeyedDraws(0, 0))
-    card, _ = build_sim(a, torch.device("cuda"), draws=KeyedDraws(0, 0))
+    cpu, _ = build_sim(a, torch.device("cpu"),
+                       draws=KeyedDraws(0, 0, device="cpu"))
+    card, _ = build_sim(a, torch.device("cuda"),
+                        draws=KeyedDraws(0, 0, device="cpu"))
     for _ in range(3):
         sim_state_from_numpy(card, sim_state_to_numpy(cpu))
         assert cpu.step() == card.step()
@@ -483,3 +485,44 @@ def test_faulted_engine_matches_eager_on_card(gen, extra):
     assert eager._faults.summary()["upload_drops"] > 0
     assert (scan._faults.quarantined_until.tolist()
             == eager._faults.quarantined_until.tolist())
+
+
+def _lm_state(sim):
+    from repro_torch.core.treeutil import tree_leaves
+    st = sim.state
+    return tree_leaves(st.w_tau) + tree_leaves(st.W) + tree_leaves(st.Z) \
+        + [st.key]
+
+
+def test_lm_init_on_card_is_the_cpus(gen):
+    """``random.normal`` runs XLA:CPU's erf_inv form on the card too: the
+    reduced smollm's params equal the CPU's bit for bit."""
+    from repro_torch import configs
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.models.registry import get_model
+    model = get_model(configs.get_reduced("smollm-135m"))
+    cpu = model.init(random.PRNGKey(3))
+    card = model.init(random.PRNGKey(3, device="cuda"))
+    for a, b in zip(tree_leaves(cpu), tree_leaves(card)):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_lm_spec_engine_matches_eager_on_card(gen, chunk):
+    """The reduced LM spec: eager twice gives the same bits, and the scan
+    engine (one CUDA graph per round) gives eager's."""
+    from pathlib import Path
+
+    from repro_torch.spec import ExperimentSpec
+    path = Path(__file__).resolve().parent.parent / \
+        "examples/specs/lm_federated.toml"
+    spec = ExperimentSpec.load(path)
+    runs = []
+    for over in ({"engine.name": "eager"}, {"engine.name": "eager"},
+                 {"engine.name": "scan", "engine.chunk": chunk}):
+        h = spec.replace(**over).build(device="cuda")
+        h.run()
+        runs.append((_lm_state(h.sim), h.sim.ledger.total))
+    for state, total in runs[1:]:
+        assert total == runs[0][1]
+        assert all(torch.equal(a, b) for a, b in zip(state, runs[0][0]))

@@ -39,7 +39,8 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "check_threefry_kernel", "check_jax_random_table",
              "run_paper_twins", "profile_baselines", "run_engine_path",
              "profile_engine_path", "run_faults_clocked", "run_faults_async",
-             "run_faults_spec", "fault_host_numbers"):
+             "run_faults_spec", "fault_host_numbers", "run_lm_path",
+             "run_twins_path", "check_lm_card_vs_cpu"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
@@ -58,7 +59,16 @@ for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.launch.sweep_run", "repro_torch.telemetry.metrics",
             "repro_torch.telemetry.sinks", "repro_torch.telemetry.trace",
             "repro_torch.telemetry.profiler", "repro_torch.core.xla_cpu",
-            "repro_torch.benchmarks.fig8_faults"):
+            "repro_torch.benchmarks.fig8_faults",
+            "repro_torch.benchmarks.fig6_stragglers",
+            "repro_torch.benchmarks.fig7_async",
+            "repro_torch.benchmarks.fig9_privacy",
+            "repro_torch.benchmarks.ens_kernel", "repro_torch.models",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.dense", "repro_torch.models.registry",
+            "repro_torch.configs.smollm_135m",
+            "repro_torch.configs.mixtral_8x22b", "repro_torch.data.lm",
+            "repro_torch.checkpoint.npz", "repro_torch.launch.train"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -6,8 +6,10 @@ a live JAX run of the same spec files on the CPU.
   both packages; the summaries have the same keys, their host numbers and
   telemetry counters are equal, the event streams are equal, and f is
   within ``STATE_RTOL``. ``golden_sync.toml`` is held to live JAX, never
-  to the stale golden NPZ. ``lm_federated.toml`` is refused, naming ROADMAP
-  queue 1 item 14.
+  to the stale golden NPZ. ``lm_federated.toml`` (the LM task, a param
+  tree) has the same summary keys and host numbers and ``w_tau`` within
+  ``STATE_RTOL`` of each leaf's largest value (``tests/test_torch_lm.py``
+  holds it round by round).
 - ``sensitivity_clip`` and ``init_noise_scale`` are JAX's.
 - Sweep expansion gives JAX's cells in JAX's order; ``sweep_run`` resumes,
   merges as JAX's does, and is loud about a failed cell.
@@ -90,18 +92,33 @@ def test_example_spec_matches_jax(name):
     want, got = jh.run(), th.run()
     _assert_summaries_match(got, want)
     assert _events(th.sim) == _events(jh.sim)
+    if name == "fig9_privacy.toml":
+        # the JAX host numbers ``chip_smoke.py`` holds the card's run to
+        import chip_smoke
+        assert {k: want[k] for k in chip_smoke.JAX_FIG9} == \
+            chip_smoke.JAX_FIG9
     scale = max(1.0, float(np.max(np.abs(to_np(jh.sim.state.W)))))
     assert max_abs_diff(th.sim.state.W, jh.sim.state.W) <= \
         STATE_RTOL * scale
 
 
-def test_lm_spec_is_refused_naming_item_14():
-    with pytest.raises(ValueError, match="item 14"):
-        tspec.ExperimentSpec.load(ROOT / "examples/specs/lm_federated.toml")
-    spec = tspec.ExperimentSpec.load(
-        ROOT / "examples/specs/lm_federated.toml", validate=False)
-    with pytest.raises(ValueError, match="queue 1 item 14"):
-        spec.build(device="cpu")
+def test_lm_spec_matches_jax():
+    """``lm_federated.toml`` through both packages' ``build().run()``: the
+    LM task that the port refused until it had the dense model."""
+    path = ROOT / "examples/specs/lm_federated.toml"
+    jh = jspec.ExperimentSpec.load(path).build()
+    th = tspec.ExperimentSpec.load(path).build(device="cpu")
+    want, got = jh.run(), th.run()
+    assert list(got) == list(want)
+    for k in HOST_KEYS:
+        assert got.get(k) == want.get(k), k
+    assert got["accuracy"] is want["accuracy"] is None
+    assert abs(got["f_final"] - want["f_final"]) <= \
+        STATE_RTOL * abs(want["f_final"])
+    for g, w in zip(jax.tree_util.tree_leaves(th.sim.state.w_tau),
+                    jax.tree_util.tree_leaves(jh.sim.state.w_tau)):
+        scale = max(1.0, float(np.max(np.abs(to_np(w)))))
+        assert max_abs_diff(g, w) <= STATE_RTOL * scale
 
 
 def test_runs_on_the_card_unless_asked(monkeypatch):
