@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero before the last line:
    graph-launched and outside-graph kernels held exactly to the graphs'
    counts and the counters; then the paper path, SFedAvg and SFedProx at
    m = 128 and simulator configuration (a), cut to 10 rounds; then the
-   full-width LM spec, 2 eager rounds and 2 engine rounds. Each gives the
+   full-width LM spec, 2 eager rounds and 2 engine rounds, on smollm-135m
+   and on xlstm-125m. Each gives the
    device's busy time and idle share under ``torch.profiler``.
 4. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main path's shape, edge shapes and a full smollm-135m
@@ -79,13 +80,23 @@ Phases, in order; any failure exits non-zero before the last line:
    to eager, and eager with the 8-bit codec; ENS 11 and prox 22 launches
    a round, ``quantize_cols`` one; f/m per round, wall per round and peak
    device memory printed. The kernel phase holds prox and ENS at its
-   (4, 28,311,552) and ``quantize_cols`` at its (44, 28,311,552).
+   (4, 28,311,552) and ``quantize_cols`` at its (44, 28,311,552). Then
+   the ``lm_families`` phase: the same spec on xlstm-125m at full width
+   (``task.arch``; 12 layers, sLSTM at 0, 4, 8, 185,359,968 parameters in
+   129 leaves, bf16 compute), eager twice bitwise and scan in chunks of 1
+   and 3 bitwise to eager, no codec (its padded rows would need 79.7 GB a
+   plane); ENS 129 and prox 258 launches a round; and reduced (f32)
+   xlstm-125m, mixtral-8x7b and zamba2-1.2b, eager and scan in chunks of
+   3 bitwise, f/m within 4e-6 of ``JAX_LM_FAMILIES`` and its bytes
+   exactly, and eager with the 8-bit codec, its bytes JAX's. The kernel
+   phase holds prox and ENS at xlstm's widest leaf, (4, 38,633,472).
 6. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
    the same key (masks bitwise); the reduced LM spec (f32) on the card
    against the CPU and ``JAX_LM_REDUCED``, and the full-width LM run
    against the port's CPU path on this host from the card's initial params
-   and noise planes (f/m within ``LM_F_RTOL``).
+   and noise planes (f/m within ``LM_F_RTOL``); one round of full-width
+   xlstm-125m likewise.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -317,8 +328,9 @@ def check_kernels(card: str) -> list[dict]:
     prox_plan += [(4, n, f32, 50) for n in (1, 7, 130, 513)]
     prox_plan += [(1, 14, f32, 50), (8, SMOLLM_LEAF, f32, 10),
                   (8, SMOLLM_LEAF, bf16, 10)]
-    # the LM path's widest leaf: 4 clients of the tied embedding
-    prox_plan += [(LM_M, SMOLLM_LEAF, f32, 10)]
+    # the LM paths' widest leaves: 4 clients of smollm's tied embedding
+    # and of xlstm's embedding
+    prox_plan += [(LM_M, SMOLLM_LEAF, f32, 10), (LM_M, XLSTM_LEAF, f32, 10)]
     prox_cases = []
     for m, n, dt, reps in prox_plan:
         prox_cases.append(_prox_case(m, n, dt, gen, reps))
@@ -339,6 +351,7 @@ def check_kernels(card: str) -> list[dict]:
     ens_plan += [(8, SMOLLM_LEAF, f32, 3, "random", True),
                  (8, SMOLLM_LEAF, bf16, 3, "random", True),
                  (LM_M, SMOLLM_LEAF, f32, 3, "random", True),
+                 (LM_M, XLSTM_LEAF, f32, 3, "random", True),
                  (128, 1 << 20, f32, 3, "random", True)]
     # the block layout (m > 128): the --m 200 path's shape, then every
     # m at both widths in both dtypes, random and tie-heavy
@@ -1706,6 +1719,39 @@ JAX_LM_REDUCED = {"f_per_m": [6.2607903480529785, 6.309771537780762,
 # positions of a cross-entropy near ln(49152) = 10.8, held within 2e-3 of
 # itself
 LM_F_RTOL = 2e-3
+# the LM families (ROADMAP queue 1 item 14.1): xlstm-125m at full width,
+# and the reduced (f32) spec with ``task.arch`` set, held to JAX's numbers:
+# ``repro.spec.ExperimentSpec.load(LM_SPEC).replace(task.arch=...,
+# engine.name="eager"[, codec.bits=8]).build().run()`` with jax 0.9.0 on
+# the CPU (tests/test_torch_moe.py, test_torch_xlstm.py and
+# test_torch_ssm.py recompute them)
+XLSTM = "xlstm-125m"
+XLSTM_PARAMS, XLSTM_LEAVES = 185_359_968, 129
+XLSTM_LEAF = 50304 * 768    # its embed and unembed, 38,633,472 each
+XLSTM_CPU_ROUNDS = 1        # card against the port's CPU path, full width
+JAX_LM_FAMILIES = {
+    "xlstm-125m": {
+        "f_per_m": [6.774394512176514, 6.7715959548950195,
+                    6.903381824493408],
+        "sim_time_s": 7.785093908270872, "bytes_total": 26125056.0,
+        "codec8": {"f_per_m": [6.774394512176514, 6.7996826171875,
+                               6.848590850830078],
+                   "bytes_total": 16328760.0}},
+    "mixtral-8x7b": {
+        "f_per_m": [6.728488445281982, 6.63703727722168,
+                    6.854706764221191],
+        "sim_time_s": 14.319244955542578, "bytes_total": 48052224.0,
+        "codec8": {"f_per_m": [6.728488445281982, 6.6267805099487305,
+                               6.856103897094727],
+                   "bytes_total": 30032952.0}},
+    "zamba2-1.2b": {
+        "f_per_m": [6.675319194793701, 6.636441230773926,
+                    6.693899154663086],
+        "sim_time_s": 10.216948800509643, "bytes_total": 34285824.0,
+        "codec8": {"f_per_m": [6.675319194793701, 6.638883590698242,
+                               6.7054643630981445],
+                   "bytes_total": 21429144.0}},
+}
 
 
 def _lm_spec(reduced: bool = False, **over):
@@ -1762,6 +1808,70 @@ def _lm_case(spec, device="cuda") -> tuple:
     return h, rec
 
 
+def _lm_launches(rec, leaves: int) -> dict:
+    """The port's launches a case must have made: ENS once and prox k0
+    times per leaf and round, ``quantize_cols`` once per codec round, each
+    CUDA graph counting its warm-up call and its replays."""
+    calls = LM_ROUNDS if rec["engine"] == "eager" \
+        else rec["graph_replays"] + rec["graph_captures"]
+    return {"ens": leaves * calls, "prox_update": leaves * LM_K0 * calls,
+            "quantize_cols": calls if rec["bits"] else 0,
+            "ef_accumulate": 0, "private_quantize_cols": 0, "quantize": 0}
+
+
+def _lm_chain(tag: str, over: dict, reduced: bool = False,
+              twice: bool = True, chunks=(1, LM_ROUNDS),
+              codec: bool = True) -> tuple[dict, int, int]:
+    """One arch's spec, LM_ROUNDS rounds per case, each with the counters
+    set to 0 just before it: eager (``twice``: again, the same bits), the
+    scan engine in each of ``chunks`` held bit for bit to eager (state,
+    key, ledger, clock), and (``codec``) eager with the 8-bit codec; each
+    case's launches asserted. Returns (records, params, leaves)."""
+    from repro_torch.core.treeutil import tree_leaves
+    out = {}
+    h, rec = _lm_case(_lm_spec(reduced, **over, **{"engine.name": "eager"}))
+    leaves = tree_leaves(h.data.params0)
+    n_params, n_leaves = sum(x.numel() for x in leaves), len(leaves)
+    del leaves
+    ref = [t.clone() for t in _lm_state(h.sim)]
+    ref_ledger = (h.sim.ledger.total, h.sim.t)
+    out["eager"] = rec
+    del h
+    if twice:
+        h, rec = _lm_case(_lm_spec(reduced, **over,
+                                   **{"engine.name": "eager"}))
+        assert rec["f_per_m"] == out["eager"]["f_per_m"]
+        assert all(torch.equal(a, b) for a, b in zip(_lm_state(h.sim), ref))
+        out["eager_again"] = rec
+        del h
+    for chunk in chunks:
+        h, rec = _lm_case(_lm_spec(reduced, **over, **{
+            "engine.name": "scan", "engine.chunk": chunk}))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(_lm_state(h.sim), ref)), chunk
+        assert (h.sim.ledger.total, h.sim.t) == ref_ledger
+        assert rec["graph_replays"] == 2 * LM_ROUNDS, rec
+        out[f"scan_chunk{chunk}"] = rec
+        del h
+    del ref
+    if codec:
+        h, rec = _lm_case(_lm_spec(reduced, **over, **{
+            "engine.name": "eager", "codec.bits": 8}))
+        assert rec["bytes_total"] < ref_ledger[0]
+        out["codec8"] = rec
+        del h
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        want = _lm_launches(rec, n_leaves)
+        got = {k: rec["launches"][k] for k in want}
+        assert got == want, (tag, name, got, want)
+        log(f"{tag}[{name}] " + json.dumps(
+            {k: rec[k] for k in ("f_per_m", "wall_ms_per_round",
+                                 "first_run_ms_per_round", "peak_mem_gb",
+                                 "bytes_total", "launches")}))
+    return out, n_params, n_leaves
+
+
 def run_lm_path() -> dict:
     """smollm-135m at full width through the spec layer and ``train``'s
     entry (``RunHandle.run``), LM_ROUNDS rounds per case, each with the
@@ -1771,59 +1881,56 @@ def run_lm_path() -> dict:
     eager, and eager with the 8-bit codec. ENS launches once and prox k0
     times per leaf and round, ``quantize_cols`` once per codec round, each
     CUDA graph counting its warm-up call and its replays."""
-    from repro_torch.core.treeutil import tree_leaves
-    out = {}
-    h, rec = _lm_case(_lm_spec(**{"engine.name": "eager"}))
-    n_params = sum(x.numel() for x in tree_leaves(h.data.params0))
-    assert n_params == LM_PARAMS, n_params
-    ref = [t.clone() for t in _lm_state(h.sim)]
-    ref_ledger = (h.sim.ledger.total, h.sim.t)
-    out["eager"] = rec
-    del h
-    h, rec = _lm_case(_lm_spec(**{"engine.name": "eager"}))
-    assert rec["f_per_m"] == out["eager"]["f_per_m"]
-    assert all(torch.equal(a, b) for a, b in zip(_lm_state(h.sim), ref))
-    out["eager_again"] = rec
-    del h
-    for chunk in (1, LM_ROUNDS):
-        h, rec = _lm_case(_lm_spec(**{"engine.name": "scan",
-                                      "engine.chunk": chunk}))
-        assert all(torch.equal(a, b)
-                   for a, b in zip(_lm_state(h.sim), ref)), chunk
-        assert (h.sim.ledger.total, h.sim.t) == ref_ledger
-        assert rec["graph_replays"] == 2 * LM_ROUNDS, rec
-        out[f"scan_chunk{chunk}"] = rec
-        del h
-    h, rec = _lm_case(_lm_spec(**{"engine.name": "eager", "codec.bits": 8}))
-    assert rec["bytes_total"] < ref_ledger[0]
-    out["codec8"] = rec
-    del h
-    torch.cuda.empty_cache()
-    for name, rec in out.items():
-        calls = LM_ROUNDS if rec["engine"] == "eager" \
-            else rec["graph_replays"] + rec["graph_captures"]
-        want = {"ens": LM_LEAVES * calls,
-                "prox_update": LM_LEAVES * LM_K0 * calls,
-                "quantize_cols": calls if rec["bits"] else 0,
-                "ef_accumulate": 0, "private_quantize_cols": 0,
-                "quantize": 0}
-        got = {k: rec["launches"][k] for k in want}
-        assert got == want, (name, got, want)
-        log(f"lm[{name}] " + json.dumps(
-            {k: rec[k] for k in ("f_per_m", "wall_ms_per_round",
-                                 "first_run_ms_per_round", "peak_mem_gb",
-                                 "launches")}))
+    out, n_params, n_leaves = _lm_chain("lm", {})
+    assert (n_params, n_leaves) == (LM_PARAMS, LM_LEAVES), n_params
     return out
 
 
-def profile_lm_path(rounds: int = 2) -> dict:
-    """Profile the full-width LM spec's rounds: ``rounds`` eager
-    ``FedSim.step`` calls after one unprofiled step, then ``rounds`` rounds
-    of ``run_rounds`` after a first chunk that captured its graph. Each
-    window holds ENS once and prox k0 times per leaf and round."""
+def run_lm_families() -> dict:
+    """The moe, xlstm and hybrid families through the same entry. xlstm-125m
+    at full width: eager twice, scan in chunks of 1 and 3, no codec (the
+    codec's padded layout holds 129 x 4 rows at the 38.6M-wide embedding,
+    79.7 GB a plane); its tree asserted (185,359,968 params, 129 leaves).
+    Reduced (f32) xlstm-125m, mixtral-8x7b and zamba2-1.2b: eager and scan
+    in chunks of LM_ROUNDS, bit for bit, f/m per round within STATE_RTOL of
+    ``JAX_LM_FAMILIES`` and the bytes and simulated time exactly, and eager
+    with the 8-bit codec (``quantize_cols`` on each new tree), its bytes
+    JAX's."""
+    out = {}
+    full, n_params, n_leaves = _lm_chain(
+        "lm_families[xlstm full]", {"task.arch": XLSTM}, codec=False)
+    assert (n_params, n_leaves) == (XLSTM_PARAMS, XLSTM_LEAVES), \
+        (n_params, n_leaves)
+    out["xlstm-125m/full"] = full
+    for arch, jax_ref in JAX_LM_FAMILIES.items():
+        recs, _, _ = _lm_chain(
+            f"lm_families[{arch} reduced]", {"task.arch": arch},
+            reduced=True, twice=False, chunks=(LM_ROUNDS,))
+        got = recs["eager"]
+        for g, j in zip(got["f_per_m"], jax_ref["f_per_m"]):
+            assert abs(g - j) <= STATE_RTOL * abs(j), (arch, g, j)
+        assert got["bytes_total"] == jax_ref["bytes_total"], arch
+        assert recs["codec8"]["bytes_total"] == \
+            jax_ref["codec8"]["bytes_total"], arch
+        recs["jax"] = jax_ref
+        log(f"lm_families[{arch} reduced] f/m card {got['f_per_m']} JAX "
+            f"{jax_ref['f_per_m']}; codec8 card "
+            f"{recs['codec8']['f_per_m']} JAX {jax_ref['codec8']['f_per_m']}")
+        out[f"{arch}/reduced"] = recs
+    return out
+
+
+def profile_lm_path(rounds: int = 2, over=None,
+                    leaves: int = LM_LEAVES) -> dict:
+    """Profile the full-width LM spec's rounds (``over`` sets the arch):
+    ``rounds`` eager ``FedSim.step`` calls after one unprofiled step, then
+    ``rounds`` rounds of ``run_rounds`` after a first chunk that captured
+    its graph. Each window holds ENS once and prox k0 times per leaf and
+    round."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.sim import run_rounds
-    h = _lm_spec(**{"engine.name": "eager"}).build(device="cuda")
+    h = _lm_spec(**(over or {}), **{"engine.name": "eager"}).build(
+        device="cuda")
     sim = h.sim
     sim.step()
     run_rounds(sim, rounds)
@@ -1840,12 +1947,13 @@ def profile_lm_path(rounds: int = 2) -> dict:
     out = {}
     for name in ("eager", "engine"):
         by_name, stats = _profile_window(prof, f"lm.{name}", rounds)
-        assert _launches_in(by_name, "ens_kernel") == LM_LEAVES * rounds, \
+        assert _launches_in(by_name, "ens_kernel") == leaves * rounds, \
             (name, stats)
         assert _launches_in(by_name, "prox_kernel") == \
-            LM_LEAVES * LM_K0 * rounds, (name, stats)
+            leaves * LM_K0 * rounds, (name, stats)
         out[name] = stats
-        log(f"profile lm.{name} " + json.dumps(
+        log(f"profile lm.{name} [{h.data.aux['arch_cfg'].name}] "
+            + json.dumps(
             {k: stats[k] for k in ("wall_ms_per_round",
                                    "device_busy_ms_per_round",
                                    "device_idle_share",
@@ -1886,10 +1994,7 @@ def check_lm_card_vs_cpu(lm: dict) -> dict:
     the eager run of ``run_lm_path`` against the CPU sim from the card's
     initial params (the reduced check shows the init is the CPU's) with
     the card's noise planes, f/m per round within LM_F_RTOL."""
-    import dataclasses
-    import importlib
-    from repro_torch.core.treeutil import tmap, tree_leaves
-    spec_build = importlib.import_module("repro_torch.spec.build")
+    from repro_torch.core.treeutil import tree_leaves
     out = {}
     over = {"engine.name": "eager", "telemetry.enabled": True}
     spec = _lm_spec(reduced=True, **over)
@@ -1919,8 +2024,20 @@ def check_lm_card_vs_cpu(lm: dict) -> dict:
                       "f_per_m_jax": JAX_LM_REDUCED["f_per_m"],
                       "w_tau_max_abs_diff": worst}
     del hs
-    # full width: the CPU sim from the card's task data and noise
-    spec = _lm_spec(**{"engine.name": "eager"})
+    out["full"] = _full_card_vs_cpu(_lm_spec(**{"engine.name": "eager"}),
+                                    lm["eager"]["f_per_m"])
+    log("lm_card_vs_cpu " + json.dumps(out))
+    return out
+
+
+def _full_card_vs_cpu(spec, card_f: list) -> dict:
+    """The CPU sim of ``spec`` from the card's task data (initial params
+    and batches) and the card's noise planes, its f/m per round within
+    LM_F_RTOL of the card's ``card_f``."""
+    import dataclasses
+    import importlib
+    from repro_torch.core.treeutil import tmap
+    spec_build = importlib.import_module("repro_torch.spec.build")
     card = spec_build.task_data(spec, torch.device("cuda"))
     task = dataclasses.replace(spec.task, seed=spec.seed)
     key = (task, "cpu")
@@ -1935,14 +2052,25 @@ def check_lm_card_vs_cpu(lm: dict) -> dict:
         cpu_s = time.perf_counter() - t0
     finally:
         spec_build._TASK_CACHE.pop(key, None)
-    card_f = lm["eager"]["f_per_m"]
+    card_f = card_f[:len(f)]
     for g, c in zip(card_f, f):
         assert abs(g - c) <= LM_F_RTOL * abs(c), (card_f, f)
-    out["full"] = {"f_per_m_card": card_f, "f_per_m_cpu": f,
-                   "rtol": LM_F_RTOL, "cpu_s": cpu_s,
-                   "max_rel_diff": max(abs(g - c) / abs(c)
-                                       for g, c in zip(card_f, f))}
-    log("lm_card_vs_cpu " + json.dumps(out))
+    return {"f_per_m_card": card_f, "f_per_m_cpu": f, "rtol": LM_F_RTOL,
+            "cpu_s": cpu_s, "max_rel_diff": max(abs(g - c) / abs(c)
+                                                for g, c in zip(card_f, f))}
+
+
+def check_xlstm_card_vs_cpu(families: dict) -> dict:
+    """Full-width xlstm-125m: XLSTM_CPU_ROUNDS rounds of the port's CPU
+    path from the card's initial params and noise planes against the
+    card's eager run of ``run_lm_families``, f/m within LM_F_RTOL (both
+    bf16). One round: the CPU's sLSTM steps and the ENS over 4 x 185M
+    values take most of a minute a round on the card's host."""
+    spec = _lm_spec(**{"task.arch": XLSTM, "engine.name": "eager",
+                       "engine.rounds": XLSTM_CPU_ROUNDS})
+    out = _full_card_vs_cpu(
+        spec, families["xlstm-125m/full"]["eager"]["f_per_m"])
+    log("xlstm_card_vs_cpu " + json.dumps(out))
     return out
 
 
@@ -2325,6 +2453,8 @@ PROFILES = {
     "baselines": (profile_baselines, (), ("profile_baselines",)),
     "sim.a": (profile_sim_path, (), ("profile_sim_path",)),
     "lm": (profile_lm_path, (), ("profile_lm_path",)),
+    "lm.xlstm": (profile_lm_path, (2, {"task.arch": XLSTM}, XLSTM_LEAVES),
+                 ("profile_lm_path_xlstm",)),
 }
 
 
@@ -2409,7 +2539,8 @@ def main() -> int:
               "queue3_trials": run_queue3_trials(),
               "paper_twins": run_paper_twins(),
               "twins": run_twins_path(),
-              "lm_path": run_lm_path()}
+              "lm_path": run_lm_path(),
+              "lm_families": run_lm_families()}
     paths = {"run_fedepm": record["main_path"]["launches"]}
     paths.update({f"simulate.{key}": res["launches"]
                   for key, res in record["sim_path"].items()})
@@ -2431,6 +2562,9 @@ def main() -> int:
                   for key, res in record["twins"].items()})
     paths.update({f"lm.{key}": res["launches"]
                   for key, res in record["lm_path"].items()})
+    paths.update({f"lm_families.{arch}.{key}": res["launches"]
+                  for arch, recs in record["lm_families"].items()
+                  for key, res in recs.items() if key != "jax"})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2441,6 +2575,8 @@ def main() -> int:
     record["card_vs_cpu"] = check_card_vs_cpu()
     record["sim_card_vs_cpu"] = check_sim_card_vs_cpu()
     record["lm_card_vs_cpu"] = check_lm_card_vs_cpu(record["lm_path"])
+    record["xlstm_card_vs_cpu"] = check_xlstm_card_vs_cpu(
+        record["lm_families"])
     phases["card_vs_cpu_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_start
     log("phases " + json.dumps(phases))

@@ -4,7 +4,8 @@
 numpy arrays (``w_tau``, ``W``, ``Z`` as arrays or dict/tuple trees of
 arrays, the iteration counter ``k`` and, when present, the PRNG ``key``,
 two uint32), for example read from the JAX package's ``FedEPMState``, and
-builds the port's state on ``device``. ``state_to_numpy`` goes back,
+builds the port's state on ``device`` (the card unless the caller names
+another). ``state_to_numpy`` goes back,
 writing the key as JAX holds it (uint32). ``sim_state_from_numpy`` and
 ``sim_state_to_numpy`` do the same for a ``FedSim``'s device state: the
 FedEPM state plus the error-feedback memory ``H`` (the JAX sim's
@@ -20,11 +21,14 @@ import torch
 
 from repro_torch.core.fedepm import FedEPMState
 from repro_torch.core.treeutil import tmap
+from repro_torch.kernels.common import resolve_device
 
 
-def state_from_numpy(leaves: Mapping, device="cpu", cls=FedEPMState):
+def state_from_numpy(leaves: Mapping, device=None, cls=FedEPMState):
     """A ``cls`` (``FedEPMState`` or ``BaselineState``) from numpy leaves;
     without a ``key`` the state has none."""
+    device = resolve_device(device)
+
     def to_t(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
@@ -69,9 +73,11 @@ def sim_state_from_numpy(sim, leaves: Mapping) -> None:
                      .to(sim.device), leaves["H"])
 
 
-def lm_params_from_numpy(tree, device="cpu"):
+def lm_params_from_numpy(tree, device=None):
     """An LM param tree of numpy arrays (for example JAX's params through
-    ``jax.device_get``) as tensors on ``device``, same keys and shapes."""
+    ``jax.device_get``) as tensors on ``device``, same keys and shapes (a
+    list of layers stays a list, in order)."""
+    device = resolve_device(device)
     return tmap(lambda a: torch.from_numpy(np.array(a, copy=True))
                 .to(device), tree)
 

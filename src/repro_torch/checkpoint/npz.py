@@ -5,7 +5,8 @@ Leaves are stored in one ``.npz`` by flattened index (dict keys sorted, as
 ``tree_leaves`` visits them); the tree structure and user metadata go into
 a sidecar ``.json``. Files written here are read by the JAX package's
 ``restore`` and the other way round: a tensor leaf is written as its numpy
-array, and ``restore`` gives tensors on ``device``.
+array, and ``restore`` gives tensors on ``device``: the card unless the caller
+names another (``kernels/common.py::resolve_device``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import os
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.common import resolve_device
 
 
 def _to_numpy(x):
@@ -63,8 +66,9 @@ def save(path: str, tree, metadata: dict | None = None) -> None:
         json.dump(sidecar, f)
 
 
-def restore(path: str, device="cpu"):
+def restore(path: str, device=None):
     """Returns (tree of tensors on ``device``, metadata)."""
+    device = resolve_device(device)
     with open(path + ".json") as f:
         sidecar = json.load(f)
     data = np.load(path + ".npz")
@@ -85,7 +89,7 @@ def save_fedepm(path: str, state, cfg) -> None:
     save(path, tree, metadata=meta)
 
 
-def restore_fedepm(path: str, device="cpu"):
+def restore_fedepm(path: str, device=None):
     from repro_torch.core.fedepm import FedEPMState
     tree, meta = restore(path, device)
     tree["k"] = int(tree["k"])

@@ -17,10 +17,11 @@ On the CPU the loss and its gradient are jitted XLA:CPU's bit for bit
 ``LMLoss`` is the next-token cross-entropy of a decoder model, the
 counterpart of ``make_lm_loss``, and ``ChunkedLMLoss`` the one of
 ``make_chunked_lm_loss``, which never holds more than one chunk of the
-(B, T, V) logits. Both take the model's params stacked (m, ...) and the
-client batches {tokens, targets, loss_mask} (m, B, T) and return the m
-per-client losses; the m forwards run as one program
-(``models/registry.py::Model.apply_clients``).
+(B, T, V) logits: it takes the family module's ``hidden`` and
+``unembed``, as JAX's takes ``hidden_fn`` and ``unembed_fn``. Both take
+the model's params stacked (m, ...) and the client batches {tokens,
+targets, loss_mask} (m, B, T) and return the m per-client losses; the m
+forwards run as one program (``models/registry.py::Model.apply_clients``).
 """
 from __future__ import annotations
 
@@ -143,14 +144,13 @@ class ChunkedLMLoss(nn.Module):
 
     def __init__(self, cfg, chunk: int = 512):
         super().__init__()
-        from repro_torch.models.registry import get_model
-        get_model(cfg)  # refuses the families that are not ported
+        from repro_torch.models.registry import family_module
         self.cfg = cfg
         self.chunk = chunk
+        self.family = family_module(cfg)
 
     def forward(self, W, batches) -> torch.Tensor:
-        from repro_torch.models import dense
-        h = dense.hidden(W, batches, self.cfg)  # (m, B, T, d)
+        h = self.family.hidden(W, batches, self.cfg)  # (m, B, T, d)
         tgt = batches["targets"]
         mask = batches.get("loss_mask")
         if mask is None:
@@ -165,7 +165,7 @@ class ChunkedLMLoss(nn.Module):
             mask = torch.nn.functional.pad(mask, (0, pad))
         total = torch.zeros(h.shape[0], dtype=torch.float32, device=h.device)
         for s in range(0, h.shape[2], c):
-            logits = dense.unembed(h[:, :, s:s + c], W, self.cfg)
+            logits = self.family.unembed(h[:, :, s:s + c], W, self.cfg)
             nll = _nll(logits, tgt[:, :, s:s + c])
             total = total + (nll * mask[:, :, s:s + c]).flatten(1).sum(dim=1)
         return total / torch.clamp_min(mask.flatten(1).sum(dim=1), 1.0)

@@ -3,13 +3,15 @@ versions of the loss and of the Laplace transform use these, so that their
 values are jitted JAX's on the CPU bit for bit.
 
 Read off the object code that ``XLA_FLAGS=--xla_dump_to=DIR`` dumps for the
-jitted logistic loss, its vmapped gradient and ``jnp.exp``/``log1p``/``log``
-(JAX 0.9). XLA:CPU compiles with floating-point contraction on, so every
+jitted logistic loss, its vmapped gradient and ``jnp.exp``/``log1p``/``log``/
+``tanh``/``expm1`` (JAX 0.9). XLA:CPU compiles with floating-point
+contraction on, so every
 multiply whose one use is an add or a subtract becomes a fused multiply-add;
 ``fma`` below rounds once, as that instruction does (``addcmul`` with a unit
 value). On the card none of this applies: CUDA's ``expf``/``log1pf`` and
-torch's reductions stand. The exception is ``erfinv``, which
-``random.normal`` runs on whatever device its key is on, so that a model's
+torch's reductions stand. The exceptions are ``erfinv``, which
+``random.normal`` runs on whatever device its key is on, and the ``exp``,
+``expm1``, ``log`` and ``fma`` of the ssm family's init, so that a model's
 init on the card is the CPU's (and JAX's) bit for bit.
 """
 from __future__ import annotations
@@ -131,6 +133,41 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
         p = fma(p, t, torch.where(lt, lo[i], hi[i]))
     r = p * x
     return torch.where(x.abs() == 1.0, x * torch.finfo(x.dtype).max, r)
+
+
+# --- tanh: a rational form of degrees 13 / 6 in x, each step an FMA in x^2 --
+_TANH_CLAMP = 7.998811721801758
+_TANH_TINY = 0.00039999998989515007
+_TANH_P = (-2.7607683663038313e-16, 2.0001879384549948e-13,
+           -8.604671836165423e-11, 5.122297253024044e-08,
+           1.4857223504805006e-05, 0.0006372619536705315,
+           0.004893524572253227)
+_TANH_Q = (1.1982583600911312e-06, 0.00011853470641653985,
+           0.0022684347350150347, 0.0048935250379145145)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.tanh`` of f32 on XLA:CPU: x itself below 4e-4, +-1 from 20
+    up, else x P(x^2) / Q(x^2) on x clamped to +-7.9988."""
+    xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    p = fma(x2, _TANH_P[0], _TANH_P[1])
+    for c in _TANH_P[2:]:
+        p = fma(x2, p, c)
+    q = fma(x2, _TANH_Q[0], _TANH_Q[1])
+    for c in _TANH_Q[2:]:
+        q = fma(x2, q, c)
+    r = torch.where(x.abs() < _TANH_TINY, x, (xc * p) / q)
+    return torch.where(x.abs() >= 20.0, torch.sign(x), r)
+
+
+def expm1(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.expm1`` of f32 on XLA:CPU: ``exp(x) - 1`` where |x| > 1/2,
+    else tanh(x/2) (exp(x) + 1); x itself where x/2 is 0."""
+    e = exp(x)
+    h = x * 0.5
+    r = torch.where(x.abs() > 0.5, e - 1.0, tanh(h) * (e + 1.0))
+    return torch.where(h == 0, x, r)
 
 
 def softplus(z: torch.Tensor) -> torch.Tensor:

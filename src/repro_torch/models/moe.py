@@ -1,0 +1,211 @@
+"""Mixture-of-Experts transformer (Mixtral family: experts, top-k routing,
+sliding-window attention); the counterpart of ``repro.models.moe`` for the
+training forward.
+
+Routing is capacity-bounded and sort-based, per client: each client's own
+N = B T tokens pick their top-k experts, the N k assignments are sorted by
+expert (stably, as ``jnp.argsort``), each takes the next position in its
+expert, and those past the capacity C = max(1, int(cf k N / E)) are
+dropped. Each client's kept tokens fill a dense (E, C, d) buffer, the
+expert FFN is one batched matmul over it, and the outputs go back to
+their tokens weighted by the renormalised router probabilities. JAX vmaps
+the per-client loss, so each client has its own sort, counts and
+capacity; here the client axis m leads every tensor, as in
+``models/dense.py``. On one device JAX's group dispatch is dead
+(``batch_groups()`` is 1), so only its G = 1 branch is ported.
+
+The dispatch and the combine move rows by gathers both ways
+(``_Route``): each slot reads one token, each token reads its k slots, so
+no backward accumulates into an index in whatever order atomics land.
+Among equal router probabilities the lower expert wins, as in
+``lax.top_k``. ``prefill`` and ``decode_step`` wait for ROADMAP queue 1
+item 14.2.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import random
+from repro_torch.core.treeutil import tree_leaves, tree_unflatten
+from repro_torch.models import dense
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (
+    _mm,
+    apply_norm,
+    dense_init,
+    embed_init,
+    init_attention,
+    init_norm,
+)
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_moe_mlp(key, cfg: ArchConfig):
+    ks = random.split(key, 4)
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    return {
+        "router": dense_init(ks[..., 0, :], (d, E), cfg.param_dtype),
+        "wi": dense_init(ks[..., 1, :], (E, d, ff), cfg.param_dtype),
+        "wg": dense_init(ks[..., 2, :], (E, d, ff), cfg.param_dtype),
+        "wo": dense_init(ks[..., 3, :], (E, ff, d), cfg.param_dtype),
+    }
+
+
+def init_layer(key, cfg: ArchConfig):
+    """One layer's params per key of a batch (L, 2): leaves (L, ...)."""
+    ks = random.split(key, 2)
+    lead = tuple(key.shape[:-1])
+    return {
+        "ln_attn": init_norm(cfg.norm, cfg.d_model, cfg.param_dtype, lead,
+                             key.device),
+        "attn": init_attention(ks[..., 0, :], cfg.d_model, cfg.n_heads,
+                               cfg.n_kv_heads, cfg.hd, cfg.bias,
+                               cfg.param_dtype),
+        "ln_mlp": init_norm(cfg.norm, cfg.d_model, cfg.param_dtype, lead,
+                            key.device),
+        "moe": init_moe_mlp(ks[..., 1, :], cfg),
+    }
+
+
+def init(key, cfg: ArchConfig):
+    """The param tree ``repro.models.moe.init`` makes for the same key."""
+    ks = random.split(key, 3)
+    return {
+        "embed": embed_init(ks[0], cfg.vocab, cfg.d_model, cfg.param_dtype),
+        "layers": init_layer(random.split(ks[1], cfg.n_layers), cfg),
+        "ln_f": init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                          device=key.device),
+        "unembed": dense_init(ks[2], (cfg.d_model, cfg.vocab),
+                              cfg.param_dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+
+def _take(x, idx, ok):
+    """Rows ``x[i, idx[i, s]]`` where ``ok[i, s]``, else 0: x (m, R, d),
+    idx and ok (m, S) -> (m, S, d)."""
+    rows = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    return torch.where(ok[..., None], rows,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _Route(torch.autograd.Function):
+    """``_take(x, src, ok)``, whose backward is a gather too: input row r
+    is read by the output rows ``dst[i, r, :]`` where ``dst_ok``, and its
+    gradient is the sum of theirs, in that order. A map and its transpose,
+    so the gradient is exact whatever the order of the rows."""
+
+    @staticmethod
+    def forward(ctx, x, src, ok, dst, dst_ok):
+        ctx.save_for_backward(dst, dst_ok)
+        return _take(x, src, ok)
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, dst_ok = ctx.saved_tensors
+        m, R, K = dst.shape
+        rows = _take(g, dst.reshape(m, R * K), dst_ok.reshape(m, R * K))
+        return rows.reshape(m, R, K, -1).sum(dim=2), None, None, None, None
+
+
+def _moe_dispatch(xf, p, cfg: ArchConfig):
+    """Capacity-bounded sort-based dispatch of each client's tokens
+    xf (m, N, d). Returns (out (m, N, d), aux of (m,) values)."""
+    m, N, d = xf.shape
+    E, K = cfg.n_experts, cfg.top_k
+    NK = N * K
+    C = max(1, int(cfg.capacity_factor * K * N / E))
+    dev = xf.device
+
+    logits = _mm(xf, p["router"], "mnd,mde->mne").to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k: the larger value first, the lower index among equals
+    top_e = torch.sort(probs.detach(), dim=-1, descending=True,
+                       stable=True).indices[..., :K]
+    top_p = torch.gather(probs, -1, top_e)
+    top_p = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
+
+    # the N K assignments, token n's k-th at n K + k
+    e_all = top_e.reshape(m, NK)
+    order = torch.argsort(e_all, dim=-1, stable=True)  # grouped by expert
+    e_sorted = torch.gather(e_all, 1, order)
+    ar = torch.arange(NK, device=dev)
+    counts = (e_all[..., None] == torch.arange(E, device=dev)).sum(dim=1)
+    starts = torch.cumsum(counts, dim=1) - counts     # exclusive cumsum
+    pos = ar - torch.gather(starts, 1, e_sorted)      # place in its expert
+    keep = pos < C
+    slot = e_sorted * C + torch.clamp_max(pos, C - 1)
+    # the same per assignment in token order: sorted index inv[a]
+    inv = torch.empty_like(order).scatter_(1, order, ar.expand(m, NK))
+    slot_a = torch.gather(slot, 1, inv)
+    keep_a = torch.gather(keep, 1, inv)
+    # per slot e C + c: the assignment starts[e] + c, if c < counts[e]
+    c = torch.arange(C, device=dev)
+    valid = (c < counts[..., None]).reshape(m, E * C)
+    j = torch.clamp_max(starts[..., None] + c, NK - 1).reshape(m, E * C)
+    asg = torch.gather(order, 1, j)                   # its token-order index
+
+    buf = _Route.apply(xf, asg // K, valid,
+                       slot_a.reshape(m, N, K), keep_a.reshape(m, N, K))
+    buf = buf.reshape(m, E, C, d)
+    h = F.silu(_mm(buf, p["wi"], "mecd,medf->mecf")) \
+        * _mm(buf, p["wg"], "mecd,medf->mecf")
+    y = _mm(h, p["wo"], "mecf,mefd->mecd").reshape(m, E * C, d)
+
+    rows = _Route.apply(y, slot_a, keep_a, asg[..., None], valid[..., None])
+    rows = rows * top_p.reshape(m, NK, 1).to(xf.dtype)
+    out = rows.reshape(m, N, K, d).sum(dim=2)
+
+    me = probs.mean(dim=1)                            # mean router prob
+    ce = counts.to(torch.float32) / NK                # fraction routed
+    aux = {"lb_loss": E * (me * ce).sum(dim=-1),
+           "dropped": 1.0 - keep.to(torch.float32).mean(dim=-1)}
+    return out, aux
+
+
+def moe_mlp(x, p, cfg: ArchConfig):
+    """x (m, B, T, d) -> (m, B, T, d), and aux {lb_loss, dropped} per
+    client (m,)."""
+    m, B, T, d = x.shape
+    out, aux = _moe_dispatch(x.reshape(m, B * T, d), p, cfg)
+    return out.reshape(m, B, T, d), aux
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def block_forward(x, lp, cfg: ArchConfig, positions):
+    """One layer over x (m, B, T, d); returns (x, aux)."""
+    h = apply_norm(x, lp["ln_attn"], cfg.norm)
+    x = x + dense._attn_full(h, lp["attn"], cfg, positions)
+    h2 = apply_norm(x, lp["ln_mlp"], cfg.norm)
+    mlp_out, aux = moe_mlp(h2, lp["moe"], cfg)
+    return x + mlp_out, aux
+
+
+def hidden(params, batch, cfg: ArchConfig):
+    """Forward to the final norm, without the unembedding."""
+    x, positions = dense.embed_inputs(params, batch, cfg)
+    layers = params["layers"]
+    per_layer = [t.unbind(1) for t in tree_leaves(layers)]
+    for i in range(cfg.n_layers):
+        lp = tree_unflatten(layers, [u[i] for u in per_layer])
+        x, _ = block_forward(x, lp, cfg, positions)
+    return apply_norm(x, params["ln_f"], cfg.norm)
+
+
+unembed = dense.unembed
+
+
+def apply(params, batch, cfg: ArchConfig):
+    return unembed(hidden(params, batch, cfg), params, cfg)

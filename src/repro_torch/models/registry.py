@@ -5,25 +5,29 @@
 param tree for the same key and whose ``apply(params, batch)`` runs one
 model's forward to logits (B, T, V); ``apply_clients(W, batches)`` runs m
 clients' params stacked (m, ...) over their batches (m, B, T) as one
-program, which the LM loss needs. The families ``dense``, ``vlm`` and
-``audio`` use ``models/dense.py``. The ``moe``, ``xlstm``, ``hybrid`` and
-``ssm`` families, and prefill and decode, are not ported yet (ROADMAP
-queue 1 item 14): asking for them raises.
+program, which the LM loss needs. The families map to their modules as in
+JAX: ``dense``, ``vlm`` and ``audio`` to ``models/dense.py``, ``moe`` to
+``models/moe.py``, ``xlstm`` to ``models/xlstm.py``, ``hybrid`` and
+``ssm`` to ``models/ssm.py``. Prefill and decode are not ported yet
+(ROADMAP queue 1 item 14.2): asking for them raises.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 from repro_torch.core.treeutil import tmap
-from repro_torch.models import dense
+from repro_torch.models import dense, moe, ssm, xlstm
 from repro_torch.models.config import ArchConfig
 
 _FAMILY_MODULES = {
     "dense": dense,
     "vlm": dense,
     "audio": dense,
+    "moe": moe,
+    "xlstm": xlstm,
+    "hybrid": ssm,
+    "ssm": ssm,
 }
-NOT_PORTED_FAMILIES = ("moe", "xlstm", "hybrid", "ssm")
 
 
 class Model(NamedTuple):
@@ -47,14 +51,17 @@ class Model(NamedTuple):
         return self.cfg.sliding_window is not None
 
 
-def get_model(cfg: ArchConfig) -> Model:
-    if cfg.family in NOT_PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet "
-            "(ROADMAP queue 1 item 14); the port runs dense, vlm and audio")
+def family_module(cfg: ArchConfig):
+    """The module of ``cfg``'s family: its ``init``, ``hidden``,
+    ``unembed`` and ``apply``."""
     mod = _FAMILY_MODULES.get(cfg.family)
     if mod is None:
         raise KeyError(f"unknown model family {cfg.family!r}")
+    return mod
+
+
+def get_model(cfg: ArchConfig) -> Model:
+    mod = family_module(cfg)
 
     def init(key):
         return mod.init(key, cfg)
@@ -70,7 +77,7 @@ def get_model(cfg: ArchConfig) -> Model:
     def _not_ported(*a, **kw):
         raise NotImplementedError(
             f"prefill and decode ({cfg.name}) are not ported yet (ROADMAP "
-            "queue 1 item 14)")
+            "queue 1 item 14.2)")
 
     return Model(cfg=cfg, init=init, apply=apply,
                  apply_clients=apply_clients, prefill=_not_ported,

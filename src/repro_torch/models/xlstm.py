@@ -1,0 +1,296 @@
+"""xLSTM (arXiv:2405.04517): sLSTM and mLSTM residual blocks; the
+counterpart of ``repro.models.xlstm`` for the training forward.
+
+* **mLSTM** (matrix memory): pre-norm, up projection by ``ssm_expand``,
+  per-head exponentially gated linear attention in the stabilised
+  chunkwise-parallel form: within a chunk a masked gated attention matrix,
+  across chunks a (C, n, m) state carried with log-domain stabilisation.
+  The sequence is padded to a whole number of chunks with no-op tokens
+  (input gate pre-activation -1e30, forget gate 30).
+* **sLSTM** (scalar memory): per-head scalar state (c, n, m) with an
+  exponential input gate and a sigmoid forget gate, one step per token,
+  then a GLU post up-projection (factor 4/3).
+
+Layer i is an sLSTM block when ``slstm_every`` divides i, else mLSTM.
+``params["layers"]`` is a Python list of the layers' dicts in order, as
+JAX holds it (``tree_leaves`` walks it in order), each leaf with a leading
+client axis m. Activations are (m, B, T, ...); the two scans carry no
+weights, so they run over the m B sequences at once. The decode state and
+``mlstm_step``/``*_block_step`` wait for ROADMAP queue 1 item 14.2.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import random
+from repro_torch.models import dense
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (
+    _mm,
+    _per_client,
+    apply_norm,
+    dense_init,
+    embed_init,
+    init_norm,
+)
+
+_EPS = 1e-6
+_NEG = -1e30
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _mlstm_dims(cfg: ArchConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = cfg.n_heads
+    return d_in, H, d_in // H
+
+
+def init_mlstm_layer(key, cfg: ArchConfig):
+    d, dt = cfg.d_model, cfg.param_dtype
+    d_in, H, _ = _mlstm_dims(cfg)
+    ks = random.split(key, 8)
+    dev = key.device
+    return {
+        "ln": init_norm(cfg.norm, d, dt, device=dev),
+        "w_up": dense_init(ks[0], (d, d_in), dt),
+        "w_gate": dense_init(ks[1], (d, d_in), dt),
+        "w_q": dense_init(ks[2], (d_in, d_in), dt),
+        "w_k": dense_init(ks[3], (d_in, d_in), dt),
+        "w_v": dense_init(ks[4], (d_in, d_in), dt),
+        "w_if": dense_init(ks[5], (d_in, 2 * H), dt, scale=1e-2),
+        "b_if": torch.cat([torch.zeros(H, device=dev),
+                           3.0 * torch.ones(H, device=dev)]).to(dt),
+        "ln_out": init_norm("rmsnorm", d_in, dt, device=dev),
+        "w_down": dense_init(ks[6], (d_in, d), dt),
+    }
+
+
+def init_slstm_layer(key, cfg: ArchConfig):
+    d, H, dt = cfg.d_model, cfg.n_heads, cfg.param_dtype
+    ks = random.split(key, 8)
+    d_glu = int(d * 4 / 3)
+    dev = key.device
+    return {
+        "ln": init_norm(cfg.norm, d, dt, device=dev),
+        # input projections of the (z, i, f, o) gates
+        "w_z": dense_init(ks[0], (d, d), dt),
+        "w_i": dense_init(ks[1], (d, H), dt, scale=1e-2),
+        "w_f": dense_init(ks[2], (d, H), dt, scale=1e-2),
+        "w_o": dense_init(ks[3], (d, d), dt),
+        # the recurrent (hidden-to-gate) connection of z
+        "r_z": dense_init(ks[4], (d, d), dt, scale=1e-2),
+        "b_i": torch.zeros(H, dtype=dt, device=dev),
+        "b_f": (3.0 * torch.ones(H, device=dev)).to(dt),
+        "ln_out": init_norm("rmsnorm", d, dt, device=dev),
+        # post up-projection GLU (the paper's factor 4/3)
+        "w_glu_i": dense_init(ks[5], (d, d_glu), dt),
+        "w_glu_g": dense_init(ks[6], (d, d_glu), dt),
+        "w_glu_o": dense_init(ks[7], (d_glu, d), dt),
+    }
+
+
+def _is_slstm(cfg: ArchConfig, idx: int) -> bool:
+    return cfg.slstm_every > 0 and idx % cfg.slstm_every == 0
+
+
+def init(key, cfg: ArchConfig):
+    """The param tree ``repro.models.xlstm.init`` makes for the same key:
+    ``layers`` a list of the layers' dicts (the kind of layer i a static
+    function of cfg, never stored in the tree)."""
+    ks = random.split(key, 3)
+    keys = random.split(ks[1], cfg.n_layers)
+    layers = [init_slstm_layer(keys[i], cfg) if _is_slstm(cfg, i)
+              else init_mlstm_layer(keys[i], cfg)
+              for i in range(cfg.n_layers)]
+    return {
+        "embed": embed_init(ks[0], cfg.vocab, cfg.d_model, cfg.param_dtype),
+        "layers": layers,
+        "ln_f": init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                          device=key.device),
+        "unembed": dense_init(ks[2], (cfg.d_model, cfg.vocab),
+                              cfg.param_dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# mLSTM chunkwise-parallel core
+# ---------------------------------------------------------------------------
+
+
+def _mlstm_scan(q, k, v, i_pre, f_pre, chunk: int):
+    """Stabilised chunkwise mLSTM from the zero state.
+
+    q, k, v: (B, T, H, hd); i_pre, f_pre: (B, T, H) gate pre-activations.
+    Returns (out (B, T, H, hd) f32, the final state (C, n, m)).
+    """
+    B, T, H, hd = q.shape
+    dev, f32 = q.device, torch.float32
+    pad = (-T) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        i_pre = F.pad(i_pre, (0, 0, 0, pad), value=_NEG)  # exp(i) = 0
+        f_pre = F.pad(f_pre, (0, 0, 0, pad), value=30.0)  # keep the state
+    nC = q.shape[1] // chunk
+    scale = 1.0 / torch.sqrt(torch.full((), float(hd), device=dev))
+
+    def rs(x):  # (B, Tp, H, ...) -> (nC, B, H, chunk, ...)
+        x = x.reshape((B, nC, chunk) + x.shape[2:])
+        return x.transpose(2, 3).movedim(1, 0)
+
+    qc, kc, vc = rs(q * scale), rs(k), rs(v)
+    ic, fc = rs(i_pre), rs(f_pre)                      # (nC, B, H, c)
+
+    C = torch.zeros((B, H, hd, hd), dtype=f32, device=dev)
+    n = torch.zeros((B, H, hd), dtype=f32, device=dev)
+    m = torch.full((B, H), _NEG, dtype=f32, device=dev)
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=dev))
+    neg_inf = torch.full((), -float("inf"), device=dev)
+    outs = []
+    for ci in range(nC):
+        qb, kb, vb = qc[ci].to(f32), kc[ci].to(f32), vc[ci].to(f32)
+        ib = ic[ci].to(f32)
+        logf = F.logsigmoid(fc[ci].to(f32))            # (B, H, c)
+        a = torch.cumsum(logf, dim=-1)                  # A_t within chunk
+        a_total = a[..., -1]
+        # log weight of source s at target t: A_t + (i_s - A_s); the state
+        # enters t at m + A_t. exp(A_t) is common to the numerator and the
+        # normaliser, so both are divided by exp(A_t + m_base)
+        src = ib - a
+        m_intra = torch.amax(torch.where(tril, src[..., None, :], neg_inf),
+                             dim=-1)
+        m_base = torch.maximum(m_intra, m[..., None])   # (B, H, c)
+        dmat = src[..., None, :] - m_base[..., :, None]
+        # exp of the masked argument: JAX's where(tril, exp(dmat), 0) has
+        # the same values and gradient wherever they are finite, but above
+        # the diagonal exp(dmat) can overflow, and its gradient is 0 * inf
+        D = torch.exp(torch.where(tril, dmat, neg_inf))
+        w_intra = torch.einsum("bhtd,bhsd->bhts", qb, kb) * D
+        o_intra = torch.einsum("bhts,bhsd->bhtd", w_intra, vb)
+        w_state = torch.exp(m[..., None] - m_base)      # (B, H, c)
+        o_state = torch.einsum("bhtd,bhde->bhte", qb, C)
+        n_state = torch.einsum("bhtd,bhd->bht", qb, n)
+        o = o_intra + w_state[..., None] * o_state
+        nrm = torch.abs(w_intra.sum(dim=-1) + w_state * n_state)
+        # mLSTM's max(|n^T q|, exp(-m_t)) with exp(A_t + m_base) divided
+        # out
+        denom = torch.maximum(nrm, torch.exp(-(a + m_base)))
+        outs.append(o / denom[..., None])
+        # the state at the chunk's end
+        carry_src = ib + (a_total[..., None] - a)
+        m_new = torch.maximum(m + a_total, torch.amax(carry_src, dim=-1))
+        w_old = torch.exp(m + a_total - m_new)          # (B, H)
+        w_src = torch.exp(carry_src - m_new[..., None])
+        C = w_old[..., None, None] * C + torch.einsum(
+            "bhsd,bhse->bhde", kb * w_src[..., None], vb)
+        n = w_old[..., None] * n + torch.einsum("bhsd,bhs->bhd", kb, w_src)
+        m = m_new
+    out = torch.stack(outs, dim=1)                      # (B, nC, H, c, hd)
+    out = out.transpose(2, 3).reshape(B, nC * chunk, H, hd)
+    return out[:, :T], (C, n, m)
+
+
+def _mlstm_qkvif(x, p, cfg: ArchConfig):
+    _, H, hd = _mlstm_dims(cfg)
+    up = _mm(x, p["w_up"], "mbtd,mde->mbte")
+    gate = F.silu(_mm(x, p["w_gate"], "mbtd,mde->mbte"))
+    q = _mm(up, p["w_q"], "mbtd,mde->mbte")
+    k = _mm(up, p["w_k"], "mbtd,mde->mbte")
+    v = _mm(up, p["w_v"], "mbtd,mde->mbte")
+    if_pre = torch.einsum("mbtd,mde->mbte", up.to(torch.float32),
+                          p["w_if"].to(torch.float32)) \
+        + _per_client(p["b_if"], up).to(torch.float32)
+    shp = x.shape[:-1] + (H, hd)
+    return (q.reshape(shp), k.reshape(shp), v.reshape(shp),
+            if_pre[..., :H], if_pre[..., H:], gate)
+
+
+def mlstm_block(x, p, cfg: ArchConfig):
+    """x (m, B, T, d) -> x + the block's output."""
+    d_in, H, hd = _mlstm_dims(cfg)
+    mc, B, T, _ = x.shape
+    h = apply_norm(x, p["ln"], cfg.norm)
+    q, k, v, i_pre, f_pre, gate = _mlstm_qkvif(h, p, cfg)
+    seqs = (mc * B, T)
+    out, _ = _mlstm_scan(q.reshape(seqs + (H, hd)), k.reshape(seqs + (H, hd)),
+                         v.reshape(seqs + (H, hd)), i_pre.reshape(seqs + (H,)),
+                         f_pre.reshape(seqs + (H,)), cfg.ssm_chunk)
+    out = out.reshape(mc, B, T, d_in).to(x.dtype)
+    out = apply_norm(out, p["ln_out"], "rmsnorm") * gate
+    return x + _mm(out, p["w_down"], "mbte,med->mbtd")
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (one step per token)
+# ---------------------------------------------------------------------------
+
+
+def slstm_block(x, p, cfg: ArchConfig):
+    """x (m, B, T, d) -> the block's output (residual and GLU included)."""
+    mc, B, T, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    f32 = torch.float32
+    hf = apply_norm(x, p["ln"], cfg.norm).to(f32)
+
+    def proj(name):
+        return torch.einsum("mbtd,mde->mbte", hf, p[name].to(f32))
+
+    z_x = proj("w_z").reshape(mc, B, T, H, hd)
+    i_x = proj("w_i") + _per_client(p["b_i"], hf).to(f32)
+    f_x = proj("w_f") + _per_client(p["b_f"], hf).to(f32)
+    o_x = proj("w_o").reshape(mc, B, T, H, hd)
+    r_z = p["r_z"].to(f32)
+    c = torch.zeros((mc, B, H, hd), dtype=f32, device=x.device)
+    n = torch.zeros_like(c)
+    m = torch.full((mc, B, H), _NEG, dtype=f32, device=x.device)
+    h_prev = torch.zeros_like(c)
+    hs = []
+    for t in range(T):
+        rec = torch.einsum("mbd,mde->mbe", h_prev.reshape(mc, B, d), r_z)
+        z = torch.tanh(z_x[:, :, t] + rec.reshape(mc, B, H, hd))
+        o = torch.sigmoid(o_x[:, :, t])
+        logf = F.logsigmoid(f_x[:, :, t])
+        m_new = torch.maximum(logf + m, i_x[:, :, t])
+        i_g = torch.exp(i_x[:, :, t] - m_new)
+        f_g = torch.exp(logf + m - m_new)
+        c = f_g[..., None] * c + i_g[..., None] * z
+        n = f_g[..., None] * n + i_g[..., None]
+        h_prev = o * (c / torch.clamp_min(n, _EPS))
+        m = m_new
+        hs.append(h_prev)
+    out = torch.stack(hs, dim=2).reshape(mc, B, T, d)
+    y = x + apply_norm(out.to(x.dtype), p["ln_out"], "rmsnorm")
+    g = F.silu(_mm(y, p["w_glu_i"], "mbtd,mdf->mbtf")) \
+        * _mm(y, p["w_glu_g"], "mbtd,mdf->mbtf")
+    return y + _mm(g, p["w_glu_o"], "mbtf,mfd->mbtd")
+
+
+# ---------------------------------------------------------------------------
+# model entry points
+# ---------------------------------------------------------------------------
+
+
+def hidden(params, batch, cfg: ArchConfig):
+    """Forward to the final norm, without the unembedding."""
+    x, _ = dense.embed_inputs(params, batch, cfg)
+    for i, lp in enumerate(params["layers"]):
+        x = slstm_block(x, lp, cfg) if _is_slstm(cfg, i) \
+            else mlstm_block(x, lp, cfg)
+    return apply_norm(x, params["ln_f"], cfg.norm)
+
+
+def unembed(x, params, cfg: ArchConfig):
+    """(m, B, T, d) -> (m, B, T, V), with no logit scale (JAX's
+    ``xlstm.apply``)."""
+    return torch.einsum("mbtd,mdv->mbtv", x, params["unembed"].to(x.dtype))
+
+
+def apply(params, batch, cfg: ArchConfig):
+    return unembed(hidden(params, batch, cfg), params, cfg)

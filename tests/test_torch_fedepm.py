@@ -113,7 +113,8 @@ def test_resume_mid_trajectory_from_jax_state():
     for _ in range(3):
         js, _ = step(js)
     ts = state_from_numpy({f: np.asarray(getattr(js, f))
-                           for f in ("w_tau", "W", "Z", "k", "key")})
+                           for f in ("w_tau", "W", "Z", "k", "key")},
+                          device="cpu")
     assert ts.k == 36
     mask, unit = jax_round_draws(cfg)(js)
     js, jm = step(js)

@@ -526,3 +526,57 @@ def test_lm_spec_engine_matches_eager_on_card(gen, chunk):
     for state, total in runs[1:]:
         assert total == runs[0][1]
         assert all(torch.equal(a, b) for a, b in zip(state, runs[0][0]))
+
+
+LM_FAMILIES = ("mixtral-8x7b", "xlstm-125m", "zamba2-1.2b")
+
+
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_family_init_on_card_is_the_cpus(gen, arch):
+    """The moe, xlstm and hybrid inits on the card equal the CPU's bit for
+    bit (the hybrid's dt_bias and A_log through XLA:CPU's f32 exp, expm1
+    and log, which run on the card too)."""
+    from repro_torch import configs
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.models.registry import get_model
+    model = get_model(configs.get_reduced(arch))
+    cpu = model.init(random.PRNGKey(3))
+    card = model.init(random.PRNGKey(3, device="cuda"))
+    for a, b in zip(tree_leaves(cpu), tree_leaves(card)):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_family_spec_engine_matches_eager_on_card(gen, arch):
+    """The reduced LM spec with ``task.arch`` set: eager twice gives the
+    same bits, the scan engine in chunks of 3 gives eager's, and each round
+    launches ENS once and prox k0 times per leaf (the graph's warm-up call
+    counted as a round)."""
+    from pathlib import Path
+
+    from repro_torch.core.scan import GRAPH_STATS, reset_graph_stats
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.kernels.counters import launch_counters
+    from repro_torch.spec import ExperimentSpec
+    path = Path(__file__).resolve().parent.parent / \
+        "examples/specs/lm_federated.toml"
+    spec = ExperimentSpec.load(path).replace(**{"task.arch": arch})
+    counters = launch_counters()
+    runs = []
+    for over in ({"engine.name": "eager"}, {"engine.name": "eager"},
+                 {"engine.name": "scan", "engine.chunk": 3}):
+        h = spec.replace(**over).build(device="cuda")
+        for fn in counters.values():
+            fn.launches = 0
+        reset_graph_stats()
+        h.run()
+        calls = spec.engine.rounds if over["engine.name"] == "eager" \
+            else GRAPH_STATS["replays"] + GRAPH_STATS["captures"]
+        leaves = len(tree_leaves(h.data.params0))
+        assert counters["ens"].launches == leaves * calls
+        assert counters["prox_update"].launches == \
+            leaves * spec.algorithm.k0 * calls
+        runs.append((_lm_state(h.sim), h.sim.ledger.total))
+    for state, total in runs[1:]:
+        assert total == runs[0][1]
+        assert all(torch.equal(a, b) for a, b in zip(state, runs[0][0]))

@@ -20,9 +20,15 @@ Held to:
   same ``RTOL`` (the gradient's differences above, damped by the prox
   step's 1/(eta + mu): observed 2e-7 of the largest |w|); the
   ``--checkpoint`` file read by JAX's ``restore``;
-- the refusals: families not ported and the mesh mode name ROADMAP queue
-  1 item 14; the lm-field validation and the flag conflicts give JAX's
-  messages.
+- every arch's ``param_logical`` tree: one name per axis of each leaf of
+  ``init``'s tree, and JAX's tree;
+- the refusals: prefill, decode and the mesh mode name ROADMAP queue 1
+  item 14; the lm-field validation (an unknown arch included) and the
+  flag conflicts give JAX's messages; the entry points and the checkpoint
+  loaders ask for the card unless given a device.
+
+The moe, xlstm and hybrid families have files of their own
+(``test_torch_moe.py``, ``test_torch_xlstm.py``, ``test_torch_ssm.py``).
 """
 from __future__ import annotations
 
@@ -42,17 +48,20 @@ from repro.core.tasks import make_chunked_lm_loss, make_lm_loss
 from repro.data import lm as jlm
 from repro.launch import train as jtrain
 from repro.models import dense as jdense
+from repro.models import logical as jlogical
 from repro.models import registry as jregistry
 from repro_torch import configs as tconfigs
 from repro_torch import random as trandom
 from repro_torch import spec as tspec
 from repro_torch.checkpoint import npz as tnpz
 from repro_torch.checkpoint.convert import (lm_params_from_numpy,
-                                            lm_params_to_numpy)
+                                            lm_params_to_numpy,
+                                            state_from_numpy)
 from repro_torch.core.tasks import ChunkedLMLoss, LMLoss
 from repro_torch.core.treeutil import tmap, tree_leaves
 from repro_torch.data import lm as tlm
 from repro_torch.launch import paper, train
+from repro_torch.models import logical as tlogical
 from repro_torch.models import registry as tregistry
 from repro_torch.sim.server import KeyedDraws
 
@@ -118,7 +127,7 @@ def test_reduced_init_matches_jax_bitwise(arch):
             jax.tree_util.keystr(path)
     # the numpy round trip is exact and keeps JAX's tree
     back = lm_params_to_numpy(lm_params_from_numpy(
-        jax.device_get(want)))
+        jax.device_get(want), device="cpu"))
     assert jax.tree_util.tree_structure(back) == \
         jax.tree_util.tree_structure(want)
 
@@ -145,7 +154,7 @@ def _client_batches(cfg, seed=3):
 def test_logits_losses_and_client_grads_match_jax(arch):
     jcfg, tcfg, jm, tm = _models(arch)
     jp = jm.init(jax.random.PRNGKey(1))
-    tp = lm_params_from_numpy(jax.device_get(jp))
+    tp = lm_params_from_numpy(jax.device_get(jp), device="cpu")
     raw = _client_batches(jcfg)
     jb = {k: jnp.asarray(v) for k, v in raw.items()}
     tb = {k: torch.from_numpy(v) for k, v in raw.items()}
@@ -172,7 +181,7 @@ def test_chunked_ce_matches_jax():
     """Chunks of 5 over T = 16: three full chunks and a padded one."""
     jcfg, tcfg, jm, _ = _models("smollm-135m")
     jp = jm.init(jax.random.PRNGKey(2))
-    tp = lm_params_from_numpy(jax.device_get(jp))
+    tp = lm_params_from_numpy(jax.device_get(jp), device="cpu")
     raw = _client_batches(jcfg, seed=4)
     raw["loss_mask"][:, 1, 10:] = 0.0
     jchunk = make_chunked_lm_loss(
@@ -239,7 +248,7 @@ def test_lm_spec_through_train_matches_jax(engine, tmp_path, capsys):
     # the checkpoints: the port's file is the final w_tau, and JAX's and
     # the port's restore read each other's
     jtree, jmeta = jrestore(str(tmp_path / "port"))
-    ttree, tmeta = tnpz.restore(str(tmp_path / "jax"))
+    ttree, tmeta = tnpz.restore(str(tmp_path / "jax"), device="cpu")
     assert jmeta == tmeta == {"arch": "smollm-135m",
                               "spec": "lm/smollm-reduced/sync"}
     for a, b in zip(jax.tree_util.tree_leaves(jtree),
@@ -258,23 +267,44 @@ def test_fedepm_checkpoint_round_trips(tmp_path):
     jtree, meta = jrestore(str(tmp_path / "st"))
     assert np.asarray(jtree["key"]).dtype == np.uint32
     assert meta["fedepm_config"]["m"] == "4"
-    back, _ = tnpz.restore_fedepm(str(tmp_path / "st"))
+    back, _ = tnpz.restore_fedepm(str(tmp_path / "st"), device="cpu")
     assert back.k == h.sim.state.k
     assert torch.equal(back.key, h.sim.state.key)
     for a, b in zip(tree_leaves(back.W), tree_leaves(h.sim.state.W)):
         assert torch.equal(a, b)
     jsave(str(tmp_path / "j"), {"a": np.arange(3, dtype=np.int32)})
-    assert tnpz.restore(str(tmp_path / "j"))[0]["a"].tolist() == [0, 1, 2]
+    assert tnpz.restore(str(tmp_path / "j"), device="cpu")[0]["a"] \
+        .tolist() == [0, 1, 2]
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-125m",
-                                  "zamba2-1.2b"])
-def test_families_not_ported_name_item_14(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        tregistry.get_model(tconfigs.get_reduced(arch))
-    spec = tspec.ExperimentSpec.load(LM_SPEC).replace(**{"task.arch": arch})
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        spec.build(device="cpu")
+def _logical_pairs(logical, params):
+    """(axis names, leaf) pairs of a ``param_logical`` tree and a param
+    tree of the same structure; a tuple of names is one leaf."""
+    if isinstance(logical, dict):
+        assert sorted(logical) == sorted(params)
+        for k in logical:
+            yield from _logical_pairs(logical[k], params[k])
+    elif isinstance(logical, list):
+        assert isinstance(params, list) and len(logical) == len(params)
+        for a, b in zip(logical, params):
+            yield from _logical_pairs(a, b)
+    else:
+        yield logical, params
+
+
+@pytest.mark.parametrize("arch", tconfigs.ALL_ARCHS)
+def test_param_logical_matches_init_and_jax(arch):
+    """Every family's logical tree names each leaf of ``init``'s tree, one
+    name per axis, and is JAX's ``param_logical``."""
+    jcfg, tcfg = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
+    logical = tlogical.param_logical(tcfg)
+    assert logical == jlogical.param_logical(jcfg)
+    params = tregistry.get_model(tcfg).init(trandom.PRNGKey(0))
+    pairs = list(_logical_pairs(logical, params))
+    assert len(pairs) == len(tree_leaves(params))
+    for names, leaf in pairs:
+        assert all(isinstance(n, str) for n in names)
+        assert len(names) == leaf.dim(), (names, tuple(leaf.shape))
 
 
 def test_prefill_and_the_mesh_mode_name_item_14(capsys):
@@ -329,10 +359,28 @@ def test_train_refuses_a_logreg_spec_as_jax(capsys):
     assert got.replace("repro_torch.", "repro.") == want
 
 
-def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
-    """``get_task``, ``KeyedDraws`` and ``train`` name no device: they ask
-    for the card, and without one they raise."""
+def test_entry_points_run_on_the_card_unless_asked(monkeypatch, tmp_path):
+    """``get_task``, ``KeyedDraws``, ``train`` and the checkpoint loaders
+    (``restore``, ``restore_fedepm``, ``state_from_numpy``,
+    ``lm_params_from_numpy``) name no device: they ask for the card, and
+    without one they raise."""
+    tnpz.save(str(tmp_path / "t"), {"a": np.arange(3, dtype=np.int32)})
+    spec = tspec.ExperimentSpec.load(LM_SPEC)
+    h = spec.build(device="cpu")
+    tnpz.save_fedepm(str(tmp_path / "st"), h.sim.state, h.sim.cfg)
+    leaves = {"w_tau": np.zeros(3, np.float32),
+              "W": np.zeros((2, 3), np.float32),
+              "Z": np.zeros((2, 3), np.float32), "k": np.int32(0)}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for load in (lambda: tnpz.restore(str(tmp_path / "t")),
+                 lambda: tnpz.restore_fedepm(str(tmp_path / "st")),
+                 lambda: state_from_numpy(leaves),
+                 lambda: lm_params_from_numpy({"a": leaves["W"]})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load()
+    assert tnpz.restore(str(tmp_path / "t"), device="cpu")[0]["a"] \
+        .device.type == "cpu"
+    assert state_from_numpy(leaves, device="cpu").W.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         paper.get_task(4, d=100)
     with pytest.raises(RuntimeError, match="CUDA"):

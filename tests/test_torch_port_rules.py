@@ -108,7 +108,7 @@ def test_state_roundtrip():
               "W": rng.standard_normal((5, 14)).astype(np.float32),
               "Z": {"a": rng.standard_normal((5, 3)).astype(np.float32)},
               "k": np.int32(24)}
-    state = state_from_numpy(leaves)
+    state = state_from_numpy(leaves, device="cpu")
     assert state.k == 24 and isinstance(state.W, torch.Tensor)
     back = state_to_numpy(state)
     for key in ("w_tau", "W"):

@@ -1,8 +1,8 @@
 """XLA:CPU's f32 arithmetic in the port's plain versions
 (``repro_torch.core.xla_cpu``) against jitted JAX on the CPU, bit for bit:
 
-- ``exp``, ``log1p``, ``log`` and ``softplus`` on 100,000-350,000 inputs
-  each, softplus's range included;
+- ``exp``, ``log1p``, ``log``, ``softplus``, ``tanh`` and ``expm1`` on
+  100,000-350,000 inputs each, softplus's range included;
 - the logistic loss per client (vmapped), the global objective f and the
   vmapped per-client gradient at the paper's width (d = 45222, m = 50 and
   128) and at a small one;
@@ -47,6 +47,12 @@ def _inputs(kind: str) -> np.ndarray:
     elif kind == "log1p":
         x = [rng.uniform(0, 1, 200_000), rng.uniform(-0.99, 3, 100_000),
              10 ** rng.uniform(-30, 0, 50_000)]
+    elif kind == "tanh":
+        x = [rng.normal(size=100_000) * 4, rng.uniform(-30, 30, 100_000),
+             10 ** rng.uniform(-8, 0, 50_000)]
+    elif kind == "expm1":
+        x = [rng.uniform(-1, 1, 200_000), rng.uniform(-90, 60, 100_000),
+             10 ** rng.uniform(-8, 0, 50_000), np.array([0.0, -0.0])]
     elif kind == "log":
         x = [rng.uniform(0, 4, 200_000), 10 ** rng.uniform(-37, 37, 100_000),
              np.array([0.0, np.inf, -1.0, 1.0, np.nan])]
@@ -57,7 +63,8 @@ def _inputs(kind: str) -> np.ndarray:
 
 @pytest.mark.parametrize("name,jfn", [
     ("exp", jnp.exp), ("log1p", jnp.log1p), ("log", jnp.log),
-    ("softplus", jax.nn.softplus)])
+    ("softplus", jax.nn.softplus), ("tanh", jnp.tanh),
+    ("expm1", jnp.expm1)])
 def test_elementwise_bitwise(name, jfn):
     x = _inputs(name)
     _bits_equal(getattr(xla_cpu, name)(torch.from_numpy(x)),
