@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero before the last line:
    counts and the counters; then the paper path, SFedAvg and SFedProx at
    m = 128 and simulator configuration (a), cut to 10 rounds; then the
    full-width LM spec, 2 eager rounds and 2 engine rounds, on smollm-135m
-   and on xlstm-125m. Each gives the
+   and on xlstm-125m; then serving at full width on smollm-135m,
+   xlstm-125m and zamba2-1.2b in turn in one process, the 8 eager decode
+   steps and the graph's 8 replays. Each gives the
    device's busy time and idle share under ``torch.profiler``.
 4. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main path's shape, edge shapes and a full smollm-135m
@@ -90,13 +92,29 @@ Phases, in order; any failure exits non-zero before the last line:
    3 bitwise, f/m within 4e-6 of ``JAX_LM_FAMILIES`` and its bytes
    exactly, and eager with the 8-bit codec, its bytes JAX's. The kernel
    phase holds prox and ENS at xlstm's widest leaf, (4, 38,633,472).
+   Then the ``serve`` phase, ``launch/serve.py``'s ``serve`` (init,
+   JAX's prompts, prefill, greedy decode; ROADMAP queue 1 item 14.2):
+   smollm-135m, xlstm-125m and zamba2-1.2b at full width and serve's
+   defaults (B 4, prompt 64, 8 new tokens), eager twice (the same bits)
+   and the decode as replays of one CUDA graph, bit for bit the eager
+   run (tokens, logits, every state leaf); smollm-135m at B 8, prompt
+   1024, 128 new tokens; reduced (f32) smollm-135m, mixtral-8x7b,
+   llava-next-34b, xlstm-125m and zamba2-1.2b, held to ``JAX_SERVE``
+   (tokens exact, digests within 4e-6). No TPU kernel runs there (their
+   counters stay 0); the threefry hash draws the init and the prompts.
+   Each case prints prefill ms, decode ms a token (eager and graph),
+   tok/s, peak device memory and the decode state's bytes; the profiles
+   give launches a token and the device's idle share.
 6. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
    the same key (masks bitwise); the reduced LM spec (f32) on the card
    against the CPU and ``JAX_LM_REDUCED``, and the full-width LM run
    against the port's CPU path on this host from the card's initial params
    and noise planes (f/m within ``LM_F_RTOL``); one round of full-width
-   xlstm-125m likewise.
+   xlstm-125m likewise; full-width smollm-135m's serve (prefill and two
+   decode steps, teacher forced by the card's tokens): the greedy tokens'
+   negative log-likelihood within ``LM_F_RTOL`` and the logits within
+   ``SERVE_BF16_NOISE`` times the CPU path's distance from f32.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -2074,6 +2092,440 @@ def check_xlstm_card_vs_cpu(families: dict) -> dict:
     return out
 
 
+# serving (ROADMAP queue 1 item 14.2): ``launch/serve.py``'s flow (init from
+# PRNGKey(0), prompts from randint(PRNGKey(1)), prefill, greedy decode) at
+# full width for SERVE_FULL at serve's defaults and for smollm-135m at a
+# chat-sized request (SERVE_CHAT); reduced (f32) for JAX_SERVE's archs,
+# held to JAX's registry functions driven by serve's loop with no mesh,
+# with jax 0.9.0 on the CPU (tests/test_torch_serve.py and
+# test_torch_serve_recurrent.py recompute them): greedy tokens exact, and
+# of the prefill's logits, each step's logits and each final state leaf
+# (``tree_leaves`` order) the largest |value| and SERVE_PROBES values at
+# evenly spaced flat indices (f32 printed shortest; ints exact), held
+# within STATE_RTOL of max(1, largest |value|). No TPU kernel lies on the
+# path; the threefry hash draws the init and the prompts.
+SERVE_FULL = ("smollm-135m", "xlstm-125m", "zamba2-1.2b")
+SERVE_DEFAULTS = {"batch": 4, "prompt_len": 64, "new_tokens": 8}
+SERVE_CHAT = {"batch": 8, "prompt_len": 1024, "new_tokens": 128}
+# full width against the port's CPU path: zamba2's CPU prefill takes 6-9 s
+# on an H100 host's CPU, well under a minute
+SERVE_CPU = ("smollm-135m", "zamba2-1.2b")
+SERVE_PROBES = 4
+JAX_SERVE = {
+    "smollm-135m": {
+        "tokens": [
+            [88, 214, 395, 88, 30, 88, 214, 214, 214],
+            [508, 508, 508, 508, 508, 508, 508, 508, 508],
+            [352, 245, 495, 352, 345, 352, 409, 495, 321],
+            [177, 507, 507, 507, 507, 507, 507, 507, 507]],
+        "prefill_logits":
+            [0.7473572, -0.0113091385, -0.12418083, -0.12130648, -0.5465107],
+        "logits": [
+            [0.80205595, 0.09715239, -0.24761434, 0.051227205, -0.4292107],
+            [0.76162606, 0.18477829, -0.20820756, 0.05603088, -0.48544246],
+            [0.757219, 0.16176376, -0.28083923, 0.16812138, -0.47800678],
+            [0.732756, 0.12200986, -0.26474473, 0.15102753, -0.4580526],
+            [0.72363734, 0.20232803, -0.23272955, 0.17433012, -0.44958717],
+            [0.73151916, 0.07589956, -0.2275461, 0.12320172, -0.43262154],
+            [0.7491863, 0.14301093, -0.24062085, -0.05405125, -0.42535603],
+            [0.7579946, 0.14963223, -0.24737406, 0.13842542, -0.45146576]],
+        "state": [
+            [4.798086, 0.7691766, -2.9673798, 0.13781965, -0.40574837],
+            [72, 72, 72, 72, 72],
+            [71, 0, 48, 23, 71],
+            [3.8679607, -1.3976543, -0.13461742, 0.50170773, -1.1059268]]},
+    "mixtral-8x7b": {
+        "tokens": [
+            [272, 157, 297, 276, 34, 492, 485, 196, 241],
+            [285, 31, 39, 323, 226, 432, 250, 105, 261],
+            [193, 433, 79, 84, 99, 201, 31, 474, 297],
+            [297, 408, 339, 179, 179, 179, 459, 375, 29]],
+        "prefill_logits":
+            [3.5678275, -0.034903288, 0.5793149, 0.7795703, 1.327219],
+        "logits": [
+            [3.6715193, -0.19116265, -0.77655625, 0.8884717, 0.9717059],
+            [3.7072153, 0.6841701, -1.5989307, 1.2692134, 2.1110764],
+            [3.8698187, -1.664494, -0.88256806, -2.491973, -0.008303836],
+            [3.573461, -0.5361466, -1.1152928, 0.07855341, 0.05252245],
+            [3.603066, -1.7833432, 0.3203194, -0.29915947, 0.64807016],
+            [4.4465876, -0.81342024, 1.4236888, -0.12581976, -0.89531755],
+            [3.340125, 0.16720378, 0.085494146, -0.07399106, 0.94210744],
+            [3.5156338, -2.5272906, -2.3367414, 0.5629105, 1.276216]],
+        "state": [
+            [3.9254804, -0.5165435, 1.1298103, 0.3702616, -1.1764314],
+            [72, 72, 72, 72, 72],
+            [71, 64, 58, 69, 63],
+            [3.7393317, 0.45329782, 0.23982486, -1.7454957, 0.55673546]]},
+    "llava-next-34b": {
+        "tokens": [
+            [383, 393, 393, 393, 393, 507, 393, 507, 393],
+            [315, 100, 315, 447, 35, 311, 447, 311, 142],
+            [177, 396, 164, 425, 507, 386, 470, 164, 264],
+            [162, 455, 132, 455, 132, 455, 455, 132, 239]],
+        "prefill_logits":
+            [3.369149, -0.9229108, -1.6384381, 0.019600663, 1.4975889],
+        "logits": [
+            [3.6381493, -0.15129292, -1.869039, 0.4395919, 0.7812271],
+            [3.4724267, -0.059991896, -1.1458002, -0.23731387, 0.8131666],
+            [3.67978, 0.22169483, -1.0933543, -0.47530827, 1.0276134],
+            [3.1711414, 0.006999016, -1.3454645, -0.100276396, 1.1677655],
+            [3.3450127, -0.2852827, -1.3372904, -0.6815776, 0.5169585],
+            [3.3545253, 0.08980289, -0.37050188, -0.91163176, 1.2388303],
+            [3.403519, -0.5036595, -0.36794138, 0.83367026, 0.9680582],
+            [3.7701912, 0.22784752, -0.12341659, 0.17029592, 0.97888076]],
+        "state": [
+            [4.4362187, -0.06533787, 1.1634132, -2.040487, -0.13958983],
+            [88, 88, 88, 88, 88],
+            [87, 0, 58, 29, 87],
+            [4.3881245, -0.9438945, -0.50108725, 1.5092721, 0.7458944]]},
+    "xlstm-125m": {
+        "tokens": [
+            [135, 484, 135, 176, 176, 267, 267, 416, 187],
+            [279, 101, 23, 136, 182, 321, 508, 316, 508],
+            [160, 313, 469, 321, 160, 313, 469, 253, 313],
+            [511, 511, 511, 511, 151, 295, 129, 157, 191]],
+        "prefill_logits":
+            [3.2617383, 0.16532487, 0.11628717, 0.05950077, 2.8560681],
+        "logits": [
+            [3.3974123, 0.963694, 0.037312567, -0.12460828, 2.8457994],
+            [4.020506, 0.2290322, -1.41257, 0.65454805, 2.8486679],
+            [3.7759366, 1.4581231, -0.20848453, -0.5011792, 2.275679],
+            [4.099662, -0.17892288, -0.58040375, -0.07575685, 1.3737161],
+            [3.5356796, -0.029003043, -0.1524382, 0.44046164, 1.6367888],
+            [3.9245207, -0.04862891, -0.15874273, 0.537431, 1.4341664],
+            [4.314444, -0.020259649, -1.0391684, -0.43912902, 0.9041648],
+            [4.035321, -0.36191344, -1.4988635, 0.100837305, 1.2317195]],
+        "state": [
+            [72, 72, 72, 72, 72],
+            [7.116901, 4.2553368, -2.5747318, -0.86430115, -0.8694835],
+            [21.206186, 14.508715, 20.953896, 19.945818, 15.725885],
+            [0.3399145, 0.3399145, -0.010918159, 0.019243836, 0.27719444],
+            [0.30145076, 0.17241988, -0.095148094, -0.028243488, -0.019620432],
+            [98.794075, -8.392862, -4.7007666, -8.876356, -1.4254724],
+            [55.499146, -16.39775, 2.6585946, -10.143616, -1.3841498],
+            [0.3702436, 0.07113857, -0.084023125, 0.3702436, -0.23227736]]},
+    "zamba2-1.2b": {
+        "tokens": [
+            [402, 402, 402, 402, 402, 433, 221, 402, 402],
+            [447, 187, 407, 442, 201, 116, 142, 29, 116],
+            [384, 85, 363, 161, 83, 195, 110, 510, 71],
+            [83, 471, 511, 296, 67, 511, 269, 269, 233]],
+        "prefill_logits":
+            [3.4639134, 0.54610825, -0.31421435, 0.44103602, 2.7938123],
+        "logits": [
+            [3.3048775, -0.6696887, -0.7196477, 0.4460883, 2.0578194],
+            [3.3555481, -0.58187133, -0.8025827, 0.7184717, 2.5992813],
+            [3.0850992, -0.8276651, -1.0619985, -0.9788765, 1.5052545],
+            [3.5525355, -1.3055412, -0.7280551, -0.1876795, 2.2027493],
+            [3.4035153, -0.9961357, -1.0463759, 0.67611873, 2.5109491],
+            [3.3775396, 0.014432371, -0.6304303, -0.8251996, 1.5940584],
+            [3.1377954, -0.47458827, -1.0488665, -0.16346687, 0.77125794],
+            [3.5906525, -0.0015157759, -1.0675316, -0.3051731, 1.2061937]],
+        "state": [
+            [4.474621, 0.31231457, 2.0990682, -0.8908941, -0.53823817],
+            [72, 72, 72, 72, 72],
+            [71, 0, 24, 47, 71],
+            [4.1910663, -1.0916936, 0.1670481, -0.30044276, -1.2372197],
+            [4.2717633, 0.7361544, -1.1057447, -0.43967843, -0.05176911],
+            [72, 72, 72, 72, 72],
+            [71, 0, 24, 47, 71],
+            [4.461822, -1.154773, 0.93416965, 0.86245155, -1.4634273],
+            [4.255494, -2.3158183, 0.17240153, 0.23517607, 0.084345356],
+            [0.34578687, 0.0041991714, 0.022504803, -0.0018341377,
+             -0.00012539218],
+            [3.7764683, -0.26644325, -0.84212184, 0.012248049, -0.30402008],
+            [0.3411589, -0.0026691968, -0.0015225725, 0.0037343616,
+             0.00055636896],
+            [72, 72, 72, 72, 72]]}}
+
+
+def serve_digest(tokens, prefill_logits, logits, state_leaves) -> dict:
+    """What ``JAX_SERVE`` holds of a serve run: the tokens, and of each
+    tensor [largest |value|, SERVE_PROBES values at flat indices spaced
+    evenly from the first to the last] (as Python floats, or ints for an
+    int tensor)."""
+    def summary(t):
+        flat = t.detach().cpu().reshape(-1)
+        n = flat.numel()
+        idx = [round(i * (n - 1) / (SERVE_PROBES - 1))
+               for i in range(SERVE_PROBES)]
+        if flat.is_floating_point():
+            flat = flat.to(torch.float64)
+        return [flat.abs().max().item()] + [flat[i].item() for i in idx]
+    return {"tokens": tokens.cpu().tolist(),
+            "prefill_logits": summary(prefill_logits),
+            "logits": [summary(x) for x in logits],
+            "state": [summary(x) for x in state_leaves]}
+
+
+def check_serve_digest(got: dict, want: dict, what: str) -> float:
+    """Tokens and ints exact; each float within STATE_RTOL of max(1, the
+    tensor's largest |value|). Returns the worst difference over that
+    scale."""
+    assert got["tokens"] == want["tokens"], (what, got["tokens"],
+                                             want["tokens"])
+    pairs = [(got["prefill_logits"], want["prefill_logits"])]
+    for key in ("logits", "state"):
+        assert len(got[key]) == len(want[key]), (what, key)
+        pairs += list(zip(got[key], want[key]))
+    worst = 0.0
+    for g, w in pairs:
+        if all(isinstance(v, int) for v in w):
+            assert g == w, (what, g, w)
+            continue
+        scale = max(1.0, abs(w[0]))
+        err = max(abs(a - b) for a, b in zip(g, w)) / scale
+        assert err <= STATE_RTOL, (what, g, w)
+        worst = max(worst, err)
+    return worst
+
+
+def _serve_equal(a, b, what: str) -> None:
+    from repro_torch.core.treeutil import tree_leaves
+    for name in ("tokens", "prefill_logits", "logits"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), (what, name)
+    la, lb = tree_leaves(a.state), tree_leaves(b.state)
+    assert len(la) == len(lb) and all(
+        torch.equal(x, y) for x, y in zip(la, lb)), (what, "state")
+
+
+def _serve_run(cfg, graph: bool, shape: dict):
+    """One ``serve`` call; (its result, its peak device memory in GB above
+    what the process held when it began)."""
+    from repro_torch.launch.serve import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = serve(cfg, device="cuda", graph=graph, **shape)
+    return res, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _serve_case(tag: str, cfg, shape: dict, twice: bool = True):
+    """One request through ``serve`` with the counters set to 0 just
+    before it: eager (``twice``: again, the same bits), then the CUDA graph
+    decode, held bit for bit to eager (tokens, prefill and step logits,
+    every state leaf). Returns (record, the graph run's result)."""
+    from repro_torch.core.scan import GRAPH_STATS
+    from repro_torch.core.treeutil import tree_leaves
+    n, B = shape["new_tokens"], shape["batch"]
+    reset_counts()
+    eager, peak_eager = _serve_run(cfg, False, shape)
+    if twice:
+        again, peak_eager = _serve_run(cfg, False, shape)
+        _serve_equal(again, eager, f"{tag} eager twice")
+        eager = again
+    graph, peak = _serve_run(cfg, True, shape)
+    _serve_equal(graph, eager, f"{tag} graph = eager")
+    launches = read_counts()
+    assert (GRAPH_STATS["captures"], GRAPH_STATS["replays"]) == (1, n), \
+        GRAPH_STATS
+    assert launches.pop("threefry") > 0, launches
+    assert not any(launches.values()), (tag, launches)
+    rec = {"arch": cfg.name, **shape,
+           "prefill_ms": graph.prefill_s * 1e3,
+           "prefill_ms_eager_run": eager.prefill_s * 1e3,
+           "decode_ms_per_token_eager": eager.steps_s / n * 1e3,
+           "decode_ms_per_token_graph": graph.steps_s / n * 1e3,
+           "capture_s": graph.capture_s,
+           "tok_per_s_graph": n * B / graph.steps_s,
+           "tok_per_s_eager": n * B / eager.steps_s,
+           "peak_mem_gb": peak, "peak_mem_gb_eager": peak_eager,
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(graph.state)),
+           "graph_replays": GRAPH_STATS["replays"],
+           "launches": read_counts()}
+    log(f"serve[{tag}] " + json.dumps(rec))
+    return rec, graph
+
+
+def _param_count(cfg) -> tuple[int, int]:
+    from repro_torch import random
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.models.registry import get_model
+    with torch.inference_mode():
+        leaves = tree_leaves(get_model(cfg).init(
+            random.PRNGKey(0, device="cuda")))
+        out = (sum(t.numel() for t in leaves), len(leaves))
+    del leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serve_path() -> tuple[dict, dict]:
+    """``launch/serve.py``'s ``serve`` on the card, each request a path with
+    the counters set to 0 just before it: SERVE_FULL at full width and
+    serve's defaults (eager twice bitwise, graph = eager bitwise), smollm at
+    SERVE_CHAT (eager once, graph = eager bitwise), and JAX_SERVE's archs
+    reduced, held to JAX's digests. Returns (records, for each of
+    SERVE_CPU the full-width graph run's tokens and its prefill and first
+    two steps' logits, on the host)."""
+    from repro_torch import configs
+    out, keep = {}, {}
+    for arch in SERVE_FULL:
+        cfg = configs.get_config(arch)
+        rec, res = _serve_case(f"{arch} full", cfg, SERVE_DEFAULTS)
+        rec["params"], rec["leaves"] = _param_count(cfg)
+        out[f"{arch}/full"] = rec
+        if arch in SERVE_CPU:
+            keep[arch] = {"tokens": res.tokens.cpu(), "logits": [
+                x.cpu() for x in (res.prefill_logits, *res.logits[:2])]}
+        del res
+    rec, res = _serve_case("smollm-135m chat", configs.get_config(
+        "smollm-135m"), SERVE_CHAT, twice=False)
+    out["smollm-135m/chat"] = rec
+    del res
+    for arch, want in JAX_SERVE.items():
+        from repro_torch.core.treeutil import tree_leaves
+        rec, res = _serve_case(f"{arch} reduced", configs.get_reduced(arch),
+                               SERVE_DEFAULTS, twice=False)
+        got = serve_digest(res.tokens, res.prefill_logits, res.logits,
+                           tree_leaves(res.state))
+        rec["max_err_over_scale_vs_jax"] = check_serve_digest(got, want,
+                                                              arch)
+        log(f"serve[{arch} reduced] tokens and digest JAX's, worst "
+            f"{rec['max_err_over_scale_vs_jax']:.3g} of scale")
+        out[f"{arch}/reduced"] = rec
+        del res
+    torch.cuda.empty_cache()
+    return out, keep
+
+
+def _rel_norm(a, b) -> float:
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def _greedy_ce(logits, tokens) -> float:
+    """The mean over the batch of -log softmax(logits)[token]: the
+    negative log-likelihood of the greedy tokens, serve's f/m."""
+    lf = logits[:, -1].to(torch.float64)
+    return float((torch.logsumexp(lf, dim=-1)
+                  - lf.gather(1, tokens.long()).squeeze(1)).mean())
+
+
+# bf16 serving against the CPU: the card's logits may differ from the CPU
+# path's by at most this many times the CPU path's own distance from the
+# same model run in f32 (a bf16 residual stream and bf16 logits hold 8
+# significant bits, and two bf16 runs round at different places)
+SERVE_BF16_NOISE = 2.0
+
+
+def check_serve_card_vs_cpu(card: dict) -> dict:
+    """For each arch of ``card`` (``run_serve_path``'s second result), at
+    full width: the port's CPU path on this host, from the card's params,
+    the same prompts and the card's greedy tokens (teacher forced: bf16
+    logits can tie), against the card's graph run, over the prefill and
+    the first two decode steps: the greedy
+    tokens' mean negative log-likelihood within LM_F_RTOL of the CPU's,
+    and ||card - cpu|| / ||cpu|| of the logits within SERVE_BF16_NOISE
+    times the CPU path's distance from the same model in f32."""
+    import dataclasses
+    from repro_torch import configs, random
+    from repro_torch.core.treeutil import tmap
+    from repro_torch.launch.serve import greedy, prompt_batch
+    from repro_torch.models.registry import get_model
+    out = {}
+    shape = SERVE_DEFAULTS
+    max_len = shape["prompt_len"] + shape["new_tokens"]
+    for arch, res in card.items():
+        cfg = configs.get_config(arch)
+        toks, card_logits = res["tokens"], res["logits"]
+        with torch.inference_mode():
+            params = tmap(lambda t: t.cpu(), get_model(cfg).init(
+                random.PRNGKey(0, device="cuda")))
+            req = prompt_batch(cfg, shape["batch"], shape["prompt_len"],
+                               "cpu")
+            runs, secs = {}, {}
+            for name, c in (("cpu", cfg), ("cpu_f32", dataclasses.replace(
+                    cfg, dtype=torch.float32))):
+                model = get_model(c)
+                t0 = time.perf_counter()
+                first, state = model.prefill(params, req, max_len=max_len)
+                secs[name + "_prefill_s"] = time.perf_counter() - t0
+                logits = [first]
+                for i in range(2):
+                    step, state = model.decode_step(
+                        params, state, {"tokens": toks[:, i:i + 1]})
+                    logits.append(step)
+                secs[name + "_s"] = time.perf_counter() - t0
+                runs[name] = logits
+        rec = {"rel_norm_card_cpu": [], "rel_norm_cpu_f32": [],
+               "rel_norm_card_f32": [], "nll_card": [], "nll_cpu": [],
+               "greedy_tokens_equal": [], **secs}
+        for i, (g, c, f) in enumerate(zip(card_logits, runs["cpu"],
+                                          runs["cpu_f32"])):
+            rec["rel_norm_card_cpu"].append(_rel_norm(g, c))
+            rec["rel_norm_cpu_f32"].append(_rel_norm(c, f))
+            rec["rel_norm_card_f32"].append(_rel_norm(g, f))
+            rec["nll_card"].append(_greedy_ce(g, toks[:, i:i + 1]))
+            rec["nll_cpu"].append(_greedy_ce(c, toks[:, i:i + 1]))
+            rec["greedy_tokens_equal"].append(
+                torch.equal(greedy(c), toks[:, i:i + 1]))
+        out[arch] = rec
+        log(f"serve_card_vs_cpu[{arch}] " + json.dumps(rec))
+        for a, b in zip(rec["nll_card"], rec["nll_cpu"]):
+            assert abs(a - b) <= LM_F_RTOL * abs(b), (arch, rec)
+        for a, b in zip(rec["rel_norm_card_cpu"], rec["rel_norm_cpu_f32"]):
+            assert a <= SERVE_BF16_NOISE * b, (arch, rec)
+        del params, state, runs
+    return out
+
+
+def profile_serve_path() -> dict:
+    """``profile_serve_arch`` for each of SERVE_FULL in turn, in this one
+    process (each has its own profiler session and frees its model)."""
+    out = {}
+    for arch in SERVE_FULL:
+        out[arch] = profile_serve_arch(arch)
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_serve_arch(arch: str) -> dict:
+    """``arch`` at full width and serve's defaults: after a prefill and one
+    unprofiled decode of each kind (the graph captured there), the
+    ``new_tokens`` eager steps and the graph's ``new_tokens`` replays,
+    each in a span, from the same start."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import configs, random
+    from repro_torch.launch.serve import Decoder, greedy, prompt_batch
+    from repro_torch.models.registry import get_model
+    cfg = configs.get_config(arch)
+    model = get_model(cfg)
+    n, B = SERVE_DEFAULTS["new_tokens"], SERVE_DEFAULTS["batch"]
+    Tp = SERVE_DEFAULTS["prompt_len"]
+    with torch.inference_mode():
+        params = model.init(random.PRNGKey(0, device="cuda"))
+        first, state = model.prefill(params, prompt_batch(cfg, B, Tp, "cuda"),
+                                     max_len=Tp + n)
+        tok = greedy(first)
+        decoders = {"eager": Decoder(model, params, graph=False),
+                    "graph": Decoder(model, params, graph=True)}
+        for dec in decoders.values():
+            dec.load(state, tok, n)
+            dec.steps()
+            dec.load(state, tok, n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for name, dec in decoders.items():
+                with record_function(f"serve.{name}"):
+                    dec.steps()
+                    torch.cuda.synchronize()
+    out = {}
+    for name in decoders:
+        _, stats = _profile_window(prof, f"serve.{name}", n)
+        out[name] = stats
+        log(f"profile serve.{name} [{arch}] " + json.dumps(
+            {k: stats[k] for k in ("wall_ms_per_round",
+                                   "device_busy_ms_per_round",
+                                   "device_idle_share",
+                                   "device_ops_per_round",
+                                   "graph_ops_per_round")}))
+    return out
+
+
 # JAX's host numbers for examples/specs/fig9_privacy.toml (deadline,
 # 8-bit codec, Laplace transport DP with clip and secure aggregation):
 # ``repro.spec.ExperimentSpec.load(...).build().run()`` with jax 0.9.0 on
@@ -2455,6 +2907,7 @@ PROFILES = {
     "lm": (profile_lm_path, (), ("profile_lm_path",)),
     "lm.xlstm": (profile_lm_path, (2, {"task.arch": XLSTM}, XLSTM_LEAVES),
                  ("profile_lm_path_xlstm",)),
+    "serve": (profile_serve_path, (), ("profile_serve_path",)),
 }
 
 
@@ -2541,6 +2994,7 @@ def main() -> int:
               "twins": run_twins_path(),
               "lm_path": run_lm_path(),
               "lm_families": run_lm_families()}
+    record["serve"], serve_cpu = run_serve_path()
     paths = {"run_fedepm": record["main_path"]["launches"]}
     paths.update({f"simulate.{key}": res["launches"]
                   for key, res in record["sim_path"].items()})
@@ -2565,6 +3019,8 @@ def main() -> int:
     paths.update({f"lm_families.{arch}.{key}": res["launches"]
                   for arch, recs in record["lm_families"].items()
                   for key, res in recs.items() if key != "jax"})
+    paths.update({f"serve.{key}": res["launches"]
+                  for key, res in record["serve"].items()})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2577,6 +3033,8 @@ def main() -> int:
     record["lm_card_vs_cpu"] = check_lm_card_vs_cpu(record["lm_path"])
     record["xlstm_card_vs_cpu"] = check_xlstm_card_vs_cpu(
         record["lm_families"])
+    record["serve_card_vs_cpu"] = check_serve_card_vs_cpu(serve_cpu)
+    del serve_cpu
     phases["card_vs_cpu_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_start
     log("phases " + json.dumps(phases))

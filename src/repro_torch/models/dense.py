@@ -1,5 +1,4 @@
-"""Dense GQA transformer family; the counterpart of ``repro.models.dense``
-for the training forward.
+"""Dense GQA transformer family; the counterpart of ``repro.models.dense``.
 
 Covers: phi3-mini / phi3-medium (RoPE+SwiGLU+GQA, pre-RMSNorm),
 smollm-135m (llama-arch), command-r-35b (parallel attn+ffn block,
@@ -12,8 +11,13 @@ leaves stacked on a leading L axis, as JAX's vmapped ``init_layer`` and
 ``lax.scan`` hold them. The forward functions take the params with a
 leading client axis m and the batch as (m, B, T) (a single model is
 m = 1; ``models/registry.py`` adds and removes that axis), and run the
-layers in order over the L axis. ``prefill`` and ``decode_step`` wait for
-a later slice (ROADMAP queue 1 item 14).
+layers in order over the L axis.
+
+Serving: ``prefill`` runs the forward over the prompt and builds one KV
+cache per layer (``layers.cache_from_prefill``, stacked on L like the
+params), returning only the last position's logits; ``decode_step`` runs
+one token through the caches, its position the cache's ``next``. The decode
+state is JAX's, ``{"caches": {k, v, pos, next}}``, each leaf (m, L, ...).
 """
 from __future__ import annotations
 
@@ -22,13 +26,19 @@ import torch
 from repro_torch import random
 from repro_torch.core.treeutil import tree_leaves, tree_unflatten
 from repro_torch.models.config import ArchConfig
+from repro_torch.kernels.common import resolve_device
 from repro_torch.models.layers import (
+    CacheSpec,
     apply_mlp,
     apply_norm,
     attention,
+    cache_from_prefill,
+    cache_write,
+    decode_attention,
     dense_init,
     embed_init,
     init_attention,
+    init_cache,
     init_mlp,
     init_norm,
     out_proj,
@@ -83,6 +93,8 @@ def init(key, cfg: ArchConfig):
 
 
 def _attn_full(x, p, cfg: ArchConfig, positions):
+    """Attention over the whole sequence; (output, k, v), k and v after
+    RoPE (what the cache holds)."""
     q, k, v = qkv_proj(x, p)
     if cfg.rope_theta > 0 and cfg.attention == "causal":
         q = rope(q, positions, cfg.rope_theta)
@@ -90,19 +102,25 @@ def _attn_full(x, p, cfg: ArchConfig, positions):
     mode = "bidirectional" if cfg.attention == "bidirectional" else "causal"
     o = attention(q, k, v, mode=mode, window=cfg.sliding_window,
                   positions=positions)
-    return out_proj(o, p)
+    return out_proj(o, p), k, v
 
 
-def block_forward(x, lp, cfg: ArchConfig, positions):
-    """One layer over x (m, B, T, d); ``lp`` holds that layer's leaves
-    (m, ...)."""
-    h = apply_norm(x, lp["ln_attn"], cfg.norm)
-    attn_out = _attn_full(h, lp["attn"], cfg, positions)
+def _mlp_residual(x, h, attn_out, lp, cfg: ArchConfig):
+    """The block after its attention: the parallel block adds the MLP of
+    the same normed input ``h``, the sequential one normalises again."""
     if cfg.parallel_block:
         return x + attn_out + apply_mlp(h, lp["mlp"], cfg.mlp)
     x = x + attn_out
     h2 = apply_norm(x, lp["ln_mlp"], cfg.norm)
     return x + apply_mlp(h2, lp["mlp"], cfg.mlp)
+
+
+def block_forward(x, lp, cfg: ArchConfig, positions):
+    """One layer over x (m, B, T, d); ``lp`` holds that layer's leaves
+    (m, ...). Returns (x, k, v)."""
+    h = apply_norm(x, lp["ln_attn"], cfg.norm)
+    attn_out, k, v = _attn_full(h, lp["attn"], cfg, positions)
+    return _mlp_residual(x, h, attn_out, lp, cfg), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -162,19 +180,115 @@ def unembed(x, params, cfg: ArchConfig):
     return logits * cfg.logit_scale
 
 
+def layer_params(layers, n: int) -> list:
+    """The L-stacked layer tree as n per-layer trees of views: one unbind
+    per leaf, whose backward stacks the L layer gradients in one write,
+    where a slice per layer would add L zero-padded full copies."""
+    per_layer = [t.unbind(1) for t in tree_leaves(layers)]
+    return [tree_unflatten(layers, [u[i] for u in per_layer])
+            for i in range(n)]
+
+
 def hidden(params, batch, cfg: ArchConfig):
     """Forward to the final norm, without the unembedding (for the chunked
     CE)."""
     x, positions = embed_inputs(params, batch, cfg)
-    layers = params["layers"]
-    # one unbind per leaf: its backward stacks the L layer gradients in one
-    # write, where a slice per layer would add L zero-padded full copies
-    per_layer = [t.unbind(1) for t in tree_leaves(layers)]
-    for i in range(cfg.n_layers):
-        lp = tree_unflatten(layers, [u[i] for u in per_layer])
-        x = block_forward(x, lp, cfg, positions)
+    for lp in layer_params(params["layers"], cfg.n_layers):
+        x, _, _ = block_forward(x, lp, cfg, positions)
     return apply_norm(x, params["ln_f"], cfg.norm)
 
 
 def apply(params, batch, cfg: ArchConfig):
     return unembed(hidden(params, batch, cfg), params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def _cache_spec(cfg: ArchConfig, batch_size: int, seq_len: int) -> CacheSpec:
+    size = seq_len if cfg.sliding_window is None else min(
+        seq_len, cfg.sliding_window)
+    return CacheSpec(batch=batch_size, size=size, kv_heads=cfg.n_kv_heads,
+                     head_dim=cfg.hd, dtype=cfg.dtype)
+
+
+def init_decode_state(cfg: ArchConfig, batch_size: int, seq_len: int,
+                      prefill_len, device=None):
+    """An empty decode state of one model, in JAX's layout (no client
+    axis): per-layer caches (L, ...) with ``next`` = ``prefill_len``.
+    ``device`` defaults to the card (``resolve_device``)."""
+    dev = resolve_device(device)
+    caches = init_cache(_cache_spec(cfg, batch_size, seq_len),
+                        (cfg.n_layers,), dev)
+    caches["next"] = torch.as_tensor(prefill_len, dtype=torch.int32,
+                                     device=dev).expand(
+        cfg.n_layers, batch_size).contiguous()
+    return {"caches": caches}
+
+
+def _prefill_len(batch, m: int, B: int, T: int, device):
+    plen = batch.get("prefill_len")
+    if plen is None:
+        return torch.full((m, B), T, dtype=torch.int32, device=device)
+    return plen.to(torch.int32)
+
+
+def prefill(params, batch, cfg: ArchConfig, max_len=None):
+    """The forward over the prompt (m, B, T) and each layer's cache, sized
+    for ``max_len`` (default T: no decode headroom) and valid up to
+    ``batch["prefill_len"]`` (m, B) (default T). Returns the last
+    position's logits (m, B, 1, V), whatever ``prefill_len``, as JAX
+    does, and the decode state."""
+    return prefill_layers(params, batch, cfg, max_len, block_forward)
+
+
+def prefill_layers(params, batch, cfg: ArchConfig, max_len, block):
+    """``prefill`` with ``block(x, lp, cfg, positions) -> (x, k, v)`` as
+    the layer (the moe family's block too)."""
+    x, positions = embed_inputs(params, batch, cfg)
+    m, B, T = x.shape[:3]
+    plen = _prefill_len(batch, m, B, T, x.device)
+    spec = _cache_spec(cfg, B, max_len or T)
+    caches = []
+    for lp in layer_params(params["layers"], cfg.n_layers):
+        x, k, v = block(x, lp, cfg, positions)
+        caches.append(cache_from_prefill(k, v, spec, plen))
+    x = apply_norm(x, params["ln_f"], cfg.norm)
+    stacked = {name: torch.stack([c[name] for c in caches], dim=1)
+               for name in caches[0]}                 # (m, L, ...)
+    return unembed(x[:, :, -1:], params, cfg), {"caches": stacked}
+
+
+def decode_step(params, state, batch, cfg: ArchConfig):
+    """One token (m, B, 1) through every layer's cache. Returns (logits
+    (m, B, 1, V), the new state); the old state is left as it was."""
+    return decode_layers(params, state, batch, cfg, _mlp_residual)
+
+
+def decode_layers(params, state, batch, cfg: ArchConfig, after_attn):
+    """``decode_step`` with ``after_attn(x, hn, attn_out, lp, cfg) -> x``
+    as the rest of each layer after its attention (the moe family's MLP
+    too). The new caches are one clone of the stacked old ones, each
+    layer's token written into its slice."""
+    x, _ = embed_inputs(params, {"tokens": batch["tokens"]}, cfg)
+    old = state["caches"]
+    pos = old["next"][:, 0]                      # (m, B), the same per layer
+    positions = pos[..., None]
+    new = {name: old[name].clone() for name in ("k", "v", "pos")}
+    for i, lp in enumerate(layer_params(params["layers"], cfg.n_layers)):
+        hn = apply_norm(x, lp["ln_attn"], cfg.norm)
+        q, k, v = qkv_proj(hn, lp["attn"])
+        if cfg.rope_theta > 0 and cfg.attention == "causal":
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        cache = {name: new[name][:, i] for name in ("k", "v", "pos")}
+        cache["next"] = old["next"][:, i]
+        cache_write(cache, k, v)
+        o = decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                             window=cfg.sliding_window, q_position=pos)
+        x = after_attn(x, hn, out_proj(o, lp["attn"]), lp, cfg)
+    new["next"] = old["next"] + 1
+    x = apply_norm(x, params["ln_f"], cfg.norm)
+    return unembed(x, params, cfg), {"caches": new}

@@ -15,10 +15,16 @@ Compute is in ``x.dtype`` with each weight cast at its use, as JAX's
 softmax in f32 over GQA groups, query head h reading kv head h // (H /
 Hkv), with JAX's -1e30 mask bias and its output divide: plain torch ops,
 whose backward has no atomics, so a round gives the same bits on every
-run and inside a CUDA graph. The decode cache waits for a later slice
-(ROADMAP queue 1 item 14).
+run and inside a CUDA graph.
+
+The KV cache of prefill and decode (full, or a ring of ``sliding_window``
+slots) holds k and v (m, B, S, Hkv, D), the absolute position of each
+slot (m, B, S; -1 unwritten) and the next position (m, B); ring semantics
+live in the positions alone, so both kinds share ``decode_attention``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -161,6 +167,112 @@ def attention(q, k, v, *, mode="causal", window=None, positions=None):
     o = torch.einsum("...hrqk,...khd->...qhrd", p, vf)
     o = o / denom.movedim(-1, -3).unsqueeze(-1)
     return o.reshape(lead + (T, H, D)).to(q.dtype)
+
+
+def decode_attention(q1, cache_k, cache_v, kv_positions, *, window=None,
+                     q_position=None):
+    """One decode step: q1 (..., 1, H, D) over a (full or ring) cache
+    cache_k/v (..., S, Hkv, D) whose slots hold the absolute positions
+    ``kv_positions`` (..., S), -1 where unwritten. Scores in f32, invalid
+    slots -1e30, then JAX's softmax exp(s - max) / sum."""
+    lead, (S, Hkv, D) = cache_k.shape[:-3], cache_k.shape[-3:]
+    H = q1.shape[-2]
+    R = H // Hkv
+    scale = 1.0 / torch.sqrt(torch.full((), float(D), device=q1.device))
+    qg = q1.reshape(lead + (Hkv, R, D)).to(torch.float32)
+    s = torch.einsum("...hrd,...khd->...hrk", qg,
+                     cache_k.to(torch.float32)) * scale
+    valid = kv_positions >= 0
+    if q_position is not None:
+        valid = valid & (kv_positions <= q_position[..., None])
+        if window is not None:
+            valid = valid & ((q_position[..., None] - kv_positions) < window)
+    s = torch.where(valid[..., None, None, :], s,
+                    torch.full((), _NEG_INF, device=s.device))
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("...hrk,...khd->...hrd", p, cache_v.to(torch.float32))
+    return o.reshape(lead + (1, H, D)).to(q1.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (full or ring / sliding window)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    batch: int
+    size: int          # slots: the full sequence, or the window for SWA
+    kv_heads: int
+    head_dim: int
+    dtype: object = torch.bfloat16
+
+
+def init_cache(spec: CacheSpec, lead=(), device=None):
+    """An empty cache of shape (*lead, B, S, ...): zeros, positions -1,
+    next 0."""
+    lead = tuple(lead)
+    kv = lead + (spec.batch, spec.size, spec.kv_heads, spec.head_dim)
+    return {
+        "k": torch.zeros(kv, dtype=spec.dtype, device=device),
+        "v": torch.zeros(kv, dtype=spec.dtype, device=device),
+        "pos": torch.full(lead + (spec.batch, spec.size), -1,
+                          dtype=torch.int32, device=device),
+        "next": torch.zeros(lead + (spec.batch,), dtype=torch.int32,
+                            device=device),
+    }
+
+
+def cache_write(cache, k1, v1) -> None:
+    """Write one token k1/v1 (m, B, 1, Hkv, D) into ``cache`` in place at
+    slot next % S, and its position there; ``next`` is left as it was.
+    The slot is a device tensor: nothing is read back to the host."""
+    m, B, S = cache["pos"].shape
+    nxt = cache["next"]
+    slot = (nxt % S).long()
+    mi = torch.arange(m, device=nxt.device)[:, None]
+    bi = torch.arange(B, device=nxt.device)[None, :]
+    cache["k"][mi, bi, slot] = k1[:, :, 0].to(cache["k"].dtype)
+    cache["v"][mi, bi, slot] = v1[:, :, 0].to(cache["v"].dtype)
+    cache["pos"][mi, bi, slot] = nxt
+
+
+def cache_append(cache, k1, v1):
+    """JAX's ``cache_append``: a new cache with one token (m, B, 1, Hkv, D)
+    at slot next % S (a ring) and next + 1."""
+    new = {name: cache[name].clone() for name in ("k", "v", "pos")}
+    new["next"] = cache["next"]
+    cache_write(new, k1, v1)
+    new["next"] = cache["next"] + 1
+    return new
+
+
+def cache_from_prefill(k, v, spec: CacheSpec, prefill_len):
+    """A cache from the prefill's K/V (m, B, T, Hkv, D) and ``prefill_len``
+    (m, B). T <= S: padded to S, positions t < prefill_len valid. T > S:
+    the last S tokens, absolute position p at slot p % S (whatever
+    ``prefill_len``, as in JAX). ``next`` is ``prefill_len``."""
+    m, B, T = k.shape[:3]
+    S = spec.size
+    dev = k.device
+    nxt = prefill_len.to(torch.int32)
+    if T <= S:
+        pad = (0, 0, 0, 0, 0, S - T)
+        ar = torch.arange(S, device=dev)
+        pos = torch.where(ar < prefill_len[..., None], ar, -1)
+        return {"k": F.pad(k, pad).to(spec.dtype),
+                "v": F.pad(v, pad).to(spec.dtype),
+                "pos": pos.to(torch.int32), "next": nxt}
+    abs_pos = torch.arange(T - S, T, device=dev)
+    slot = abs_pos % S
+    ck = torch.zeros((m, B, S) + k.shape[3:], dtype=spec.dtype, device=dev)
+    cv = torch.zeros_like(ck)
+    ck[:, :, slot] = k[:, :, T - S:].to(spec.dtype)
+    cv[:, :, slot] = v[:, :, T - S:].to(spec.dtype)
+    pos = torch.full((m, B, S), -1, dtype=torch.int32, device=dev)
+    pos[:, :, slot] = abs_pos.to(torch.int32)
+    return {"k": ck, "v": cv, "pos": pos, "next": nxt}
 
 
 # ---------------------------------------------------------------------------

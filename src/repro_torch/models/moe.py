@@ -1,6 +1,5 @@
 """Mixture-of-Experts transformer (Mixtral family: experts, top-k routing,
-sliding-window attention); the counterpart of ``repro.models.moe`` for the
-training forward.
+sliding-window attention); the counterpart of ``repro.models.moe``.
 
 Routing is capacity-bounded and sort-based, per client: each client's own
 N = B T tokens pick their top-k experts, the N k assignments are sorted by
@@ -18,8 +17,13 @@ The dispatch and the combine move rows by gathers both ways
 (``_Route``): each slot reads one token, each token reads its k slots, so
 no backward accumulates into an index in whatever order atomics land.
 Among equal router probabilities the lower expert wins, as in
-``lax.top_k``. ``prefill`` and ``decode_step`` wait for ROADMAP queue 1
-item 14.2.
+``lax.top_k``.
+
+Serving runs the dense family's prefill and decode (``dense.prefill_layers``,
+``dense.decode_layers``, the same KV caches, a ring of ``sliding_window``
+slots) with this MLP. A decode step routes the N = B tokens of the step,
+so its capacity is max(1, int(cf k B / E)) and it drops tokens where JAX's
+step drops them.
 """
 from __future__ import annotations
 
@@ -27,7 +31,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random
-from repro_torch.core.treeutil import tree_leaves, tree_unflatten
 from repro_torch.models import dense
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
@@ -184,23 +187,29 @@ def moe_mlp(x, p, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
+def _moe_residual(x, hn, attn_out, lp, cfg: ArchConfig):
+    """The layer after its attention: the residual, then the routed MLP of
+    the normed sum and its residual."""
+    x = x + attn_out
+    h2 = apply_norm(x, lp["ln_mlp"], cfg.norm)
+    return x + moe_mlp(h2, lp["moe"], cfg)[0]
+
+
 def block_forward(x, lp, cfg: ArchConfig, positions):
-    """One layer over x (m, B, T, d); returns (x, aux)."""
+    """One layer over x (m, B, T, d); returns (x, k, v, aux)."""
     h = apply_norm(x, lp["ln_attn"], cfg.norm)
-    x = x + dense._attn_full(h, lp["attn"], cfg, positions)
+    attn_out, k, v = dense._attn_full(h, lp["attn"], cfg, positions)
+    x = x + attn_out
     h2 = apply_norm(x, lp["ln_mlp"], cfg.norm)
     mlp_out, aux = moe_mlp(h2, lp["moe"], cfg)
-    return x + mlp_out, aux
+    return x + mlp_out, k, v, aux
 
 
 def hidden(params, batch, cfg: ArchConfig):
     """Forward to the final norm, without the unembedding."""
     x, positions = dense.embed_inputs(params, batch, cfg)
-    layers = params["layers"]
-    per_layer = [t.unbind(1) for t in tree_leaves(layers)]
-    for i in range(cfg.n_layers):
-        lp = tree_unflatten(layers, [u[i] for u in per_layer])
-        x, _ = block_forward(x, lp, cfg, positions)
+    for lp in dense.layer_params(params["layers"], cfg.n_layers):
+        x = block_forward(x, lp, cfg, positions)[0]
     return apply_norm(x, params["ln_f"], cfg.norm)
 
 
@@ -209,3 +218,23 @@ unembed = dense.unembed
 
 def apply(params, batch, cfg: ArchConfig):
     return unembed(hidden(params, batch, cfg), params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def prefill(params, batch, cfg: ArchConfig, max_len=None):
+    """``dense.prefill`` with the routed MLP: (last logits, decode state)."""
+    return dense.prefill_layers(
+        params, batch, cfg, max_len,
+        lambda x, lp, c, positions: block_forward(x, lp, c, positions)[:3])
+
+
+init_decode_state = dense.init_decode_state
+
+
+def decode_step(params, state, batch, cfg: ArchConfig):
+    """``dense.decode_step`` with the routed MLP over the step's B tokens."""
+    return dense.decode_layers(params, state, batch, cfg, _moe_residual)

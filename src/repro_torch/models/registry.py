@@ -8,8 +8,15 @@ clients' params stacked (m, ...) over their batches (m, B, T) as one
 program, which the LM loss needs. The families map to their modules as in
 JAX: ``dense``, ``vlm`` and ``audio`` to ``models/dense.py``, ``moe`` to
 ``models/moe.py``, ``xlstm`` to ``models/xlstm.py``, ``hybrid`` and
-``ssm`` to ``models/ssm.py``. Prefill and decode are not ported yet
-(ROADMAP queue 1 item 14.2): asking for them raises.
+``ssm`` to ``models/ssm.py``.
+
+Serving, as in JAX: ``prefill(params, batch, max_len=None)`` -> (the last
+position's logits (B, 1, V), decode state), ``decode_step(params, state,
+batch)`` -> (logits (B, 1, V), new state) and ``init_decode_state(
+batch_size, seq_len, prefill_len, device=None)``; the state is JAX's tree
+(no client axis). The encoder-only archs (``attention="bidirectional"``)
+have no decode path and raise ``NotImplementedError``. The mesh (ROADMAP
+queue 1 item 14.5) is not ported: every call runs on one device.
 """
 from __future__ import annotations
 
@@ -70,15 +77,38 @@ def get_model(cfg: ArchConfig) -> Model:
         return mod.apply(W, batches, cfg)
 
     def apply(params, batch):
-        one = tmap(lambda t: t.unsqueeze(0), params)
-        return mod.apply(one, tmap(lambda t: t.unsqueeze(0), batch),
-                         cfg)[0]
+        return mod.apply(_one(params), _one(batch), cfg)[0]
 
-    def _not_ported(*a, **kw):
+    def _no_decode(*a, **kw):
         raise NotImplementedError(
-            f"prefill and decode ({cfg.name}) are not ported yet (ROADMAP "
-            "queue 1 item 14.2)")
+            f"{cfg.name} is encoder-only ({cfg.attention}); no decode path")
+
+    if cfg.attention == "bidirectional":
+        pre, dec, ids = _no_decode, _no_decode, _no_decode
+    else:
+        def pre(params, batch, max_len=None):
+            logits, state = mod.prefill(_one(params), _one(batch), cfg,
+                                        max_len=max_len)
+            return logits[0], _drop(state)
+
+        def dec(params, state, batch):
+            logits, state = mod.decode_step(_one(params), _one(state),
+                                            _one(batch), cfg)
+            return logits[0], _drop(state)
+
+        def ids(batch_size, seq_len, prefill_len, device=None):
+            return mod.init_decode_state(cfg, batch_size, seq_len,
+                                         prefill_len, device=device)
 
     return Model(cfg=cfg, init=init, apply=apply,
-                 apply_clients=apply_clients, prefill=_not_ported,
-                 decode_step=_not_ported, init_decode_state=_not_ported)
+                 apply_clients=apply_clients, prefill=pre,
+                 decode_step=dec, init_decode_state=ids)
+
+
+def _one(tree):
+    """One model's tree with the client axis m = 1 in front of each leaf."""
+    return tmap(lambda t: t.unsqueeze(0), tree)
+
+
+def _drop(tree):
+    return tmap(lambda t: t[0], tree)

@@ -1,5 +1,5 @@
 """xLSTM (arXiv:2405.04517): sLSTM and mLSTM residual blocks; the
-counterpart of ``repro.models.xlstm`` for the training forward.
+counterpart of ``repro.models.xlstm``.
 
 * **mLSTM** (matrix memory): pre-norm, up projection by ``ssm_expand``,
   per-head exponentially gated linear attention in the stabilised
@@ -15,8 +15,14 @@ Layer i is an sLSTM block when ``slstm_every`` divides i, else mLSTM.
 ``params["layers"]`` is a Python list of the layers' dicts in order, as
 JAX holds it (``tree_leaves`` walks it in order), each leaf with a leading
 client axis m. Activations are (m, B, T, ...); the two scans carry no
-weights, so they run over the m B sequences at once. The decode state and
-``mlstm_step``/``*_block_step`` wait for ROADMAP queue 1 item 14.2.
+weights, so they run over the m B sequences at once.
+
+Serving: the decode state is O(1) in the sequence, JAX's ``{"states": [per
+layer (C, n, m) for mLSTM or (c, n, m, h) for sLSTM], "pos"}``, each leaf
+(m, B, ...). ``prefill`` runs the blocks over the prompt from the zero
+state and keeps each final state (``pos`` = T: it ignores
+``prefill_len``, as JAX does); ``decode_step`` takes one token through
+``mlstm_step`` and the sLSTM cell.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random
+from repro_torch.kernels.common import resolve_device
 from repro_torch.models import dense
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
@@ -121,11 +128,12 @@ def init(key, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def _mlstm_scan(q, k, v, i_pre, f_pre, chunk: int):
-    """Stabilised chunkwise mLSTM from the zero state.
+def _mlstm_scan(q, k, v, i_pre, f_pre, chunk: int, state=None):
+    """Stabilised chunkwise mLSTM.
 
-    q, k, v: (B, T, H, hd); i_pre, f_pre: (B, T, H) gate pre-activations.
-    Returns (out (B, T, H, hd) f32, the final state (C, n, m)).
+    q, k, v: (B, T, H, hd); i_pre, f_pre: (B, T, H) gate pre-activations;
+    ``state`` (C (B, H, hd, hd), n (B, H, hd), m (B, H)) or None for the
+    zero state. Returns (out (B, T, H, hd) f32, the final state).
     """
     B, T, H, hd = q.shape
     dev, f32 = q.device, torch.float32
@@ -146,9 +154,12 @@ def _mlstm_scan(q, k, v, i_pre, f_pre, chunk: int):
     qc, kc, vc = rs(q * scale), rs(k), rs(v)
     ic, fc = rs(i_pre), rs(f_pre)                      # (nC, B, H, c)
 
-    C = torch.zeros((B, H, hd, hd), dtype=f32, device=dev)
-    n = torch.zeros((B, H, hd), dtype=f32, device=dev)
-    m = torch.full((B, H), _NEG, dtype=f32, device=dev)
+    if state is None:
+        C = torch.zeros((B, H, hd, hd), dtype=f32, device=dev)
+        n = torch.zeros((B, H, hd), dtype=f32, device=dev)
+        m = torch.full((B, H), _NEG, dtype=f32, device=dev)
+    else:
+        C, n, m = state
     tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=dev))
     neg_inf = torch.full((), -float("inf"), device=dev)
@@ -211,19 +222,58 @@ def _mlstm_qkvif(x, p, cfg: ArchConfig):
             if_pre[..., :H], if_pre[..., H:], gate)
 
 
-def mlstm_block(x, p, cfg: ArchConfig):
-    """x (m, B, T, d) -> x + the block's output."""
+def mlstm_step(q1, k1, v1, i1, f1, state):
+    """One decode step: q1, k1, v1 (..., H, hd), i1, f1 (..., H), state
+    (C, n, m) of the same leading axes. Returns (out (..., H, hd) f32, the
+    new state)."""
+    C, n, m = state
+    f32 = torch.float32
+    hd = q1.shape[-1]
+    qf = q1.to(f32) / torch.sqrt(torch.full((), float(hd), device=q1.device))
+    kf, i1 = k1.to(f32), i1.to(f32)
+    logf = F.logsigmoid(f1.to(f32))
+    m_new = torch.maximum(logf + m, i1)
+    w_old = torch.exp(logf + m - m_new)
+    w_in = torch.exp(i1 - m_new)
+    C = w_old[..., None, None] * C + w_in[..., None, None] * torch.einsum(
+        "...hd,...he->...hde", kf, v1.to(f32))
+    n = w_old[..., None] * n + w_in[..., None] * kf
+    o = torch.einsum("...hd,...hde->...he", qf, C)
+    nrm = torch.abs(torch.einsum("...hd,...hd->...h", qf, n))
+    denom = torch.maximum(nrm, torch.exp(-m_new))
+    return o / denom[..., None], (C, n, m_new)
+
+
+def mlstm_block(x, p, cfg: ArchConfig, state=None):
+    """x (m, B, T, d) -> (x + the block's output, the final state (C, n,
+    m), each (m, B, ...)), from ``state`` or the zero state."""
     d_in, H, hd = _mlstm_dims(cfg)
     mc, B, T, _ = x.shape
     h = apply_norm(x, p["ln"], cfg.norm)
     q, k, v, i_pre, f_pre, gate = _mlstm_qkvif(h, p, cfg)
-    seqs = (mc * B, T)
-    out, _ = _mlstm_scan(q.reshape(seqs + (H, hd)), k.reshape(seqs + (H, hd)),
-                         v.reshape(seqs + (H, hd)), i_pre.reshape(seqs + (H,)),
-                         f_pre.reshape(seqs + (H,)), cfg.ssm_chunk)
+    S = mc * B
+    flat = None if state is None else tuple(
+        t.reshape((S,) + t.shape[2:]) for t in state)
+    out, st = _mlstm_scan(q.reshape(S, T, H, hd), k.reshape(S, T, H, hd),
+                          v.reshape(S, T, H, hd), i_pre.reshape(S, T, H),
+                          f_pre.reshape(S, T, H), cfg.ssm_chunk, flat)
     out = out.reshape(mc, B, T, d_in).to(x.dtype)
     out = apply_norm(out, p["ln_out"], "rmsnorm") * gate
-    return x + _mm(out, p["w_down"], "mbte,med->mbtd")
+    return (x + _mm(out, p["w_down"], "mbte,med->mbtd"),
+            tuple(t.reshape((mc, B) + t.shape[1:]) for t in st))
+
+
+def mlstm_block_step(x1, p, cfg: ArchConfig, state):
+    """x1 (m, B, 1, d), one decode step; returns (x1 + the block's output,
+    the new state)."""
+    d_in = _mlstm_dims(cfg)[0]
+    h = apply_norm(x1, p["ln"], cfg.norm)
+    q, k, v, i_pre, f_pre, gate = _mlstm_qkvif(h, p, cfg)
+    out, state = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                            i_pre[:, :, 0], f_pre[:, :, 0], state)
+    out = out.reshape(x1.shape[:2] + (1, d_in)).to(x1.dtype)
+    out = apply_norm(out, p["ln_out"], "rmsnorm") * gate
+    return x1 + _mm(out, p["w_down"], "mbte,med->mbtd"), state
 
 
 # ---------------------------------------------------------------------------
@@ -231,45 +281,85 @@ def mlstm_block(x, p, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def slstm_block(x, p, cfg: ArchConfig):
-    """x (m, B, T, d) -> the block's output (residual and GLU included)."""
-    mc, B, T, d = x.shape
+def _slstm_cell(state, z_x, i_x, f_x, o_x, r_z):
+    """One sLSTM step: ``state`` (c, n, m, h) with c, n, h (m, B, H, hd)
+    and m (m, B, H); the step's input projections z_x, o_x (m, B, H, hd),
+    i_x, f_x (m, B, H); r_z (m, d, d) the recurrent weight of z."""
+    c, n, m, h_prev = state
+    mc, B, H, hd = c.shape
+    rec = torch.einsum("mbd,mde->mbe", h_prev.reshape(mc, B, H * hd), r_z)
+    z = torch.tanh(z_x + rec.reshape(mc, B, H, hd))
+    o = torch.sigmoid(o_x)
+    logf = F.logsigmoid(f_x)
+    m_new = torch.maximum(logf + m, i_x)
+    i_g = torch.exp(i_x - m_new)
+    f_g = torch.exp(logf + m - m_new)
+    c = f_g[..., None] * c + i_g[..., None] * z
+    n = f_g[..., None] * n + i_g[..., None]
+    return c, n, m_new, o * (c / torch.clamp_min(n, _EPS))
+
+
+def _slstm_glu(x, h, p):
+    """The block after its cell: x + norm(h), then the GLU and its
+    residual."""
+    y = x + apply_norm(h.to(x.dtype), p["ln_out"], "rmsnorm")
+    g = F.silu(_mm(y, p["w_glu_i"], "mbtd,mdf->mbtf")) \
+        * _mm(y, p["w_glu_g"], "mbtd,mdf->mbtf")
+    return y + _mm(g, p["w_glu_o"], "mbtf,mfd->mbtd")
+
+
+def _slstm_proj(x, p, cfg: ArchConfig):
+    """The normed input's gate projections in f32: z_x, o_x (..., H, hd),
+    i_x, f_x (..., H)."""
     H = cfg.n_heads
-    hd = d // H
+    hd = x.shape[-1] // H
     f32 = torch.float32
     hf = apply_norm(x, p["ln"], cfg.norm).to(f32)
 
     def proj(name):
         return torch.einsum("mbtd,mde->mbte", hf, p[name].to(f32))
 
-    z_x = proj("w_z").reshape(mc, B, T, H, hd)
-    i_x = proj("w_i") + _per_client(p["b_i"], hf).to(f32)
-    f_x = proj("w_f") + _per_client(p["b_f"], hf).to(f32)
-    o_x = proj("w_o").reshape(mc, B, T, H, hd)
-    r_z = p["r_z"].to(f32)
-    c = torch.zeros((mc, B, H, hd), dtype=f32, device=x.device)
-    n = torch.zeros_like(c)
-    m = torch.full((mc, B, H), _NEG, dtype=f32, device=x.device)
-    h_prev = torch.zeros_like(c)
+    shp = hf.shape[:-1] + (H, hd)
+    return (proj("w_z").reshape(shp),
+            proj("w_i") + _per_client(p["b_i"], hf).to(f32),
+            proj("w_f") + _per_client(p["b_f"], hf).to(f32),
+            proj("w_o").reshape(shp))
+
+
+def slstm_zero_state(mc: int, B: int, cfg: ArchConfig, device):
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    f32 = torch.float32
+    c = torch.zeros((mc, B, H, hd), dtype=f32, device=device)
+    return (c, c.clone(), torch.full((mc, B, H), _NEG, dtype=f32,
+                                     device=device), c.clone())
+
+
+def slstm_block(x, p, cfg: ArchConfig, state=None):
+    """x (m, B, T, d) -> (the block's output (residual and GLU included),
+    the final state (c, n, m, h)), from ``state`` or the zero state."""
+    mc, B, T, d = x.shape
+    z_x, i_x, f_x, o_x = _slstm_proj(x, p, cfg)
+    r_z = p["r_z"].to(torch.float32)
+    if state is None:
+        state = slstm_zero_state(mc, B, cfg, x.device)
     hs = []
     for t in range(T):
-        rec = torch.einsum("mbd,mde->mbe", h_prev.reshape(mc, B, d), r_z)
-        z = torch.tanh(z_x[:, :, t] + rec.reshape(mc, B, H, hd))
-        o = torch.sigmoid(o_x[:, :, t])
-        logf = F.logsigmoid(f_x[:, :, t])
-        m_new = torch.maximum(logf + m, i_x[:, :, t])
-        i_g = torch.exp(i_x[:, :, t] - m_new)
-        f_g = torch.exp(logf + m - m_new)
-        c = f_g[..., None] * c + i_g[..., None] * z
-        n = f_g[..., None] * n + i_g[..., None]
-        h_prev = o * (c / torch.clamp_min(n, _EPS))
-        m = m_new
-        hs.append(h_prev)
+        state = _slstm_cell(state, z_x[:, :, t], i_x[:, :, t], f_x[:, :, t],
+                            o_x[:, :, t], r_z)
+        hs.append(state[3])
     out = torch.stack(hs, dim=2).reshape(mc, B, T, d)
-    y = x + apply_norm(out.to(x.dtype), p["ln_out"], "rmsnorm")
-    g = F.silu(_mm(y, p["w_glu_i"], "mbtd,mdf->mbtf")) \
-        * _mm(y, p["w_glu_g"], "mbtd,mdf->mbtf")
-    return y + _mm(g, p["w_glu_o"], "mbtf,mfd->mbtd")
+    return _slstm_glu(x, out, p), state
+
+
+def slstm_block_step(x1, p, cfg: ArchConfig, state):
+    """x1 (m, B, 1, d), one decode step; returns (the block's output, the
+    new state)."""
+    mc, B, _, d = x1.shape
+    z_x, i_x, f_x, o_x = _slstm_proj(x1, p, cfg)
+    state = _slstm_cell(state, z_x[:, :, 0], i_x[:, :, 0], f_x[:, :, 0],
+                        o_x[:, :, 0], p["r_z"].to(torch.float32))
+    return _slstm_glu(x1, state[3].reshape(mc, B, 1, d), p), state
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +371,8 @@ def hidden(params, batch, cfg: ArchConfig):
     """Forward to the final norm, without the unembedding."""
     x, _ = dense.embed_inputs(params, batch, cfg)
     for i, lp in enumerate(params["layers"]):
-        x = slstm_block(x, lp, cfg) if _is_slstm(cfg, i) \
-            else mlstm_block(x, lp, cfg)
+        block = slstm_block if _is_slstm(cfg, i) else mlstm_block
+        x = block(x, lp, cfg)[0]
     return apply_norm(x, params["ln_f"], cfg.norm)
 
 
@@ -294,3 +384,61 @@ def unembed(x, params, cfg: ArchConfig):
 
 def apply(params, batch, cfg: ArchConfig):
     return unembed(hidden(params, batch, cfg), params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ArchConfig, batch_size: int, seq_len: int,
+                      prefill_len=None, device=None):
+    """The zero decode state of one model, in JAX's layout (no client
+    axis); ``seq_len`` and ``prefill_len`` do not size it. ``device``
+    defaults to the card (``resolve_device``)."""
+    dev = resolve_device(device)
+    d_in, H, hd = _mlstm_dims(cfg)
+    f32 = torch.float32
+    states = []
+    for i in range(cfg.n_layers):
+        if _is_slstm(cfg, i):
+            states.append(tuple(t[0] for t in
+                                slstm_zero_state(1, batch_size, cfg, dev)))
+        else:
+            states.append((
+                torch.zeros((batch_size, H, hd, hd), dtype=f32, device=dev),
+                torch.zeros((batch_size, H, hd), dtype=f32, device=dev),
+                torch.full((batch_size, H), _NEG, dtype=f32, device=dev)))
+    return {"states": states,
+            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
+
+
+def prefill(params, batch, cfg: ArchConfig, max_len=None):
+    """The blocks over the prompt (m, B, T) from the zero state, keeping
+    each layer's final state; ``max_len`` and ``prefill_len`` are taken and
+    ignored, as in JAX (the state is O(1), ``pos`` = T)."""
+    x, _ = dense.embed_inputs(params, batch, cfg)
+    mc, B, T = x.shape[:3]
+    states = []
+    for i, lp in enumerate(params["layers"]):
+        block = slstm_block if _is_slstm(cfg, i) else mlstm_block
+        x, st = block(x, lp, cfg)
+        states.append(st)
+    x = apply_norm(x, params["ln_f"], cfg.norm)
+    return unembed(x[:, :, -1:], params, cfg), {
+        "states": states,
+        "pos": torch.full((mc, B), T, dtype=torch.int32, device=x.device)}
+
+
+def decode_step(params, state, batch, cfg: ArchConfig):
+    """One token (m, B, 1) through every layer's state; returns (logits
+    (m, B, 1, V), the new state)."""
+    x, _ = dense.embed_inputs(params, {"tokens": batch["tokens"]}, cfg)
+    states = []
+    for i, (lp, st) in enumerate(zip(params["layers"], state["states"])):
+        step = slstm_block_step if _is_slstm(cfg, i) else mlstm_block_step
+        x, st = step(x, lp, cfg, st)
+        states.append(st)
+    x = apply_norm(x, params["ln_f"], cfg.norm)
+    return unembed(x, params, cfg), {"states": states,
+                                     "pos": state["pos"] + 1}

@@ -12,8 +12,11 @@ keys (leading axes ``...``) and acts on each key as ``jax.vmap`` would:
 ``bits(key, shape)``      -- (..., *shape) int64: ``y1 ^ y2`` of the hash of
                              each flat index.
 ``uniform(key, shape)``   -- (..., *shape) f32 on [minval, maxval).
-``normal(key, shape)``    -- (..., *shape) f32: sqrt(2) erfinv(u), u on
-                             (-1, 1), with XLA:CPU's f32 erf_inv.
+``normal(key, shape, dtype)`` -- (..., *shape) f32 (or bf16):
+                             sqrt(2) erfinv(u), u on (-1, 1), with
+                             XLA:CPU's f32 erf_inv.
+``randint(key, shape, minval, maxval)`` -- (..., *shape) int32 on
+                             [minval, maxval).
 ``permutation(key, n)``   -- (..., n) int64: ``jax.random.permutation``'s
                              rounds of a stable sort by fresh 32-bit keys.
 ``fold_in_range(key, start, n)`` -- (n, 2): ``fold_in(key, start + i)`` for
@@ -82,13 +85,74 @@ _NEXT_BELOW_NEG1 = -0.9999999403953552  # nextafter(-1, 0) in f32
 _SQRT2 = 1.4142135381698608             # sqrt(2) rounded to f32
 
 
-def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` in f32: a uniform on
-    [nextafter(-1, 0), 1) through XLA:CPU's f32 ``erf_inv``
-    (``core/xla_cpu.erfinv``), times sqrt(2). The same ops run on the
-    card, where the init's draws need no other form."""
-    u = uniform(key, shape, _NEXT_BELOW_NEG1, 1.0)
-    return erfinv(u) * _SQRT2
+# f32 normals drawn per hash call: a draw's value depends only on its key
+# and flat index, so a large draw (zamba2's stacked in_proj, 652M values)
+# runs in pieces whose erf_inv temporaries stay near 1 GB, not tens of GB
+NORMAL_CHUNK = 1 << 24
+_BF16_NEXT_BELOW_NEG1 = -0.99609375    # nextafter(-1, 0) in bf16
+_BF16_ONE_BITS = 0x3F80                # 1.0 in bf16
+
+
+def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``, f32 or bf16.
+
+    f32: a uniform on [nextafter(-1, 0), 1) through XLA:CPU's f32
+    ``erf_inv`` (``core/xla_cpu.erfinv``), times sqrt(2). The same ops run
+    on the card, where the init's draws need no other form.
+
+    bf16 is its own draw, not the f32 one rounded: JAX draws 8 bits a value
+    (bf16 has 7 mantissa bits; the low byte of ``bits``), makes a bf16 on
+    [0, 1) of the top 7, maps it to [nextafter(-1, 0), 1) in bf16 (the span
+    1 - nextafter(-1, 0) rounds to 2), takes ``erf_inv`` in f32 and rounds
+    it, then multiplies by sqrt(2) rounded to bf16, each op rounding to
+    bf16 as XLA:CPU's does."""
+    if dtype == torch.float32:
+        shape = tuple(shape)
+        n = math.prod(shape)
+        keys = key.reshape(-1, 2)
+        step = max(1, NORMAL_CHUNK // max(1, keys.shape[0]))
+        out = torch.empty((keys.shape[0], n), dtype=torch.float32,
+                          device=key.device)
+        for start in range(0, n, step):
+            u = _hash(keys, min(step, n - start), start, "uniform",
+                      _NEXT_BELOW_NEG1, 1.0)
+            out[:, start:start + u.shape[-1]] = erfinv(u) * _SQRT2
+        return out.reshape(key.shape[:-1] + shape)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"normal draws f32 or bf16; got {dtype}")
+    byte = bits(key, shape) & 0xFF
+    one_to_two = ((byte >> 1) | _BF16_ONE_BITS).to(torch.int16).view(
+        torch.bfloat16)
+    lo = torch.full((), _BF16_NEXT_BELOW_NEG1, dtype=torch.bfloat16,
+                    device=key.device)
+    u = torch.maximum((one_to_two - 1.0) * 2.0 + lo, lo)
+    z = erfinv(u.to(torch.float32)).to(torch.bfloat16)
+    return z * torch.full((), _SQRT2, dtype=torch.bfloat16, device=key.device)
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) for
+    32-bit bounds: split the key, draw two 32-bit planes hi and lo, and
+    return minval + ((hi % span) * mult + lo % span) % span in uint32
+    arithmetic, span = maxval - minval (1 when maxval <= minval) and mult =
+    (2**16 % span)**2 % span with the square wrapping at 2**32, as JAX's
+    uint32 product does: 2**32 mod span up to span 2**16, 0 above."""
+    if not -2 ** 31 <= minval <= maxval <= 2 ** 31 - 1:
+        raise ValueError(f"randint takes int32 bounds minval <= maxval; "
+                         f"got {minval}, {maxval}")
+    shape = tuple(shape)
+    span = max(1, maxval - minval)
+    mult = ((2 ** 16 % span) ** 2 & MASK) % span
+    ks = split(key)
+    hi = bits(ks[..., 0, :], shape)
+    lo = bits(ks[..., 1, :], shape)
+    # (hi % span) * mult wraps at 2**32; in halves of mult, no int64 product
+    # passes 2**48
+    a = hi % span
+    wrapped = a * (mult & 0xFFFF) + (((a * (mult >> 16)) & 0xFFFF) << 16)
+    off = (wrapped + lo % span) & MASK
+    return (minval + off % span).to(torch.int32)
 
 
 def fold_in_range(key: torch.Tensor, start: int, n: int) -> torch.Tensor:

@@ -580,3 +580,46 @@ def test_lm_family_spec_engine_matches_eager_on_card(gen, arch):
     for state, total in runs[1:]:
         assert total == runs[0][1]
         assert all(torch.equal(a, b) for a, b in zip(state, runs[0][0]))
+
+
+SERVE_FAMILIES = ("smollm-135m", "command-r-35b", "llava-next-34b",
+                  "mixtral-8x7b", "xlstm-125m", "zamba2-1.2b")
+
+
+def _serve_equal(a, b):
+    from repro_torch.core.treeutil import tree_leaves
+    assert torch.equal(a.tokens, b.tokens)
+    assert torch.equal(a.prefill_logits, b.prefill_logits)
+    assert torch.equal(a.logits, b.logits)
+    la, lb = tree_leaves(a.state), tree_leaves(b.state)
+    assert len(la) == len(lb)
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("arch,reduced", [(a, True) for a in SERVE_FAMILIES]
+                         + [("smollm-135m", False)])
+def test_serve_graph_decode_equals_eager_on_card(gen, arch, reduced):
+    """``launch/serve.py``'s decode replayed as one CUDA graph gives the
+    eager step's bits: tokens, prefill and step logits, every state leaf
+    (the moe's ring cache wraps: window 16 under 64 + 8 positions)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    cfg = configs.get_reduced(arch) if reduced else configs.get_config(arch)
+    eager = serve(cfg, device="cuda", graph=False)
+    graph = serve(cfg, device="cuda", graph=True)
+    _serve_equal(graph, eager)
+    assert graph.tokens.shape == (4, 9) and graph.tokens.is_cuda
+
+
+def test_serve_on_card_matches_cpu_reduced(gen):
+    """Reduced smollm (f32): serve on the card against serve on the CPU,
+    tokens exact, logits within 4e-6 of scale."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    cfg = configs.get_reduced("smollm-135m")
+    card = serve(cfg, device="cuda")
+    cpu = serve(cfg, device="cpu")
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+    scale = max(1.0, float(cpu.logits.abs().max()))
+    assert float((card.logits.cpu() - cpu.logits).abs().max()) <= \
+        4e-6 * scale

@@ -22,8 +22,8 @@ Held to:
   ``--checkpoint`` file read by JAX's ``restore``;
 - every arch's ``param_logical`` tree: one name per axis of each leaf of
   ``init``'s tree, and JAX's tree;
-- the refusals: prefill, decode and the mesh mode name ROADMAP queue 1
-  item 14; the lm-field validation (an unknown arch included) and the
+- the refusals: the mesh mode names ROADMAP queue 1 item 14 (prefill
+  runs); the lm-field validation (an unknown arch included) and the
   flag conflicts give JAX's messages; the entry points and the checkpoint
   loaders ask for the card unless given a device.
 
@@ -60,7 +60,7 @@ from repro_torch.checkpoint.convert import (lm_params_from_numpy,
 from repro_torch.core.tasks import ChunkedLMLoss, LMLoss
 from repro_torch.core.treeutil import tmap, tree_leaves
 from repro_torch.data import lm as tlm
-from repro_torch.launch import paper, train
+from repro_torch.launch import paper, serve, train
 from repro_torch.models import logical as tlogical
 from repro_torch.models import registry as tregistry
 from repro_torch.sim.server import KeyedDraws
@@ -308,9 +308,16 @@ def test_param_logical_matches_init_and_jax(arch):
 
 
 def test_prefill_and_the_mesh_mode_name_item_14(capsys):
+    """Prefill runs (ROADMAP queue 1 item 14.2 is ported); the mesh mode
+    of ``train`` is still refused, naming item 14."""
     model = tregistry.get_model(tconfigs.get_reduced("smollm-135m"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        model.prefill(None, None)
+    params = model.init(trandom.PRNGKey(0))
+    with torch.inference_mode():
+        logits, state = model.prefill(
+            params, {"tokens": torch.zeros((2, 5), dtype=torch.int32)},
+            max_len=8)
+    assert logits.shape == (2, 1, 512)
+    assert state["caches"]["next"].tolist() == [[5, 5], [5, 5]]
     with pytest.raises(SystemExit) as e:
         train.main(["--arch", "smollm-135m", "--reduced"])
     assert e.value.code == 2
@@ -360,10 +367,11 @@ def test_train_refuses_a_logreg_spec_as_jax(capsys):
 
 
 def test_entry_points_run_on_the_card_unless_asked(monkeypatch, tmp_path):
-    """``get_task``, ``KeyedDraws``, ``train`` and the checkpoint loaders
+    """``get_task``, ``KeyedDraws``, ``train``, the checkpoint loaders
     (``restore``, ``restore_fedepm``, ``state_from_numpy``,
-    ``lm_params_from_numpy``) name no device: they ask for the card, and
-    without one they raise."""
+    ``lm_params_from_numpy``) and serving (``serve.main``, ``serve.serve``,
+    the registry's ``init_decode_state``) name no device: they ask for the
+    card, and without one they raise."""
     tnpz.save(str(tmp_path / "t"), {"a": np.arange(3, dtype=np.int32)})
     spec = tspec.ExperimentSpec.load(LM_SPEC)
     h = spec.build(device="cpu")
@@ -390,3 +398,15 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch, tmp_path):
     assert paper.get_task(4, d=100, device="cpu")[2]["x"].device.type == \
         "cpu"
     assert KeyedDraws(0, device="cpu").codec_key.device.type == "cpu"
+    reduced = tconfigs.get_reduced("smollm-135m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.serve(reduced)
+    for arch in ("smollm-135m", "xlstm-125m", "zamba2-1.2b"):
+        model = tregistry.get_model(tconfigs.get_reduced(arch))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init_decode_state(2, 8, 0)
+        assert tree_leaves(model.init_decode_state(
+            2, 8, 0, device="cpu"))[0].device.type == "cpu"
+    assert serve.serve(reduced, 1, 3, 1, device="cpu").tokens.shape == (1, 2)

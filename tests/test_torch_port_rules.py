@@ -40,7 +40,9 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "run_paper_twins", "profile_baselines", "run_engine_path",
              "profile_engine_path", "run_faults_clocked", "run_faults_async",
              "run_faults_spec", "fault_host_numbers", "run_lm_path",
-             "run_twins_path", "check_lm_card_vs_cpu"):
+             "run_twins_path", "check_lm_card_vs_cpu", "run_serve_path",
+             "check_serve_card_vs_cpu", "profile_serve_path",
+             "serve_digest", "check_serve_digest"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
@@ -68,7 +70,9 @@ for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.models.dense", "repro_torch.models.registry",
             "repro_torch.configs.smollm_135m",
             "repro_torch.configs.mixtral_8x22b", "repro_torch.data.lm",
-            "repro_torch.checkpoint.npz", "repro_torch.launch.train"):
+            "repro_torch.checkpoint.npz", "repro_torch.launch.train",
+            "repro_torch.launch.serve", "repro_torch.models.moe",
+            "repro_torch.models.xlstm", "repro_torch.models.ssm"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
