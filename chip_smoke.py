@@ -104,7 +104,22 @@ Phases, in order; any failure exits non-zero before the last line:
    counters stay 0); the threefry hash draws the init and the prompts.
    Each case prints prefill ms, decode ms a token (eager and graph),
    tok/s, peak device memory and the decode state's bytes; the profiles
-   give launches a token and the device's idle share.
+   give launches a token and the device's idle share. Then the
+   ``distributed`` phase: (a) per-block remat (``cfg.remat``), the LM spec
+   at full width on smollm-135m and xlstm-125m eager with it on and off
+   and the scan engine with it off, bit for bit, the peaks printed; (b)
+   smollm-135m at full width through ``core/distributed.py``'s
+   ``build_fedepm`` (m 4, 2 x 256 tokens a client, k0 4, 3 rounds) as
+   spatial gather and a2a, bit for bit the port's ``fedepm_round``, and
+   temporal with microbatch 1 and 2, the first round within 2^-7 of its
+   scale (bf16 compute); (c) zamba2-1.2b at full width (1,170,473,856
+   params) under the donated temporal round, microbatch 2, f32 state, 2
+   rounds, twice with the same bits, f/m finite; (d) reduced smollm-135m,
+   xlstm-125m and zamba2-1.2b, spatial and temporal, held to ``JAX_DIST``
+   (JAX's ``build_fedepm`` on a one-device mesh); ENS once per leaf and
+   round and prox k0 times per leaf, round and client (one launch for all
+   m clients in the spatial round) asserted, wall per round and peak
+   memory printed.
 6. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
    the same key (masks bitwise); the reduced LM spec (f32) on the card
@@ -123,6 +138,8 @@ included, goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1794,6 +1811,7 @@ def _lm_case(spec, device="cuda") -> tuple:
     from repro_torch.core.scan import GRAPH_STATS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
     reset_counts()
     t0 = time.perf_counter()
     h = spec.build(device=device)
@@ -1820,6 +1838,7 @@ def _lm_case(spec, device="cuda") -> tuple:
            "wall_ms_per_round": wall / LM_ROUNDS * 1e3,
            "first_run_ms_per_round": cold, "build_s": build_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "base_mem_gb": base,
            "graph_replays": GRAPH_STATS["replays"],
            "graph_captures": GRAPH_STATS["captures"],
            "bytes_total": h.sim.ledger.total, "launches": read_counts()}
@@ -1853,6 +1872,7 @@ def _lm_chain(tag: str, over: dict, reduced: bool = False,
     del leaves
     ref = [t.clone() for t in _lm_state(h.sim)]
     ref_ledger = (h.sim.ledger.total, h.sim.t)
+    rec["state_bits"] = _bit_digest(ref)
     out["eager"] = rec
     del h
     if twice:
@@ -2232,10 +2252,10 @@ JAX_SERVE = {
             [4.461822, -1.154773, 0.93416965, 0.86245155, -1.4634273],
             [4.255494, -2.3158183, 0.17240153, 0.23517607, 0.084345356],
             [0.34578687, 0.0041991714, 0.022504803, -0.0018341377,
-             -0.00012539218],
+                      -0.00012539218],
             [3.7764683, -0.26644325, -0.84212184, 0.012248049, -0.30402008],
             [0.3411589, -0.0026691968, -0.0015225725, 0.0037343616,
-             0.00055636896],
+                      0.00055636896],
             [72, 72, 72, 72, 72]]}}
 
 
@@ -2535,6 +2555,515 @@ JAX_FIG9 = {"rounds": 30, "sim_time_s": 0.012500524326402498,
             "privacy": {"eps_per_round": 2.0, "eps_spent_max": 40.0,
                         "eps_spent_mean": 29.9375, "charges": 479,
                         "mask_attempts": 479, "mask_bytes": 15328}}
+
+
+# ---------------------------------------------------------------------------
+# the distributed phase: per-block remat, and core/distributed.py on one card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _remat(on: bool):
+    """Every full-width arch config built inside, with ``remat = on``."""
+    from repro_torch import configs
+    real = configs.get_config
+    configs.get_config = lambda name: dataclasses.replace(real(name),
+                                                         remat=on)
+    try:
+        yield
+    finally:
+        configs.get_config = real
+
+
+REMAT_ARCHS = {"smollm-135m": ({}, LM_LEAVES),
+               XLSTM: ({"task.arch": XLSTM}, XLSTM_LEAVES)}
+
+
+def run_remat_path(eager: dict) -> dict:
+    """(a) Per-block remat at full width: the LM spec on smollm-135m and
+    xlstm-125m with ``cfg.remat`` off, eager and the scan engine in one
+    chunk of LM_ROUNDS, each case with the counters set to 0 just before
+    it, bit for bit (state and key digests, ledger, f/m) the remat'd eager
+    run of the ``lm`` and ``lm_families`` phases (``eager``: arch -> that
+    record), whose remat'd scan those phases hold to it; each peak printed
+    beside the remat'd one."""
+    out = {}
+    for arch, (over, leaves) in REMAT_ARCHS.items():
+        ref, recs = eager[arch], {}
+        with _remat(False):
+            for name, eng in (("eager_no_remat", {"engine.name": "eager"}),
+                              ("scan_no_remat", {"engine.name": "scan",
+                                                 "engine.chunk": LM_ROUNDS})):
+                h, recs[name] = _lm_case(_lm_spec(**over, **eng))
+                assert _bit_digest(_lm_state(h.sim)) == ref["state_bits"], \
+                    (arch, name)
+                assert h.sim.ledger.total == ref["bytes_total"], (arch, name)
+                del h
+        torch.cuda.empty_cache()
+        for name, rec in recs.items():
+            want = _lm_launches(rec, leaves)
+            got = {k: rec["launches"][k] for k in want}
+            assert got == want, (arch, name, got, want)
+        assert recs["eager_no_remat"]["f_per_m"] == ref["f_per_m"], arch
+        log(f"remat[{arch}] peak GB on/off: eager {ref['peak_mem_gb']:.3f} "
+            f"/ {recs['eager_no_remat']['peak_mem_gb']:.3f}, scan off "
+            f"{recs['scan_no_remat']['peak_mem_gb']:.3f} (the remat'd scan's "
+            f"is its phase's, above the eager state it holds); eager wall "
+            f"ms/round {ref['wall_ms_per_round']:.1f} / "
+            f"{recs['eager_no_remat']['wall_ms_per_round']:.1f}")
+        out[arch] = recs
+    return out
+
+
+# core/distributed.py's rounds at reduced width, held to JAX's
+# ``build_fedepm`` on a one-device mesh with Auto axes (jax 0.9.0 on the
+# CPU; tests/test_torch_distributed.py and test_torch_distributed_families.py
+# recompute ``JAX_DIST``): m 4 clients of 2 x 16 tokens
+# (``data/lm.py::federated_token_batches``, seed 3), ``init_fn(PRNGKey(0))``,
+# ``FedEPMConfig.paper_defaults(m=4, rho=0.5, k0=3, eps_dp=0.1)``. xlstm's
+# and zamba2's second-round gradient in JAX is NaN (the aggregate of the
+# first round's noised uploads overflows JAX's masked exps, ROADMAP queue
+# 3), so they are held after one round
+DIST_SETTINGS = {"m": 4, "batch": 2, "seq": 16, "k0": 3, "eps": 0.1,
+                 "rho": 0.5, "seed": 3}
+DIST_ROUNDS = {"smollm-135m": 2, "xlstm-125m": 1, "zamba2-1.2b": 1}
+DIST_MODES = {"spatial": {"mode": "spatial", "ens": "gather",
+                          "remat": False},
+              "temporal": {"mode": "temporal", "microbatch": 2,
+                           "remat": True}}
+DIST_PROBES = 4
+# temporal against spatial with bf16 compute or a bf16 state: two bf16
+# ulps of the scale
+DIST_BF16_RTOL = 2.0 ** -7
+JAX_DIST = {
+    "smollm-135m": {
+        "spatial": {
+            "selected": [[False, True, True, False],
+                         [True, False, True, False]],
+            "w_tau": [
+                454005.53125, 48046.47133199355, -110.70560665134792,
+                -30871.681640625, -23106.560546875, -55964.85546875,
+                -96899.2109375],
+            "W": [
+                29.9296875, 0.11394308351588026, -0.0011433806794718207,
+                -0.009765625, 0.1171875, -0.1474609375, 0.0],
+            "Z": [
+                1626137.25, 30514.591968945635, -47.76599144649949,
+                -0.009765625, 0.1171875, -0.1474609375, 0.0],
+        },
+        "temporal": {
+            "selected": [[False, True, True, False],
+                         [True, False, True, False]],
+            "w_tau": [
+                454005.5625, 48046.47113494093, -110.70560262210775,
+                -30871.671875, -23106.560546875, -55964.86328125,
+                -96899.1953125],
+            "W": [
+                29.9296875, 0.11394285341337888, -0.001144302209934143,
+                -0.009765625, 0.1171875, -0.1474609375, 0.0],
+            "Z": [
+                1626137.5, 30514.595878892196, -47.76599317789494,
+                -0.009765625, 0.1171875, -0.1474609375, 0.0],
+        },
+    },
+    "xlstm-125m": {
+        "spatial": {
+            "selected": [[False, True, True, False]],
+            "w_tau": [
+                3.0, 0.05259103433478115, 0.0001430854663787523,
+                -0.011495603248476982, 0.0, 0.07604750990867615,
+                -0.006717620883136988],
+            "W": [
+                133.2174835205078, 0.2718447868306112, 1.2500614930663156e-05,
+                -0.011495603248476982, 0.0, 1.5145097970962524,
+                -0.006717620883136988],
+            "Z": [
+                26052652.0, 867551.7098441038, -2441.716529302467,
+                -0.011495603248476982, 0.0, -2611109.0, -0.006717620883136988],
+        },
+        "temporal": {
+            "selected": [[False, True, True, False]],
+            "w_tau": [
+                3.0, 0.05259103433478115, 0.0001430854663787523,
+                -0.011495603248476982, 0.0, 0.07604750990867615,
+                -0.006717620883136988],
+            "W": [
+                133.21749877929688, 0.271844738458072, 1.250193068897334e-05,
+                -0.011495603248476982, 0.0, 1.5145140886306763,
+                -0.006717620883136988],
+            "Z": [
+                26052658.0, 867551.5850814552, -2441.7169734695176,
+                -0.011495603248476982, 0.0, -2611109.5, -0.006717620883136988],
+        },
+    },
+    "zamba2-1.2b": {
+        "spatial": {
+            "selected": [[False, True, True, False]],
+            "w_tau": [
+                6.9017815589904785, 0.06881336409480464,
+                0.00015753444803320046, -0.011495603248476982,
+                0.16891413927078247, -0.0788421779870987,
+                -0.009914643131196499],
+            "W": [
+                91.91498565673828, 0.14032822370862783,
+                -0.00032651903694009746, -0.011495603248476982,
+                -0.018174083903431892, 0.02974550612270832,
+                -0.009914643131196499],
+            "Z": [
+                11991886.0, 427409.6694494847, -446.5297416667305,
+                -0.011495603248476982, 82324.3984375, 0.02974550612270832,
+                -0.009914643131196499],
+        },
+        "temporal": {
+            "selected": [[False, True, True, False]],
+            "w_tau": [
+                6.9017815589904785, 0.06881336409480464,
+                0.00015753444803320046, -0.011495603248476982,
+                0.16891413927078247, -0.0788421779870987,
+                -0.009914643131196499],
+            "W": [
+                91.91499328613281, 0.14032822163260947,
+                -0.00032651934877255174, -0.011495603248476982,
+                -0.018174055963754654, 0.02974550612270832,
+                -0.009914643131196499],
+            "Z": [
+                11991885.0, 427409.6381903387, -446.52971706006946,
+                -0.011495603248476982, 82324.390625, 0.02974550612270832,
+                -0.009914643131196499],
+        },
+    },
+}
+
+
+def dist_digest(state, masks) -> dict:
+    """What ``JAX_DIST`` holds of a run: the masks of its rounds, and of
+    w_tau, W and Z each [largest |value|, mean |value|, mean, DIST_PROBES
+    values at flat indices spaced evenly over the leaves laid end to end
+    in ``tree_leaves`` order], as Python floats. ``state`` holds numpy or
+    torch leaves."""
+    from repro_torch.core.treeutil import tree_leaves
+
+    def summary(tree):
+        flat = np.concatenate([np.asarray(
+            x.detach().cpu().float() if isinstance(x, torch.Tensor) else x,
+            np.float64).reshape(-1) for x in tree_leaves(tree)])
+        n = flat.size
+        idx = [round(i * (n - 1) / (DIST_PROBES - 1))
+               for i in range(DIST_PROBES)]
+        return [float(np.abs(flat).max()), float(np.abs(flat).mean()),
+                float(flat.mean())] + [float(flat[i]) for i in idx]
+
+    return {"selected": [[bool(v) for v in np.asarray(
+                m.cpu() if isinstance(m, torch.Tensor) else m)]
+                         for m in masks],
+            **{name: summary(state[name]) for name in ("w_tau", "W", "Z")}}
+
+
+def check_dist_digest(got: dict, want: dict, what: str,
+                      rtol: float = STATE_RTOL) -> float:
+    """Masks exact; each float within ``rtol`` of max(1, the largest |value|
+    of w_tau and of the tree): a client's update w_tau + (mu (w_i - w_tau)
+    - g) / (eta + mu) cancels at w_tau's scale. Returns the worst
+    difference over its scale."""
+    assert got["selected"] == want["selected"], (what, got["selected"],
+                                                 want["selected"])
+    worst = 0.0
+    for name in ("w_tau", "W", "Z"):
+        scale = max(1.0, want["w_tau"][0], want[name][0])
+        err = max(abs(a - b) for a, b in zip(got[name], want[name])) / scale
+        assert err <= rtol, (what, name, got[name], want[name])
+        worst = max(worst, err)
+    return worst
+
+
+def dist_reduced_run(arch: str, mode: str, device) -> dict:
+    """``build_fedepm`` on ``arch`` reduced at DIST_SETTINGS, DIST_ROUNDS[arch]
+    rounds of ``mode``: its ``dist_digest``."""
+    from repro_torch import configs, random
+    from repro_torch.core.distributed import DistConfig, build_fedepm
+    from repro_torch.core.fedepm import FedEPMConfig
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.models.registry import get_model
+    s = DIST_SETTINGS
+    cfg = configs.get_reduced(arch)
+    raw = next(federated_token_batches(cfg.vocab, s["m"], s["batch"],
+                                       s["seq"], steps=1, seed=s["seed"]))
+    batches = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    fcfg = FedEPMConfig.paper_defaults(m=s["m"], rho=s["rho"], k0=s["k0"],
+                                       eps_dp=s["eps"])
+    init_fn, step_fn, _ = build_fedepm(get_model(cfg), LMLoss(cfg), fcfg,
+                                       None, DistConfig(**DIST_MODES[mode]))
+    state, masks = init_fn(random.PRNGKey(0), device=device), []
+    for _ in range(DIST_ROUNDS[arch]):
+        state, met = step_fn(state, batches)
+        masks.append(met.selected)
+    return dist_digest(state._asdict(), masks)
+
+
+# (b) and (c): the full-width runs through ``build_fedepm``, with JAX's
+# ``build_train_step`` settings (paper defaults, k0 4, eps 0.1, rho 0.5)
+# but ``lm_federated.toml``'s mu0 and sensitivity clip: the paper's mu0 =
+# 0.05 (a prox step of about -20 g) and an unclipped 2 ||g||_1 over 10^8-
+# 10^9 params drive the aggregate past what a bf16 forward holds within
+# two rounds; m 4 clients of 2 x 256 tokens
+DIST_FULL = {"m": 4, "batch": 2, "seq": 256, "k0": 4, "eps": 0.1,
+             "rho": 0.5, "seed": 0, "mu0": 20.0, "sensitivity_clip": 1.0}
+DIST_SMOLLM_ROUNDS, DIST_ZAMBA2_ROUNDS = 3, 2
+DIST_CONFIGS = {
+    "spatial_gather": {"mode": "spatial", "ens": "gather"},
+    "spatial_a2a": {"mode": "spatial", "ens": "a2a"},
+    "temporal_mb1": {"mode": "temporal", "microbatch": 1},
+    "temporal_mb2": {"mode": "temporal", "microbatch": 2},
+}
+ZAMBA2_PARAMS, ZAMBA2_LEAVES = 1_170_473_856, 21
+
+
+def _dist_full_setup(arch: str):
+    from repro_torch import configs
+    from repro_torch.core.fedepm import FedEPMConfig
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.models.registry import get_model
+    s = DIST_FULL
+    cfg = configs.get_config(arch)
+    raw = next(federated_token_batches(cfg.vocab, s["m"], s["batch"],
+                                       s["seq"], steps=1, seed=s["seed"]))
+    batches = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    fcfg = FedEPMConfig.paper_defaults(
+        m=s["m"], rho=s["rho"], k0=s["k0"], eps_dp=s["eps"], mu0=s["mu0"],
+        sensitivity_clip=s["sensitivity_clip"])
+    return get_model(cfg), LMLoss(cfg), fcfg, batches
+
+
+def _f_per_m(loss, w, batches) -> float:
+    """f(w)/m = the mean of the clients' losses at w, one client at a
+    time."""
+    from repro_torch.core.treeutil import tmap
+    m = batches["tokens"].shape[0]
+    with torch.no_grad():
+        return sum(float(loss(tmap(lambda x: x[None], w),
+                              {k: v[i:i + 1] for k, v in batches.items()}))
+                   for i in range(m)) / m
+
+
+def _dist_case(model, loss, fcfg, batches, dist, rounds, donate=False,
+               step=None):
+    """``rounds`` rounds of ``build_fedepm(..., dist)`` (or of ``step(state,
+    batches)``) from ``init_fn(PRNGKey(0))`` with the counters set to 0
+    just before the init: (final state, its masks, a clone of w_tau, W
+    and Z after the first round, record). The peak is above what the
+    process held before the init."""
+    from repro_torch import random
+    from repro_torch.core.distributed import build_fedepm
+    from repro_torch.core.treeutil import tmap
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    init_fn, step_fn, _ = build_fedepm(model, loss, fcfg, None, dist)
+    if step is None:
+        def step(st, b):
+            return step_fn(st, b, donate=donate)
+    state = init_fn(random.PRNGKey(0))
+    torch.cuda.synchronize()
+    walls, masks, first = [], [], None
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        state, met = step(state, batches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        masks.append(met.selected)
+        if first is None and rounds > 1 and not donate:
+            first = tmap(torch.clone, (state.w_tau, state.W, state.Z))
+    rec = {"wall_ms_per_round": walls,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "launches": read_counts()}
+    return state, masks, first, rec
+
+
+def _dist_launches(rec, leaves: int, rounds: int, m: int, k0: int):
+    """ENS once per leaf and round, prox k0 times per leaf, round and
+    client (temporal: one client a launch; spatial: all m in one)."""
+    per = m if rec["mode"] == "temporal" else 1
+    want = {"ens": leaves * rounds, "prox_update": leaves * k0 * rounds * per,
+            "quantize_cols": 0, "ef_accumulate": 0,
+            "private_quantize_cols": 0, "quantize": 0}
+    got = {k: rec["launches"][k] for k in want}
+    assert got == want, (rec["mode"], got, want)
+
+
+def _tree_diff(a, b) -> float:
+    """The largest |a - b| over the trees' leaves."""
+    from repro_torch.core.treeutil import tree_leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _tree_max(a) -> float:
+    from repro_torch.core.treeutil import tree_leaves
+    return max(float(x.float().abs().max()) for x in tree_leaves(a))
+
+
+def _dist_diffs(got, want) -> dict:
+    """Per tree of (w_tau, W, Z): the largest |got - want| and its scale,
+    max(1, the largest |value| of want's w_tau and of the tree)."""
+    out = {}
+    for t, g, w in zip(("w_tau", "W", "Z"), got, want):
+        d = _tree_diff(g, w)
+        scale = max(1.0, _tree_max(want[0]), _tree_max(w))
+        out[t] = {"max_abs_diff": d, "scale": scale, "over_scale": d / scale}
+    return out
+
+
+def run_dist_smollm() -> dict:
+    """(b) smollm-135m at full width through ``build_fedepm`` in the four
+    DIST_CONFIGS, and the spatial round with no remat, DIST_SMOLLM_ROUNDS
+    rounds each, against the port's ``fedepm_round`` (remat'd) from the
+    same state and batches: the spatial ones bit for bit; the temporal
+    ones after the first round within
+    DIST_BF16_RTOL of the scale (bf16 compute: cuBLAS rounds one client's
+    products and four clients' batched ones differently), their last
+    round's difference printed (the rounds carry it on)."""
+    from repro_torch.core.distributed import DistConfig
+    from repro_torch.core.fedepm import fedepm_round
+    from repro_torch.core.treeutil import tree_leaves
+    s = DIST_FULL
+    model, loss, fcfg, batches = _dist_full_setup("smollm-135m")
+    ref, ref_masks, ref_first, ref_rec = _dist_case(
+        model, loss, fcfg, batches, DistConfig(), DIST_SMOLLM_ROUNDS,
+        step=lambda st, b: fedepm_round(st, b, loss, fcfg))
+    ref = (ref.w_tau, ref.W, ref.Z, ref.key)
+    ref_rec["mode"] = "spatial"
+    _dist_launches(ref_rec, LM_LEAVES, DIST_SMOLLM_ROUNDS, s["m"], s["k0"])
+    recs = {"fedepm_round": ref_rec}
+    for name, kw in DIST_CONFIGS.items():
+        st, masks, first, rec = _dist_case(
+            model, loss, fcfg, batches, DistConfig(**kw),
+            DIST_SMOLLM_ROUNDS)
+        rec["mode"] = kw["mode"]
+        _dist_launches(rec, LM_LEAVES, DIST_SMOLLM_ROUNDS, s["m"], s["k0"])
+        assert all(torch.equal(a, b) for a, b in zip(masks, ref_masks)), name
+        got = (st.w_tau, st.W, st.Z, st.key)
+        if kw["mode"] == "spatial":
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(ref))), name
+            rec["vs_fedepm_round"] = "bitwise"
+        else:
+            rec["first_round_vs_fedepm_round"] = _dist_diffs(first,
+                                                             ref_first)
+            rec["vs_fedepm_round"] = _dist_diffs(got[:3], ref[:3])
+            for t, d in rec["first_round_vs_fedepm_round"].items():
+                assert d["over_scale"] <= DIST_BF16_RTOL, (name, t, d)
+        recs[name] = rec
+        del st, first, got
+    # the spatial round without any remat (blocks or loss): the same bits,
+    # and the peak that remat saves at 2 x 256 tokens a client
+    with _remat(False):
+        plain_model, plain_loss, _, _ = _dist_full_setup("smollm-135m")
+    st, _, _, rec = _dist_case(plain_model, plain_loss, fcfg, batches,
+                               DistConfig(mode="spatial", remat=False),
+                               DIST_SMOLLM_ROUNDS)
+    rec["mode"] = "spatial"
+    _dist_launches(rec, LM_LEAVES, DIST_SMOLLM_ROUNDS, s["m"], s["k0"])
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((st.w_tau, st.W, st.Z, st.key)), tree_leaves(ref)))
+    rec["vs_fedepm_round"] = "bitwise"
+    recs["spatial_gather_no_remat"] = rec
+    del st
+    for name, rec in recs.items():
+        log(f"distributed[smollm-135m {name}] " + json.dumps(rec))
+    return recs
+
+
+def run_dist_zamba2() -> dict:
+    """(c) zamba2-1.2b at full width, temporal, microbatch 2, f32 state,
+    the donated step, DIST_ZAMBA2_ROUNDS rounds, twice: the same bits
+    (digests of every state leaf), f/m at the last w_tau finite."""
+    from repro_torch.core.distributed import DistConfig
+    from repro_torch.core.treeutil import tree_leaves
+    s = DIST_FULL
+    model, loss, fcfg, batches = _dist_full_setup("zamba2-1.2b")
+    dist = DistConfig(mode="temporal", microbatch=2,
+                      state_dtype=torch.float32)
+    runs = []
+    for _ in range(2):
+        st, masks, _, rec = _dist_case(model, loss, fcfg, batches, dist,
+                                       DIST_ZAMBA2_ROUNDS, donate=True)
+        rec["mode"] = "temporal"
+        leaves = tree_leaves(st.w_tau)
+        assert (sum(x.numel() for x in leaves), len(leaves)) == \
+            (ZAMBA2_PARAMS, ZAMBA2_LEAVES)
+        _dist_launches(rec, ZAMBA2_LEAVES, DIST_ZAMBA2_ROUNDS, s["m"],
+                       s["k0"])
+        rec["bits"] = {t: _bit_digest(getattr(st, t))
+                       for t in ("w_tau", "W", "Z")}
+        rec["key"] = st.key.tolist()
+        rec["selected"] = [m.tolist() for m in masks]
+        rec["f_per_m"] = _f_per_m(loss, st.w_tau, batches)
+        runs.append(rec)
+        del st, leaves
+        torch.cuda.empty_cache()
+    for rec in runs:
+        log("distributed[zamba2-1.2b temporal] " + json.dumps(
+            {k: v for k, v in rec.items() if k != "bits"}))
+    for k in ("bits", "key", "selected", "f_per_m"):
+        assert runs[0][k] == runs[1][k], k
+    assert np.isfinite(runs[0]["f_per_m"]), runs[0]["f_per_m"]
+    for rec in runs:
+        del rec["bits"]
+    return {"run": runs[0], "again": runs[1]}
+
+
+def run_dist_reduced() -> dict:
+    """(d) The reduced archs of ``JAX_DIST`` through ``build_fedepm`` on
+    the card, each digest within STATE_RTOL of JAX's scale."""
+    out = {}
+    for arch, modes in JAX_DIST.items():
+        for mode, want in modes.items():
+            reset_counts()
+            got = dist_reduced_run(arch, mode, "cuda")
+            out[f"{arch}/{mode}"] = {
+                "launches": read_counts(),
+                "worst_over_scale": check_dist_digest(got, want,
+                                                      f"{arch} {mode}")}
+    log("distributed[reduced vs JAX_DIST] " + json.dumps(
+        {k: v["worst_over_scale"] for k, v in out.items()}))
+    return out
+
+
+def run_distributed_path(lm_eager: dict) -> dict:
+    """The distributed phase, each run a path with the counters set to 0
+    just before it: (a) ``run_remat_path(lm_eager)``, (b)
+    ``run_dist_smollm``, (c) ``run_dist_zamba2``, (d)
+    ``run_dist_reduced``. Wall per round, peak memory and launches
+    printed."""
+    out = {"remat": run_remat_path(lm_eager),
+           "smollm-135m": run_dist_smollm()}
+    torch.cuda.empty_cache()
+    out["zamba2-1.2b"] = run_dist_zamba2()
+    torch.cuda.empty_cache()
+    out["reduced"] = run_dist_reduced()
+    return out
+
+
+def _bit_digest(tree) -> list:
+    """Per leaf, a sum over its 32-bit (or 16-bit) words times their flat
+    index's odd multiplier, wrapping in int64 on the card, in pieces of
+    ``random.UNIFORM_CHUNK``: equal bits give equal digests."""
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.random import UNIFORM_CHUNK
+    out = []
+    for x in tree_leaves(tree):
+        words = x.reshape(-1).view(torch.int32 if x.element_size() == 4
+                                   else torch.int16)
+        acc = torch.zeros((), dtype=torch.int64, device=x.device)
+        for s in range(0, words.numel(), UNIFORM_CHUNK):
+            w = words[s:s + UNIFORM_CHUNK].to(torch.int64)
+            idx = torch.arange(s, s + w.numel(), dtype=torch.int64,
+                               device=x.device)
+            acc += (w * (2 * idx + 0x9E3779B1)).sum()
+        out.append(int(acc))
+    return out
 
 
 def run_twins_path() -> dict:
@@ -2995,6 +3524,9 @@ def main() -> int:
               "lm_path": run_lm_path(),
               "lm_families": run_lm_families()}
     record["serve"], serve_cpu = run_serve_path()
+    record["distributed"] = run_distributed_path({
+        "smollm-135m": record["lm_path"]["eager"],
+        XLSTM: record["lm_families"]["xlstm-125m/full"]["eager"]})
     paths = {"run_fedepm": record["main_path"]["launches"]}
     paths.update({f"simulate.{key}": res["launches"]
                   for key, res in record["sim_path"].items()})
@@ -3021,6 +3553,13 @@ def main() -> int:
                   for key, res in recs.items() if key != "jax"})
     paths.update({f"serve.{key}": res["launches"]
                   for key, res in record["serve"].items()})
+    dist = record["distributed"]
+    paths.update({f"remat.{arch}.{key}": res["launches"]
+                  for arch, recs in dist["remat"].items()
+                  for key, res in recs.items()})
+    paths.update({f"distributed.{arch}.{key}": res["launches"]
+                  for arch in ("smollm-135m", "zamba2-1.2b", "reduced")
+                  for key, res in dist[arch].items()})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -44,11 +44,18 @@ def sample_uniform_noise(key: torch.Tensor, shape) -> torch.Tensor:
     return random.uniform(key, shape, _U_LO, _U_HI)
 
 
+def unit_laplace(key: torch.Tensor, shape) -> torch.Tensor:
+    """Unit-scale Laplace values (f32) for each key of ``key`` (..., 2):
+    the inverse CDF of ``sample_uniform_noise``'s uniforms, drawn and
+    transformed in pieces (``random.UNIFORM_CHUNK``), so a large leaf holds
+    no whole-leaf temporaries; the same bits as the whole draw."""
+    return random.uniform(key, shape, _U_LO, _U_HI, transform=_unit_laplace)
+
+
 def sample_laplace(key: torch.Tensor, shape, scale,
                    dtype=torch.float32) -> torch.Tensor:
     """Laplace(0, scale) via the inverse CDF; ``scale`` may be a tensor."""
-    u = sample_uniform_noise(key, shape)
-    return laplace_from_uniform(u, scale).to(dtype)
+    return (scale * unit_laplace(key, shape)).to(dtype)
 
 
 def laplace_tree(key: torch.Tensor, tree, scale):
@@ -69,9 +76,8 @@ def client_unit_laplace(k_noise: torch.Tensor, W):
     leaves = tree_leaves(W)
     m = leaves[0].shape[0]
     keys = random.split(random.split(k_noise, m), len(leaves))  # (m, L, 2)
-    return tree_unflatten(W, [
-        _unit_laplace(sample_uniform_noise(keys[:, i], x.shape[1:]))
-        for i, x in enumerate(leaves)])
+    return tree_unflatten(W, [unit_laplace(keys[:, i], x.shape[1:])
+                              for i, x in enumerate(leaves)])
 
 
 def add_client_noise(W, unit_noise, scale: torch.Tensor,

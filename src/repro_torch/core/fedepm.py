@@ -35,6 +35,7 @@ from repro_torch.core.treeutil import (
     tree_broadcast_clients,
     tree_l1_norm,
     tree_leaves,
+    tree_sq_dist,
     tree_sq_norm,
     tree_unflatten,
     tree_where,
@@ -200,7 +201,7 @@ def _client_inner(W, w_new, g, pows: torch.Tensor, cfg: FedEPMConfig):
     one = torch.ones((), dtype=torch.float32, device=pows.device)
     c = torch.full((), cfg.c, dtype=torch.float32, device=pows.device)
     for t in range(cfg.k0):
-        sq = tree_sq_norm(tmap(torch.sub, W, w_new), per_client=True)
+        sq = tree_sq_dist(W, w_new, per_client=True)
         # jitted XLA:CPU computes mu0 (1 + c sq) alpha^(k+1) as
         # (mu0 alpha^(k+1)) fma(c, sq, 1); addcmul rounds once
         mu = (cfg.mu0 * pows[t]) * torch.addcmul(one, sq, c)

@@ -63,9 +63,11 @@ def _sequential(rows: torch.Tensor, square: bool) -> torch.Tensor:
     return acc
 
 
-def _reduce(tree, per_client: bool, square: bool) -> torch.Tensor:
+def _reduce(leaves, per_client: bool, square: bool) -> torch.Tensor:
+    """The sum over ``leaves`` (an iterable, consumed one leaf at a time)
+    of each leaf's sum of squares or of |values|."""
     parts = []
-    for x in tree_leaves(tree):
+    for x in leaves:
         x = x.to(torch.float32)
         rows = x.reshape(x.shape[0], -1) if per_client else x.reshape(1, -1)
         if not x.is_cuda and 0 < rows.shape[1] <= SEQUENTIAL_MAX:
@@ -81,12 +83,20 @@ def _reduce(tree, per_client: bool, square: bool) -> torch.Tensor:
 
 def tree_sq_norm(a, per_client: bool = False) -> torch.Tensor:
     """||a||^2 summed over all leaves, in f32; (m,) with ``per_client``."""
-    return _reduce(a, per_client, square=True)
+    return _reduce(tree_leaves(a), per_client, square=True)
+
+
+def tree_sq_dist(a, b, per_client: bool = False) -> torch.Tensor:
+    """``tree_sq_norm(tmap(torch.sub, a, b))`` with its bits, one leaf's
+    difference alive at a time (``b``'s leaves may lack ``a``'s client
+    axis)."""
+    return _reduce((x - y for x, y in zip(tree_leaves(a), tree_leaves(b))),
+                   per_client, square=True)
 
 
 def tree_l1_norm(a, per_client: bool = False) -> torch.Tensor:
     """||a||_1 summed over all leaves, in f32; (m,) with ``per_client``."""
-    return _reduce(a, per_client, square=False)
+    return _reduce(tree_leaves(a), per_client, square=False)
 
 
 def tree_where(mask_scalar, a, b):

@@ -41,6 +41,7 @@ from repro_torch.models.layers import (
     init_cache,
     init_mlp,
     init_norm,
+    maybe_remat,
     out_proj,
     qkv_proj,
     rope,
@@ -193,8 +194,10 @@ def hidden(params, batch, cfg: ArchConfig):
     """Forward to the final norm, without the unembedding (for the chunked
     CE)."""
     x, positions = embed_inputs(params, batch, cfg)
+    block = maybe_remat(
+        lambda h, lp: block_forward(h, lp, cfg, positions)[0], cfg)
     for lp in layer_params(params["layers"], cfg.n_layers):
-        x, _, _ = block_forward(x, lp, cfg, positions)
+        x = block(x, lp)
     return apply_norm(x, params["ln_f"], cfg.norm)
 
 

@@ -28,8 +28,30 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random
+
+
+def maybe_remat(fn, cfg):
+    """Per-block rematerialisation, as JAX's ``maybe_remat``: where
+    ``cfg.remat`` holds, a call of ``fn`` with grad enabled runs under
+    ``torch.utils.checkpoint``, so autograd keeps only the block's inputs
+    and the backward recomputes its forward; the recomputed ops are the
+    forward's, so values and gradients keep their bits. Without grad
+    (serving's prefill and decode) it calls ``fn`` as it is. No block draws
+    random numbers (the port's draws take explicit keys), so the RNG state
+    is not saved: forking the CUDA RNG inside a graph capture fails."""
+    if not getattr(cfg, "remat", False):
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run
 
 # ---------------------------------------------------------------------------
 # initialisers

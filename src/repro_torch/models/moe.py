@@ -40,6 +40,7 @@ from repro_torch.models.layers import (
     embed_init,
     init_attention,
     init_norm,
+    maybe_remat,
 )
 
 # ---------------------------------------------------------------------------
@@ -208,8 +209,10 @@ def block_forward(x, lp, cfg: ArchConfig, positions):
 def hidden(params, batch, cfg: ArchConfig):
     """Forward to the final norm, without the unembedding."""
     x, positions = dense.embed_inputs(params, batch, cfg)
+    block = maybe_remat(
+        lambda h, lp: block_forward(h, lp, cfg, positions)[0], cfg)
     for lp in dense.layer_params(params["layers"], cfg.n_layers):
-        x = block_forward(x, lp, cfg, positions)[0]
+        x = block(x, lp)
     return apply_norm(x, params["ln_f"], cfg.norm)
 
 

@@ -53,6 +53,7 @@ from repro_torch.models.layers import (
     init_cache,
     init_mlp,
     init_norm,
+    maybe_remat,
     out_proj,
     qkv_proj,
     rope,
@@ -350,16 +351,21 @@ def _backbone(params, x, cfg: ArchConfig, positions,
     ``collect_states`` (x, per segment its layers' final states stacked on
     a layer axis (m, n, ...), each shared application's (k, v))."""
     layers = dense.layer_params(params["mamba_layers"], cfg.n_layers)
+    shared = maybe_remat(
+        lambda h, sp: shared_block(h, sp, cfg, positions), cfg)
+    mamba = maybe_remat(lambda h, lp: mamba_block(h, lp, cfg), cfg)
     idx = 0
     seg_states, kvs = [], []
     for attn_before, n in _segments(cfg):
         if attn_before:
-            x, kv = shared_block(x, params["shared_attn"], cfg, positions)
-            kvs.append(kv)
+            x, kv = shared(x, params["shared_attn"])
+            if collect_states:
+                kvs.append(kv)
         states = []
         for lp in layers[idx:idx + n]:
-            x, st = mamba_block(x, lp, cfg)
-            states.append(st)
+            x, st = mamba(x, lp)
+            if collect_states:
+                states.append(st)
         if collect_states:
             seg_states.append(tuple(torch.stack(col, dim=1)
                                     for col in zip(*states)))

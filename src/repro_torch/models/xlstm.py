@@ -40,6 +40,7 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     init_norm,
+    maybe_remat,
 )
 
 _EPS = 1e-6
@@ -370,9 +371,10 @@ def slstm_block_step(x1, p, cfg: ArchConfig, state):
 def hidden(params, batch, cfg: ArchConfig):
     """Forward to the final norm, without the unembedding."""
     x, _ = dense.embed_inputs(params, batch, cfg)
+    sblk = maybe_remat(lambda h, lp: slstm_block(h, lp, cfg)[0], cfg)
+    mblk = maybe_remat(lambda h, lp: mlstm_block(h, lp, cfg)[0], cfg)
     for i, lp in enumerate(params["layers"]):
-        block = slstm_block if _is_slstm(cfg, i) else mlstm_block
-        x = block(x, lp, cfg)[0]
+        x = sblk(x, lp) if _is_slstm(cfg, i) else mblk(x, lp)
     return apply_norm(x, params["ln_f"], cfg.norm)
 
 

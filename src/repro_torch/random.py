@@ -72,13 +72,41 @@ def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     return out.reshape(key.shape[:-1] + shape)
 
 
-def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``."""
+def _pieces(key: torch.Tensor, shape, lo: float, hi: float, chunk: int,
+            transform=None) -> torch.Tensor:
+    """f32 uniforms on [lo, hi) for each key of ``key`` (..., 2) over
+    ``shape``, hashed about ``chunk`` values at a time (over all the keys)
+    into one buffer, each piece through the elementwise ``transform``
+    first where one is given. A value depends only on its key and flat
+    index, so the pieces give the bits of one whole-draw hash."""
+    if key.shape[-1:] != (2,):
+        raise ValueError(f"a key has shape (..., 2); got {tuple(key.shape)}")
     shape = tuple(shape)
-    out = _hash(key, math.prod(shape), 0, "uniform", float(minval),
-                float(maxval))
+    n = math.prod(shape)
+    keys = key.reshape(-1, 2)
+    step = max(1, chunk // max(1, keys.shape[0]))
+    out = torch.empty((keys.shape[0], n), dtype=torch.float32,
+                      device=key.device)
+    for start in range(0, n, step):
+        u = _hash(keys, min(step, n - start), start, "uniform", lo, hi)
+        out[:, start:start + u.shape[-1]] = \
+            u if transform is None else transform(u)
     return out.reshape(key.shape[:-1] + shape)
+
+
+# f32 uniforms drawn per hash call: a large draw (zamba2's stacked
+# in_proj, 652M values) and a transform of it (the Laplace noise's inverse
+# CDF) hold pieces of this many values, not whole-leaf temporaries
+UNIFORM_CHUNK = 1 << 24
+
+
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
+            maxval: float = 1.0, *, transform=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``,
+    drawn in pieces of ``UNIFORM_CHUNK`` values; ``transform`` (an
+    elementwise f32 function) maps each piece before it is stored."""
+    return _pieces(key, shape, float(minval), float(maxval), UNIFORM_CHUNK,
+                   transform)
 
 
 _NEXT_BELOW_NEG1 = -0.9999999403953552  # nextafter(-1, 0) in f32
@@ -107,17 +135,8 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     it, then multiplies by sqrt(2) rounded to bf16, each op rounding to
     bf16 as XLA:CPU's does."""
     if dtype == torch.float32:
-        shape = tuple(shape)
-        n = math.prod(shape)
-        keys = key.reshape(-1, 2)
-        step = max(1, NORMAL_CHUNK // max(1, keys.shape[0]))
-        out = torch.empty((keys.shape[0], n), dtype=torch.float32,
-                          device=key.device)
-        for start in range(0, n, step):
-            u = _hash(keys, min(step, n - start), start, "uniform",
-                      _NEXT_BELOW_NEG1, 1.0)
-            out[:, start:start + u.shape[-1]] = erfinv(u) * _SQRT2
-        return out.reshape(key.shape[:-1] + shape)
+        return _pieces(key, shape, _NEXT_BELOW_NEG1, 1.0, NORMAL_CHUNK,
+                       lambda u: erfinv(u) * _SQRT2)
     if dtype != torch.bfloat16:
         raise ValueError(f"normal draws f32 or bf16; got {dtype}")
     byte = bits(key, shape) & 0xFF

@@ -72,8 +72,10 @@ rewinds between passes), uploads the effective masks and bills and emits
 from the outcomes; the async recording pass makes the eager pump's fault
 decisions, and a lost upload only frees its table slot.
 
-Not ported yet: the client-axis mesh (``mesh``, ROADMAP queue 1 item 14);
-a sim with its own ``SimDraws`` runs under ``FedSim.step`` only.
+One device only: ``mesh`` is None or 1, the same run bit for bit, as a
+single-device mesh is in JAX; the client-axis mesh comes with ROADMAP
+queue 1 item 14.5. A sim with its own ``SimDraws`` runs under
+``FedSim.step`` only.
 """
 from __future__ import annotations
 
@@ -348,9 +350,10 @@ def _check(sim: FedSim, rounds: int, chunk, mesh, event_table_capacity):
     if event_table_capacity is not None and event_table_capacity < 1:
         raise ValueError(f"event_table_capacity must be >= 1; "
                          f"got {event_table_capacity}")
-    if mesh is not None:
-        raise ValueError("run_rounds(mesh=...) is not ported yet (ROADMAP "
-                         "queue 1 item 14)")
+    if mesh is not None and not (isinstance(mesh, int) and mesh == 1):
+        raise ValueError(f"run_rounds runs on one device (mesh None or 1); "
+                         f"got {mesh!r}: the mesh comes with ROADMAP queue 1 "
+                         f"item 14.5")
     if sim.sim.policy != "async" and event_table_capacity is not None:
         raise ValueError("event_table_capacity is owned by policy='async'; "
                          f"policy is {sim.sim.policy!r}")
@@ -380,7 +383,8 @@ def run_rounds(sim: FedSim, rounds: int, *, chunk: int | None = None,
     the rounds per chunk (default: all). ``collect_w_tau=True`` also
     returns every round's broadcast point on the host, (rounds, ...) per
     leaf. The state the caller handed in is never written: the engine
-    copies it into its own buffers and hands back fresh tensors.
+    copies it into its own buffers and hands back fresh tensors. ``mesh``
+    is None or 1 (one device, the same run).
     """
     _check(sim, rounds, chunk, mesh, event_table_capacity)
     if sim.sim.policy == "async":

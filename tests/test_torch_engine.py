@@ -437,7 +437,7 @@ def test_run_rounds_matches_jax(task, alg, policy, kw, codec, privacy, eps):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": 1}, "item 14"),
+    ({"mesh": 2}, "item 14"),
     ({"event_table_capacity": 4}, "owned by policy='async'"),
     ({"chunk": 0}, "chunk"),
 ])

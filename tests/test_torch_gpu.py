@@ -623,3 +623,91 @@ def test_serve_on_card_matches_cpu_reduced(gen):
     scale = max(1.0, float(cpu.logits.abs().max()))
     assert float((card.logits.cpu() - cpu.logits).abs().max()) <= \
         4e-6 * scale
+
+
+# ---------------------------------------------------------------------------
+# per-block remat and core/distributed.py on the card
+# ---------------------------------------------------------------------------
+
+REMAT_FAMILIES = ["smollm-135m", "mixtral-8x7b", "xlstm-125m",
+                  "zamba2-1.2b"]
+
+
+@pytest.mark.parametrize("arch", REMAT_FAMILIES)
+def test_remat_keeps_the_bits_on_card(gen, arch):
+    """Reduced configs in bf16 compute, 3 clients: the per-client losses
+    and gradients with per-block remat equal those without, bit for bit."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.core.treeutil import tmap, tree_leaves
+    from repro_torch.models.registry import get_model
+    base = dataclasses.replace(configs.get_reduced(arch),
+                               dtype=torch.bfloat16)
+    tokens = torch.randint(0, base.vocab, (3, 2, 32), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, 1, -1),
+             "loss_mask": torch.ones(3, 2, 32, device="cuda")}
+    out = []
+    for remat in (True, False):
+        cfg = dataclasses.replace(base, remat=remat)
+        p = get_model(cfg).init(random.PRNGKey(1, device="cuda"))
+        W = tmap(lambda x: x.unsqueeze(0).expand((3,) + x.shape).clone()
+                 .requires_grad_(True), p)
+        loss = LMLoss(cfg)(W, batch)
+        out.append([loss.detach()] + list(torch.autograd.grad(
+            loss.sum(), tree_leaves(W))))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+@pytest.mark.parametrize("ens", ["gather", "a2a"])
+def test_spatial_round_is_fedepm_round_on_card(gen, ens):
+    """``build_fedepm``'s spatial round on reduced smollm-135m equals the
+    port's ``fedepm_round`` bit for bit on the card, two rounds."""
+    import chip_smoke
+    from repro_torch.core.distributed import DistConfig, build_fedepm
+    from repro_torch.core.treeutil import tree_leaves
+    model, loss, fcfg, batches = _reduced_dist_setup(chip_smoke)
+    init_fn, step_fn, _ = build_fedepm(model, loss, fcfg, None,
+                                       DistConfig(mode="spatial", ens=ens))
+    state = ref = init_fn(random.PRNGKey(0))
+    for _ in range(2):
+        state, _ = step_fn(state, batches)
+        ref, _ = fedepm.fedepm_round(ref, batches, loss, fcfg)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((state.w_tau, state.W, state.Z, state.key)),
+        tree_leaves((ref.w_tau, ref.W, ref.Z, ref.key))))
+
+
+@pytest.mark.parametrize("microbatch", [1, 2])
+def test_donated_temporal_step_is_the_pure_one_on_card(gen, microbatch):
+    import chip_smoke
+    from repro_torch.core.distributed import DistConfig, build_fedepm
+    from repro_torch.core.treeutil import tree_leaves
+    model, loss, fcfg, batches = _reduced_dist_setup(chip_smoke)
+    init_fn, step_fn, _ = build_fedepm(
+        model, loss, fcfg, None,
+        DistConfig(mode="temporal", microbatch=microbatch))
+    pure, donated = init_fn(random.PRNGKey(0)), init_fn(random.PRNGKey(0))
+    for _ in range(2):
+        pure, _ = step_fn(pure, batches)
+        donated, _ = step_fn(donated, batches, donate=True)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((pure.w_tau, pure.W, pure.Z, pure.key)),
+        tree_leaves((donated.w_tau, donated.W, donated.Z, donated.key))))
+
+
+def _reduced_dist_setup(chip_smoke):
+    from repro_torch import configs
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.models.registry import get_model
+    s = chip_smoke.DIST_SETTINGS
+    cfg = configs.get_reduced("smollm-135m")
+    raw = next(federated_token_batches(cfg.vocab, s["m"], s["batch"],
+                                       s["seq"], steps=1, seed=s["seed"]))
+    batches = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    fcfg = fedepm.FedEPMConfig.paper_defaults(
+        m=s["m"], rho=s["rho"], k0=s["k0"], eps_dp=s["eps"])
+    return get_model(cfg), LMLoss(cfg), fcfg, batches

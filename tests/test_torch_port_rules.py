@@ -12,7 +12,11 @@ import torch
 
 from repro.data import partition as jpart
 from repro.data import synth as jsynth
+from repro_torch import configs, random
 from repro_torch.checkpoint.convert import state_from_numpy, state_to_numpy
+from repro_torch.core import distributed
+from repro_torch.core.fedepm import FedEPMConfig
+from repro_torch.core.tasks import LMLoss
 from repro_torch.data import partition as tpart
 from repro_torch.data import synth as tsynth
 from repro_torch.kernels import build
@@ -22,6 +26,7 @@ from repro_torch.kernels.prox import ops as prox_ops
 from repro_torch.kernels.prox import prox as prox_kernel
 from repro_torch.launch import paper
 from repro_torch.launch import simulate
+from repro_torch.models.registry import get_model
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -42,7 +47,10 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "run_faults_spec", "fault_host_numbers", "run_lm_path",
              "run_twins_path", "check_lm_card_vs_cpu", "run_serve_path",
              "check_serve_card_vs_cpu", "profile_serve_path",
-             "serve_digest", "check_serve_digest"):
+             "serve_digest", "check_serve_digest", "run_remat_path",
+             "run_distributed_path", "run_dist_smollm", "run_dist_zamba2",
+             "run_dist_reduced", "dist_digest", "check_dist_digest",
+             "dist_reduced_run"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
@@ -72,7 +80,9 @@ for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.configs.mixtral_8x22b", "repro_torch.data.lm",
             "repro_torch.checkpoint.npz", "repro_torch.launch.train",
             "repro_torch.launch.serve", "repro_torch.models.moe",
-            "repro_torch.models.xlstm", "repro_torch.models.ssm"):
+            "repro_torch.models.xlstm", "repro_torch.models.ssm",
+            "repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.core.distributed"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -128,6 +138,11 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         simulate.main(["--m", "4", "--d", "200", "--rounds", "1",
                        "--quiet"])
+    cfg = configs.get_reduced("smollm-135m")
+    init_fn, _, _ = distributed.build_fedepm(
+        get_model(cfg), LMLoss(cfg), FedEPMConfig(m=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_fn(random.PRNGKey(0))
 
 
 def test_kernel_on_cpu_tensor_raises():
