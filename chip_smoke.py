@@ -155,6 +155,11 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 SMOLLM_LEAF = 49152 * 576   # smollm-135m tied embedding, 28,311,552
+# zamba2-1.2b's widest leaf, the stacked Mamba2 in_proj (38, 2048, 8384),
+# 652,476,416: the temporal round runs prox on one client's row of it and
+# ENS over four clients' (2.6e9 values, past 2^31)
+ZAMBA2_LEAF = 38 * 2048 * 8384
+WIDE_PIECE = 1 << 26        # the plain versions run wider inputs in pieces
 STATE_RTOL = 4e-6           # the CPU parity tests' trajectory tolerance
 OUT_DIR = ROOT / "chiprun_out"  # git-ignored; every shape's numbers
 LAM, ETA = 0.05, 0.02
@@ -243,6 +248,61 @@ def _prox_case(m, n, dtype, gen, reps):
                plain_ms=time_ms(lambda: prox_update_ref(wi, wt, g, mu, LAM,
                                                         ETA), reps),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return res
+
+
+def _wide_case(name, m, n, gen):
+    """``name`` ("prox" or "ens") at a path shape whose plain version's
+    temporaries do not fit beside it: the kernel over the whole (m, n)
+    f32, the plain version over column pieces of WIDE_PIECE, each held as
+    ``_prox_case`` and ``_ens_case`` hold theirs (prox within 1 ulp, ENS
+    bit for bit); times by CUDA events, the plain version's over its
+    pieces, once."""
+    from repro_torch.kernels.ens.ens import ens_cuda, ens_ref
+    from repro_torch.kernels.prox.prox import prox_update_cuda, prox_update_ref
+    dev = "cuda"
+    if name == "prox":
+        wi = torch.randn(m, n, generator=gen, device=dev).mul_(2)
+        wt = torch.randn(n, generator=gen, device=dev).mul_(2)
+        g = torch.randn(m, n, generator=gen, device=dev)
+        mu = 0.05 + torch.rand(m, generator=gen, device=dev)
+
+        def kernel():
+            return prox_update_cuda(wi, wt, g, mu, LAM, ETA)
+
+        def plain(a, b):
+            return prox_update_ref(wi[:, a:b], wt[a:b], g[:, a:b], mu, LAM,
+                                   ETA)
+        ulps, kind = 1, {}
+        b_ms, b_by = bound((3 * m * n + n) * 4 + 4 * m, 9 * m * n)
+    else:
+        lam, eta, _ = ENS_KINDS["random"]
+        Z = torch.randn(m, n, generator=gen, device=dev).mul_(3)
+
+        def kernel():
+            return ens_cuda(Z, lam, eta)
+
+        def plain(a, b):
+            return ens_ref(Z[:, a:b], lam, eta)
+        ulps, kind = 0, {"kind": "random"}
+        b_ms, b_by = bound((m * n + n) * 4 + 4 * (m + 1), (4 * m + 3) * n)
+    pieces = [(a, min(n, a + WIDE_PIECE)) for a in range(0, n, WIDE_PIECE)]
+    got = kernel()
+    torch.cuda.synchronize()
+    res = {"mismatches": 0, "max_abs_err": 0.0}
+    for a, b in pieces:
+        c = compare(got[..., a:b], plain(a, b), ulps)
+        res["mismatches"] += c["mismatches"]
+        res["max_abs_err"] = max(res["max_abs_err"], c["max_abs_err"])
+    del got
+
+    def plain_all():
+        for a, b in pieces:
+            plain(a, b)
+    res.update(shape=[m, n], dtype="float32", **kind,
+               ms=time_ms(kernel, 3), plain_ms=time_ms(plain_all, 1),
+               plain_pieces=len(pieces), bound_ms=b_ms, bound_by=b_by,
+               library_ms=None)
     return res
 
 
@@ -364,11 +424,14 @@ def check_kernels(card: str) -> list[dict]:
     prox_plan += [(1, 14, f32, 50), (8, SMOLLM_LEAF, f32, 10),
                   (8, SMOLLM_LEAF, bf16, 10)]
     # the LM paths' widest leaves: 4 clients of smollm's tied embedding
-    # and of xlstm's embedding
-    prox_plan += [(LM_M, SMOLLM_LEAF, f32, 10), (LM_M, XLSTM_LEAF, f32, 10)]
+    # and of xlstm's embedding; the temporal round's, one client's row
+    prox_plan += [(LM_M, SMOLLM_LEAF, f32, 10), (LM_M, XLSTM_LEAF, f32, 10),
+                  (1, SMOLLM_LEAF, f32, 10), (1, ZAMBA2_LEAF, f32, 0)]
     prox_cases = []
     for m, n, dt, reps in prox_plan:
-        prox_cases.append(_prox_case(m, n, dt, gen, reps))
+        prox_cases.append(_prox_case(m, n, dt, gen, reps) if reps
+                          else _wide_case("prox", m, n, gen))
+        torch.cuda.empty_cache()
         c = prox_cases[-1]
         log(f"  prox {c['shape']} {c['dtype']}: mismatches {c['mismatches']}"
             f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
@@ -395,12 +458,21 @@ def check_kernels(card: str) -> list[dict]:
                  for n in (14, 1 << 20) for dt in (f32, bf16)
                  for kind in ("random", "ties")]
     ens_plan += [(1000, 1 << 20, f32, 3, "random", True)]
+    # the temporal round's widest leaf, four clients (reps None: in pieces)
+    ens_plan += [(LM_M, ZAMBA2_LEAF, f32, None, "random", False)]
     ens_cases = []
     for m, n, dt, reps, kind, profiled in ens_plan:
-        ens_cases.append(_ens_case(m, n, dt, gen, reps, kind, profiled))
+        ens_cases.append(_ens_case(m, n, dt, gen, reps, kind, profiled)
+                         if reps is not None
+                         else _wide_case("ens", m, n, gen))
         if m * n >= 1 << 27:  # hand the plain version's sort buffers back
             torch.cuda.empty_cache()
         c = ens_cases[-1]
+        if "plain_pieces" in c:
+            log(f"  ens {c['shape']} {c['dtype']}: mismatches "
+                f"{c['mismatches']} kernel {c['ms']:.4f} ms plain "
+                f"{c['plain_ms']:.4f} ms in {c['plain_pieces']} pieces "
+                f"bound {c['bound_ms']:.4f} ms")
         if "device_ms" in c:
             log(f"  ens {c['shape']} {c['dtype']}: mismatches "
                 f"{c['mismatches']} kernel {c['ms']:.4f} ms (device "
@@ -1764,6 +1836,7 @@ XLSTM = "xlstm-125m"
 XLSTM_PARAMS, XLSTM_LEAVES = 185_359_968, 129
 XLSTM_LEAF = 50304 * 768    # its embed and unembed, 38,633,472 each
 XLSTM_CPU_ROUNDS = 1        # card against the port's CPU path, full width
+LM_CPU_ROUNDS = 2           # the same for smollm-135m
 JAX_LM_FAMILIES = {
     "xlstm-125m": {
         "f_per_m": [6.774394512176514, 6.7715959548950195,
@@ -2031,7 +2104,8 @@ def check_lm_card_vs_cpu(lm: dict) -> dict:
     each leaf's largest value, ledger and events exact. Full width (bf16):
     the eager run of ``run_lm_path`` against the CPU sim from the card's
     initial params (the reduced check shows the init is the CPU's) with
-    the card's noise planes, f/m per round within LM_F_RTOL."""
+    the card's noise planes, f/m per round within LM_F_RTOL, for its first
+    LM_CPU_ROUNDS rounds."""
     from repro_torch.core.treeutil import tree_leaves
     out = {}
     over = {"engine.name": "eager", "telemetry.enabled": True}
@@ -2062,8 +2136,9 @@ def check_lm_card_vs_cpu(lm: dict) -> dict:
                       "f_per_m_jax": JAX_LM_REDUCED["f_per_m"],
                       "w_tau_max_abs_diff": worst}
     del hs
-    out["full"] = _full_card_vs_cpu(_lm_spec(**{"engine.name": "eager"}),
-                                    lm["eager"]["f_per_m"])
+    out["full"] = _full_card_vs_cpu(
+        _lm_spec(**{"engine.name": "eager", "engine.rounds": LM_CPU_ROUNDS}),
+        lm["eager"]["f_per_m"])
     log("lm_card_vs_cpu " + json.dumps(out))
     return out
 
@@ -2580,38 +2655,99 @@ REMAT_ARCHS = {"smollm-135m": ({}, LM_LEAVES),
 
 def run_remat_path(eager: dict) -> dict:
     """(a) Per-block remat at full width: the LM spec on smollm-135m and
-    xlstm-125m with ``cfg.remat`` off, eager and the scan engine in one
-    chunk of LM_ROUNDS, each case with the counters set to 0 just before
-    it, bit for bit (state and key digests, ledger, f/m) the remat'd eager
-    run of the ``lm`` and ``lm_families`` phases (``eager``: arch -> that
-    record), whose remat'd scan those phases hold to it; each peak printed
-    beside the remat'd one."""
+    xlstm-125m, eager, with ``cfg.remat`` off and the counters set to 0
+    just before it, bit for bit (state and key digests, ledger, f/m) the
+    remat'd eager run of the ``lm`` and ``lm_families`` phases (``eager``:
+    arch -> that record), whose remat'd scan those phases hold to it; each
+    peak above the memory held at its case's start printed beside the
+    remat'd one's. Then ``run_remat_zamba2``."""
     out = {}
     for arch, (over, leaves) in REMAT_ARCHS.items():
-        ref, recs = eager[arch], {}
+        ref = eager[arch]
         with _remat(False):
-            for name, eng in (("eager_no_remat", {"engine.name": "eager"}),
-                              ("scan_no_remat", {"engine.name": "scan",
-                                                 "engine.chunk": LM_ROUNDS})):
-                h, recs[name] = _lm_case(_lm_spec(**over, **eng))
-                assert _bit_digest(_lm_state(h.sim)) == ref["state_bits"], \
-                    (arch, name)
-                assert h.sim.ledger.total == ref["bytes_total"], (arch, name)
-                del h
+            h, rec = _lm_case(_lm_spec(**over, **{"engine.name": "eager"}))
+            assert _bit_digest(_lm_state(h.sim)) == ref["state_bits"], arch
+            assert h.sim.ledger.total == ref["bytes_total"], arch
+            del h
         torch.cuda.empty_cache()
-        for name, rec in recs.items():
-            want = _lm_launches(rec, leaves)
-            got = {k: rec["launches"][k] for k in want}
-            assert got == want, (arch, name, got, want)
-        assert recs["eager_no_remat"]["f_per_m"] == ref["f_per_m"], arch
-        log(f"remat[{arch}] peak GB on/off: eager {ref['peak_mem_gb']:.3f} "
-            f"/ {recs['eager_no_remat']['peak_mem_gb']:.3f}, scan off "
-            f"{recs['scan_no_remat']['peak_mem_gb']:.3f} (the remat'd scan's "
-            f"is its phase's, above the eager state it holds); eager wall "
-            f"ms/round {ref['wall_ms_per_round']:.1f} / "
-            f"{recs['eager_no_remat']['wall_ms_per_round']:.1f}")
-        out[arch] = recs
+        want = _lm_launches(rec, leaves)
+        got = {k: rec["launches"][k] for k in want}
+        assert got == want, (arch, got, want)
+        assert rec["f_per_m"] == ref["f_per_m"], arch
+        on, off = (r["peak_mem_gb"] - r["base_mem_gb"] for r in (ref, rec))
+        rec.update(peak_above_start_gb=off, remat_peak_above_start_gb=on,
+                   remat_wall_ms_per_round=ref["wall_ms_per_round"])
+        log(f"remat[{arch}] eager peak GB above the case's start, on / off: "
+            f"{on:.3f} / {off:.3f} (absolute {ref['peak_mem_gb']:.3f} / "
+            f"{rec['peak_mem_gb']:.3f}); wall ms/round "
+            f"{ref['wall_ms_per_round']:.1f} / {rec['wall_ms_per_round']:.1f}")
+        out[arch] = {"eager_no_remat": rec}
+    out["zamba2-1.2b"] = run_remat_zamba2()
     return out
+
+
+# one client's zamba2 gradient: a sequence of the temporal round, where the
+# weights' gradient and per-use bf16 casts set the peak, and a longer one,
+# where the activations do
+REMAT_SEQS = (256, 1024)
+
+
+def run_remat_zamba2() -> dict:
+    """zamba2-1.2b at full width: one client's gradient over one sequence
+    of each of REMAT_SEQS tokens, ``cfg.remat`` on and off, each with the
+    counters set to 0 just before it, after a warm-up gradient at that
+    length: the same bits, and each peak above the memory held at its
+    start (the f32 params)."""
+    from repro_torch import configs
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.core.treeutil import tmap, tree_leaves
+    from repro_torch.data.lm import federated_token_batches
+    arch = "zamba2-1.2b"
+    cfg = configs.get_config(arch)
+    params = get_model_init(arch)
+    out = {}
+    for seq in REMAT_SEQS:
+        raw = next(federated_token_batches(cfg.vocab, 1, 1, seq, steps=1,
+                                           seed=DIST_FULL["seed"]))
+        b = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+        bits = []
+        for on in (True, True, False):
+            with _remat(on):
+                loss = LMLoss(configs.get_config(arch))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            t0 = time.perf_counter()
+            W = tmap(lambda x: x.detach().unsqueeze(0).requires_grad_(True),
+                     params)
+            g = torch.autograd.grad(loss(W, b).sum(), tree_leaves(W))
+            torch.cuda.synchronize()
+            rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                   "launches": read_counts(),
+                   "peak_above_start_gb":
+                       (torch.cuda.max_memory_allocated() - base) / 1e9}
+            out[f"seq{seq}_{'remat' if on else 'no_remat'}"] = rec
+            bits.append(_bit_digest(list(g)))
+            del g, W
+        assert bits[0] == bits[1] == bits[2], seq
+        on, off = out[f"seq{seq}_remat"], out[f"seq{seq}_no_remat"]
+        log(f"remat[{arch}] one client's gradient, 1 x {seq} tokens: peak "
+            f"GB above the params, on / off: "
+            f"{on['peak_above_start_gb']:.3f} / "
+            f"{off['peak_above_start_gb']:.3f}; wall ms {on['wall_ms']:.1f}"
+            f" / {off['wall_ms']:.1f} (after a warm-up); the same bits")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def get_model_init(arch: str):
+    """``arch``'s full-width params on the card from PRNGKey(0)."""
+    from repro_torch import configs, random
+    from repro_torch.models.registry import get_model
+    return get_model(configs.get_config(arch)).init(
+        random.PRNGKey(0, device="cuda"))
 
 
 # core/distributed.py's rounds at reduced width, held to JAX's
@@ -2636,109 +2772,151 @@ DIST_PROBES = 4
 DIST_BF16_RTOL = 2.0 ** -7
 JAX_DIST = {
     "smollm-135m": {
-        "spatial": {
-            "selected": [[False, True, True, False],
-                         [True, False, True, False]],
-            "w_tau": [
-                454005.53125, 48046.47133199355, -110.70560665134792,
-                -30871.681640625, -23106.560546875, -55964.85546875,
-                -96899.2109375],
-            "W": [
-                29.9296875, 0.11394308351588026, -0.0011433806794718207,
-                -0.009765625, 0.1171875, -0.1474609375, 0.0],
-            "Z": [
-                1626137.25, 30514.591968945635, -47.76599144649949,
-                -0.009765625, 0.1171875, -0.1474609375, 0.0],
-        },
-        "temporal": {
-            "selected": [[False, True, True, False],
-                         [True, False, True, False]],
-            "w_tau": [
-                454005.5625, 48046.47113494093, -110.70560262210775,
-                -30871.671875, -23106.560546875, -55964.86328125,
-                -96899.1953125],
-            "W": [
-                29.9296875, 0.11394285341337888, -0.001144302209934143,
-                -0.009765625, 0.1171875, -0.1474609375, 0.0],
-            "Z": [
-                1626137.5, 30514.595878892196, -47.76599317789494,
-                -0.009765625, 0.1171875, -0.1474609375, 0.0],
-        },
+        "spatial": [
+            {
+                "selected": [False, True, True, False],
+                "w_tau": [
+                    2.2372143268585205, 0.08973526080388125,
+                    -0.0004490621496566268, -0.011495603248476982,
+                    0.009501028805971146, -0.047038447111845016, 0.0],
+                "W": [
+                    29.929174423217773, 0.11394467218709324,
+                    -0.001145236209145085, -0.011495603248476982,
+                    0.11643592268228531, -0.14698705077171326, 0.0],
+                "Z": [
+                    1730909.75, 64069.313700121544, -110.70537458872893,
+                    -0.011495603248476982, 0.11643592268228531,
+                    -0.14698705077171326, 0.0],
+            },
+            {
+                "selected": [True, False, True, False],
+                "w_tau": [
+                    454005.53125, 48046.47133199355, -110.70560665134792,
+                    -30871.681640625, -23106.560546875, -55964.85546875,
+                    -96899.2109375],
+                "W": [
+                    29.9296875, 0.11394308351588026, -0.0011433806794718207,
+                    -0.009765625, 0.1171875, -0.1474609375, 0.0],
+                "Z": [
+                    1626137.25, 30514.591968945635, -47.76599144649949,
+                    -0.009765625, 0.1171875, -0.1474609375, 0.0],
+            },
+        ],
+        "temporal": [
+            {
+                "selected": [False, True, True, False],
+                "w_tau": [
+                    2.2372143268585205, 0.08973526080388125,
+                    -0.0004490621496566268, -0.011495603248476982,
+                    0.009501028805971146, -0.047038447111845016, 0.0],
+                "W": [
+                    29.929174423217773, 0.11394467274447118,
+                    -0.0011452357435989924, -0.011495603248476982,
+                    0.11643592268228531, -0.14698705077171326, 0.0],
+                "Z": [
+                    1730909.625, 64069.313699440405, -110.70537297824754,
+                    -0.011495603248476982, 0.11643592268228531,
+                    -0.14698705077171326, 0.0],
+            },
+            {
+                "selected": [True, False, True, False],
+                "w_tau": [
+                    454005.5625, 48046.47113494093, -110.70560262210775,
+                    -30871.671875, -23106.560546875, -55964.86328125,
+                    -96899.1953125],
+                "W": [
+                    29.9296875, 0.11394285341337888, -0.001144302209934143,
+                    -0.009765625, 0.1171875, -0.1474609375, 0.0],
+                "Z": [
+                    1626137.5, 30514.595878892196, -47.76599317789494,
+                    -0.009765625, 0.1171875, -0.1474609375, 0.0],
+            },
+        ],
     },
     "xlstm-125m": {
-        "spatial": {
-            "selected": [[False, True, True, False]],
-            "w_tau": [
-                3.0, 0.05259103433478115, 0.0001430854663787523,
-                -0.011495603248476982, 0.0, 0.07604750990867615,
-                -0.006717620883136988],
-            "W": [
-                133.2174835205078, 0.2718447868306112, 1.2500614930663156e-05,
-                -0.011495603248476982, 0.0, 1.5145097970962524,
-                -0.006717620883136988],
-            "Z": [
-                26052652.0, 867551.7098441038, -2441.716529302467,
-                -0.011495603248476982, 0.0, -2611109.0, -0.006717620883136988],
-        },
-        "temporal": {
-            "selected": [[False, True, True, False]],
-            "w_tau": [
-                3.0, 0.05259103433478115, 0.0001430854663787523,
-                -0.011495603248476982, 0.0, 0.07604750990867615,
-                -0.006717620883136988],
-            "W": [
-                133.21749877929688, 0.271844738458072, 1.250193068897334e-05,
-                -0.011495603248476982, 0.0, 1.5145140886306763,
-                -0.006717620883136988],
-            "Z": [
-                26052658.0, 867551.5850814552, -2441.7169734695176,
-                -0.011495603248476982, 0.0, -2611109.5, -0.006717620883136988],
-        },
+        "spatial": [
+            {
+                "selected": [False, True, True, False],
+                "w_tau": [
+                    3.0, 0.05259103433478115, 0.0001430854663787523,
+                    -0.011495603248476982, 0.0, 0.07604750990867615,
+                    -0.006717620883136988],
+                "W": [
+                    133.2174835205078, 0.2718447868306112,
+                    1.2500614930663156e-05, -0.011495603248476982, 0.0,
+                    1.5145097970962524, -0.006717620883136988],
+                "Z": [
+                    26052652.0, 867551.7098441038, -2441.716529302467,
+                    -0.011495603248476982, 0.0, -2611109.0,
+                    -0.006717620883136988],
+            },
+        ],
+        "temporal": [
+            {
+                "selected": [False, True, True, False],
+                "w_tau": [
+                    3.0, 0.05259103433478115, 0.0001430854663787523,
+                    -0.011495603248476982, 0.0, 0.07604750990867615,
+                    -0.006717620883136988],
+                "W": [
+                    133.21749877929688, 0.271844738458072,
+                    1.250193068897334e-05, -0.011495603248476982, 0.0,
+                    1.5145140886306763, -0.006717620883136988],
+                "Z": [
+                    26052658.0, 867551.5850814552, -2441.7169734695176,
+                    -0.011495603248476982, 0.0, -2611109.5,
+                    -0.006717620883136988],
+            },
+        ],
     },
     "zamba2-1.2b": {
-        "spatial": {
-            "selected": [[False, True, True, False]],
-            "w_tau": [
-                6.9017815589904785, 0.06881336409480464,
-                0.00015753444803320046, -0.011495603248476982,
-                0.16891413927078247, -0.0788421779870987,
-                -0.009914643131196499],
-            "W": [
-                91.91498565673828, 0.14032822370862783,
-                -0.00032651903694009746, -0.011495603248476982,
-                -0.018174083903431892, 0.02974550612270832,
-                -0.009914643131196499],
-            "Z": [
-                11991886.0, 427409.6694494847, -446.5297416667305,
-                -0.011495603248476982, 82324.3984375, 0.02974550612270832,
-                -0.009914643131196499],
-        },
-        "temporal": {
-            "selected": [[False, True, True, False]],
-            "w_tau": [
-                6.9017815589904785, 0.06881336409480464,
-                0.00015753444803320046, -0.011495603248476982,
-                0.16891413927078247, -0.0788421779870987,
-                -0.009914643131196499],
-            "W": [
-                91.91499328613281, 0.14032822163260947,
-                -0.00032651934877255174, -0.011495603248476982,
-                -0.018174055963754654, 0.02974550612270832,
-                -0.009914643131196499],
-            "Z": [
-                11991885.0, 427409.6381903387, -446.52971706006946,
-                -0.011495603248476982, 82324.390625, 0.02974550612270832,
-                -0.009914643131196499],
-        },
+        "spatial": [
+            {
+                "selected": [False, True, True, False],
+                "w_tau": [
+                    6.9017815589904785, 0.06881336409480464,
+                    0.00015753444803320046, -0.011495603248476982,
+                    0.16891413927078247, -0.0788421779870987,
+                    -0.009914643131196499],
+                "W": [
+                    91.91498565673828, 0.14032822370862783,
+                    -0.00032651903694009746, -0.011495603248476982,
+                    -0.018174083903431892, 0.02974550612270832,
+                    -0.009914643131196499],
+                "Z": [
+                    11991886.0, 427409.6694494847, -446.5297416667305,
+                    -0.011495603248476982, 82324.3984375, 0.02974550612270832,
+                    -0.009914643131196499],
+            },
+        ],
+        "temporal": [
+            {
+                "selected": [False, True, True, False],
+                "w_tau": [
+                    6.9017815589904785, 0.06881336409480464,
+                    0.00015753444803320046, -0.011495603248476982,
+                    0.16891413927078247, -0.0788421779870987,
+                    -0.009914643131196499],
+                "W": [
+                    91.91499328613281, 0.14032822163260947,
+                    -0.00032651934877255174, -0.011495603248476982,
+                    -0.018174055963754654, 0.02974550612270832,
+                    -0.009914643131196499],
+                "Z": [
+                    11991885.0, 427409.6381903387, -446.52971706006946,
+                    -0.011495603248476982, 82324.390625, 0.02974550612270832,
+                    -0.009914643131196499],
+            },
+        ],
     },
 }
 
 
-def dist_digest(state, masks) -> dict:
-    """What ``JAX_DIST`` holds of a run: the masks of its rounds, and of
-    w_tau, W and Z each [largest |value|, mean |value|, mean, DIST_PROBES
-    values at flat indices spaced evenly over the leaves laid end to end
-    in ``tree_leaves`` order], as Python floats. ``state`` holds numpy or
+def dist_digest(state, mask) -> dict:
+    """What ``JAX_DIST`` holds of a round: its mask, and of w_tau, W and Z
+    after it each [largest |value|, mean |value|, mean, DIST_PROBES values
+    at flat indices spaced evenly over the leaves laid end to end in
+    ``tree_leaves`` order], as Python floats. ``state`` holds numpy or
     torch leaves."""
     from repro_torch.core.treeutil import tree_leaves
 
@@ -2752,32 +2930,37 @@ def dist_digest(state, masks) -> dict:
         return [float(np.abs(flat).max()), float(np.abs(flat).mean()),
                 float(flat.mean())] + [float(flat[i]) for i in idx]
 
-    return {"selected": [[bool(v) for v in np.asarray(
-                m.cpu() if isinstance(m, torch.Tensor) else m)]
-                         for m in masks],
+    return {"selected": [bool(v) for v in np.asarray(
+                mask.cpu() if isinstance(mask, torch.Tensor) else mask)],
             **{name: summary(state[name]) for name in ("w_tau", "W", "Z")}}
 
 
-def check_dist_digest(got: dict, want: dict, what: str,
-                      rtol: float = STATE_RTOL) -> float:
-    """Masks exact; each float within ``rtol`` of max(1, the largest |value|
-    of w_tau and of the tree): a client's update w_tau + (mu (w_i - w_tau)
-    - g) / (eta + mu) cancels at w_tau's scale. Returns the worst
-    difference over its scale."""
-    assert got["selected"] == want["selected"], (what, got["selected"],
-                                                 want["selected"])
+def check_dist_digests(got: list, want: list, what: str,
+                       rtol: float = STATE_RTOL) -> float:
+    """Round by round, the mask exact and each float of w_tau, W and Z
+    within ``rtol`` of a scale: after the first round, max(1, the tree's
+    largest |value|) (w_tau is still w0's size, so each tree is held at
+    its own); after a later one, max(1, the largest |value| of w_tau and
+    of the tree): w_tau then holds the first round's noised aggregate,
+    10^5-10^6 times W, and a client's update w_tau + (mu (w_i - w_tau) -
+    g) / (eta + mu) cancels at its scale. Returns the worst difference
+    over its scale."""
+    assert len(got) == len(want), (what, len(got), len(want))
     worst = 0.0
-    for name in ("w_tau", "W", "Z"):
-        scale = max(1.0, want["w_tau"][0], want[name][0])
-        err = max(abs(a - b) for a, b in zip(got[name], want[name])) / scale
-        assert err <= rtol, (what, name, got[name], want[name])
-        worst = max(worst, err)
+    for r, (g, w) in enumerate(zip(got, want)):
+        assert g["selected"] == w["selected"], (what, r, g["selected"],
+                                                w["selected"])
+        for name in ("w_tau", "W", "Z"):
+            scale = max(1.0, w[name][0], w["w_tau"][0] if r else 0.0)
+            err = max(abs(a - b) for a, b in zip(g[name], w[name])) / scale
+            assert err <= rtol, (what, r, name, g[name], w[name])
+            worst = max(worst, err)
     return worst
 
 
-def dist_reduced_run(arch: str, mode: str, device) -> dict:
+def dist_reduced_run(arch: str, mode: str, device) -> list:
     """``build_fedepm`` on ``arch`` reduced at DIST_SETTINGS, DIST_ROUNDS[arch]
-    rounds of ``mode``: its ``dist_digest``."""
+    rounds of ``mode``: each round's ``dist_digest``."""
     from repro_torch import configs, random
     from repro_torch.core.distributed import DistConfig, build_fedepm
     from repro_torch.core.fedepm import FedEPMConfig
@@ -2793,11 +2976,11 @@ def dist_reduced_run(arch: str, mode: str, device) -> dict:
                                        eps_dp=s["eps"])
     init_fn, step_fn, _ = build_fedepm(get_model(cfg), LMLoss(cfg), fcfg,
                                        None, DistConfig(**DIST_MODES[mode]))
-    state, masks = init_fn(random.PRNGKey(0), device=device), []
+    state, out = init_fn(random.PRNGKey(0), device=device), []
     for _ in range(DIST_ROUNDS[arch]):
         state, met = step_fn(state, batches)
-        masks.append(met.selected)
-    return dist_digest(state._asdict(), masks)
+        out.append(dist_digest(state._asdict(), met.selected))
+    return out
 
 
 # (b) and (c): the full-width runs through ``build_fedepm``, with JAX's
@@ -2818,7 +3001,7 @@ DIST_CONFIGS = {
 ZAMBA2_PARAMS, ZAMBA2_LEAVES = 1_170_473_856, 21
 
 
-def _dist_full_setup(arch: str):
+def _dist_full_setup(arch: str, seq: int = DIST_FULL["seq"]):
     from repro_torch import configs
     from repro_torch.core.fedepm import FedEPMConfig
     from repro_torch.core.tasks import LMLoss
@@ -2826,8 +3009,8 @@ def _dist_full_setup(arch: str):
     from repro_torch.models.registry import get_model
     s = DIST_FULL
     cfg = configs.get_config(arch)
-    raw = next(federated_token_batches(cfg.vocab, s["m"], s["batch"],
-                                       s["seq"], steps=1, seed=s["seed"]))
+    raw = next(federated_token_batches(cfg.vocab, s["m"], s["batch"], seq,
+                                       steps=1, seed=s["seed"]))
     batches = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
     fcfg = FedEPMConfig.paper_defaults(
         m=s["m"], rho=s["rho"], k0=s["k0"], eps_dp=s["eps"], mu0=s["mu0"],
@@ -2991,8 +3174,9 @@ def run_dist_zamba2() -> dict:
                                        DIST_ZAMBA2_ROUNDS, donate=True)
         rec["mode"] = "temporal"
         leaves = tree_leaves(st.w_tau)
-        assert (sum(x.numel() for x in leaves), len(leaves)) == \
-            (ZAMBA2_PARAMS, ZAMBA2_LEAVES)
+        assert (sum(x.numel() for x in leaves), len(leaves),
+                max(x.numel() for x in leaves)) == \
+            (ZAMBA2_PARAMS, ZAMBA2_LEAVES, ZAMBA2_LEAF)
         _dist_launches(rec, ZAMBA2_LEAVES, DIST_ZAMBA2_ROUNDS, s["m"],
                        s["k0"])
         rec["bits"] = {t: _bit_digest(getattr(st, t))
@@ -3014,6 +3198,145 @@ def run_dist_zamba2() -> dict:
     return {"run": runs[0], "again": runs[1]}
 
 
+# one full-width zamba2-1.2b temporal round against the port's CPU path on
+# the card's host: (c)'s settings at DIST_CPU_SEQ tokens a sequence (the
+# CPU's backward over 1.17B params at 256 takes minutes). The CPU draws
+# Laplace values at about 4M a second, so Z is held on DIST_CPU_SLICE
+# values at the head and the tail of every leaf, not on 1.17B
+DIST_CPU_SEQ, DIST_CPU_SLICE = 16, 1 << 18
+
+
+def _rel_norm(a, b) -> float:
+    """||a - b|| / ||b|| over two trees' leaves, summed in f64."""
+    from repro_torch.core.treeutil import tree_leaves
+    num = sum(float(torch.linalg.vector_norm(x - y, dtype=torch.float64))
+              ** 2 for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    den = sum(float(torch.linalg.vector_norm(y, dtype=torch.float64)) ** 2
+              for y in tree_leaves(b))
+    return (num / den) ** 0.5
+
+
+def check_zamba2_round_vs_cpu() -> dict:
+    """The first round, piece by piece, for its first selected client i:
+    w_tau (ENS over four copies of w0) bit for bit the plain ENS on the
+    slices (``check_kernels`` holds the kernel at the whole (4,
+    ZAMBA2_LEAF)); client i's gradient at w_tau, taken again on the card as
+    the round takes it, from the CPU's bf16 one within SERVE_BF16_NOISE
+    times its distance from the card's f32 gradient (relative norms, as
+    serve's check holds its logits; the CPU's f32 backward over 1.17B
+    params would cost most of a minute more); from the card's gradient,
+    the CPU's k0 plain prox steps give client i's W row (every leaf
+    whole), mu_last, grad_l1 and noise scale within STATE_RTOL of their
+    scales; and its Z row on the slices is that W row plus the CPU's
+    Laplace draw at the same flat indices, within STATE_RTOL of the
+    slice's largest |value|. The SNR, which needs the whole plane, is not
+    held."""
+    import dataclasses
+    import functools
+    from repro_torch import configs, random
+    from repro_torch.core import dp
+    from repro_torch.core.distributed import (DistConfig, _client_grad,
+                                              _remat_loss, build_fedepm)
+    from repro_torch.core.fedepm import (_client_inner, need_key,
+                                         round_pows, split_round_key,
+                                         stacked_grads, upload_scale)
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.core.treeutil import tmap, tree_leaves
+    from repro_torch.kernels.ens.ref import ens_ref
+    arch, mb = "zamba2-1.2b", 2
+    t0 = time.perf_counter()
+    model, loss, fcfg, batches = _dist_full_setup(arch, DIST_CPU_SEQ)
+    dist = DistConfig(mode="temporal", microbatch=mb,
+                      state_dtype=torch.float32)
+    init_fn, step_fn, _ = build_fedepm(model, loss, fcfg, None, dist)
+    state = init_fn(random.PRNGKey(0))
+    key0 = state.key.cpu()
+    w0 = [x.cpu().reshape(-1) for x in tree_leaves(state.w_tau)]
+    state, met = step_fn(state, batches, donate=True)
+    i = int(torch.nonzero(met.selected)[0])
+    bi = {k: v[i:i + 1] for k, v in batches.items()}
+    cfg = dataclasses.replace(configs.get_config(arch), remat=False)
+    g_card, g_card32 = (_client_grad(
+        functools.partial(stacked_grads, f), state.w_tau, bi, mb)
+        for f in (_remat_loss(loss, dist.remat),
+                  LMLoss(dataclasses.replace(cfg, dtype=torch.float32))))
+    out = {"client": i, "rel_norm_grad_card_f32": _rel_norm(g_card,
+                                                            g_card32)}
+    del g_card32
+    g_card = tmap(lambda x: x.cpu(), g_card)
+    wt = tmap(lambda x: x.cpu(), state.w_tau)
+    w_row = tmap(lambda x: x[i:i + 1].cpu(), state.W)
+
+    def slices(n):
+        s = min(n, DIST_CPU_SLICE)
+        return [(0, s), (n - s, n)] if n > s else [(0, n)]
+    z_row = [[x[i].reshape(-1)[a:b].cpu() for a, b in slices(x[i].numel())]
+             for x in tree_leaves(state.Z)]
+    card = {k: float(getattr(met, k)[i])
+            for k in ("mu_last", "grad_l1", "noise_scale")}
+    del state, met
+    torch.cuda.empty_cache()
+    card_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for w, t in zip(w0, tree_leaves(wt)):
+        for a, b in slices(w.numel()):
+            got = t.reshape(-1)[a:b]
+            want = ens_ref(w[a:b][None].expand(fcfg.m, -1), fcfg.lam,
+                           fcfg.eta)
+            assert torch.equal(got, want), (a, b)
+
+    # the CPU's gradient without remat (the same bits, one forward less)
+    t1 = time.perf_counter()
+    g16 = _client_grad(functools.partial(stacked_grads, LMLoss(cfg)), wt,
+                       {k: v.cpu() for k, v in bi.items()}, mb)
+    out.update(cpu_grad_s=time.perf_counter() - t1,
+               rel_norm_grad_card_cpu=_rel_norm(g_card, g16))
+    del g16
+    assert out["rel_norm_grad_card_cpu"] <= \
+        SERVE_BF16_NOISE * out["rel_norm_grad_card_f32"], out
+    t1 = time.perf_counter()
+
+    w_cpu, mu = _client_inner([x.reshape((1,) + t.shape) for x, t in
+                               zip(w0, tree_leaves(wt))],
+                              tree_leaves(wt), tree_leaves(g_card),
+                              round_pows(fcfg, 0, "cpu"), fcfg)
+    grad_l1, scale = upload_scale(fcfg, tree_leaves(g_card), mu)
+    out["cpu_prox_s"] = time.perf_counter() - t1
+    del g_card
+    cpu = {"mu_last": float(mu[0]), "grad_l1": float(grad_l1[0]),
+           "noise_scale": float(scale[0])}
+    for k in cpu:
+        assert abs(cpu[k] - card[k]) <= STATE_RTOL * abs(cpu[k]), \
+            (k, cpu[k], card[k])
+    top = max(1.0, max(float(x.abs().max()) for x in w_cpu))
+    out["w_row_max_abs_diff"] = max(float((x - y).abs().max()) for x, y in
+                                    zip(w_cpu, tree_leaves(w_row)))
+    assert out["w_row_max_abs_diff"] <= STATE_RTOL * top, (out, top)
+    del w_cpu
+
+    _, _, k_noise = split_round_key(key0)
+    leaf_keys = random.split(random.split(need_key(k_noise, "noise"),
+                                          fcfg.m)[i], len(z_row))
+    s32 = torch.tensor(card["noise_scale"], dtype=torch.float32)
+    z_err = 0.0
+    for key, w, zs in zip(leaf_keys, tree_leaves(w_row), z_row):
+        for (a, b), z in zip(slices(w.numel()), zs):
+            # ``random.uniform``'s draw at flat indices a..b, as its
+            # pieces hash them, through the noise's inverse CDF
+            u = random._hash(key, b - a, a, "uniform", dp._U_LO, dp._U_HI)
+            want = w.reshape(-1)[a:b] + s32 * dp._unit_laplace(u)
+            err = float((z - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+            assert err <= STATE_RTOL, (a, b, err)
+            z_err = max(z_err, err)
+    out.update(card=card, cpu=cpu, z_slices_worst_over_scale=z_err,
+               card_s=card_s, cpu_s=time.perf_counter() - t0,
+               tokens_a_client=[DIST_FULL["batch"], DIST_CPU_SEQ])
+    log("zamba2_round_vs_cpu " + json.dumps(out))
+    return out
+
+
 def run_dist_reduced() -> dict:
     """(d) The reduced archs of ``JAX_DIST`` through ``build_fedepm`` on
     the card, each digest within STATE_RTOL of JAX's scale."""
@@ -3024,8 +3347,8 @@ def run_dist_reduced() -> dict:
             got = dist_reduced_run(arch, mode, "cuda")
             out[f"{arch}/{mode}"] = {
                 "launches": read_counts(),
-                "worst_over_scale": check_dist_digest(got, want,
-                                                      f"{arch} {mode}")}
+                "worst_over_scale": check_dist_digests(got, want,
+                                                       f"{arch} {mode}")}
     log("distributed[reduced vs JAX_DIST] " + json.dumps(
         {k: v["worst_over_scale"] for k, v in out.items()}))
     return out
@@ -3574,6 +3897,7 @@ def main() -> int:
         record["lm_families"])
     record["serve_card_vs_cpu"] = check_serve_card_vs_cpu(serve_cpu)
     del serve_cpu
+    record["zamba2_round_vs_cpu"] = check_zamba2_round_vs_cpu()
     phases["card_vs_cpu_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_start
     log("phases " + json.dumps(phases))

@@ -3,12 +3,13 @@
 
 The two strategies of the JAX module, with its names:
 
-**spatial** -- every client at once, as ``core/fedepm.py::fedepm_round``
-  runs them: one backward over the m clients' stacked copies of the
-  broadcast point. On one device it gives ``fedepm_round``'s bits, as JAX's
-  does. ``ens="gather"`` is ``ens_ops.ens_tree``; ``ens="a2a"`` is its
-  coordinate-sharded form, which on one device (one client group, so the
-  all_to_all is the identity) is ENS over each flattened leaf.
+**spatial** -- every client at once: ``core/fedepm.py::fedepm_round``,
+  one backward over the m clients' stacked copies of the broadcast point,
+  with the loss under checkpoint when ``dist.remat`` holds and the rows
+  stored in ``dist.state_dtype``; on one device it gives ``fedepm_round``'s
+  bits, as JAX's does. ``ens="a2a"`` is the coordinate-sharded ENS, which
+  on one device (one client group, so the all_to_all is the identity) is
+  ``ens="gather"``.
 
 **temporal** -- one client at a time: its gradient at the broadcast point
   (optionally accumulated in f32 over microbatches), its k0 prox steps,
@@ -32,6 +33,7 @@ Only one device is ported: ``mesh`` is None or 1, and the spec derivation
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -46,10 +48,13 @@ from repro_torch.core.fedepm import (
     _client_inner,
     _device,
     _select,
+    compute_params,
+    fedepm_round,
     need_key,
     round_pows,
     split_round_key,
     stacked_grads,
+    upload_scale,
 )
 from repro_torch.core.treeutil import (
     tmap,
@@ -57,7 +62,6 @@ from repro_torch.core.treeutil import (
     tree_leaves,
     tree_sq_dist,
     tree_sq_norm,
-    tree_where_client,
 )
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.ens import ops as ens_ops
@@ -67,8 +71,10 @@ from repro_torch.kernels.ens import ops as ens_ops
 class DistConfig:
     mode: str = "spatial"            # "spatial" | "temporal"
     ens: str = "gather"              # "gather" | "a2a" (spatial only)
-    client_axes: tuple = ("data",)   # mesh axes carrying the client axis
-    fsdp_axes: tuple = ("data",)     # temporal: extra param sharding axes
+    # the mesh axes of the clients and (temporal) of the params: one
+    # device takes only the defaults (a mesh is ROADMAP item 14.5)
+    client_axes: tuple = ("data",)
+    fsdp_axes: tuple = ("data",)
     state_dtype: Any = None          # W/Z storage dtype (None = param dtype)
     remat: bool = True               # rematerialise the per-client loss
     microbatch: int = 1              # temporal: grad-accumulation chunks
@@ -93,92 +99,40 @@ def ens_gather(Z, lam, eta):
 
 def ens_a2a(Z, lam, eta, mesh=None):
     """The coordinate-sharded ENS on one client group: the all_to_all and
-    all_gather are the identity, so each leaf is ENS over its flattened
-    (m, F) block, cast back to the leaf's dtype."""
+    all_gather are the identity, so it is ``ens_gather``."""
     _one_device(mesh)
-    return tmap(lambda z: ens_ops.ens(z.reshape(z.shape[0], -1), lam, eta)
-                .reshape(z.shape[1:]).to(z.dtype), Z)
+    return ens_gather(Z, lam, eta)
 
 
 # ---------------------------------------------------------------------------
 # rounds
 # ---------------------------------------------------------------------------
 
-def _loss_and_grad(loss_fn, remat: bool):
-    """(W, batches) -> the gradient of ``loss_fn(W, batches).sum()`` at the
-    stacked W, one backward; with ``remat`` the whole loss runs under
-    checkpoint (nested with the models' per-block remat)."""
+def _remat_loss(loss_fn, remat: bool):
+    """``loss_fn``, run under checkpoint when ``remat`` holds (nested with
+    the models' per-block remat)."""
+    if not remat:
+        return loss_fn
+
     def f(W, batches):
-        if not remat:
-            return loss_fn(W, batches)
         return checkpoint(loss_fn, W, batches, use_reentrant=False,
                           preserve_rng_state=False)
-    return lambda W, batches: stacked_grads(f, W, batches)
+    return f
 
 
-def _compute_params(w_new, arch_cfg):
-    """JAX's ``w_comp``: a bf16 aggregate cast to the arch's compute dtype
-    for the gradient."""
-    dtype = getattr(arch_cfg, "dtype", None)
-    return tmap(lambda x: x.to(dtype) if x.dtype == torch.bfloat16
-                and dtype is not None else x, w_new)
-
-
-def _upload_scale(cfg: FedEPMConfig, g, mu_last):
-    """(grad_l1, the Laplace scale) per client of the stacked gradient."""
-    grad_l1 = dp.sensitivity_surrogate(g, per_client=True) / 2.0
-    delta_hat = 2.0 * grad_l1
-    if cfg.sensitivity_clip > 0:
-        delta_hat = torch.clamp_max(delta_hat, cfg.sensitivity_clip)
-    if cfg.eps_dp > 0:
-        return grad_l1, dp.fedepm_noise_scale(delta_hat, cfg.eps_dp, mu_last)
-    return grad_l1, torch.zeros_like(grad_l1)
+def _compute_dtype(arch_cfg):
+    """The arch's compute dtype, which a bf16 aggregate takes for the
+    gradient (``compute_params``)."""
+    return getattr(arch_cfg, "dtype", None)
 
 
 def spatial_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
                   mesh, dist: DistConfig, sspecs=None, arch_cfg=None):
-    """One communication round, all m clients at once."""
+    """One communication round, all m clients at once: ``fedepm_round``."""
     _one_device(mesh)
-    device = _device(state.W)
-    key, k_sel, k_noise = split_round_key(state.key)
-    mask = _select(k_sel, cfg, state.k // cfg.k0, device)
-
-    # ---- server: ENS aggregation (19) ----
-    if dist.ens == "a2a":
-        w_new = ens_a2a(state.Z, cfg.lam, cfg.eta, mesh)
-    else:
-        w_new = ens_gather(state.Z, cfg.lam, cfg.eta)
-    w_comp = _compute_params(w_new, arch_cfg)
-
-    # ---- clients: one gradient per round at w^{tau+1} (18) ----
-    g = _loss_and_grad(loss_fn, dist.remat)(
-        tmap(lambda x: x.unsqueeze(0).expand((cfg.m,) + x.shape), w_comp),
-        batches)
-
-    # ---- k0 inner prox iterations (20) ----
-    W_upd, mu_last = _client_inner(state.W, w_new, g,
-                                   round_pows(cfg, state.k, device), cfg)
-    if dist.state_dtype is not None:
-        W_upd = tmap(lambda x: x.to(dist.state_dtype), W_upd)
-    W_next = tree_where_client(mask, W_upd, state.W)
-
-    # ---- DP-noised upload (21)/(39) ----
-    grad_l1, scale = _upload_scale(cfg, g, mu_last)
-    del g
-    if cfg.eps_dp > 0:
-        unit = dp.client_unit_laplace(need_key(k_noise, "noise"), W_upd)
-        Z_upd, snr = dp.add_client_noise(W_upd, unit, scale, mask)
-    else:
-        Z_upd = W_upd
-        snr = torch.full((), torch.inf, dtype=torch.float32, device=device)
-    Z_next = tree_where_client(mask, Z_upd, state.Z)
-
-    drift = tree_sq_dist(w_new, state.w_tau)
-    new_state = FedEPMState(w_tau=w_new, W=W_next, Z=Z_next,
-                            k=state.k + cfg.k0, key=key)
-    metrics = RoundMetrics(mu_last=mu_last, grad_l1=grad_l1, snr=snr,
-                           drift=drift, selected=mask, noise_scale=scale)
-    return new_state, metrics
+    return fedepm_round(state, batches, _remat_loss(loss_fn, dist.remat),
+                        cfg, compute_dtype=_compute_dtype(arch_cfg),
+                        state_dtype=dist.state_dtype)
 
 
 def _client_grad(grad_fn, w_comp, bi, microbatch: int):
@@ -260,9 +214,10 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
         w_new, W, Z = state.w_tau, state.W, state.Z
     else:
         W, Z = (tmap(torch.clone, t) for t in (state.W, state.Z))
-    w_comp = _compute_params(w_new, arch_cfg)
+    w_comp = compute_params(w_new, _compute_dtype(arch_cfg))
 
-    grad_fn = _loss_and_grad(loss_fn, dist.remat)
+    grad_fn = functools.partial(stacked_grads,
+                                _remat_loss(loss_fn, dist.remat))
     keys = random.split(need_key(k_noise, "noise"), m) \
         if cfg.eps_dp > 0 else None
     pows = round_pows(cfg, state.k, device)
@@ -275,7 +230,7 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
         wi_upd, mu = _client_inner(rows[0], w_new, gi, pows, cfg)
         if dist.state_dtype is not None:
             wi_upd = tmap(lambda x: x.to(dist.state_dtype), wi_upd)
-        grad_l1, scale = _upload_scale(cfg, gi, mu)
+        grad_l1, scale = upload_scale(cfg, gi, mu)
         del gi
         snr = inf
         if selected[i]:
@@ -328,6 +283,13 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
     _one_device(mesh)
     if dist.mode not in ("spatial", "temporal"):
         raise ValueError(f"unknown mode {dist.mode!r}")
+    if dist.ens not in ("gather", "a2a"):
+        raise ValueError(f"unknown ens {dist.ens!r}")
+    if dist.client_axes != ("data",) or dist.fsdp_axes != ("data",):
+        raise ValueError(f"client_axes {dist.client_axes!r} and fsdp_axes "
+                         f"{dist.fsdp_axes!r} place the clients and the "
+                         f"params on a mesh; one device has none: the mesh "
+                         f"comes with ROADMAP queue 1 item 14.5")
     arch_cfg = model.cfg
 
     def init_fn(key, device=None):

@@ -209,9 +209,33 @@ def _client_inner(W, w_new, g, pows: torch.Tensor, cfg: FedEPMConfig):
     return W, mu
 
 
+def compute_params(w, dtype: torch.dtype | None):
+    """JAX's ``w_comp``: the bf16 leaves of an aggregate cast to ``dtype``
+    (a model's compute dtype; None keeps them) for the gradient."""
+    if dtype is None:
+        return w
+    return tmap(lambda x: x.to(dtype) if x.dtype == torch.bfloat16 else x, w)
+
+
+def upload_scale(cfg: FedEPMConfig, g, mu_last: torch.Tensor):
+    """(grad_l1, the Laplace scale b_i) per client of the stacked gradient
+    ``g``: Delta_hat = 2 ||g_i||_1 (clipped at ``sensitivity_clip``) over
+    eps_dp mu_i (21)/(39); zeros without DP."""
+    grad_l1 = dp.sensitivity_surrogate(g, per_client=True) / 2.0
+    if cfg.eps_dp <= 0:
+        return grad_l1, torch.zeros(grad_l1.shape, dtype=torch.float32,
+                                    device=grad_l1.device)
+    delta_hat = 2.0 * grad_l1
+    if cfg.sensitivity_clip > 0:
+        delta_hat = torch.clamp_max(delta_hat, cfg.sensitivity_clip)
+    return grad_l1, dp.fedepm_noise_scale(delta_hat, cfg.eps_dp, mu_last)
+
+
 def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
                  cfg: FedEPMConfig, mask: torch.Tensor | None = None, *,
-                 unit_noise=None, pows: torch.Tensor | None = None):
+                 unit_noise=None, pows: torch.Tensor | None = None,
+                 compute_dtype: torch.dtype | None = None,
+                 state_dtype: torch.dtype | None = None):
     """One communication round = k0 iterations of Algorithm 2.
 
     ``batches`` is a tree with a leading client axis m. ``mask`` (m,) bool
@@ -221,7 +245,10 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     supplied is drawn from the state's key, split as JAX splits it; the
     key advances either way. ``pows`` (k0,) is the round's
     ``round_pows(cfg, state.k)`` on the device, handed in by a captured
-    round that cannot read ``state.k``. Returns (new_state, RoundMetrics).
+    round that cannot read ``state.k``. ``compute_dtype`` casts a bf16
+    aggregate for the gradient (a model's compute dtype); ``state_dtype``
+    stores the clients' updated rows (``core/distributed.py``'s
+    ``DistConfig``). Returns (new_state, RoundMetrics).
     """
     m = cfg.m
     device = _device(state.W)
@@ -233,27 +260,26 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     w_new = ens_ops.ens_tree(state.Z, cfg.lam, cfg.eta)
 
     # ---- clients: one gradient per round at the broadcast point (18) ----
-    g = client_grads(loss_fn, w_new, batches, m)
+    g = client_grads(loss_fn, compute_params(w_new, compute_dtype), batches,
+                     m)
 
     # ---- k0 inner prox iterations per client (20) ----
     if pows is None:
         pows = round_pows(cfg, state.k, device)
     W_upd, mu_last = _client_inner(state.W, w_new, g, pows, cfg)
+    if state_dtype is not None:
+        W_upd = tmap(lambda x: x.to(state_dtype), W_upd)
     W_next = tree_where_client(mask, W_upd, state.W)
 
     # ---- DP-noised upload (21)/(39) ----
-    grad_l1 = dp.sensitivity_surrogate(g, per_client=True) / 2.0
-    delta_hat = 2.0 * grad_l1
-    if cfg.sensitivity_clip > 0:
-        delta_hat = torch.clamp_max(delta_hat, cfg.sensitivity_clip)
+    grad_l1, scale = upload_scale(cfg, g, mu_last)  # (m,) each
+    del g  # its memory goes to the noise planes
     if cfg.eps_dp > 0:
-        scale = dp.fedepm_noise_scale(delta_hat, cfg.eps_dp, mu_last)  # (m,)
         if unit_noise is None:
             unit_noise = dp.client_unit_laplace(need_key(k_noise, "noise"),
                                                 W_upd)
         Z_upd, snr = dp.add_client_noise(W_upd, unit_noise, scale, mask)
     else:
-        scale = torch.zeros(m, dtype=torch.float32, device=device)
         Z_upd = W_upd
         snr = torch.full((), torch.inf, dtype=torch.float32, device=device)
     Z_next = tree_where_client(mask, Z_upd, state.Z)

@@ -13,12 +13,17 @@ rho=0.5, k0=3, eps_dp=0.1)``.
 
 The tolerance: JAX's own temporal round is not its spatial round's bits,
 and the port's gradients sum their products in other orders than XLA:CPU
-(``tests/_torch_families.py``). A client's update w_tau + (mu (w_i -
-w_tau) - g) / (eta + mu) cancels at w_tau's scale, which the first
-round's noised uploads make 10^5-10^6 times W's, so every tree is held
-within ``STATE_RTOL`` = 4e-6 of max(1, the largest |value| of w_tau and
-of the tree); a bf16 state within ``chip_smoke.DIST_BF16_RTOL`` = 2^-7
-(two bf16 ulps) of it.
+(``tests/_torch_families.py``). Every round is held. After the first,
+w_tau is still w0's size and each tree is held within ``STATE_RTOL`` =
+4e-6 of max(1, its own largest |value|). From the second, w_tau holds the
+first round's noised aggregate, 10^5-10^6 times W, and a client's update
+w_tau + (mu (w_i - w_tau) - g) / (eta + mu) cancels at each element's
+w_tau, so W and Z are held element by element within ``STATE_RTOL`` of
+max(1, |value|, |w_tau| there), and w_tau within it of its largest
+|value|. A bf16 state is held within ``chip_smoke.DIST_BF16_RTOL`` = 2^-7
+(one bf16 ulp at 1) of the same scales: a zeroed W fails it
+(``test_bf16_bound_rejects_a_zeroed_or_uncast_W``), and an f32 W fails
+its dtype check.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from repro_torch import random as trandom
 from repro_torch.core import distributed as tdist
 from repro_torch.core import fedepm as tfed
 from repro_torch.core.tasks import LMLoss
-from repro_torch.core.treeutil import tree_leaves
+from repro_torch.core.treeutil import tmap, tree_leaves
 from repro_torch.models import registry as tregistry
 
 from _torch_helpers import to_np
@@ -64,8 +69,9 @@ def fed_cfg(pkg, **over):
 
 def jax_rounds(arch, rounds, state_dtype=None, **kw):
     """JAX's ``build_fedepm`` rounds on the one-device Auto mesh, jitted
-    with the state's shardings as ``launch/steps.py`` jits them:
-    (state as a dict of numpy trees, metrics of each round)."""
+    with the state's shardings as ``launch/steps.py`` jits them: (the
+    state after each round as a dict of numpy trees, metrics of each
+    round)."""
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(AxisType.Auto, AxisType.Auto))
     cfg = jconfigs.get_reduced(arch)
@@ -79,60 +85,80 @@ def jax_rounds(arch, rounds, state_dtype=None, **kw):
     step = jax.jit(lambda s, b: step_fn(s, b, sspecs),
                    in_shardings=(_named(sspecs, mesh), None))
     b = {k: jnp.asarray(v) for k, v in batches(arch).items()}
-    state, mets = init_fn(jax.random.PRNGKey(0)), []
+    state, states, mets = init_fn(jax.random.PRNGKey(0)), [], []
     for _ in range(rounds):
         state, met = step(state, b)
         mets.append(jax.device_get(met))
-    state = jax.device_get(state)
-    return {n: getattr(state, n) for n in ("w_tau", "W", "Z")}, mets
+        got = jax.device_get(state)
+        states.append({n: getattr(got, n) for n in ("w_tau", "W", "Z")})
+    return states, mets
 
 
 def port_rounds(arch, rounds, state_dtype=None, donate=False, **kw):
-    """The port's rounds on the CPU: (final state, metrics of each
-    round)."""
+    """The port's rounds on the CPU: (a copy of the state after each
+    round, metrics of each round)."""
     cfg = tconfigs.get_reduced(arch)
     init_fn, step_fn, _ = tdist.build_fedepm(
         tregistry.get_model(cfg), LMLoss(cfg), fed_cfg(tfed), None,
         tdist.DistConfig(state_dtype=state_dtype, **kw))
     b = {k: torch.from_numpy(v) for k, v in batches(arch).items()}
-    state, mets = init_fn(trandom.PRNGKey(0), device="cpu"), []
+    state, states, mets = init_fn(trandom.PRNGKey(0), device="cpu"), [], []
     for _ in range(rounds):
         state, met = step_fn(state, b, donate=donate)
         mets.append(met)
-    return state, mets
+        states.append({n: tmap(torch.clone, getattr(state, n))
+                       for n in ("w_tau", "W", "Z")})
+    return states, mets
 
 
 def jax_digest(arch, mode):
-    """``chip_smoke.dist_digest`` of JAX's run at ``DIST_MODES[mode]``."""
-    state, mets = jax_rounds(arch, chip_smoke.DIST_ROUNDS[arch],
-                             **chip_smoke.DIST_MODES[mode])
-    return chip_smoke.dist_digest(state, [m.selected for m in mets])
+    """``chip_smoke.dist_digest`` of each round of JAX's run at
+    ``DIST_MODES[mode]``."""
+    states, mets = jax_rounds(arch, chip_smoke.DIST_ROUNDS[arch],
+                              **chip_smoke.DIST_MODES[mode])
+    return [chip_smoke.dist_digest(st, m.selected)
+            for st, m in zip(states, mets)]
+
+
+def _np_leaves(tree):
+    return [to_np(x).astype(np.float64) for x in tree_leaves(tree)]
 
 
 def assert_close_to_jax(got, got_mets, want, want_mets, rtol=STATE_RTOL):
-    """Masks exact; mu_last, grad_l1 and the noise scale within ``rtol`` of
-    each vector's largest |value|; w_tau, W and Z within ``rtol`` of
-    max(1, the largest |value| of w_tau and of the tree), leaf by leaf.
-    Returns the worst difference over its scale."""
+    """Round by round (``got``, ``want``: the states after each round):
+    masks exact; mu_last, grad_l1 and the noise scale within ``rtol`` of
+    each vector's largest |value|; w_tau, W and Z leaves of JAX's dtypes;
+    after the first round each tree within ``rtol`` of max(1, its largest
+    |value|); after a later one w_tau so, and W and Z element by element
+    within ``rtol`` of max(1, |value|, |w_tau| there). Returns the worst
+    difference over its scale."""
+    assert len(got) == len(want) == len(got_mets) == len(want_mets)
     worst = 0.0
-    for g, w in zip(got_mets, want_mets):
+    for r, (gs, ws, g, w) in enumerate(zip(got, want, got_mets, want_mets)):
         np.testing.assert_array_equal(to_np(g.selected), np.asarray(
             w.selected))
         for name in ("mu_last", "grad_l1", "noise_scale"):
             a, b = to_np(getattr(g, name)), np.asarray(getattr(w, name))
             err = float(np.abs(a - b).max()) / max(1.0, float(
                 np.abs(b).max()))
-            assert err <= rtol, (name, err)
-    tau = max(float(np.abs(to_np(x)).max())
-              for x in jax.tree_util.tree_leaves(want["w_tau"]))
-    for name in ("w_tau", "W", "Z"):
-        ws = [to_np(x) for x in jax.tree_util.tree_leaves(want[name])]
-        gs = [to_np(x) for x in tree_leaves(getattr(got, name))]
-        assert len(ws) == len(gs), name
-        scale = max(1.0, tau, max(float(np.abs(x).max()) for x in ws))
-        for a, b in zip(gs, ws):
-            assert a.shape == b.shape, name
-            err = float(np.abs(a.astype(np.float64) - b).max()) / scale
-            assert err <= rtol, (name, err)
-            worst = max(worst, err)
+            assert err <= rtol, (r, name, err)
+        taus = _np_leaves(ws["w_tau"])
+        for name in ("w_tau", "W", "Z"):
+            want_leaves = jax.tree_util.tree_leaves(ws[name])
+            got_leaves = tree_leaves(gs[name])
+            assert len(want_leaves) == len(got_leaves), name
+            assert [str(x.dtype).replace("torch.", "") for x in got_leaves] \
+                == [str(np.asarray(x).dtype) for x in want_leaves], name
+            bs = _np_leaves(want_leaves)
+            top = max(1.0, max(float(np.abs(x).max()) for x in bs))
+            for a, b, tau in zip(_np_leaves(got_leaves), bs, taus):
+                assert a.shape == b.shape, name
+                d = np.abs(a - b)
+                if r and name != "w_tau":
+                    err = float((d / np.maximum(np.maximum(1.0, np.abs(b)),
+                                                np.abs(tau))).max())
+                else:
+                    err = float(d.max()) / top
+                assert err <= rtol, (r, name, err)
+                worst = max(worst, err)
     return worst

@@ -5,18 +5,21 @@ rounds; ``tests/_torch_distributed.py`` holds the settings and states
 the tolerance).
 
 - spatial (gather and a2a) and temporal (microbatch 1 and 2, remat on and
-  off, a bf16 state once) against JAX's rounds: masks exact, the metrics
-  and w_tau, W and Z within ``STATE_RTOL`` = 4e-6 of the scale (a bf16
-  state within 2^-7 of it);
+  off, a bf16 state once) against JAX's rounds, after each round: masks
+  exact, the metrics and w_tau, W and Z within ``STATE_RTOL`` = 4e-6 of
+  the scales (a bf16 state within 2^-7 of them), which a zeroed or f32 W
+  fails;
 - both spatial forms are the port's ``fedepm_round`` bit for bit, as
   JAX's are JAX's;
 - the donated temporal step equals the pure one and writes the state's
   own buffers; the pure one leaves its input; ``init_fn``'s W, Z and
   w_tau are distinct contiguous buffers;
-- a mesh of more than one device raises, naming ROADMAP item 14.5, in
-  ``build_fedepm`` and in ``run_rounds``, whose ``mesh=1`` is the run
-  without a mesh bit for bit;
-- JAX's digests for smollm-135m equal ``chip_smoke.JAX_DIST``.
+- a mesh of more than one device, or mesh axes other than the
+  defaults, raises, naming ROADMAP item 14.5, in ``build_fedepm`` and in
+  ``run_rounds``, whose ``mesh=1`` is the run without a mesh bit for bit;
+- JAX's digests for smollm-135m equal ``chip_smoke.JAX_DIST``; the
+  port's CPU digests meet ``chip_smoke.check_dist_digests``, which a
+  zeroed W fails.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from repro_torch import random as trandom
 from repro_torch.core import distributed as tdist
 from repro_torch.core import fedepm as tfed
 from repro_torch.core.tasks import LMLoss
-from repro_torch.core.treeutil import tree_leaves
+from repro_torch.core.treeutil import tmap, tree_leaves
 from repro_torch.models import registry as tregistry
 
 import _torch_distributed as H
@@ -67,11 +70,27 @@ def test_rounds_against_jax(name, jax_runs):
                                   **_dtypes(CASES[name], torch.bfloat16))
     want, want_mets = jax_runs[name]
     bf16 = "state_dtype" in CASES[name]
-    if bf16:
-        assert all(x.dtype == torch.bfloat16 for x in tree_leaves(got.W))
     H.assert_close_to_jax(got, got_mets, want, want_mets,
                           chip_smoke.DIST_BF16_RTOL if bf16
                           else H.STATE_RTOL)
+
+
+@pytest.mark.parametrize("r", range(ROUNDS))
+def test_bf16_bound_rejects_a_zeroed_or_uncast_W(r, jax_runs):
+    """The bf16 state's bound holds W: the port's run with round r's W
+    zeroed, or left in f32, fails it."""
+    name = "temporal_mb1_remat_bf16"
+    got, got_mets = H.port_rounds(ARCH, ROUNDS,
+                                  **_dtypes(CASES[name], torch.bfloat16))
+    want, want_mets = jax_runs[name]
+    H.assert_close_to_jax(got, got_mets, want, want_mets,
+                          chip_smoke.DIST_BF16_RTOL)
+    for bad in (lambda x: torch.zeros_like(x), lambda x: x.float()):
+        wrong = [dict(st) for st in got]
+        wrong[r]["W"] = tmap(bad, got[r]["W"])
+        with pytest.raises(AssertionError):
+            H.assert_close_to_jax(wrong, got_mets, want, want_mets,
+                                  chip_smoke.DIST_BF16_RTOL)
 
 
 @pytest.mark.parametrize("mode", sorted(chip_smoke.DIST_MODES))
@@ -79,9 +98,24 @@ def test_jax_digests_are_chip_smoke_constants(mode, jax_runs):
     name = {"spatial": "spatial_gather",
             "temporal": "temporal_mb2_remat"}[mode]
     assert CASES[name] == chip_smoke.DIST_MODES[mode]
-    state, mets = jax_runs[name]
-    got = chip_smoke.dist_digest(state, [m.selected for m in mets])
+    states, mets = jax_runs[name]
+    got = [chip_smoke.dist_digest(st, m.selected)
+           for st, m in zip(states, mets)]
     assert got == chip_smoke.JAX_DIST[ARCH][mode]
+
+
+@pytest.mark.parametrize("mode", sorted(chip_smoke.DIST_MODES))
+def test_digest_check_holds_the_port_and_rejects_a_zeroed_W(mode):
+    """``chip_smoke.check_dist_digests``, which the card's reduced runs
+    meet: the port's CPU digests pass; with the first round's W zeroed
+    they fail."""
+    want = chip_smoke.JAX_DIST[ARCH][mode]
+    got = chip_smoke.dist_reduced_run(ARCH, mode, "cpu")
+    chip_smoke.check_dist_digests(got, want, mode)
+    wrong = [dict(d) for d in got]
+    wrong[0]["W"] = [0.0] * len(got[0]["W"])
+    with pytest.raises(AssertionError):
+        chip_smoke.check_dist_digests(wrong, want, mode)
 
 
 def _setup(**kw):
@@ -162,6 +196,11 @@ def test_more_than_one_device_names_item_14_5():
     for mesh in (2, 8):
         with pytest.raises(ValueError, match="item 14.5"):
             tdist.build_fedepm(model, loss, fcfg, mesh)
+    for axes in (dict(client_axes=("pod", "data")),
+                 dict(fsdp_axes=("data", "model"))):
+        with pytest.raises(ValueError, match="item 14.5"):
+            tdist.build_fedepm(model, loss, fcfg, None,
+                               tdist.DistConfig(**axes))
     with pytest.raises(ValueError, match="item 14.5"):
         tdist.ens_a2a({}, 0.1, 0.1, mesh=4)
 

@@ -8,7 +8,7 @@ uploads overflows its masked exps, ROADMAP queue 3), where the port's is
 finite.
 
 - the port's round against JAX's: masks exact, metrics and w_tau, W and Z
-  within ``STATE_RTOL`` = 4e-6 of the scale;
+  within ``STATE_RTOL`` = 4e-6 of each tree's scale;
 - JAX's digests equal ``chip_smoke.JAX_DIST``, which the card's run of
   the same rounds is held to.
 """
@@ -42,6 +42,7 @@ def test_rounds_against_jax(arch, mode, jax_runs):
 
 @pytest.mark.parametrize("arch,mode", RUNS)
 def test_jax_digests_are_chip_smoke_constants(arch, mode, jax_runs):
-    state, mets = jax_runs[arch, mode]
-    got = chip_smoke.dist_digest(state, [m.selected for m in mets])
+    states, mets = jax_runs[arch, mode]
+    got = [chip_smoke.dist_digest(st, m.selected)
+           for st, m in zip(states, mets)]
     assert got == chip_smoke.JAX_DIST[arch][mode]

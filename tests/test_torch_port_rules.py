@@ -49,8 +49,9 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "check_serve_card_vs_cpu", "profile_serve_path",
              "serve_digest", "check_serve_digest", "run_remat_path",
              "run_distributed_path", "run_dist_smollm", "run_dist_zamba2",
-             "run_dist_reduced", "dist_digest", "check_dist_digest",
-             "dist_reduced_run"):
+             "run_dist_reduced", "dist_digest", "check_dist_digests",
+             "dist_reduced_run", "run_remat_zamba2",
+             "check_zamba2_round_vs_cpu"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
