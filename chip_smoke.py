@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero before the last line:
    sm_90a, one nvcc per source, all at once.
 3. profiles, each in a fresh process of its own (run after the main paths
    in one process, profiles lost device records): the clocked engine
-   in all five simulator configurations below and the async engine in
+   in simulator configurations (a), (b), (c) and (e) below (the one
+   profile of each quantizer entry inside a graph replay; (d) repeats
+   (a)'s ``quantize_cols`` graph within 20%) and the async engine in
    configuration (f), 10 rounds or events in one chunk each, their
    graph-launched and outside-graph kernels held exactly to the graphs'
    counts and the counters; then the paper path, SFedAvg and SFedProx at
@@ -109,23 +111,44 @@ Phases, in order; any failure exits non-zero before the last line:
    at full width on smollm-135m and xlstm-125m eager with it on and off
    and the scan engine with it off, bit for bit, the peaks printed; (b)
    smollm-135m at full width through ``core/distributed.py``'s
-   ``build_fedepm`` (m 4, 2 x 256 tokens a client, k0 4, 3 rounds) as
-   spatial gather and a2a, bit for bit the port's ``fedepm_round``, and
-   temporal with microbatch 1 and 2, the first round within 2^-7 of its
-   scale (bf16 compute); (c) zamba2-1.2b at full width (1,170,473,856
-   params) under the donated temporal round, microbatch 2, f32 state, 2
-   rounds, twice with the same bits, f/m finite; (d) reduced smollm-135m,
+   ``build_fedepm`` (m 4, 2 x 256 tokens a client, k0 4, 2 rounds) as
+   spatial gather (``ens="a2a"`` is the gather on one device), bit for
+   bit the port's ``fedepm_round``, and temporal with microbatch 1 and 2,
+   the first round within 2^-7 of its scale (bf16 compute); (c)
+   zamba2-1.2b at full width (1,170,473,856 params) under the donated
+   temporal round, microbatch 2, f32 state, 1 round, twice with the same
+   bits, f/m finite; (d) reduced smollm-135m,
    xlstm-125m and zamba2-1.2b, spatial and temporal, held to ``JAX_DIST``
    (JAX's ``build_fedepm`` on a one-device mesh); ENS once per leaf and
    round and prox k0 times per leaf, round and client (one launch for all
    m clients in the spatial round) asserted, wall per round and peak
-   memory printed.
+   memory printed. Then the ``launch`` phase (ROADMAP queue 1 items 14.5
+   and 14.7): ``launch/train.py`` without ``--spec`` on smollm-135m at
+   full width, 8 x 4096 tokens, m 1 (one device), k0 4, 2 rounds, ENS 11
+   and prox 44 launches a round asserted; ``launch/steps.py``'s
+   ``build_step`` through ``launch/dryrun.py::run_one`` (built, run once,
+   recorded) for smollm-135m's ``train_4k`` at B 8, ``prefill_32k`` at B
+   1, ``decode_32k`` at B 8 and ``long_500k`` at B 1 (the sliding-window
+   variant, a ring of 4096), and zamba2-1.2b's ``prefill_32k`` at B 1
+   (its 32-head shared block through ``flash_attention`` over 32768
+   tokens), a ``fail`` record failing the run; each case's wall, peak
+   above the start, launches and ``launch/roofline.py::analyse`` (the
+   analytic compute and memory times at the H100's peaks, the bottleneck,
+   the share of the bf16 peak in the measured wall) printed; then
+   ``flash_attention`` on the card against the port's CPU path at one
+   smollm layer's q, k, v (B 1, T 4096, causal, f32): the output and dq,
+   dk, dv within 4e-6 of each tensor's largest |value|; its forward plus
+   backward's peak at T 4096 and 16384 beside the full form's score
+   bytes, and its time beside ``F.scaled_dot_product_attention``'s in f32
+   and bf16 (a yardstick the port never calls); and one smollm client's
+   gradient at 1 x 4096 tokens with remat on and off (peaks, walls, the
+   same bits).
 6. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
    the same key (masks bitwise); the reduced LM spec (f32) on the card
-   against the CPU and ``JAX_LM_REDUCED``, and the full-width LM run
-   against the port's CPU path on this host from the card's initial params
-   and noise planes (f/m within ``LM_F_RTOL``); one round of full-width
+   against the CPU and ``JAX_LM_REDUCED``, and the full-width LM run's
+   first round against the port's CPU path on this host from the card's
+   initial params and noise planes (f/m within ``LM_F_RTOL``); one round of full-width
    xlstm-125m likewise; full-width smollm-135m's serve (prefill and two
    decode steps, teacher forced by the card's tokens): the greedy tokens'
    negative log-likelihood within ``LM_F_RTOL`` and the logits within
@@ -257,7 +280,8 @@ def _wide_case(name, m, n, gen):
     f32, the plain version over column pieces of WIDE_PIECE, each held as
     ``_prox_case`` and ``_ens_case`` hold theirs (prox within 1 ulp, ENS
     bit for bit); times by CUDA events, the plain version's over its
-    pieces, once."""
+    pieces, once, and ENS's library call, ``torch.median`` over the
+    candidates, over the same pieces."""
     from repro_torch.kernels.ens.ens import ens_cuda, ens_ref
     from repro_torch.kernels.prox.prox import prox_update_cuda, prox_update_ref
     dev = "cuda"
@@ -299,10 +323,20 @@ def _wide_case(name, m, n, gen):
     def plain_all():
         for a, b in pieces:
             plain(a, b)
+    library_ms = None
+    if name == "ens":
+        # torch.median over the 2m+1 candidates, a piece of columns at a
+        # time (the whole stack is 9 x n f32 beside Z), summed
+        from repro_torch.kernels.ens.ref import ens_candidates
+        library_ms = 0.0
+        for a, b in pieces:
+            stack = ens_candidates(Z[:, a:b], lam, eta)
+            library_ms += time_ms(lambda: torch.median(stack, dim=0), 1)
+            del stack
     res.update(shape=[m, n], dtype="float32", **kind,
                ms=time_ms(kernel, 3), plain_ms=time_ms(plain_all, 1),
                plain_pieces=len(pieces), bound_ms=b_ms, bound_by=b_by,
-               library_ms=None)
+               library_ms=library_ms)
     return res
 
 
@@ -446,7 +480,9 @@ def check_kernels(card: str) -> list[dict]:
     ens_plan += [(m, n, dt, 0, kind, False) for kind in ENS_KINDS
                  for m in (1, 5, 100, 128) for n in (14, 4099)
                  for dt in (f32, bf16)]
-    ens_plan += [(8, SMOLLM_LEAF, f32, 3, "random", True),
+    # the launch phase's train_4k: one client, every smollm leaf
+    ens_plan += [(1, SMOLLM_LEAF, f32, 3, "random", True),
+                 (8, SMOLLM_LEAF, f32, 3, "random", True),
                  (8, SMOLLM_LEAF, bf16, 3, "random", True),
                  (LM_M, SMOLLM_LEAF, f32, 3, "random", True),
                  (LM_M, XLSTM_LEAF, f32, 3, "random", True),
@@ -1836,7 +1872,7 @@ XLSTM = "xlstm-125m"
 XLSTM_PARAMS, XLSTM_LEAVES = 185_359_968, 129
 XLSTM_LEAF = 50304 * 768    # its embed and unembed, 38,633,472 each
 XLSTM_CPU_ROUNDS = 1        # card against the port's CPU path, full width
-LM_CPU_ROUNDS = 2           # the same for smollm-135m
+LM_CPU_ROUNDS = 1           # the same for smollm-135m
 JAX_LM_FAMILIES = {
     "xlstm-125m": {
         "f_per_m": [6.774394512176514, 6.7715959548950195,
@@ -2693,8 +2729,13 @@ REMAT_SEQS = (256, 1024)
 
 
 def run_remat_zamba2() -> dict:
-    """zamba2-1.2b at full width: one client's gradient over one sequence
-    of each of REMAT_SEQS tokens, ``cfg.remat`` on and off, each with the
+    """zamba2-1.2b: ``run_remat_gradients`` at REMAT_SEQS."""
+    return run_remat_gradients("zamba2-1.2b", REMAT_SEQS)
+
+
+def run_remat_gradients(arch: str, seqs) -> dict:
+    """``arch`` at full width: one client's gradient over one sequence of
+    each of ``seqs`` tokens, ``cfg.remat`` on and off, each with the
     counters set to 0 just before it, after a warm-up gradient at that
     length: the same bits, and each peak above the memory held at its
     start (the f32 params)."""
@@ -2702,11 +2743,10 @@ def run_remat_zamba2() -> dict:
     from repro_torch.core.tasks import LMLoss
     from repro_torch.core.treeutil import tmap, tree_leaves
     from repro_torch.data.lm import federated_token_batches
-    arch = "zamba2-1.2b"
     cfg = configs.get_config(arch)
     params = get_model_init(arch)
     out = {}
-    for seq in REMAT_SEQS:
+    for seq in seqs:
         raw = next(federated_token_batches(cfg.vocab, 1, 1, seq, steps=1,
                                            seed=DIST_FULL["seed"]))
         b = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
@@ -2991,10 +3031,11 @@ def dist_reduced_run(arch: str, mode: str, device) -> list:
 # two rounds; m 4 clients of 2 x 256 tokens
 DIST_FULL = {"m": 4, "batch": 2, "seq": 256, "k0": 4, "eps": 0.1,
              "rho": 0.5, "seed": 0, "mu0": 20.0, "sensitivity_clip": 1.0}
-DIST_SMOLLM_ROUNDS, DIST_ZAMBA2_ROUNDS = 3, 2
+DIST_SMOLLM_ROUNDS, DIST_ZAMBA2_ROUNDS = 2, 1
+# ``ens="a2a"`` on one device is ``ens_gather`` (tests/test_torch_
+# distributed.py holds it so): its run would repeat the gather's
 DIST_CONFIGS = {
     "spatial_gather": {"mode": "spatial", "ens": "gather"},
-    "spatial_a2a": {"mode": "spatial", "ens": "a2a"},
     "temporal_mb1": {"mode": "temporal", "microbatch": 1},
     "temporal_mb2": {"mode": "temporal", "microbatch": 2},
 }
@@ -3204,6 +3245,9 @@ def run_dist_zamba2() -> dict:
 # Laplace values at about 4M a second, so Z is held on DIST_CPU_SLICE
 # values at the head and the tail of every leaf, not on 1.17B
 DIST_CPU_SEQ, DIST_CPU_SLICE = 16, 1 << 18
+# and one prox iteration a client (k0 = 1): the CPU's prox over 1.17B
+# params and its whole-tree distance take about 12 s an iteration
+DIST_CPU_K0 = 1
 
 
 def _rel_norm(a, b) -> float:
@@ -3217,7 +3261,8 @@ def _rel_norm(a, b) -> float:
 
 
 def check_zamba2_round_vs_cpu() -> dict:
-    """The first round, piece by piece, for its first selected client i:
+    """The first round at DIST_CPU_SEQ tokens and k0 = DIST_CPU_K0, piece
+    by piece, for its first selected client i:
     w_tau (ENS over four copies of w0) bit for bit the plain ENS on the
     slices (``check_kernels`` holds the kernel at the whole (4,
     ZAMBA2_LEAF)); client i's gradient at w_tau, taken again on the card as
@@ -3246,6 +3291,7 @@ def check_zamba2_round_vs_cpu() -> dict:
     arch, mb = "zamba2-1.2b", 2
     t0 = time.perf_counter()
     model, loss, fcfg, batches = _dist_full_setup(arch, DIST_CPU_SEQ)
+    fcfg = dataclasses.replace(fcfg, k0=DIST_CPU_K0)
     dist = DistConfig(mode="temporal", microbatch=mb,
                       state_dtype=torch.float32)
     init_fn, step_fn, _ = build_fedepm(model, loss, fcfg, None, dist)
@@ -3332,7 +3378,8 @@ def check_zamba2_round_vs_cpu() -> dict:
             z_err = max(z_err, err)
     out.update(card=card, cpu=cpu, z_slices_worst_over_scale=z_err,
                card_s=card_s, cpu_s=time.perf_counter() - t0,
-               tokens_a_client=[DIST_FULL["batch"], DIST_CPU_SEQ])
+               tokens_a_client=[DIST_FULL["batch"], DIST_CPU_SEQ],
+               k0=DIST_CPU_K0)
     log("zamba2_round_vs_cpu " + json.dumps(out))
     return out
 
@@ -3366,6 +3413,217 @@ def run_distributed_path(lm_eager: dict) -> dict:
     out["zamba2-1.2b"] = run_dist_zamba2()
     torch.cuda.empty_cache()
     out["reduced"] = run_dist_reduced()
+    return out
+
+
+# The launch layer (ROADMAP queue 1 items 14.5 and 14.7): smollm-135m's
+# four INPUT_SHAPES at full width through ``launch/steps.py``'s
+# ``build_step`` (``launch/dryrun.py::run_one``: built, run once, recorded),
+# the batch cut (was 256 / 32 / 128 / 1), and its train step through the
+# ``train`` CLI; zamba2-1.2b's prefill, whose 32-head shared block reads
+# the whole prompt through ``flash_attention``
+LAUNCH_ARCH = "smollm-135m"
+LAUNCH_CASES = (("smollm-135m", "train_4k", 8), ("smollm-135m",
+                                                 "prefill_32k", 1),
+                ("smollm-135m", "decode_32k", 8),
+                ("smollm-135m", "long_500k", 1),
+                ("zamba2-1.2b", "prefill_32k", 1))
+LAUNCH_ROUNDS = 2
+LAUNCH_K0 = 4
+# chunked attention on the card against the port's CPU path: one smollm
+# layer's q, k, v (f32) at B 1, causal; peaks at two lengths
+FLASH_T, FLASH_PEAK_T, FLASH_REPS = 4096, (4096, 16384), 5
+REMAT_LAUNCH_SEQ = 4096
+
+
+def _launch_case(arch: str, shape: str, batch: int) -> dict:
+    """One (arch, shape) through ``dryrun.run_one`` on the card at ``batch``
+    with the counters set to 0 just before it; a ``fail`` record (an
+    out-of-memory error included) fails the run. Prints wall, peak above
+    the start, launches and the roofline."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.steps import resolve_arch
+    from repro_torch.models.config import INPUT_SHAPES
+    ishape = dataclasses.replace(INPUT_SHAPES[shape], global_batch=batch)
+    torch.cuda.empty_cache()
+    reset_counts()
+    rec = dryrun.run_one(arch, shape, out_dir=str(OUT_DIR / "dryrun_torch"),
+                         force=True, input_shape=ishape)
+    counts = read_counts()
+    if rec["status"] != "ok":
+        raise RuntimeError(f"launch[{arch} {shape}] {rec['status']}: "
+                           f"{rec.get('error', rec.get('reason'))}")
+    cfg = resolve_arch(arch, ishape)[0]
+    a = roofline.analyse(rec, cfg, ishape)
+    out = {"batch": batch, "seq": ishape.seq_len, "wall_s": rec["wall_s"],
+           "peak_above_start_gb": rec["peak_bytes"] / 1e9,
+           "step_launches": rec["launches"], "launches": counts,
+           "notes": rec.get("notes", ""), "static": rec.get("static"),
+           "roofline": {"compute_s": a.compute_s, "memory_s": a.memory_s,
+                        "bottleneck": a.bottleneck,
+                        "model_flops": a.model_flops, "wall_s": a.wall_s,
+                        "share_of_bf16_peak": a.peak_share}}
+    log(f"launch[{arch} {shape} B {batch}] wall {rec['wall_s']:.3f} s, "
+        f"peak {out['peak_above_start_gb']:.3f} GB above the start, "
+        f"launches {rec['launches']}; roofline compute {a.compute_s:.4f} s, "
+        f"memory {a.memory_s:.4f} s -> {a.bottleneck}, model FLOPs "
+        f"{a.model_flops:.4e}, share of the bf16 peak {a.peak_share:.4e}")
+    return out
+
+
+def _launch_train_cli() -> dict:
+    """``train.main`` on smollm-135m, 8 x 4096 tokens, LAUNCH_ROUNDS rounds
+    (m = 1 on one device, k0 = 4): ENS once per leaf a round and prox k0
+    times per leaf a round (one launch for the m clients), asserted. The
+    first round aggregates w0's copies: drift 0, SNR finite and negative
+    (at one client and eps 0.1 the Laplace noise outweighs the weights).
+    The second round's broadcast point is then that noisy upload alone, as
+    in JAX's reduced runs (tests/test_torch_steps.py): its drift is
+    finite, about the noise's ||eps_0||^2 = 10^(-2 SNR_0) ||w_0'||^2 with
+    w_0' the client's update, so at least 10^(-2 SNR_0) (||w_0'||^2 >= 1;
+    0.01 covers the printed SNR's rounding). Its SNR is not held: JAX's reduced runs give NaN there (a
+    NaN noise scale), the port's full-width run a finite value (ROADMAP
+    queue 3)."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(["--arch", LAUNCH_ARCH, "--seq", "4096",
+                         "--global-batch", "8", "--rounds",
+                         str(LAUNCH_ROUNDS), "--k0", str(LAUNCH_K0)])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"launch[train CLI] {line}")
+    assert rc == 0, rc
+    rounds = [re.match(r"round (\d+): drift=(\S+) snr=(\S+) sel=(\d+)/"
+                       r"(\d+) \((\S+)s\)", ln) for ln in lines
+              if ln.startswith("round ")]
+    assert len(rounds) == LAUNCH_ROUNDS and all(rounds), lines
+    snr0 = float(rounds[0][3])
+    assert float(rounds[0][2]) == 0.0 and np.isfinite(snr0) and snr0 < 0
+    drift1 = float(rounds[1][2])
+    assert np.isfinite(drift1) and drift1 >= 10.0 ** (-2 * snr0 - 0.01), \
+        (drift1, snr0)
+    assert all(r[4] == r[5] == "1" for r in rounds), lines
+    want = {"ens": LM_LEAVES * LAUNCH_ROUNDS,
+            "prox_update": LM_LEAVES * LAUNCH_K0 * LAUNCH_ROUNDS}
+    got = {k: counts[k] for k in want}
+    assert got == want, (got, want)
+    out = {"launches": counts, "wall_s": wall,
+           "round_s": [float(r[6]) for r in rounds],
+           "peak_above_start_gb":
+               (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "lines": lines}
+    log(f"launch[train CLI] {LAUNCH_ROUNDS} rounds in {wall:.1f} s, peak "
+        f"{out['peak_above_start_gb']:.3f} GB above the start, ENS "
+        f"{got['ens']} and prox {got['prox_update']} launches (asserted)")
+    return out
+
+
+def _smollm_layer_qkv(T: int):
+    """One smollm-135m layer's q, k, v (f32, after RoPE) at B 1 over T
+    tokens, from the full-width init (PRNGKey(0)) and tokens drawn from
+    PRNGKey(1)."""
+    from repro_torch import configs, random
+    from repro_torch.core.treeutil import tmap
+    from repro_torch.models import dense
+    from repro_torch.models.layers import apply_norm, qkv_proj, rope
+    cfg = configs.get_config(LAUNCH_ARCH)
+    W = tmap(lambda x: x[None], get_model_init(LAUNCH_ARCH))
+    tokens = random.randint(random.PRNGKey(1, device="cuda"), (1, 1, T), 0,
+                            cfg.vocab)
+    with torch.no_grad():
+        x, pos = dense.embed_inputs(W, {"tokens": tokens}, cfg)
+        lp = dense.layer_params(W["layers"], cfg.n_layers)[0]
+        h = apply_norm(x, lp["ln_attn"], cfg.norm)
+        q, k, v = qkv_proj(h, lp["attn"])
+        q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+    return [t[0].float().contiguous() for t in (q, k, v)]
+
+
+def _flash_fwd_bwd(q, k, v, dout):
+    from repro_torch.models.layers import flash_attention
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*xs)
+    return [out.detach(), *torch.autograd.grad(out, xs, dout)]
+
+
+def run_flash_checks() -> dict:
+    """``flash_attention`` on the card against the port's CPU path (one
+    smollm layer's q, k, v at B 1, T FLASH_T, causal): the output and dq,
+    dk, dv within STATE_RTOL of each tensor's largest |value|; the peak of
+    forward plus backward at FLASH_PEAK_T beside the full form's scores
+    (9 T^2 x 4 B a sequence); its time against ``F.scaled_dot_product_
+    attention`` at the same shape in f32 and bf16, a yardstick the port
+    never calls."""
+    import torch.nn.functional as F
+    q, k, v = _smollm_layer_qkv(FLASH_T)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    card = _flash_fwd_bwd(q, k, v, dout)
+    t0 = time.perf_counter()
+    cpu = _flash_fwd_bwd(*(t.cpu() for t in (q, k, v, dout)))
+    out = {"cpu_s": time.perf_counter() - t0, "T": FLASH_T,
+           "shape_q": list(q.shape), "shape_kv": list(k.shape)}
+    for name, g, c in zip(("out", "dq", "dk", "dv"), card, cpu):
+        err = float((g.cpu() - c).abs().max()) / float(c.abs().max())
+        out[f"{name}_max_err_over_scale"] = err
+        assert err <= STATE_RTOL, (name, err)
+    H = q.shape[-2]
+    for T in FLASH_PEAK_T:
+        qq, kk, vv = (torch.randn((1, T) + t.shape[2:], generator=gen,
+                                  device="cuda") for t in (q, k, v))
+        dd = torch.randn(qq.shape, generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = _flash_fwd_bwd(qq, kk, vv, dd)
+        torch.cuda.synchronize()
+        out[f"peak_gb_T{T}"] = (torch.cuda.max_memory_allocated() - base) \
+            / 1e9
+        out[f"full_form_scores_gb_T{T}"] = H * T * T * 4 / 1e9
+        del qq, kk, vv, dd, res
+    out["flash_fwd_bwd_ms"] = time_ms(lambda: _flash_fwd_bwd(q, k, v, dout),
+                                      FLASH_REPS)
+    R = H // k.shape[-2]
+    for dt in (torch.float32, torch.bfloat16):
+        qs, ks, vs = (t.transpose(1, 2).to(dt).detach() for t in (
+            q, k.repeat_interleave(R, dim=2), v.repeat_interleave(R, dim=2)))
+        ds = dout.transpose(1, 2).to(dt)
+
+        def sdpa():
+            xs = [t.requires_grad_(True) for t in (qs, ks, vs)]
+            o = F.scaled_dot_product_attention(*xs, is_causal=True)
+            return torch.autograd.grad(o, xs, ds)
+
+        out[f"sdpa_{str(dt).split('.')[1]}_fwd_bwd_ms"] = time_ms(
+            sdpa, FLASH_REPS)
+    log("flash " + json.dumps(out))
+    return out
+
+
+def run_launch_path() -> dict:
+    """The ``launch`` phase: the train CLI, LAUNCH_CASES through
+    ``build_step`` each with the counters set to 0 just before it, the
+    flash checks, and one smollm client's gradient at 1 x
+    REMAT_LAUNCH_SEQ tokens with remat on and off."""
+    out = {"train_cli": _launch_train_cli()}
+    for arch, shape, batch in LAUNCH_CASES:
+        out[f"{arch}/{shape}"] = _launch_case(arch, shape, batch)
+    torch.cuda.empty_cache()
+    out["flash"] = run_flash_checks()
+    torch.cuda.empty_cache()
+    out["remat"] = run_remat_gradients(LAUNCH_ARCH, (REMAT_LAUNCH_SEQ,))
     return out
 
 
@@ -3748,10 +4006,13 @@ def profile_baselines(rounds: int = 10) -> dict:
 
 # each profile by name: its function and arguments, and where its result
 # goes in the record
+# (a), (b) and (c) launch quantize_cols, ef_accumulate and
+# private_quantize_cols inside the graph; (d) repeats (a)'s graph within 20%
+PROFILE_ENGINE = ("a", "b", "c", "e")
 PROFILES = {
     **{f"engine.{key}": (profile_engine_path, (key,),
                          ("profile_engine_path", key))
-       for key in SIM_CONFIGS},
+       for key in PROFILE_ENGINE},
     "async.f": (profile_async_path, (), ("profile_async_path",)),
     "main": (profile_main_path, (), ("profile_main_path",)),
     "baselines": (profile_baselines, (), ("profile_baselines",)),
@@ -3774,6 +4035,7 @@ def run_profiles() -> dict:
     log lines pass through; its last line is its result."""
     record: dict = {}
     for name, (_, _, where) in PROFILES.items():
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--profile",
              name], stdout=subprocess.PIPE, text=True, timeout=600)
@@ -3787,6 +4049,9 @@ def run_profiles() -> dict:
         for k in where[:-1]:
             node = node.setdefault(k, {})
         node[where[-1]] = json.loads(lines[-1])
+        seconds = time.perf_counter() - t0
+        record.setdefault("profile_s", {})[name] = seconds
+        log(f"profile {name}: {seconds:.1f} s")
     return record
 
 
@@ -3827,29 +4092,35 @@ def main() -> int:
     t = time.perf_counter()
     profiles = run_profiles()
     phases["profiles_s"] = time.perf_counter() - t
+    phases["profile_s"] = profiles.pop("profile_s")
     t = time.perf_counter()
     kernels = (check_kernels(card) + check_quant_kernels(card)
                + check_threefry_kernel(card))
     jax_table = check_jax_random_table()
     phases["kernels_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    record = {"card": card, "jax_random_table": jax_table,
-              "main_path": run_main_path(), "sim_path": run_sim_path(),
-              "engine_path": run_engine_path(),
-              "async_path": run_async_path(),
-              "faults_clocked": run_faults_clocked(),
-              "faults_async": run_faults_async(),
-              "faults_spec": run_faults_spec(),
-              "paper_m200": run_paper_m200(),
-              "queue3_trials": run_queue3_trials(),
-              "paper_twins": run_paper_twins(),
-              "twins": run_twins_path(),
-              "lm_path": run_lm_path(),
-              "lm_families": run_lm_families()}
-    record["serve"], serve_cpu = run_serve_path()
-    record["distributed"] = run_distributed_path({
-        "smollm-135m": record["lm_path"]["eager"],
-        XLSTM: record["lm_families"]["xlstm-125m/full"]["eager"]})
+    record = {"card": card, "jax_random_table": jax_table}
+    main_paths = {"main_path": run_main_path, "sim_path": run_sim_path,
+                  "engine_path": run_engine_path,
+                  "async_path": run_async_path,
+                  "faults_clocked": run_faults_clocked,
+                  "faults_async": run_faults_async,
+                  "faults_spec": run_faults_spec,
+                  "paper_m200": run_paper_m200,
+                  "queue3_trials": run_queue3_trials,
+                  "paper_twins": run_paper_twins, "twins": run_twins_path,
+                  "lm_path": run_lm_path, "lm_families": run_lm_families,
+                  "serve": run_serve_path,
+                  "distributed": lambda: run_distributed_path({
+                      "smollm-135m": record["lm_path"]["eager"],
+                      XLSTM: record["lm_families"]["xlstm-125m/full"][
+                          "eager"]}),
+                  "launch": run_launch_path}
+    for name, run in main_paths.items():
+        t_path = time.perf_counter()
+        record[name] = run()
+        phases[f"{name}_s"] = time.perf_counter() - t_path
+    record["serve"], serve_cpu = record["serve"]
     paths = {"run_fedepm": record["main_path"]["launches"]}
     paths.update({f"simulate.{key}": res["launches"]
                   for key, res in record["sim_path"].items()})
@@ -3883,6 +4154,13 @@ def main() -> int:
     paths.update({f"distributed.{arch}.{key}": res["launches"]
                   for arch in ("smollm-135m", "zamba2-1.2b", "reduced")
                   for key, res in dist[arch].items()})
+    launch = record["launch"]
+    paths["launch.train_cli"] = launch["train_cli"]["launches"]
+    paths.update({f"launch.{arch}.{shape}":
+                  launch[f"{arch}/{shape}"]["launches"]
+                  for arch, shape, _ in LAUNCH_CASES})
+    paths.update({f"launch.remat.{key}": res["launches"]
+                  for key, res in launch["remat"].items()})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -3890,14 +4168,21 @@ def main() -> int:
     phases["main_paths_s"] = time.perf_counter() - t
     t = time.perf_counter()
     record.update(profiles)
-    record["card_vs_cpu"] = check_card_vs_cpu()
-    record["sim_card_vs_cpu"] = check_sim_card_vs_cpu()
-    record["lm_card_vs_cpu"] = check_lm_card_vs_cpu(record["lm_path"])
-    record["xlstm_card_vs_cpu"] = check_xlstm_card_vs_cpu(
-        record["lm_families"])
-    record["serve_card_vs_cpu"] = check_serve_card_vs_cpu(serve_cpu)
-    del serve_cpu
-    record["zamba2_round_vs_cpu"] = check_zamba2_round_vs_cpu()
+    checks = {"card_vs_cpu": check_card_vs_cpu,
+              "sim_card_vs_cpu": check_sim_card_vs_cpu,
+              "lm_card_vs_cpu": lambda: check_lm_card_vs_cpu(
+                  record["lm_path"]),
+              "xlstm_card_vs_cpu": lambda: check_xlstm_card_vs_cpu(
+                  record["lm_families"]),
+              "serve_card_vs_cpu": lambda: check_serve_card_vs_cpu(
+                  serve_cpu),
+              "zamba2_round_vs_cpu": check_zamba2_round_vs_cpu}
+    for name, check in checks.items():
+        t_check = time.perf_counter()
+        record[name] = check()
+        phases[f"check.{name}_s"] = time.perf_counter() - t_check
+        if name == "serve_card_vs_cpu":
+            del serve_cpu
     phases["card_vs_cpu_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_start
     log("phases " + json.dumps(phases))

@@ -26,9 +26,12 @@ is ``fedepm_round``'s in both. ``loss_fn`` takes the port's stacked
 convention, (m, ...) params and (m, ...) batches to (m,) losses; a client
 alone is m = 1.
 
-Only one device is ported: ``mesh`` is None or 1, and the spec derivation
-(``param_specs``, ``state_specs``, ``batch_specs``) comes with
-``sharding/`` in ROADMAP queue 1 item 14.5.
+The spec derivation is JAX's (``param_specs``, ``client_state_specs``,
+``state_specs``, ``batch_specs``): partition specs for any mesh record
+(``sharding/mesh.py``), the production meshes included, from shaped leaves
+(meta tensors). What runs, runs on one device: ``mesh`` is None, 1 or a
+one-device mesh record; a larger mesh is refused where a round would run
+on it (the mesh across cards is ROADMAP queue 1 item 14.5).
 """
 from __future__ import annotations
 
@@ -65,14 +68,18 @@ from repro_torch.core.treeutil import (
 )
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.ens import ops as ens_ops
+from repro_torch.sharding.mesh import require_one_device
+from repro_torch.models.logical import param_logical
+from repro_torch.sharding import specs as sh
+from repro_torch.sharding.rules import P
 
 
 @dataclasses.dataclass(frozen=True)
 class DistConfig:
     mode: str = "spatial"            # "spatial" | "temporal"
     ens: str = "gather"              # "gather" | "a2a" (spatial only)
-    # the mesh axes of the clients and (temporal) of the params: one
-    # device takes only the defaults (a mesh is ROADMAP item 14.5)
+    # the mesh axes of the clients and (temporal) of the params: they
+    # shape the specs; one device places nothing by them
     client_axes: tuple = ("data",)
     fsdp_axes: tuple = ("data",)
     state_dtype: Any = None          # W/Z storage dtype (None = param dtype)
@@ -80,11 +87,64 @@ class DistConfig:
     microbatch: int = 1              # temporal: grad-accumulation chunks
 
 
-def _one_device(mesh) -> None:
-    if mesh is not None and not (isinstance(mesh, int) and mesh == 1):
-        raise ValueError(f"only one device is ported (mesh None or 1); got "
-                         f"{mesh!r}: the mesh comes with ROADMAP queue 1 "
-                         f"item 14.5")
+def _check_axes(mesh, dist: DistConfig) -> None:
+    """The axes must name the mesh's own axes; without a mesh record only
+    "data" (the defaults, or no fsdp axis)."""
+    names = getattr(mesh, "axis_names", ("data",))
+    for what in ("client_axes", "fsdp_axes"):
+        axes = getattr(dist, what)
+        if any(a not in names for a in axes) or (
+                what == "client_axes" and not axes):
+            raise ValueError(
+                f"{what} {axes!r} name no axes of the mesh {names!r}: a "
+                f"mesh across cards is ROADMAP queue 1 item 14.5")
+
+
+# ---------------------------------------------------------------------------
+# spec derivation
+# ---------------------------------------------------------------------------
+
+def _single(axes: tuple):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def param_specs(cfg_arch, abstract_params, mesh, dist: DistConfig):
+    """Specs for ONE model copy (w_tau, serving params)."""
+    logical = param_logical(cfg_arch)
+    fsdp = dist.fsdp_axes if dist.mode == "temporal" else ()
+    return sh.tree_specs(logical, abstract_params, mesh, fsdp_axes=fsdp)
+
+
+def client_state_specs(cfg_arch, abstract_params, mesh, dist: DistConfig):
+    """Specs for the stacked (m, ...) client state W/Z/g."""
+    logical = param_logical(cfg_arch)
+    if dist.mode == "spatial":
+        return sh.tree_specs(logical, abstract_params, mesh,
+                             prepend=(_single(dist.client_axes),))
+    # temporal: m local; feature dims model+fsdp sharded
+    return sh.tree_specs(logical, abstract_params, mesh,
+                         fsdp_axes=dist.fsdp_axes, prepend=(None,))
+
+
+def state_specs(cfg_arch, abstract_state: FedEPMState, mesh,
+                dist: DistConfig) -> FedEPMState:
+    """FedEPMState of specs (w_tau, W, Z, k, key); ``abstract_state.W/Z``
+    carry the stacked (m, ...) leaves."""
+    return FedEPMState(
+        w_tau=param_specs(cfg_arch, abstract_state.w_tau, mesh, dist),
+        W=client_state_specs(cfg_arch, abstract_state.W, mesh, dist),
+        Z=client_state_specs(cfg_arch, abstract_state.Z, mesh, dist),
+        k=P(), key=P())
+
+
+def batch_specs(batch_tree, dist: DistConfig):
+    """Stacked client batches (m, b, ...): spatial shards m over the client
+    axes; temporal keeps m local and shards the inner batch dim."""
+    ca = _single(dist.client_axes)
+    if dist.mode == "spatial":
+        return tmap(lambda x: P(ca, *([None] * (x.dim() - 1))), batch_tree)
+    return tmap(lambda x: P(None, ca, *([None] * (x.dim() - 2))),
+                batch_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +160,7 @@ def ens_gather(Z, lam, eta):
 def ens_a2a(Z, lam, eta, mesh=None):
     """The coordinate-sharded ENS on one client group: the all_to_all and
     all_gather are the identity, so it is ``ens_gather``."""
-    _one_device(mesh)
+    require_one_device(mesh)
     return ens_gather(Z, lam, eta)
 
 
@@ -129,7 +189,7 @@ def _compute_dtype(arch_cfg):
 def spatial_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
                   mesh, dist: DistConfig, sspecs=None, arch_cfg=None):
     """One communication round, all m clients at once: ``fedepm_round``."""
-    _one_device(mesh)
+    require_one_device(mesh)
     return fedepm_round(state, batches, _remat_loss(loss_fn, dist.remat),
                         cfg, compute_dtype=_compute_dtype(arch_cfg),
                         state_dtype=dist.state_dtype)
@@ -195,7 +255,7 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
     once, so a client that is not selected draws no noise (its rows and
     SNR are carried through, as eq. (22) and JAX's ``where`` keep them).
     """
-    _one_device(mesh)
+    require_one_device(mesh)
     if dist.ens != "gather":
         raise ValueError("the temporal round aggregates with ens='gather'")
     if donate:
@@ -278,18 +338,16 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
         ``device`` says otherwise.
     step_fn(state, batches, sspecs=None, donate=False) -> (state, metrics);
         ``donate`` (temporal) reuses the state's buffers.
-    sspecs_fn(abstract_state)   -> None: one device has nothing to place.
+    sspecs_fn(abstract_state)   -> FedEPMState of specs (``state_specs``)
+        for a mesh record, None without one; one device places nothing
+        by them.
     """
-    _one_device(mesh)
+    require_one_device(mesh)
     if dist.mode not in ("spatial", "temporal"):
         raise ValueError(f"unknown mode {dist.mode!r}")
     if dist.ens not in ("gather", "a2a"):
         raise ValueError(f"unknown ens {dist.ens!r}")
-    if dist.client_axes != ("data",) or dist.fsdp_axes != ("data",):
-        raise ValueError(f"client_axes {dist.client_axes!r} and fsdp_axes "
-                         f"{dist.fsdp_axes!r} place the clients and the "
-                         f"params on a mesh; one device has none: the mesh "
-                         f"comes with ROADMAP queue 1 item 14.5")
+    _check_axes(mesh, dist)
     arch_cfg = model.cfg
 
     def init_fn(key, device=None):
@@ -303,7 +361,9 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
                            key=ks[1])
 
     def sspecs_fn(abstract_state):
-        return None
+        if not hasattr(mesh, "axis_names"):
+            return None
+        return state_specs(arch_cfg, abstract_state, mesh, dist)
 
     def step_fn(state, batches, sspecs=None, donate: bool = False):
         if dist.mode == "spatial":

@@ -1,1 +1,2 @@
-"""Entry points of the port: the paper's experiment (``paper``)."""
+"""Entry points of the port: the paper run, the simulator, sweeps, LM
+training and serving, and the launch layer (steps, dry-run, roofline)."""

@@ -12,9 +12,9 @@ params come from ``PRNGKey(0)``, the prompts (B, Tp) from
 sized for Tp + new_tokens + n_patches, prefill gives the first token by
 argmax and each decode step the next; the printed lines, the flags and
 their defaults and the exit codes are JAX's. An encoder-only arch prints
-that it has nothing to decode and returns 1. The mesh (``--devices``
-above 1, a ``--mesh-shape`` other than 1,1) is not ported yet and exits
-2.
+that it has nothing to decode and returns 1. More than one device
+(``--devices`` above 1, a ``--mesh-shape`` other than 1,1) exits 2: the
+mesh across cards is ROADMAP queue 1 item 14.5.
 
 Decode on the card replays one CUDA graph (``core/scan.py``) of the step
 per (arch, B, max_len): captured after a warm-up call, over static state
@@ -36,12 +36,12 @@ from repro_torch import configs, random
 from repro_torch.core.scan import ScanProgram
 from repro_torch.core.treeutil import tree_leaves, tree_unflatten
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import MESH_ACROSS_CARDS
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import Model, get_model
 
-MESH_NOT_PORTED = ("the mesh (--devices above 1, a --mesh-shape other than "
-                   "1,1: launch/mesh.py, sharding/) is not ported yet "
-                   "(ROADMAP queue 1 item 14.5); serve runs on one device")
+MESH_NOT_PORTED = (f"{MESH_ACROSS_CARDS}; serve runs on one device "
+                   f"(--devices 1, --mesh-shape 1,1)")
 
 
 def prompt_batch(cfg: ArchConfig, batch: int, prompt_len: int,
@@ -188,10 +188,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--devices", type=int, default=0,
-                    help="(the mesh, not ported) host device count")
+                    help="device count: one device only")
     ap.add_argument("--mesh-shape", default="",
-                    help="(the mesh, not ported) data,model; 1,1 is one "
-                         "device")
+                    help="data,model: 1,1 (one device) only")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=8)

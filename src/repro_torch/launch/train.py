@@ -1,21 +1,28 @@
-"""Federated LM training launcher; the counterpart of ``repro.launch.train``
-in its ``--spec`` mode.
+"""Federated LM training launcher; the counterpart of
+``repro.launch.train``.
 
-An lm-kind ExperimentSpec runs the arch through the same FedSim round loop
-as the logreg sim: aggregation policies, device fleets, upload codecs, and
-the eager and scan engines all apply to the LM task, with the port's
-prox, ENS and quantizer kernels on the card:
+Two modes, as in JAX:
+
+  --spec FILE   an lm-kind ExperimentSpec runs the arch through the same
+                FedSim round loop as the logreg sim (aggregation policies,
+                device fleets, upload codecs, the eager and scan engines),
+                with the port's prox, ENS and quantizer kernels on the card;
+  (no --spec)   ``launch/steps.py``'s train step: FedEPM rounds through
+                ``core/distributed.py``'s ``build_fedepm`` at the arch's
+                ``fed_plan`` on a one-device mesh (``--mesh-shape 1,1``, the
+                default), on batches of ``data/lm.py``.
 
     python -m repro_torch.launch.train --spec examples/specs/lm_federated.toml
     python -m repro_torch.launch.train --spec FILE --engine eager \\
         --rounds 3 --json summary.json --checkpoint ckpt/w_tau
+    python -m repro_torch.launch.train --arch smollm-135m --seq 4096 \\
+        --global-batch 8 --rounds 2
 
-runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path. It
-prints JAX's lines (the per-round loss only under the eager engine, as in
-JAX), and ``--checkpoint`` writes the final broadcast point in the JAX
-package's npz layout, which ``repro.checkpoint.restore`` reads. The mesh
-path without ``--spec`` (``launch/steps.py``, ``core/distributed.py``) is
-not ported yet (ROADMAP queue 1 item 14) and is refused.
+run on the CUDA card; ``--device cpu`` runs the plain PyTorch path. Both
+print JAX's lines, and ``--checkpoint`` writes the final broadcast point in
+the JAX package's npz layout, which ``repro.checkpoint.restore`` reads.
+More than one device (``--devices`` above 1, a ``--mesh-shape`` other than
+1,1) is refused: the mesh across cards is ROADMAP queue 1 item 14.5.
 """
 from __future__ import annotations
 
@@ -25,11 +32,11 @@ import time
 
 from repro_torch.core.treeutil import tree_leaves
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import MESH_ACROSS_CARDS
 from repro_torch.spec import ExperimentSpec, SpecError
 
-MESH_NOT_PORTED = ("the mesh path (train without --spec: launch/steps.py, "
-                   "core/distributed.py) is not ported yet (ROADMAP queue 1 "
-                   "item 14); run an lm-kind spec with --spec FILE")
+MESH_NOT_PORTED = (f"{MESH_ACROSS_CARDS}; train runs on one device "
+                   f"(--devices 1, --mesh-shape 1,1)")
 
 
 def run_spec(args) -> int:
@@ -87,6 +94,65 @@ def run_spec(args) -> int:
     return 0
 
 
+def run_mesh(args) -> int:
+    """The train step of ``launch/steps.py`` on one device, JAX's loop:
+    ``--rounds`` rounds over ``federated_token_batches``, padded into the
+    step's targets and loss mask."""
+    import dataclasses
+
+    from repro_torch import configs, random
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import INPUT_SHAPES
+
+    device = resolve_device(args.device)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    print(f"mesh: {mesh.shape}  devices: 1")
+    base = INPUT_SHAPES["train_4k"]
+    shape = dataclasses.replace(
+        base, seq_len=args.seq or base.seq_len,
+        global_batch=args.global_batch or base.global_batch)
+    real_get = configs.get_config
+    if args.reduced:
+        configs.get_config = configs.get_reduced
+    try:
+        bundle = steps_mod.build_train_step(args.arch, mesh, ens=args.ens,
+                                            k0=args.k0, shape=shape)
+    finally:
+        configs.get_config = real_get
+    if isinstance(bundle, steps_mod.Skip):
+        print("SKIP:", bundle.reason)
+        return 1
+    cfg = bundle.static["cfg"]
+    m = bundle.static["m"]
+    b_local = bundle.static["b_local"]
+    print(f"arch={cfg.name} fedepm[{bundle.static['mode']}] m={m} "
+          f"b_local={b_local} seq={shape.seq_len} k0={args.k0}")
+
+    specs = bundle.args[1]
+    seq = specs["tokens"].shape[-1] if "tokens" in specs \
+        else specs["frame_embeds"].shape[-2]
+    stream = federated_token_batches(cfg.vocab, m, b_local, seq,
+                                     steps=args.rounds)
+    state = bundle.static["init"](random.PRNGKey(0), device=device)
+    for r, raw in enumerate(stream):
+        batch = steps_mod.lm_batch(specs, raw, random.PRNGKey(r), cfg.vocab,
+                                   device)
+        t0 = time.time()
+        state, metrics = bundle.fn(state, batch)
+        drift = float(metrics.drift)  # waits for the round
+        print(f"round {r}: drift={drift:.3e} "
+              f"snr={float(metrics.snr):.2f} "
+              f"sel={int(metrics.selected.sum())}/{m} "
+              f"({time.time()-t0:.1f}s)", flush=True)
+    if args.checkpoint:
+        from repro_torch.checkpoint import save
+        save(args.checkpoint, state.w_tau, {"arch": cfg.name})
+        print("saved", args.checkpoint)
+    return 0
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spec", default=None,
@@ -101,19 +167,19 @@ def parser() -> argparse.ArgumentParser:
                     help="(--spec only) write the run summary dict here")
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--rounds", dest="rounds_flag", type=int, default=None,
-                    help="round budget (default: the --spec file's)")
+                    help="round budget (default: the --spec file's, else 3)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced config (CPU-sized)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="(mesh path) force host device count")
+                    help="(mesh path) device count: one device only")
     ap.add_argument("--mesh-shape", default="",
-                    help="(mesh path) data,model")
+                    help="(mesh path) data,model: 1,1 only (the default)")
     ap.add_argument("--ens", default="gather", choices=["gather", "a2a"])
     ap.add_argument("--k0", type=int, default=4)
     ap.add_argument("--seq", type=int, default=0,
-                    help="(mesh path) override seq_len")
+                    help="(mesh path) override seq_len (0 = 4096)")
     ap.add_argument("--global-batch", type=int, default=0,
-                    help="(mesh path) override global batch")
+                    help="(mesh path) override global batch (0 = 256)")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
@@ -123,20 +189,23 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    if not args.spec:
+    if args.spec:
+        # the spec file defines the experiment; a mesh-path flag alongside
+        # it would be silently ignored, which the spec layer forbids --
+        # only --rounds/--engine override the file, plus the outputs
+        ignored = [f"--{k.replace('_', '-')}"
+                   for k in ("arch", "reduced", "devices", "mesh_shape",
+                             "ens", "k0", "seq", "global_batch")
+                   if getattr(args, k) != ap.get_default(k)]
+        if ignored:
+            ap.error(f"{', '.join(ignored)} cannot be combined with "
+                     f"--spec (the file defines the experiment; only "
+                     f"--rounds/--engine override it)")
+        return run_spec(args)
+    if args.devices > 1 or args.mesh_shape not in ("", "1,1"):
         ap.error(MESH_NOT_PORTED)
-    # the spec file defines the experiment; a mesh-path flag alongside it
-    # would be silently ignored, which the spec layer forbids -- only
-    # --rounds/--engine override the file, plus the outputs
-    ignored = [f"--{k.replace('_', '-')}"
-               for k in ("arch", "reduced", "devices", "mesh_shape",
-                         "ens", "k0", "seq", "global_batch")
-               if getattr(args, k) != ap.get_default(k)]
-    if ignored:
-        ap.error(f"{', '.join(ignored)} cannot be combined with "
-                 f"--spec (the file defines the experiment; only "
-                 f"--rounds/--engine override it)")
-    return run_spec(args)
+    args.rounds = args.rounds_flag if args.rounds_flag is not None else 3
+    return run_mesh(args)
 
 
 if __name__ == "__main__":

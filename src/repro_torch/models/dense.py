@@ -31,12 +31,12 @@ from repro_torch.models.layers import (
     CacheSpec,
     apply_mlp,
     apply_norm,
-    attention,
     cache_from_prefill,
     cache_write,
     decode_attention,
     dense_init,
     embed_init,
+    flash_attention,
     init_attention,
     init_cache,
     init_mlp,
@@ -95,14 +95,15 @@ def init(key, cfg: ArchConfig):
 
 def _attn_full(x, p, cfg: ArchConfig, positions):
     """Attention over the whole sequence; (output, k, v), k and v after
-    RoPE (what the cache holds)."""
+    RoPE (what the cache holds). ``positions`` is ``embed_inputs``'
+    arange(T), which ``flash_attention`` takes as its default positions,
+    so its tiles above the diagonal (and outside a window) are skipped."""
     q, k, v = qkv_proj(x, p)
     if cfg.rope_theta > 0 and cfg.attention == "causal":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     mode = "bidirectional" if cfg.attention == "bidirectional" else "causal"
-    o = attention(q, k, v, mode=mode, window=cfg.sliding_window,
-                  positions=positions)
+    o = flash_attention(q, k, v, mode=mode, window=cfg.sliding_window)
     return out_proj(o, p), k, v
 
 

@@ -11,11 +11,14 @@ axis, so the m clients' forwards run as one program, as JAX's ``vmap``
 runs them.
 
 Compute is in ``x.dtype`` with each weight cast at its use, as JAX's
-``.astype(cfg.dtype)`` does. Attention is the causal (or bidirectional)
-softmax in f32 over GQA groups, query head h reading kv head h // (H /
-Hkv), with JAX's -1e30 mask bias and its output divide: plain torch ops,
-whose backward has no atomics, so a round gives the same bits on every
-run and inside a CUDA graph.
+``.astype(cfg.dtype)`` does. Attention over a sequence is JAX's
+``flash_attention``: the causal (or bidirectional) softmax in f32 over GQA
+groups, query head h reading kv head h // (H / Hkv), in chunks of queries
+and keys with a running max and sum, JAX's -1e30 mask bias and its output
+divide, and a backward that recomputes each tile's probabilities from the
+saved lse (O(T) memory). Plain torch ops with static shapes, whose
+backward has no atomics, so a round gives the same bits on every run and
+inside a CUDA graph.
 
 The KV cache of prefill and decode (full, or a ring of ``sliding_window``
 slots) holds k and v (m, B, S, Hkv, D), the absolute position of each
@@ -163,32 +166,243 @@ def _mask_bias(q_pos, kv_pos, mode: str, window):
     return torch.where(valid, zero, torch.full_like(zero, _NEG_INF))
 
 
-def attention(q, k, v, *, mode="causal", window=None, positions=None):
-    """Softmax attention with GQA in f32: q (..., T, H, D), k and v
-    (..., T, Hkv, D) with H = Hkv R. Returns (..., T, H, D) in q.dtype.
+# Chunked attention: JAX's ``flash_attention``, an online softmax over
+# chunks of queries and keys with an O(T)-memory backward. Chunks of
+# queries are batched into one tile up to FLASH_TILE_BYTES of f32 scores;
+# each query row still meets the kv chunks in JAX's order, so its
+# arithmetic is JAX's (the matmuls' own summation order aside).
+FLASH_TILE_BYTES = 1 << 28
 
-    JAX's ``flash_attention`` computes the same function in chunks with a
-    running max; over one chunk its arithmetic is this: s = (q k) / sqrt(D)
-    plus the mask bias, p = exp(s - max s), out = (p v) / max(sum p,
-    1e-30).
+
+def _pair_possible(q0, q1, k0, k1, causal, window) -> bool:
+    """Whether some query position in [q0, q1] may read some key position
+    in [k0, k1]: q - k spans [q0 - k1, q1 - k0]; causal needs q - k >= 0
+    and a window q - k < window."""
+    lo = max(q0 - k1, 0) if causal else q0 - k1
+    hi = min(q1 - k0, window - 1) if window is not None else q1 - k0
+    return lo <= hi
+
+
+def _flash_plan(nq, nk, q_chunk, kv_chunk, Tq, Tk, mode, window, arange,
+                per_chunk_bytes):
+    """The tiles: [((a, b), [kv chunks])], q chunks a..b-1 batched, the kv
+    chunks of each in order. With the default ``arange`` positions the
+    mask is known on the host, and a kv chunk that no query of the batch
+    may read is left out with the same result: a row that has read a key
+    gets probabilities of exactly 0 there; a row that has read none yet (a
+    window's leading tiles) is wiped by the next tile's correction
+    exp(-1e30 - m) = 0; and the backward adds exact zeros. The batched
+    chunks' shapes never depend on the skip."""
+    per = max(1, FLASH_TILE_BYTES // max(per_chunk_bytes, 1))
+    causal = mode == "causal"
+    plan = []
+    for a in range(0, nq, per):
+        b = min(a + per, nq)
+        js = []
+        for j in range(nk):
+            if not arange:
+                js.append(j)
+                continue
+            k0, k1 = j * kv_chunk, min((j + 1) * kv_chunk, Tk) - 1
+            need = False
+            for i in range(a, b):
+                q0, q1 = i * q_chunk, min((i + 1) * q_chunk, Tq) - 1
+                # a padded query row sits at position 0
+                spans = [(q0, q1)] + ([(0, 0)] if (i + 1) * q_chunk > Tq
+                                      else [])
+                if any(_pair_possible(x, y, k0, k1, causal, window)
+                       for x, y in spans):
+                    need = True
+                    break
+            if need:
+                js.append(j)
+        plan.append(((a, b), js))
+    return plan
+
+
+def _flash_group_q(x, q_chunk, Hkv):
+    """(B, Tq, H, D) -> (nq, B, Hkv, R, qc, D) in f32, JAX's ``_group``
+    layout with the query chunk's rows next to the head dim."""
+    B, Tq, H, D = x.shape
+    x = x.reshape(B, Tq // q_chunk, q_chunk, Hkv, H // Hkv, D)
+    return x.permute(1, 0, 3, 4, 2, 5).to(torch.float32).contiguous()
+
+
+def _flash_group_kv(x, kv_chunk):
+    """(B, Tk, Hkv, D) -> (nk, B, Hkv, kc, D) in f32."""
+    B, Tk, Hkv, D = x.shape
+    x = x.reshape(B, Tk // kv_chunk, kv_chunk, Hkv, D)
+    return x.permute(1, 0, 3, 2, 4).to(torch.float32).contiguous()
+
+
+def _flash_ungroup(xg, B, T, H, D):
+    """(n, B, Hkv, R, c, D) -> (B, T, H, D)."""
+    return xg.permute(1, 0, 4, 2, 3, 5).reshape(B, T, H, D)
+
+
+def _flash_scale(D, device):
+    return 1.0 / torch.sqrt(torch.full((), float(D), dtype=torch.float32,
+                                       device=device))
+
+
+def _flash_scores(qt, kj, bias, scale):
+    """One tile's scores s = (q k) scale + bias: qt (g, B, Hkv, R, qc, D),
+    kj (B, Hkv, kc, D) -> (g, B, Hkv, R, qc, kc)."""
+    g, B, Hkv, R, qc, D = qt.shape
+    s = torch.matmul(qt.reshape(g, B, Hkv, R * qc, D), kj.transpose(-1, -2))
+    s = s.view(g, B, Hkv, R, qc, -1)
+    return s.mul_(scale).add_(bias)
+
+
+def _tile_bias(qp, kp, a, b, j, mode, window):
+    g, qc = b - a, qp.shape[1]
+    return _mask_bias(qp[a:b].reshape(-1), kp[j], mode, window).view(
+        g, 1, 1, 1, qc, -1)
+
+
+class _Flash(torch.autograd.Function):
+    """JAX's ``_flash`` with its custom VJP (``_flash_fwd``/``_flash_bwd``)
+    on padded inputs: q (B, Tq, H, D), k, v (B, Tk, Hkv, D), positions
+    (Tq,), (Tk,). Saves q, k, v, the positions, out and the lse, never a
+    (Tq, Tk) tensor; the backward recomputes each tile's probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, mode, window, q_chunk,
+                kv_chunk, unpadded):
+        B, Tq, H, D = q.shape
+        Tk, Hkv = k.shape[1], k.shape[2]
+        R = H // Hkv
+        qg = _flash_group_q(q, q_chunk, Hkv)
+        kg, vg = (_flash_group_kv(x, kv_chunk) for x in (k, v))
+        qp = q_pos.reshape(-1, q_chunk)
+        kp = kv_pos.reshape(-1, kv_chunk)
+        scale = _flash_scale(D, q.device)
+        plan = _flash_plan(qg.shape[0], kg.shape[0], q_chunk, kv_chunk,
+                           *(unpadded or (Tq, Tk)), mode, window,
+                           unpadded is not None,
+                           B * H * q_chunk * kv_chunk * 4)
+        outs, lses = [], []
+        for (a, b), js in plan:
+            g = b - a
+            qt = qg[a:b]
+            m = torch.full((g, B, Hkv, R, q_chunk), _NEG_INF,
+                           dtype=torch.float32, device=q.device)
+            l = torch.zeros_like(m)
+            o = torch.zeros(qt.shape, dtype=torch.float32, device=q.device)
+            for j in js:
+                s = _flash_scores(qt, kg[j], _tile_bias(qp, kp, a, b, j,
+                                                        mode, window), scale)
+                m_new = torch.maximum(m, torch.amax(s, dim=-1))
+                p = s.sub_(m_new[..., None]).exp_()
+                corr = torch.exp(m - m_new)
+                l = l * corr + torch.sum(p, dim=-1)
+                pv = torch.matmul(p.view(g, B, Hkv, R * q_chunk, -1), vg[j])
+                o = o * corr[..., None] + pv.view(o.shape)
+                m = m_new
+                del s, p, pv
+            outs.append(o / torch.clamp_min(l, 1e-30)[..., None])
+            lses.append(torch.where(
+                l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), 1e30))
+        out = _flash_ungroup(torch.cat(outs), B, Tq, H, D).to(q.dtype)
+        lse = torch.cat(lses)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.plan = plan
+        ctx.args = (mode, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        mode, window, q_chunk, kv_chunk = ctx.args
+        B, Tq, H, D = q.shape
+        Tk, Hkv = k.shape[1], k.shape[2]
+        R = H // Hkv
+        qg, dog, out_g = (_flash_group_q(x, q_chunk, Hkv)
+                          for x in (q, dout, out))
+        kg, vg = (_flash_group_kv(x, kv_chunk) for x in (k, v))
+        qp = q_pos.reshape(-1, q_chunk)
+        kp = kv_pos.reshape(-1, kv_chunk)
+        scale = _flash_scale(D, q.device)
+        nk = kg.shape[0]
+        dk = [torch.zeros(kg.shape[1:], dtype=torch.float32,
+                          device=q.device) for _ in range(nk)]
+        dv = [torch.zeros_like(x) for x in dk]
+        dqs = []
+        for (a, b), js in ctx.plan:
+            g = b - a
+            qt, dot = qg[a:b], dog[a:b]
+            # D_i = sum_d dout_i out_i, per q chunk as JAX takes it
+            Dg = torch.sum(dot * out_g[a:b], dim=-1)
+            lse_g = lse[a:b]
+            dq = torch.zeros_like(qt)
+            q2 = qt.view(g, B, Hkv, R * q_chunk, D)
+            do2 = dot.view(g, B, Hkv, R * q_chunk, D)
+            for j in js:
+                s = _flash_scores(qt, kg[j], _tile_bias(qp, kp, a, b, j,
+                                                        mode, window), scale)
+                p = s.sub_(lse_g[..., None]).exp_()
+                dp = torch.matmul(do2, vg[j].transpose(-1, -2))
+                ds = dp.view(p.shape).sub_(Dg[..., None]).mul_(p)
+                ds2 = ds.view(g, B, Hkv, R * q_chunk, -1)
+                dq.add_(torch.matmul(ds2, kg[j]).mul_(scale).view(dq.shape))
+                dk_c = torch.matmul(ds2.transpose(-1, -2), q2).mul_(scale)
+                dv_c = torch.matmul(
+                    p.view(ds2.shape).transpose(-1, -2), do2)
+                for t in range(g):
+                    dk[j].add_(dk_c[t])
+                    dv[j].add_(dv_c[t])
+                del s, p, dp, ds, ds2, dk_c, dv_c
+            dqs.append(dq)
+        dq = _flash_ungroup(torch.cat(dqs), B, Tq, H, D).to(q.dtype)
+        dk = torch.stack(dk).permute(1, 0, 3, 2, 4).reshape(
+            B, Tk, Hkv, D).to(k.dtype)
+        dv = torch.stack(dv).permute(1, 0, 3, 2, 4).reshape(
+            B, Tk, Hkv, D).to(v.dtype)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, mode="causal", window=None,
+                    q_positions=None, kv_positions=None, q_chunk=512,
+                    kv_chunk=1024):
+    """Chunked online-softmax attention with GQA and an O(T)-memory
+    backward, as JAX's ``flash_attention``: q (..., Tq, H, D), k and v
+    (..., Tk, Hkv, D) with H = Hkv R, any leading axes (the port's (m, B)
+    included). Returns (..., Tq, H, D) in q.dtype.
+
+    The inputs are padded to whole chunks: padded kv positions are -1 and
+    masked out, padded query rows sit at position 0 and are sliced away.
+    Scores, the running max and sum and the output are f32, with JAX's
+    -1e30 mask bias, ``max(l, 1e-30)`` and lse. Without positions (both
+    None: ``arange``) the mask is known on the host, and tiles that no
+    query may read are skipped with the same bits; given positions are
+    never read back, so the call can be captured in a CUDA graph.
     """
-    lead, (T, H, D) = q.shape[:-3], q.shape[-3:]
+    lead = q.shape[:-3]
+    Tq, H, D = q.shape[-3:]
     Tk, Hkv = k.shape[-3], k.shape[-2]
-    R = H // Hkv
-    qg = q.reshape(lead + (T, Hkv, R, D)).to(torch.float32)
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
-    if positions is None:
-        positions = torch.arange(T, device=q.device)
-    scale = 1.0 / torch.sqrt(torch.full((), float(D), device=q.device))
-    s = torch.einsum("...qhrd,...khd->...hrqk", qg, kf) * scale
-    s = s + _mask_bias(positions, positions, mode, window)
-    mx = torch.clamp_min(torch.amax(s, dim=-1, keepdim=True), _NEG_INF)
-    p = torch.exp(s - mx)
-    denom = torch.clamp_min(torch.sum(p, dim=-1), 1e-30)
-    o = torch.einsum("...hrqk,...khd->...qhrd", p, vf)
-    o = o / denom.movedim(-1, -3).unsqueeze(-1)
-    return o.reshape(lead + (T, H, D)).to(q.dtype)
+    q = q.reshape((-1, Tq, H, D))
+    k = k.reshape((-1, Tk, Hkv, D))
+    v = v.reshape((-1, Tk, Hkv, D))
+    arange = q_positions is None and kv_positions is None
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(Tq, device=dev)
+    if kv_positions is None:
+        kv_positions = torch.arange(Tk, device=dev)
+    q_chunk = min(q_chunk, Tq)
+    kv_chunk = min(kv_chunk, Tk)
+    pq = (-Tq) % q_chunk
+    pk = (-Tk) % kv_chunk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+        q_positions = F.pad(q_positions, (0, pq), value=0)
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        kv_positions = F.pad(kv_positions, (0, pk), value=-1)
+    out = _Flash.apply(q, k, v, q_positions, kv_positions, mode, window,
+                       q_chunk, kv_chunk, (Tq, Tk) if arange else None)
+    return out[:, :Tq].reshape(lead + (Tq, H, D))
 
 
 def decode_attention(q1, cache_k, cache_v, kv_positions, *, window=None,

@@ -4,9 +4,8 @@ leaves are tuples of logical axis names; the counterpart of
 
 It is data only: the one statement of each family's param tree that is
 written apart from the family's ``init``. Its names follow the JAX
-package's sharding rules (``sharding/specs.MODEL_AXIS_RULES``), which the
-port's distributed path will map onto its devices (ROADMAP queue 1 item
-14.4).
+package's sharding rules, which ``sharding/specs.py`` maps to partition
+specs (``core/distributed.py::param_specs`` and the launch layer).
 
 Conventions: rank-1 leaves (norm scales, gate biases, per-head scalars)
 are replicated; stacked-layer leaves carry a leading "layers" axis; the

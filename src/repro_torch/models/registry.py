@@ -15,8 +15,10 @@ position's logits (B, 1, V), decode state), ``decode_step(params, state,
 batch)`` -> (logits (B, 1, V), new state) and ``init_decode_state(
 batch_size, seq_len, prefill_len, device=None)``; the state is JAX's tree
 (no client axis). The encoder-only archs (``attention="bidirectional"``)
-have no decode path and raise ``NotImplementedError``. The mesh (ROADMAP
-queue 1 item 14.5) is not ported: every call runs on one device.
+have no decode path and raise ``NotImplementedError``. Every call runs on
+one device: the launch layer (``launch/steps.py``) derives the JAX
+package's partition specs for a mesh record and runs on one card; the
+mesh across cards is ROADMAP queue 1 item 14.5.
 """
 from __future__ import annotations
 

@@ -78,10 +78,15 @@ def _pieces(key: torch.Tensor, shape, lo: float, hi: float, chunk: int,
     ``shape``, hashed about ``chunk`` values at a time (over all the keys)
     into one buffer, each piece through the elementwise ``transform``
     first where one is given. A value depends only on its key and flat
-    index, so the pieces give the bits of one whole-draw hash."""
+    index, so the pieces give the bits of one whole-draw hash. A key on
+    the meta device draws the shape alone (an abstract init: the launch
+    layer's stand-ins)."""
     if key.shape[-1:] != (2,):
         raise ValueError(f"a key has shape (..., 2); got {tuple(key.shape)}")
     shape = tuple(shape)
+    if key.device.type == "meta":
+        return torch.empty(key.shape[:-1] + shape, dtype=torch.float32,
+                           device="meta")
     n = math.prod(shape)
     keys = key.reshape(-1, 2)
     step = max(1, chunk // max(1, keys.shape[0]))

@@ -73,9 +73,10 @@ from the outcomes; the async recording pass makes the eager pump's fault
 decisions, and a lost upload only frees its table slot.
 
 One device only: ``mesh`` is None or 1, the same run bit for bit, as a
-single-device mesh is in JAX; the client-axis mesh comes with ROADMAP
-queue 1 item 14.5. A sim with its own ``SimDraws`` runs under
-``FedSim.step`` only.
+single-device mesh is in JAX; the mesh records and the partition specs
+are ported (``sharding/``), the client axis across cards is ROADMAP
+queue 1 item 14.5. A sim with its own ``SimDraws`` runs
+under ``FedSim.step`` only.
 """
 from __future__ import annotations
 
@@ -91,6 +92,7 @@ from repro_torch.core import baselines, fedepm, participation
 from repro_torch.core.scan import ScanProgram, StateCarry, round_starts
 from repro_torch.core.treeutil import (tmap, tree_leaves, tree_unflatten,
                                        tree_where)
+from repro_torch.sharding.mesh import require_one_device
 from repro_torch.sim import clients as simclients
 from repro_torch.sim.server import (_EAGER_ASYNC_EXEC, _EV_UPLOAD, FedSim,
                                     KeyedDraws, SimMetrics,
@@ -350,10 +352,7 @@ def _check(sim: FedSim, rounds: int, chunk, mesh, event_table_capacity):
     if event_table_capacity is not None and event_table_capacity < 1:
         raise ValueError(f"event_table_capacity must be >= 1; "
                          f"got {event_table_capacity}")
-    if mesh is not None and not (isinstance(mesh, int) and mesh == 1):
-        raise ValueError(f"run_rounds runs on one device (mesh None or 1); "
-                         f"got {mesh!r}: the mesh comes with ROADMAP queue 1 "
-                         f"item 14.5")
+    require_one_device(mesh)
     if sim.sim.policy != "async" and event_table_capacity is not None:
         raise ValueError("event_table_capacity is owned by policy='async'; "
                          f"policy is {sim.sim.policy!r}")

@@ -51,7 +51,8 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "run_distributed_path", "run_dist_smollm", "run_dist_zamba2",
              "run_dist_reduced", "dist_digest", "check_dist_digests",
              "dist_reduced_run", "run_remat_zamba2",
-             "check_zamba2_round_vs_cpu"):
+             "check_zamba2_round_vs_cpu", "run_launch_path",
+             "run_flash_checks", "run_remat_gradients"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
@@ -83,7 +84,12 @@ for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.launch.serve", "repro_torch.models.moe",
             "repro_torch.models.xlstm", "repro_torch.models.ssm",
             "repro_torch.optim", "repro_torch.optim.optimizers",
-            "repro_torch.core.distributed"):
+            "repro_torch.core.distributed", "repro_torch.sharding",
+            "repro_torch.sharding.rules", "repro_torch.sharding.specs",
+            "repro_torch.sharding.mesh",
+            "repro_torch.launch.mesh", "repro_torch.launch.steps",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.launch.report"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
