@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --at ROOT NAME`` runs only ``AT_MODES[NAME]``,
+smollm-135m's full-width 8-bit codec case or the wide kernels' times,
+with the package and helpers of the checkout at ROOT, so two commits
+compare on one card.)
+
 Phases, in order; any failure exits non-zero before the last line:
 
 1. device: the card's name and power limit, torch and CUDA versions; TF32
@@ -34,10 +39,16 @@ Phases, in order; any failure exits non-zero before the last line:
    quantizer entries run at every bit width
    (2, 4, 8, 16), with and without dither, with an all-zero row and a row
    with no live column, and at the async merge's one dense row (1 x 14);
-   prox also at the ``--m 200`` path's (200, 14). The threefry hash
+   the three column-bounded entries also over ragged packed row layouts
+   and the LM codec's packed layouts of smollm-135m and xlstm-125m at full
+   width, 4 clients (timed against their byte bounds); every quantizer
+   entry and prox at 70,000 rows (past gridDim.y's 65535); prox also at
+   the ``--m 200`` path's (200, 14). The threefry hash
    (``csrc/threefry.cu``) against its plain version, bitwise, in all
    three modes at one key x 3 and x 128 counters, 128 keys x 1, x 14 and
-   x 1,048,576; and the port's
+   x 1,048,576, and its rows entry (the codec's packed dither) on the
+   simulator's layout, ragged layouts, 70,000 rows and the two LM layouts
+   (xlstm's counters pass 2^32); and the port's
    ``repro_torch.random`` on the card against a table of JAX's own answers
    (``PRNGKey``, ``split``, ``fold_in``, ``bits``, ``uniform``,
    ``permutation``) computed with jax 0.9.0 and committed below.
@@ -84,12 +95,17 @@ Phases, in order; any failure exits non-zero before the last line:
    to eager, and eager with the 8-bit codec; ENS 11 and prox 22 launches
    a round, ``quantize_cols`` one; f/m per round, wall per round and peak
    device memory printed. The kernel phase holds prox and ENS at its
-   (4, 28,311,552) and ``quantize_cols`` at its (44, 28,311,552). Then
+   (4, 28,311,552) and ``quantize_cols`` at its packed layout (44 rows,
+   538,060,032 values). Then
    the ``lm_families`` phase: the same spec on xlstm-125m at full width
    (``task.arch``; 12 layers, sLSTM at 0, 4, 8, 185,359,968 parameters in
    129 leaves, bf16 compute), eager twice bitwise and scan in chunks of 1
-   and 3 bitwise to eager, no codec (its padded rows would need 79.7 GB a
-   plane); ENS 129 and prox 258 launches a round; and reduced (f32)
+   and 3 bitwise to eager, and the codec on its packed layout (2.97 GB an
+   f32 plane; JAX's rows padded to the embedding would take 79.7 GB): the
+   8-bit codec eager and in chunks of 1 (bitwise the eager codec case),
+   8-bit error feedback, and the fused Laplace path of
+   ``fig9_privacy.toml``; ENS 129 and prox 258 launches a round, the
+   case's quantizer entry and the threefry rows entry one; and reduced (f32)
    xlstm-125m, mixtral-8x7b and zamba2-1.2b, eager and scan in chunks of
    3 bitwise, f/m within 4e-6 of ``JAX_LM_FAMILIES`` and its bytes
    exactly, and eager with the 8-bit codec, its bytes JAX's. The kernel
@@ -149,7 +165,10 @@ Phases, in order; any failure exits non-zero before the last line:
    against the CPU and ``JAX_LM_REDUCED``, and the full-width LM run's
    first round against the port's CPU path on this host from the card's
    initial params and noise planes (f/m within ``LM_F_RTOL``); one round of full-width
-   xlstm-125m likewise; full-width smollm-135m's serve (prefill and two
+   xlstm-125m likewise; one full-width xlstm-125m upload through the
+   codec (8-bit, error feedback, fused Laplace) against the port's CPU
+   path on slices (the widest leaf's first row, two small leaves),
+   bitwise; full-width smollm-135m's serve (prefill and two
    decode steps, teacher forced by the card's tokens): the greedy tokens'
    negative log-likelihood within ``LM_F_RTOL`` and the logits within
    ``SERVE_BF16_NOISE`` times the CPU path's distance from f32.
@@ -164,6 +183,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -461,6 +481,8 @@ def check_kernels(card: str) -> list[dict]:
     # and of xlstm's embedding; the temporal round's, one client's row
     prox_plan += [(LM_M, SMOLLM_LEAF, f32, 10), (LM_M, XLSTM_LEAF, f32, 10),
                   (1, SMOLLM_LEAF, f32, 10), (1, ZAMBA2_LEAF, f32, 0)]
+    # more clients than gridDim.y's 65535: the rows stride over it
+    prox_plan += [(MANY_ROWS, 14, f32, 10)]
     prox_cases = []
     for m, n, dt, reps in prox_plan:
         prox_cases.append(_prox_case(m, n, dt, gen, reps) if reps
@@ -561,6 +583,25 @@ QUANT = {
 }
 QUANT_SHAPES = [(1, 7), (5, 300), (32, 1024), (3, 513)]
 QUANT_BITS = (2, 4, 8, 16)
+MANY_ROWS = 70_000  # past gridDim.y's 65535: no entry caps the rows
+# ragged packed layouts (leaf widths, clients): rows of one value, rows
+# past one block of ROW_SPAN, a one-client layout
+PACKED_EDGE = [((7, 1, 300, 9000, 3), 3), ((8193, 1, 5), 1),
+               ((14, 3), 5)]
+# the LM codec's packed layouts, every (leaf, client) row of the
+# full-width tree over LM_M clients, one launch a round
+PACKED_LM = ("smollm-135m", "xlstm-125m")
+
+
+def lm_leaf_widths(arch: str) -> tuple:
+    """Per leaf of ``arch``'s full-width tree (``tree_leaves`` order), its
+    value count: the codec's row widths. Shapes only (a meta init)."""
+    from repro_torch import configs, random
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.models import registry
+    model = registry.get_model(configs.get_config(arch))
+    return tuple(x.numel() for x in tree_leaves(
+        model.init(random.PRNGKey(0).to("meta"))))
 
 
 def _quant_inputs(m, n, dtype, gen, all_live, lap=True):
@@ -642,12 +683,88 @@ def _quant_case(name, m, n, dtype, bits, stochastic, reps, gen,
     return res
 
 
+def _packed_case(name, rows, dtype, bits, stochastic, reps, gen,
+                 all_live):
+    """One column-bounded entry over a packed row layout (``PackedRows``)
+    against its plain version (``*_packed_ref``: the (m, n) version on
+    each leaf's block of rows), bitwise; timed when ``reps``. Unless
+    ``all_live`` (the codec's layout: every packed column live), the live
+    counts are random, the first row all zero and the last row has none."""
+    from repro_torch.kernels.quant import quant as q
+    from repro_torch.kernels.quant import ref as r
+    from repro_torch.kernels.rows import leaf_views
+    dev = "cuda"
+    R, N = rows.rows, rows.numel
+    X = torch.randn(N, generator=gen, device=dev).mul_(2).to(dtype)
+    F = torch.randn(N, generator=gen, device=dev).to(dtype)
+    widths = torch.from_numpy(rows.row_widths()).to(dev)
+    if all_live:
+        kcols = widths.to(torch.int32)
+    else:
+        kcols = (torch.rand(R, generator=gen, device=dev) * (widths + 1)
+                 ).to(torch.int32)
+        kcols[-1] = 0
+        leaf_views(X, rows)[0][0].zero_()
+    u32 = (torch.randint(-2 ** 31, 2 ** 31, (N,), generator=gen, device=dev,
+                         dtype=torch.int32) if stochastic else None)
+    absx = torch.cat([v.to(torch.float32).abs().amax(dim=1)
+                      if v.shape[1] else torch.zeros(v.shape[0], device=dev)
+                      for v in leaf_views(X, rows)])
+    if name == "quantize_cols":
+        args = (X, F, absx, kcols, bits, u32, rows)
+        kernel, plain = q.quantize_cols_cuda, r.quantize_cols_packed_ref
+    elif name == "ef_accumulate":
+        resid = torch.cat([
+            (a.to(torch.float32) - b.to(torch.float32)).abs().amax(dim=1)
+            if a.shape[1] else torch.zeros(a.shape[0], device=dev)
+            for a, b in zip(leaf_views(X, rows), leaf_views(F, rows))])
+        args = (X, F, resid, bits, u32, rows)
+        kernel, plain = q.ef_accumulate_cuda, r.ef_accumulate_packed_ref
+    else:
+        clipf = 0.2 + 0.8 * torch.rand(R, generator=gen, device=dev)
+        b = 2.0 * torch.rand(R, generator=gen, device=dev)
+        lap = torch.randn(N, generator=gen, device=dev)  # a unit noise plane
+        args = (X, F, clipf, b, absx * clipf, kcols, bits, u32, lap, rows)
+        kernel = q.private_quantize_cols_cuda
+        plain = r.private_quantize_cols_packed_ref
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    res = compare(got, want, ulps=0)
+    del got, want
+    res.update(layout={"rows": R, "values": N, "leaves": len(rows.widths),
+                       "widest": rows.stride},
+               dtype=str(dtype).replace("torch.", ""), bits=bits,
+               stochastic=stochastic)
+    if reps:
+        spec = QUANT[name]
+        item = X.element_size()
+        live = int(torch.minimum(kcols.to(torch.int64), widths).sum()) \
+            if spec["bounded"] else N
+        per_live = spec["values"] * item + 4 * spec["f32_planes"] \
+            + (4 if stochastic else 0)
+        # and the row tables: start and first block, int64, R + 1 each
+        nbytes = live * per_live + (N - live) * 2 * item \
+            + R * spec["row_bytes"] + 16 * (R + 1)
+        b_ms, b_by = bound(nbytes, spec["ops"] * live)
+        res.update(ms=time_ms(lambda: kernel(*args), reps),
+                   plain_ms=time_ms(lambda: plain(*args), 1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return res
+
+
 def check_quant_kernels(card: str) -> list[dict]:
     """The four quantizer entries against their plain versions, bitwise:
     the simulator's shape first (128 x 14, timed), the JAX kernel tests'
     shapes at every bit width with and without dither, the async merge's
-    one dense row (1 x 14, every column live) likewise, and the smollm
-    leaf in f32 and bf16 (timed)."""
+    one dense row (1 x 14, every column live) likewise, MANY_ROWS rows of
+    14, and the smollm leaf in f32 and bf16 (timed). The column-bounded
+    entries also on ragged packed layouts and on the LM codec's packed
+    layouts of smollm-135m and xlstm-125m at full width, 4 clients
+    (timed)."""
+    from repro_torch.kernels.rows import PackedRows
+    lm_rows = {arch: PackedRows(lm_leaf_widths(arch), LM_M)
+               for arch in PACKED_LM}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -660,23 +777,29 @@ def check_quant_kernels(card: str) -> list[dict]:
                  for st in (True, False)]
         plan += [(8, SMOLLM_LEAF, f32, 8, True, 10),
                  (8, SMOLLM_LEAF, bf16, 8, True, 10)]
-        if name == "quantize_cols":
-            # the LM path's codec: 11 leaves x 4 clients padded to the
-            # embedding's width, one launch a round
-            plan += [(LM_LEAVES * LM_M, SMOLLM_LEAF, f32, 8, True, 3)]
         cases = []
         for p in plan:
             cases.append(_quant_case(name, *p, gen))
-            if p[0] * p[1] > 1 << 30:
-                torch.cuda.empty_cache()
         cases += [_quant_case(name, 1, 14, f32, bits, st, 0, gen,
                               all_live=True)
                   for bits in QUANT_BITS for st in (True, False)]
+        cases += [_quant_case(name, MANY_ROWS, 14, f32, 8, True, 0, gen,
+                              all_live=False)]
+        if name != "quantize":
+            cases += [_packed_case(name, PackedRows(w, m), dt, bits, st, 0,
+                                   gen, all_live=False)
+                      for w, m in PACKED_EDGE for dt in (f32, bf16)
+                      for bits in (2, 8) for st in (True, False)]
+            for arch, rows in lm_rows.items():
+                cases.append(_packed_case(name, rows, f32, 8, True, 3, gen,
+                                          all_live=True))
+                cases[-1]["arch"] = arch
+                torch.cuda.empty_cache()
         for c in cases:
             if "ms" in c:
-                log(f"  {name} {c['shape']} {c['dtype']} {c['bits']}-bit: "
-                    f"kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
-                    f"bound {c['bound_ms']:.4f} ms")
+                log(f"  {name} {c.get('shape') or c['layout']} {c['dtype']}"
+                    f" {c['bits']}-bit: kernel {c['ms']:.4f} ms plain "
+                    f"{c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms")
         log(f"  {name}: {len(cases)} cases, mismatches "
             f"{sum(c['mismatches'] for c in cases)}")
         torch.cuda.empty_cache()
@@ -772,6 +895,75 @@ def check_threefry_kernel(card: str) -> list[dict]:
     return [_summary("threefry", "src/repro_torch/kernels/csrc/threefry.cu",
                      "no TPU kernel: jax/_src/prng.py "
                      "_threefry2x32_lowering, XLA elementwise code", cases)]
+
+
+def _threefry_rows_case(rows, reps, gen, tag):
+    """The rows entry over one packed layout under a random key against
+    ``threefry_rows_ref``, bitwise; timed when ``reps``. Per output the
+    bits mode's operations (the counter's add is one of them) and 4 bytes
+    written, and the row tables read (start and first block R + 1 each,
+    base R, int64)."""
+    from repro_torch.kernels.threefry.threefry import (threefry_rows_cuda,
+                                                       threefry_rows_ref)
+    key = torch.randint(0, 2 ** 32, (2,), generator=gen, device="cuda",
+                        dtype=torch.int64)
+    got = threefry_rows_cuda(key, rows)
+    want = threefry_rows_ref(key, rows)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    if mism:
+        raise AssertionError(f"threefry rows {tag}: {mism} values differ")
+    del got, want
+    res = {"layout": {"rows": rows.rows, "values": rows.numel,
+                      "leaves": len(rows.widths), "widest": rows.stride,
+                      "last_counter": (rows.rows - 1) * rows.stride
+                      + rows.widths[-1] - 1},
+           "case": tag, "mismatches": 0, "max_abs_err": 0.0}
+    if reps:
+        N = rows.numel
+        b_ms, b_by = bound(16 + 4 * N + 8 * (3 * rows.rows + 2), 0.0)
+        alu, other = THREEFRY_OPS["bits"]
+        t_ops = max(alu / 64, (alu + other) / 128) * N / SM_CLOCKS_PER_S \
+            * 1e3
+        if t_ops > b_ms:
+            b_ms, b_by = t_ops, "operations"
+        res.update(ms=time_ms(lambda: threefry_rows_cuda(key, rows), reps),
+                   plain_ms=time_ms(lambda: threefry_rows_ref(key, rows), 1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return res
+
+
+def check_threefry_rows_kernel(card: str) -> list[dict]:
+    """The rows entry (the codec's packed dither) against its plain
+    version, bitwise: the simulator's one-leaf layout (128 x 45222, the
+    padded plane itself) first, ragged layouts, MANY_ROWS rows, and the LM
+    codec's packed layouts of smollm-135m and xlstm-125m at full width, 4
+    clients (xlstm's counters pass 2^32), timed."""
+    from repro_torch.kernels.rows import PackedRows
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    plan = [(PackedRows((45222,), 128), 20, "sim")]
+    plan += [(PackedRows(w, m), 0, f"edge {w} x {m}") for w, m in PACKED_EDGE]
+    plan += [(PackedRows((14,), MANY_ROWS), 0, "many rows")]
+    plan += [(PackedRows(lm_leaf_widths(arch), LM_M), 3, arch)
+             for arch in PACKED_LM]
+    cases = []
+    for rows, reps, tag in plan:
+        cases.append(_threefry_rows_case(rows, reps, gen, tag))
+        torch.cuda.empty_cache()
+        c = cases[-1]
+        if "ms" in c:
+            log(f"  threefry rows {tag} {c['layout']}: kernel "
+                f"{c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms bound "
+                f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+    log(f"kernels: the threefry rows entry agrees with its plain version in "
+        f"{len(cases)} layouts ({card}); library_ms is null, as for the "
+        f"hash")
+    return [_summary("threefry_rows",
+                     "src/repro_torch/kernels/csrc/threefry.cu",
+                     "no TPU kernel: jax.random.bits over the codec's "
+                     "padded plane (src/repro/sim/transport.py:456), XLA "
+                     "elementwise code", cases)]
 
 
 # jax.random's answers under jax 0.9.0's defaults (threefry2x32,
@@ -1019,7 +1211,8 @@ def _profile_window(prof, span: str, rounds: int) -> tuple[dict, dict]:
              "port_kernels_us_per_round": {
                  k: sum(t for name, (t, _) in by_name.items() if k in name)
                  / rounds for k in ("ens_kernel", "prox_kernel",
-                                    "quant_kernel", "threefry_kernel")},
+                                    "quant_kernel", "threefry_kernel",
+                                    "threefry_rows_kernel")},
              "top": [{"kernel": name[:80], "us_per_round": t / rounds,
                       "calls_per_round": c / rounds}
                      for name, (t, c) in top],
@@ -1129,11 +1322,12 @@ def run_sim_path() -> dict:
         if a.alg == "fedepm":
             want.update(ens=merged, prox_update=a.k0 * merged)
         want[kernel] = merged
-        # a merged round's dither: fold_in, the split per plan group and
-        # the group's bits (one f32 leaf, one group); its privacy noise
-        # the same three
-        per_merged = 1 + (3 if a.bits else 0) + (3 if a.dp_eps else 0)
+        # a merged round's dither: fold_in and the split per plan group,
+        # then the group's packed bits (one f32 leaf, one group) by the
+        # rows entry; its privacy noise fold_in, split and bits
+        per_merged = 1 + (2 if a.bits else 0) + (3 if a.dp_eps else 0)
         want["threefry"] = 3 * len(sim.metrics) + per_merged * merged
+        want["threefry_rows"] = merged if a.bits else 0
         assert launches == want, (key, launches, want)
         assert np.isfinite(f_hist).all() and f_hist[-1] < f_hist[0], \
             (key, f_hist[0], f_hist[-1])
@@ -1843,8 +2037,9 @@ def run_faults_spec() -> dict:
 # (``reduced = false``: 30 layers, d_model 576, vocab 49152, 134,515,008
 # params, bf16 compute over f32 params), LM_ROUNDS rounds a case. Per round
 # and leaf (11 leaves) FedEPM launches ENS once and prox k0 = 2 times; the
-# 8-bit codec adds one ``quantize_cols`` over the padded (44, 28,311,552)
-# rows. The reduced spec (f32) is held on the card to JAX's numbers,
+# 8-bit codec adds one ``quantize_cols`` over the packed layout of its 44
+# (leaf, client) rows (538,060,032 values, no padding) and one threefry
+# rows launch for its dither. The reduced spec (f32) is held on the card to JAX's numbers,
 # ``python -m repro.launch.train --spec examples/specs/lm_federated.toml
 # --engine eager`` with jax 0.9.0 on the CPU (tests/test_torch_lm.py
 # recomputes them).
@@ -1943,7 +2138,8 @@ def _lm_case(spec, device="cuda") -> tuple:
     f_m = [None if v is None else v / spec.task.m for v in f]
     assert all(v is None or np.isfinite(v) for v in f_m), f_m
     rec = {"engine": spec.engine.name, "chunk": spec.engine.chunk,
-           "bits": spec.codec.bits, "f_per_m": f_m,
+           "bits": spec.codec.bits, "ef": spec.codec.error_feedback,
+           "private": spec.privacy.eps > 0, "f_per_m": f_m,
            "wall_ms_per_round": wall / LM_ROUNDS * 1e3,
            "first_run_ms_per_round": cold, "build_s": build_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1956,23 +2152,58 @@ def _lm_case(spec, device="cuda") -> tuple:
 
 def _lm_launches(rec, leaves: int) -> dict:
     """The port's launches a case must have made: ENS once and prox k0
-    times per leaf and round, ``quantize_cols`` once per codec round, each
-    CUDA graph counting its warm-up call and its replays."""
+    times per leaf and round; per codec round one launch of the codec's
+    entry (``quantize_cols``, ``ef_accumulate`` with error feedback,
+    ``private_quantize_cols`` with transport DP) over the tree's one f32
+    group and one of the threefry rows entry for its dither; each CUDA
+    graph counting its warm-up call and its replays."""
     calls = LM_ROUNDS if rec["engine"] == "eager" \
         else rec["graph_replays"] + rec["graph_captures"]
-    return {"ens": leaves * calls, "prox_update": leaves * LM_K0 * calls,
-            "quantize_cols": calls if rec["bits"] else 0,
-            "ef_accumulate": 0, "private_quantize_cols": 0, "quantize": 0}
+    entry = ("ef_accumulate" if rec["ef"] else "private_quantize_cols"
+             if rec["private"] else "quantize_cols")
+    want = {"ens": leaves * calls, "prox_update": leaves * LM_K0 * calls,
+            "quantize_cols": 0, "ef_accumulate": 0,
+            "private_quantize_cols": 0, "quantize": 0,
+            "threefry_rows": calls if rec["bits"] else 0}
+    if rec["bits"]:
+        want[entry] = calls
+    return want
+
+
+# the LM codec's cases (``codec`` of ``_lm_chain``): the 8-bit codec
+# eager, and on xlstm-125m at full width also in the scan engine's chunks
+# of 1 (bit for bit the eager codec case: the dither drawn inside the
+# captured graph), with error feedback, and with the transport DP of
+# ``examples/specs/fig9_privacy.toml`` (Laplace, clip 5, eps 2, secure
+# aggregation), which takes the fused ``private_quantize_cols``
+FIG9_SPEC = ROOT / "examples/specs/fig9_privacy.toml"
+LM_CODEC8 = {"engine.name": "eager", "codec.bits": 8}
+LM_CODEC_CASES = {
+    "codec8": LM_CODEC8,
+    "codec8_scan1": {**LM_CODEC8, "engine.name": "scan",
+                     "engine.chunk": 1},
+    "ef8": {**LM_CODEC8, "codec.error_feedback": True},
+    "private8": {**LM_CODEC8, "privacy": "fig9"},
+}
+
+
+def _codec_over(over: dict) -> dict:
+    if over.get("privacy") == "fig9":
+        from repro_torch.spec import ExperimentSpec
+        over = {**over, "privacy": ExperimentSpec.load(FIG9_SPEC).privacy}
+    return over
 
 
 def _lm_chain(tag: str, over: dict, reduced: bool = False,
               twice: bool = True, chunks=(1, LM_ROUNDS),
-              codec: bool = True) -> tuple[dict, int, int]:
+              codec=("codec8",)) -> tuple[dict, int, int]:
     """One arch's spec, LM_ROUNDS rounds per case, each with the counters
     set to 0 just before it: eager (``twice``: again, the same bits), the
     scan engine in each of ``chunks`` held bit for bit to eager (state,
-    key, ledger, clock), and (``codec``) eager with the 8-bit codec; each
-    case's launches asserted. Returns (records, params, leaves)."""
+    key, ledger, clock), and the ``codec`` cases of ``LM_CODEC_CASES``
+    (each moving fewer bytes than the raw run; a scan codec case bit for
+    bit the eager ``codec8``); each case's launches asserted. Returns
+    (records, params, leaves)."""
     from repro_torch.core.treeutil import tree_leaves
     out = {}
     h, rec = _lm_case(_lm_spec(reduced, **over, **{"engine.name": "eager"}))
@@ -2001,12 +2232,23 @@ def _lm_chain(tag: str, over: dict, reduced: bool = False,
         out[f"scan_chunk{chunk}"] = rec
         del h
     del ref
-    if codec:
-        h, rec = _lm_case(_lm_spec(reduced, **over, **{
-            "engine.name": "eager", "codec.bits": 8}))
-        assert rec["bytes_total"] < ref_ledger[0]
-        out["codec8"] = rec
+    codec_ref = None
+    for name in codec:
+        h, rec = _lm_case(_lm_spec(reduced, **over,
+                                   **_codec_over(LM_CODEC_CASES[name])))
+        assert rec["bytes_total"] < ref_ledger[0], (name, rec["bytes_total"])
+        if name == "codec8":
+            codec_ref = [t.clone() for t in _lm_state(h.sim)]
+            codec_ledger = (h.sim.ledger.total, h.sim.t)
+            rec["state_bits"] = _bit_digest(codec_ref)
+        elif rec["engine"] == "scan":
+            assert all(torch.equal(a, b) for a, b in zip(
+                _lm_state(h.sim), codec_ref)), name
+            assert (h.sim.ledger.total, h.sim.t) == codec_ledger, name
+            assert rec["graph_replays"] == 2 * LM_ROUNDS, rec
+        out[name] = rec
         del h
+    del codec_ref
     torch.cuda.empty_cache()
     for name, rec in out.items():
         want = _lm_launches(rec, n_leaves)
@@ -2025,9 +2267,10 @@ def run_lm_path() -> dict:
     counters set to 0 just before it: eager twice (a backward that gives
     the same bits on every run), the scan engine in chunks of 1 and of 3
     (each round one replay of a captured CUDA graph) held bit for bit to
-    eager, and eager with the 8-bit codec. ENS launches once and prox k0
-    times per leaf and round, ``quantize_cols`` once per codec round, each
-    CUDA graph counting its warm-up call and its replays."""
+    eager, and eager with the 8-bit codec on the packed layout. ENS
+    launches once and prox k0 times per leaf and round, ``quantize_cols``
+    and the threefry rows entry once per codec round, each CUDA graph
+    counting its warm-up call and its replays."""
     out, n_params, n_leaves = _lm_chain("lm", {})
     assert (n_params, n_leaves) == (LM_PARAMS, LM_LEAVES), n_params
     return out
@@ -2035,9 +2278,10 @@ def run_lm_path() -> dict:
 
 def run_lm_families() -> dict:
     """The moe, xlstm and hybrid families through the same entry. xlstm-125m
-    at full width: eager twice, scan in chunks of 1 and 3, no codec (the
-    codec's padded layout holds 129 x 4 rows at the 38.6M-wide embedding,
-    79.7 GB a plane); its tree asserted (185,359,968 params, 129 leaves).
+    at full width: eager twice, scan in chunks of 1 and 3, and every codec
+    case of ``LM_CODEC_CASES`` on the packed layout (129 x 4 rows, 2.97 GB
+    an f32 plane; JAX's layout padded to the 38.6M-wide embedding would
+    take 79.7 GB); its tree asserted (185,359,968 params, 129 leaves).
     Reduced (f32) xlstm-125m, mixtral-8x7b and zamba2-1.2b: eager and scan
     in chunks of LM_ROUNDS, bit for bit, f/m per round within STATE_RTOL of
     ``JAX_LM_FAMILIES`` and the bytes and simulated time exactly, and eager
@@ -2045,7 +2289,8 @@ def run_lm_families() -> dict:
     JAX's."""
     out = {}
     full, n_params, n_leaves = _lm_chain(
-        "lm_families[xlstm full]", {"task.arch": XLSTM}, codec=False)
+        "lm_families[xlstm full]", {"task.arch": XLSTM},
+        codec=tuple(LM_CODEC_CASES))
     assert (n_params, n_leaves) == (XLSTM_PARAMS, XLSTM_LEAVES), \
         (n_params, n_leaves)
     out["xlstm-125m/full"] = full
@@ -2220,6 +2465,109 @@ def check_xlstm_card_vs_cpu(families: dict) -> dict:
     out = _full_card_vs_cpu(
         spec, families["xlstm-125m/full"]["eager"]["f_per_m"])
     log("xlstm_card_vs_cpu " + json.dumps(out))
+    return out
+
+
+def _rows_dither_cpu(gkey, widths, leaf_rows, stride: int) -> torch.Tensor:
+    """The plain hash of one group key at the counters of the full
+    layout's rows ``leaf_rows`` (row r's values at r * stride + j), packed
+    in that order: a slice's dither, drawn on the CPU without the rest of
+    the plane."""
+    from repro_torch.kernels.threefry.ref import as_int32, threefry_ref
+    return torch.cat([
+        as_int32(threefry_ref(gkey.reshape(1, 2), n, r * stride, "bits")[0])
+        for r, n in zip(leaf_rows, widths)])
+
+
+def check_xlstm_upload_vs_cpu() -> dict:
+    """One upload of xlstm-125m at full width (4 clients, 129 leaves,
+    185,359,968 params a client) through the codec's packed layout on the
+    card, against the port's CPU path on slices of it, bitwise: the widest
+    leaf's first client row (38,633,472 values) and the two smallest
+    leaves (every client), under the 8-bit codec, 8-bit error feedback and
+    the fused Laplace path of ``fig9_privacy.toml``. The card draws the
+    whole packed dither; the CPU draws its slices' rows only, the plain
+    hash at each row's counters (r * n_max + j); the card's unit noise and
+    per-client clip factor and noise scale are handed over (the card sums
+    the l1 in another order than the CPU)."""
+    from repro_torch import random
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.models import registry
+    from repro_torch import configs
+    from repro_torch.privacy import PrivacyConfig
+    from repro_torch.sim import transport as tr
+    from repro_torch.spec import ExperimentSpec
+    m = LM_M
+    shapes = [tuple(x.shape) for x in tree_leaves(registry.get_model(
+        configs.get_config(XLSTM)).init(random.PRNGKey(0).to("meta")))]
+    sizes = [math.prod(sh) for sh in shapes]
+    assert (len(shapes), sum(sizes), max(sizes)) == \
+        (XLSTM_LEAVES, XLSTM_PARAMS, XLSTM_LEAF)
+    wide = sizes.index(max(sizes))
+    small = sorted(range(len(sizes)), key=lambda i: (sizes[i], i))[:2]
+    small.sort()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def tree(scale):
+        return [torch.randn((m,) + sh, generator=gen, device="cuda")
+                .mul_(scale) for sh in shapes]
+    Z, FB, H = tree(0.02), tree(0.02), tree(0.015)
+    pv = ExperimentSpec.load(FIG9_SPEC).privacy
+    priv = PrivacyConfig(mechanism=pv.mechanism, eps=pv.eps,
+                         sensitivity=pv.sensitivity, clip=pv.clip)
+    key = random.PRNGKey(7, device="cuda")
+    out = {"widest_leaf": wide, "small_leaves": small}
+    for case in ("codec8", "ef8", "private8"):
+        t0 = time.perf_counter()
+        codec = tr.CodecConfig(bits=8, error_feedback=case == "ef8")
+        fused = case == "private8"
+        tables = tr.dither_shapes(Z, codec, fused_private=fused)
+        assert len(tables) == 1 and tables[0].numel == m * XLSTM_PARAMS
+        dither = tr.codec_dither(key, tables)
+        gkey = random.split(key, 1)[0].cpu()
+        if case == "codec8":
+            card = tr.codec_roundtrip(Z, FB, dither, codec)
+        elif case == "ef8":
+            card = tr.ef_roundtrip(Z, H, dither, codec)
+        else:
+            noise = tr.draw_unit_noise(random.PRNGKey(8, device="cuda"), Z,
+                                       priv)
+            clipf, b = tr.privacy_row_params(tr._client_l1(Z, m), priv)
+            card = tr._fused_private(Z, dither, noise, codec, clipf, b)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        del dither
+        stride = tables[0].stride
+        mism = 0
+        for idx, rows in (([wide], slice(0, 1)), (small, slice(0, m))):
+            sub = rows.stop - rows.start
+            cut = [[t[i][rows].cpu() for i in idx]
+                   for t in (Z, FB if case == "codec8" else H)]
+            lr = [i * m + r for i in idx for r in range(rows.start,
+                                                        rows.stop)]
+            u = _rows_dither_cpu(gkey, [sizes[r // m] for r in lr], lr,
+                                 stride)
+            if case == "codec8":
+                cpu = tr.codec_roundtrip(cut[0], cut[1], [u], codec)
+            elif case == "ef8":
+                cpu = tr.ef_roundtrip(cut[0], cut[1], [u], codec)
+            else:
+                nz = [noise[i][rows].cpu() for i in idx]
+                cpu = tr._fused_private(cut[0], [u], nz, codec,
+                                        clipf[rows].cpu(), b[rows].cpu())
+            for i, c in zip(idx, cpu):
+                assert c.shape[0] == sub
+                mism += int((card[i][rows].cpu() != c).sum())
+        del card
+        if fused:
+            del noise
+        torch.cuda.empty_cache()
+        assert mism == 0, (case, mism)
+        out[case] = {"mismatches": mism, "card_s": card_s,
+                     "cpu_values": sizes[wide] + m * sum(sizes[i]
+                                                         for i in small)}
+    log("xlstm_upload_vs_cpu " + json.dumps(out))
     return out
 
 
@@ -3753,7 +4101,8 @@ def run_queue3_trials() -> dict:
 # four quantizer entries launch one templated kernel)
 DEVICE_KERNELS = {"ens_kernel": ("ens",), "prox_kernel": ("prox_update",),
                   "quant_kernel": tuple(QUANT),
-                  "threefry_kernel": ("threefry",)}
+                  "threefry_kernel": ("threefry",),
+                  "threefry_rows_kernel": ("threefry_rows",)}
 
 
 def profile_engine_path(key: str, rounds: int = 10) -> dict:
@@ -4071,6 +4420,113 @@ def profile_child(name: str) -> int:
     return 0
 
 
+def _at_lm_codec8(mod) -> dict:
+    """smollm-135m's full-width eager case with the 8-bit codec, LM_ROUNDS
+    rounds: its record (f/m, wall, peak device memory, launches) and
+    state digest."""
+    h, rec = mod._lm_case(mod._lm_spec(**{"engine.name": "eager",
+                                          "codec.bits": 8}))
+    rec["state_bits"] = mod._bit_digest(mod._lm_state(h.sim))
+    return rec
+
+
+def _at_kernel_times(mod) -> dict:
+    """The wide launches whose layout a tree may change, by CUDA events
+    (10 calls after a warm-up), ms: prox at 4 and 8 clients of smollm's
+    leaf (f32, bf16) and one of zamba2's in_proj; the four quantizer
+    entries on (8, smollm leaf) in f32 and bf16 with dither; and where the
+    tree has the packed layout, the three column-bounded entries and the
+    threefry rows entry over xlstm's packed rows (f32, 4 clients)."""
+    from repro_torch.kernels.prox.prox import prox_update_cuda
+    from repro_torch.kernels.quant import quant as q
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+
+    def rand(*shape, dt=f32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    def bits(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+    for m, n, dt in ((LM_M, SMOLLM_LEAF, f32), (8, SMOLLM_LEAF, f32),
+                     (8, SMOLLM_LEAF, bf16), (1, ZAMBA2_LEAF, f32)):
+        wi, wt, g = rand(m, n, dt=dt), rand(n, dt=dt), rand(m, n, dt=dt)
+        mu = torch.full((m,), 0.5, device="cuda")
+        out[f"prox {m}x{n} {dt}"] = time_ms(
+            lambda: prox_update_cuda(wi, wt, g, mu, LAM, ETA), 10)
+        del wi, wt, g
+        torch.cuda.empty_cache()
+    for dt in (f32, bf16):
+        X, F, u = rand(8, SMOLLM_LEAF, dt=dt), rand(8, SMOLLM_LEAF, dt=dt), \
+            bits(8, SMOLLM_LEAF)
+        lap = rand(8, SMOLLM_LEAF)
+        s = X.float().abs().amax(1)
+        kc = torch.full((8,), SMOLLM_LEAF, dtype=torch.int32, device="cuda")
+        one = torch.ones(8, device="cuda")
+        calls = {"quantize": lambda: q.quantize_cuda(X, s, 8, u),
+                 "quantize_cols": lambda: q.quantize_cols_cuda(
+                     X, F, s, kc, 8, u),
+                 "ef_accumulate": lambda: q.ef_accumulate_cuda(X, F, s, 8,
+                                                               u),
+                 "private_quantize_cols": lambda: q.private_quantize_cols_cuda(
+                     X, F, one, one, s, kc, 8, u, lap)}
+        for name, fn in calls.items():
+            out[f"{name} 8x{SMOLLM_LEAF} {dt}"] = time_ms(fn, 10)
+        del X, F, u, lap
+        torch.cuda.empty_cache()
+    try:
+        from repro_torch.kernels.rows import PackedRows
+    except ImportError:  # a tree before the packed layout
+        return out
+    from repro_torch.kernels.threefry.threefry import threefry_rows_cuda
+    rows = PackedRows(lm_leaf_widths(XLSTM), LM_M)
+    X, F, u, lap = rand(rows.numel), rand(rows.numel), bits(rows.numel), \
+        rand(rows.numel)
+    R = rows.rows
+    s, one = torch.ones(R, device="cuda"), torch.ones(R, device="cuda")
+    kc = torch.from_numpy(rows.row_widths()).to("cuda", torch.int32)
+    key = torch.tensor([1, 2], dtype=torch.int64, device="cuda")
+    calls = {"quantize_cols": lambda: q.quantize_cols_cuda(
+                 X, F, s, kc, 8, u, rows),
+             "ef_accumulate": lambda: q.ef_accumulate_cuda(X, F, s, 8, u,
+                                                           rows),
+             "private_quantize_cols": lambda: q.private_quantize_cols_cuda(
+                 X, F, one, one, s, kc, 8, u, lap, rows),
+             "threefry_rows": lambda: threefry_rows_cuda(key, rows)}
+    for name, fn in calls.items():
+        out[f"{name} xlstm packed"] = time_ms(fn, 10)
+    return out
+
+
+# ``--at ROOT NAME``: NAME run with the helpers of the checkout at ROOT
+AT_MODES = {"lm_codec8": _at_lm_codec8, "kernel_times": _at_kernel_times}
+
+
+def at_child(root: str, name: str) -> int:
+    """The ``--at ROOT NAME`` mode: ``AT_MODES[NAME]`` with the
+    ``chip_smoke.py`` and the package of the checkout at ROOT (this one, or
+    another commit's unpacked beside it) in this fresh process, its kernels
+    built from ROOT's sources, so two trees compare on one card; the
+    result as the last line."""
+    import importlib.util
+    path = Path(root).resolve() / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_at_root", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # puts ROOT/src first on the path
+    import repro_torch
+    assert Path(repro_torch.__file__).resolve().is_relative_to(
+        path.parent), repro_torch.__file__
+    mod.device_settings()
+    mod.build_kernels()
+    rec = AT_MODES[name](mod)
+    rec["root"] = str(path.parent)
+    rec["card"] = nvidia_smi()
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4095,7 +4551,8 @@ def main() -> int:
     phases["profile_s"] = profiles.pop("profile_s")
     t = time.perf_counter()
     kernels = (check_kernels(card) + check_quant_kernels(card)
-               + check_threefry_kernel(card))
+               + check_threefry_kernel(card)
+               + check_threefry_rows_kernel(card))
     jax_table = check_jax_random_table()
     phases["kernels_s"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -4176,6 +4633,7 @@ def main() -> int:
                   record["lm_families"]),
               "serve_card_vs_cpu": lambda: check_serve_card_vs_cpu(
                   serve_cpu),
+              "xlstm_upload_vs_cpu": check_xlstm_upload_vs_cpu,
               "zamba2_round_vs_cpu": check_zamba2_round_vs_cpu}
     for name, check in checks.items():
         t_check = time.perf_counter()
@@ -4204,4 +4662,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--profile"] and len(sys.argv) == 3:
         sys.exit(profile_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--at"] and len(sys.argv) == 4:
+        sys.exit(at_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -22,6 +22,15 @@
 // Design: blockIdx.y walks the keys, a grid-stride loop over x walks the
 // counters, so writes are coalesced and each key is read once per thread.
 // Built with --fmad=false: the only FMA is the explicit one above.
+//
+// The rows entry draws the codec's dither over its packed row layout
+// (kernels/rows.py) under one key: value j of row r is bits at counter
+// base[r] + j, with base[r] = r * (the widest row), which is the value
+// jax.random.bits(key, (R, widest)) holds at (r, j) under partitionable
+// threefry; so the packed plane is JAX's padded one at its live entries,
+// written as 32 bits (4 bytes an output, no int64 plane). Each block of
+// ``span`` values finds its row once, by a binary search over the rows'
+// first blocks, as the quantizer's packed entries do.
 #include <cstdint>
 
 #include "common.cuh"
@@ -89,7 +98,62 @@ __global__ void threefry_kernel(const int64_t* __restrict__ keys,
   }
 }
 
+__global__ void threefry_rows_kernel(const int64_t* __restrict__ key,
+                                     long long rows,
+                                     const long long* __restrict__ row_start,
+                                     const long long* __restrict__ row_block,
+                                     const long long* __restrict__ row_base,
+                                     long long span,
+                                     uint32_t* __restrict__ out) {
+  __shared__ long long s_row;
+  const long long b = blockIdx.x;
+  if (threadIdx.x == 0) {
+    long long lo = 0, hi = rows - 1;  // the last r with row_block[r] <= b
+    while (lo < hi) {
+      const long long mid = (lo + hi + 1) >> 1;
+      if (row_block[mid] <= b) lo = mid; else hi = mid - 1;
+    }
+    s_row = lo;
+  }
+  __syncthreads();
+  const long long row = s_row;
+  const long long start = row_start[row];
+  const long long width = row_start[row + 1] - start;
+  const unsigned long long base = static_cast<unsigned long long>(
+      row_base[row]);
+  const uint32_t k0 = static_cast<uint32_t>(key[0]);
+  const uint32_t k1 = static_cast<uint32_t>(key[1]);
+  const long long j0 = (b - row_block[row]) * span;
+  const long long end = j0 + span < width ? j0 + span : width;
+  for (long long j = j0 + threadIdx.x; j < end; j += blockDim.x) {
+    const unsigned long long c = base + static_cast<unsigned long long>(j);
+    uint32_t x0 = static_cast<uint32_t>(c >> 32);
+    uint32_t x1 = static_cast<uint32_t>(c);
+    threefry2x32(k0, k1, x0, x1);
+    out[start + j] = x0 ^ x1;
+  }
+}
+
 }  // namespace
+
+extern "C" int threefry_rows_launch(const void* key, long long rows,
+                                    const void* row_start,
+                                    const void* row_block,
+                                    const void* row_base, long long n_blocks,
+                                    long long span, void* out,
+                                    void* stream) {
+  constexpr int kThreads = 256;
+  if (rows > 0 && n_blocks > 0) {
+    threefry_rows_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int64_t*>(key), rows,
+        static_cast<const long long*>(row_start),
+        static_cast<const long long*>(row_block),
+        static_cast<const long long*>(row_base), span,
+        static_cast<uint32_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int threefry2x32_launch(const void* keys, long long n_keys,
                                    long long n, unsigned long long offset,

@@ -20,7 +20,6 @@ from repro_torch.kernels.prox.ref import prox_update_ref  # noqa: F401
 
 _ENTRIES = {torch.float32: "prox_update_f32",
             torch.bfloat16: "prox_update_bf16"}
-_MAX_ROWS = 65535  # gridDim.y
 _FNS: dict = {}  # dtype -> (library, C entry with argtypes set)
 
 
@@ -54,8 +53,6 @@ def prox_update_cuda(wi: torch.Tensor, wtau: torch.Tensor, g: torch.Tensor,
     if not (wi.is_cuda and wtau.is_cuda and g.is_cuda):
         raise ValueError("prox_update_cuda needs CUDA tensors")
     m = wi.shape[0] if stacked else 1
-    if m > _MAX_ROWS:
-        raise ValueError(f"prox kernel takes at most {_MAX_ROWS} clients")
     n = wtau.numel()
     wi, wtau, g = wi.contiguous(), wtau.contiguous(), g.contiguous()
     mu = torch.as_tensor(mu, dtype=torch.float32, device=wi.device)

@@ -18,12 +18,17 @@ same place:
 - ``ef_accumulate``: ``fma(q, delta, h)`` on rows with delta > 0, ``h + 0``
   on the others (so a -0.0 in h comes out +0.0, as in JAX);
 - ``private_quantize_cols``: ``y = fma(x, clipf, b * lap)``.
+
+The ``*_packed_ref`` versions take the codec's packed row layout
+(``kernels/rows.py``): each applies the (R, n) version to each leaf's
+(m, width) block of rows, the plain version of one packed launch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import xla_cpu
+from repro_torch.kernels.rows import PackedRows, per_leaf
 
 _INV_2_32 = 2.0 ** -32
 
@@ -117,3 +122,29 @@ def ef_accumulate_ref(Z: torch.Tensor, H: torch.Tensor, scale: torch.Tensor,
     q = _levels(Z.to(torch.float32) - h, safe, L, u32)
     out = torch.where(pos, torch.addcmul(h, q, safe), h + 0.0)
     return out.to(Z.dtype)
+
+
+def quantize_cols_packed_ref(X, F, scale, kcols, bits: int, u32,
+                             rows: PackedRows) -> torch.Tensor:
+    """``quantize_cols_ref`` over a packed layout (flat X, F, u32)."""
+    return per_leaf(rows, torch.empty_like(X), lambda blk, r: (
+        quantize_cols_ref(blk(X), blk(F), scale[r], kcols[r], bits,
+                          blk(u32))))
+
+
+def ef_accumulate_packed_ref(Z, H, scale, bits: int, u32,
+                             rows: PackedRows) -> torch.Tensor:
+    """``ef_accumulate_ref`` over a packed layout (flat Z, H, u32)."""
+    return per_leaf(rows, torch.empty_like(Z), lambda blk, r: (
+        ef_accumulate_ref(blk(Z), blk(H), scale[r], bits, blk(u32))))
+
+
+def private_quantize_cols_packed_ref(X, F, clipf, noise_b, scale, kcols,
+                                     bits: int, u32q, lap,
+                                     rows: PackedRows) -> torch.Tensor:
+    """``private_quantize_cols_ref`` over a packed layout (flat X, F, u32q,
+    lap)."""
+    return per_leaf(rows, torch.empty_like(X), lambda blk, r: (
+        private_quantize_cols_ref(blk(X), blk(F), clipf[r], noise_b[r],
+                                  scale[r], kcols[r], bits, blk(u32q),
+                                  blk(lap))))

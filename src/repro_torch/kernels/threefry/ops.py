@@ -9,8 +9,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import resolve_impl
-from repro_torch.kernels.threefry.ref import threefry_ref
-from repro_torch.kernels.threefry.threefry import threefry_cuda
+from repro_torch.kernels.rows import PackedRows
+from repro_torch.kernels.threefry.ref import threefry_ref, threefry_rows_ref
+from repro_torch.kernels.threefry.threefry import (threefry_cuda,
+                                                   threefry_rows_cuda)
 
 
 def threefry(keys: torch.Tensor, n: int, offset: int = 0, mode: str = "keys",
@@ -21,3 +23,12 @@ def threefry(keys: torch.Tensor, n: int, offset: int = 0, mode: str = "keys",
     if resolve_impl(impl, keys) == "cuda":
         return threefry_cuda(keys, n, offset, mode, lo, hi)
     return threefry_ref(keys, n, offset, mode, lo, hi)
+
+
+def threefry_rows(key: torch.Tensor, rows: PackedRows, *,
+                  impl: str | None = None) -> torch.Tensor:
+    """One key (2,) over a packed row layout: (rows.numel,) int32 bits at
+    each value's counter (``PackedRows.counters``)."""
+    if resolve_impl(impl, key) == "cuda":
+        return threefry_rows_cuda(key, rows)
+    return threefry_rows_ref(key, rows)

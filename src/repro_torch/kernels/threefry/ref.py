@@ -9,12 +9,18 @@ returns, by ``mode``: ``"keys"`` (K, n, 2) hash pairs, ``"bits"`` (K, n)
 ``y1 ^ y2``, or ``"uniform"`` (K, n) f32 on [lo, hi) as
 ``jax.random.uniform`` maps 32 bits: ``max(lo, f * (hi - lo) + lo)`` with
 one rounding (``torch.addcmul``), the FMA that jitted XLA:CPU computes.
+
+``threefry_rows_ref`` is the plain version of the rows entry: one key's
+``y1 ^ y2`` at the dither counters of a packed row layout
+(``PackedRows.counters``), as int32 carrying the 32 bits, hashed
+``ROWS_CHUNK`` values at a time.
 """
 from __future__ import annotations
 
 import torch
 
 MASK = 0xFFFFFFFF
+ROWS_CHUNK = 1 << 24
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 MODES = ("keys", "bits", "uniform")
 
@@ -60,3 +66,21 @@ def threefry_ref(keys: torch.Tensor, n: int, offset: int = 0,
         return torch.stack([y1, y2], dim=-1)
     b = y1 ^ y2
     return b if mode == "bits" else bits_to_uniform(b, lo, hi)
+
+
+def threefry_rows_ref(key: torch.Tensor, rows) -> torch.Tensor:
+    """(rows.numel,) int32: the bits of ``key`` (2,) at each packed value's
+    counter, the row's base plus its column."""
+    k = key.reshape(2)
+    out = torch.empty(rows.numel, dtype=torch.int32, device=key.device)
+    for lo in range(0, rows.numel, ROWS_CHUNK):
+        hi = min(rows.numel, lo + ROWS_CHUNK)
+        c = rows.counters(lo, hi, device=key.device)
+        y1, y2 = threefry2x32(k[0], k[1], c >> 32, c & MASK)
+        out[lo:hi] = as_int32(y1 ^ y2)
+    return out
+
+
+def as_int32(b: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the same 32 bits in an int32."""
+    return (b - ((b >> 31) << 32)).to(torch.int32)

@@ -7,7 +7,12 @@ which as torch ops would take about 140 launches per call. The source is
 PyTorch version, ``threefry_ref``, sits beside it: the CPU path, and what
 ``chip_smoke.py`` holds the kernel to on the card, bit for bit.
 
-``threefry_cuda.launches`` counts kernel launches.
+``threefry_rows_cuda`` is the rows entry: one key's bits over the codec's
+packed row layout (``kernels/rows.py``), 32 bits an output, the plain
+version ``threefry_rows_ref``.
+
+``threefry_cuda.launches`` and ``threefry_rows_cuda.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -16,21 +21,26 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.threefry.ref import MODES, threefry_ref  # noqa: F401
+from repro_torch.kernels.rows import ROW_SPAN, PackedRows
+from repro_torch.kernels.threefry.ref import (  # noqa: F401
+    MODES, threefry_ref, threefry_rows_ref)
 
-_FN: list = []  # [(library, C entry with argtypes set)]
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_SIGS = {"threefry2x32_launch": [_P, _I64, _I64, ctypes.c_uint64,
+                                 ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_float, _P, _P],
+         "threefry_rows_launch": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P]}
+_FNS: dict = {}  # entry name -> (library, C entry with argtypes set)
 
 
-def _fn():
-    if not _FN:
+def _fn(name: str = "threefry2x32_launch"):
+    if name not in _FNS:
         lib = build.load("threefry")
-        fn = lib.threefry2x32_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_uint64, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGS[name]
         fn.restype = ctypes.c_int
-        _FN.append((lib, fn))
-    return _FN[0]
+        _FNS[name] = (lib, fn)
+    return _FNS[name]
 
 
 def threefry_cuda(keys: torch.Tensor, n: int, offset: int = 0,
@@ -65,3 +75,31 @@ def threefry_cuda(keys: torch.Tensor, n: int, offset: int = 0,
 
 
 threefry_cuda.launches = 0
+
+
+def threefry_rows_cuda(key: torch.Tensor, rows: PackedRows) -> torch.Tensor:
+    """``threefry_rows_ref`` on a CUDA key (2,), int64 holding uint32
+    values: (rows.numel,) int32."""
+    if not key.is_cuda:
+        raise ValueError("threefry_rows_cuda needs CUDA tensors")
+    if key.numel() != 2 or key.dtype != torch.int64:
+        raise TypeError(f"threefry_rows_cuda takes one int64 key (2,); got "
+                        f"{key.dtype} {tuple(key.shape)}")
+    if rows.rows * rows.stride >= 2 ** 64:
+        raise ValueError(f"the counters of {rows} leave 64 bits")
+    key = key.reshape(2).contiguous()
+    out = torch.empty(rows.numel, dtype=torch.int32, device=key.device)
+    if out.numel() == 0:
+        return out
+    t = rows.tables(key.device)
+    lib, fn = _fn("threefry_rows_launch")
+    err = fn(key.data_ptr(), rows.rows, t.start.data_ptr(),
+             t.block.data_ptr(), t.base.data_ptr(), t.n_blocks, ROW_SPAN,
+             out.data_ptr(),
+             torch.cuda.current_stream(key.device).cuda_stream)
+    build.check(lib, err, "threefry rows kernel launch")
+    threefry_rows_cuda.launches += 1
+    return out
+
+
+threefry_rows_cuda.launches = 0

@@ -11,6 +11,9 @@ keys (leading axes ``...``) and acts on each key as ``jax.vmap`` would:
 ``fold_in(key, data)``    -- (..., 2): the hash of counter ``data``.
 ``bits(key, shape)``      -- (..., *shape) int64: ``y1 ^ y2`` of the hash of
                              each flat index.
+``bits_rows(key, rows)``  -- (rows.numel,) int32 carrying 32 bits: one key's
+                             ``bits(key, (rows.rows, rows.stride))`` at the
+                             live entries of a packed row layout.
 ``uniform(key, shape)``   -- (..., *shape) f32 on [minval, maxval).
 ``normal(key, shape, dtype)`` -- (..., *shape) f32 (or bf16):
                              sqrt(2) erfinv(u), u on (-1, 1), with
@@ -32,7 +35,7 @@ import math
 import torch
 
 from repro_torch.core.xla_cpu import erfinv
-from repro_torch.kernels.threefry.ops import threefry
+from repro_torch.kernels.threefry.ops import threefry, threefry_rows
 from repro_torch.kernels.threefry.ref import MASK
 
 _UINT32_MAX = 2 ** 32 - 1
@@ -70,6 +73,16 @@ def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     shape = tuple(shape)
     out = _hash(key, math.prod(shape), 0, "bits")
     return out.reshape(key.shape[:-1] + shape)
+
+
+def bits_rows(key: torch.Tensor, rows) -> torch.Tensor:
+    """``jax.random.bits(key, (R, stride))`` of a packed row layout
+    (``kernels.rows.PackedRows``) at each row's live entries, packed, the
+    32 bits carried in int32; one launch, no padded plane."""
+    if key.shape != (2,):
+        raise ValueError(f"bits_rows takes one key (2,); got "
+                         f"{tuple(key.shape)}")
+    return threefry_rows(key, rows)
 
 
 def _pieces(key: torch.Tensor, shape, lo: float, hi: float, chunk: int,

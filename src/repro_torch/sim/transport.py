@@ -16,26 +16,40 @@ Upload codec
 Per leaf, each client keeps the top ceil(topk_frac * n) coordinates by
 magnitude, snaps them onto a ``bits``-bit uniform grid, and the server
 dequantizes before aggregation, substituting the client's previous upload
-on dropped coordinates. Every (leaf, client) pair is one row of a padded
-2-D array (leaves grouped by dtype, padded to the group's widest leaf,
-leaf-major rows), so a whole tree encodes in one top-k and one
-``quantize_cols`` launch per dtype group. With error feedback the wire
-carries C(z - h) and both sides keep h <- h + C(z - h) (``ef_accumulate``
-on the dense path). With upload privacy the upload is l1-clipped or taken
-as-is, perturbed with per-client noise, then encoded; the dense quantized
-Laplace configuration is one ``private_quantize_cols`` launch per group.
+on dropped coordinates. Every (leaf, client) pair is one row of a packed
+layout (``kernels/rows.py``): leaves grouped by dtype, leaf-major rows
+back to back with no padding, each row as wide as its leaf (its keep
+count on the top-k path). A whole tree encodes in one ``quantize_cols``
+launch per dtype group over the group's row table, and the dense path's
+leaves come out as views of that launch's output. With error feedback the
+wire carries C(z - h) and both sides keep h <- h + C(z - h)
+(``ef_accumulate`` on the dense path). With upload privacy the upload is
+l1-clipped or taken as-is, perturbed with per-client noise, then encoded;
+the dense quantized Laplace configuration is one ``private_quantize_cols``
+launch per group.
+
+JAX pads each group's rows to its widest leaf (an (R, n_max) array, or
+(R, k_max) on the top-k path); the packed layout holds the same rows'
+live coordinates only, so xlstm-125m's 129 leaves x 4 clients take 2.97 GB
+an f32 plane, not the 79.7 GB of rows padded to its 38.6M-wide embedding.
 
 Randomness is data. Where JAX passes a PRNG key, these functions take what
-the key would have drawn: ``dither``, one uint32 plane (carried in int32)
-per dtype group of the plan in plan order, shaped as ``dither_shapes`` says
-(None for a group that draws nothing), and ``noise``, the unit-noise tree
-of ``draw_unit_noise``. A group that needs a plane and gets None raises.
-``codec_dither`` and ``draw_unit_noise`` draw them from keys of the
-JAX-compatible stream (``repro_torch.random``) as the JAX functions do, so
-the dither is JAX's bit for bit and the noise within one ulp (log1p).
+the key would have drawn: ``dither``, one packed uint32 plane (carried in
+int32) per dtype group of the plan in plan order, laid out as the row
+table that ``dither_shapes`` gives (None for a group that draws nothing),
+and ``noise``, the unit-noise tree of ``draw_unit_noise``. A group that
+needs a plane and gets None raises. ``codec_dither`` and
+``draw_unit_noise`` draw them from keys of the JAX-compatible stream
+(``repro_torch.random``) as the JAX functions do. A value of JAX's padded
+plane depends only on its key and flat index (partitionable threefry), so
+the packed dither, each row hashed from its padded row's first counter, is
+JAX's bit for bit at the live entries; the noise is JAX's within one ulp
+(log1p).
 
 Ties in the top-k select go to the lowest index, as ``lax.top_k`` breaks
-them (a stable descending sort). Where jitted XLA contracts a multiply-add
+them (a stable descending sort per leaf, truncated to the leaf's keep
+count: the set and order ``lax.top_k`` picks from a padded row, whose
+padding has magnitude -1). Where jitted XLA contracts a multiply-add
 in the clip-and-noise step, the port rounds once in the same place
 (``_clip_noise_tree``).
 """
@@ -53,6 +67,7 @@ from repro_torch import random
 from repro_torch.core.treeutil import tree_leaves, tree_unflatten
 from repro_torch.kernels.quant import ops as quant_ops
 from repro_torch.kernels.quant.ref import laplace_from_u32, u32_to_unit
+from repro_torch.kernels.rows import PackedRows, leaf_views
 from repro_torch.telemetry.events import NULL_RECORDER
 
 # ---------------------------------------------------------------------------
@@ -306,11 +321,14 @@ class ByteLedger:
 
 @dataclasses.dataclass(frozen=True)
 class _GroupPlan:
-    """One dtype group of the padded 2-D layout.
+    """One dtype group of the packed layout.
 
     ``index``/``shape``/``n``/``k`` are per leaf (flattened-tree position,
-    stacked shape, flat coordinate count, keep count); rows are leaf-major:
-    rows [l*m, (l+1)*m) belong to leaf l.
+    stacked shape, flat coordinate count, keep count). ``rows(m)`` is the
+    row table of the values the group's kernel takes: leaf-major, rows
+    [l*m, (l+1)*m) belong to leaf l, each n_l wide on the dense path and
+    k_l on the top-k path, with no padding; a row's dither counters start
+    at r * n_max (dense) or r * k_max (top-k), JAX's padded plane's.
     """
 
     index: tuple[int, ...]
@@ -320,6 +338,9 @@ class _GroupPlan:
     n_max: int
     k_max: int
     dense: bool       # every leaf keeps all coordinates (k == n)
+
+    def rows(self, m: int) -> PackedRows:
+        return PackedRows(self.n if self.dense else self.k, m)
 
 
 _PLAN_CACHE: dict = {}
@@ -346,52 +367,58 @@ def _codec_plan(leaves, codec: CodecConfig) -> tuple[_GroupPlan, ...]:
     return plan
 
 
-def _stack_rows(leaves, gp: _GroupPlan) -> torch.Tensor:
-    """Group leaves -> (len(gp.index) * m, n_max) leaf-major row stack."""
-    m = leaves[0].shape[0]
-    rows = []
-    for x, n in zip(leaves, gp.n):
-        flat = x.reshape(m, -1)
-        if n < gp.n_max:
-            flat = torch.nn.functional.pad(flat, (0, gp.n_max - n))
-        rows.append(flat)
-    return torch.cat(rows, dim=0)
+def _pack(blocks) -> torch.Tensor:
+    """Leaf blocks -> one flat buffer, leaf-major, no padding."""
+    return torch.cat([x.reshape(-1) for x in blocks])
 
 
-def _unstack_rows(rows: torch.Tensor, gp: _GroupPlan, m: int) -> list:
-    return [rows[i * m:(i + 1) * m, :n].reshape(shape)
-            for i, (n, shape) in enumerate(zip(gp.n, gp.shape))]
+def _unpack(flat: torch.Tensor, gp: _GroupPlan, m: int) -> list:
+    """The dense group's leaves as views of a packed buffer."""
+    return [v.view(shape)
+            for v, shape in zip(leaf_views(flat, gp.rows(m)), gp.shape)]
 
 
-@functools.lru_cache(maxsize=64)
-def _group_cols(gp: _GroupPlan, m: int, device: torch.device):
-    """Per-row live-coordinate and keep counts, (R,) int32, built once per
-    (plan group, m, device); callers only read them."""
-    ncols = torch.from_numpy(np.repeat(np.asarray(gp.n, np.int32), m))
-    kcols = torch.from_numpy(np.repeat(np.asarray(gp.k, np.int32), m))
-    return ncols.to(device), kcols.to(device)
+@functools.cache
+def _row_counts(rows: PackedRows, device: torch.device) -> torch.Tensor:
+    """(R,) int32 live count of each row, its width (every packed column is
+    a live one), built once per (row table, device) and kept, as the row
+    tables are (a captured graph reads it); callers only read it."""
+    return torch.from_numpy(rows.row_widths().astype(np.int32)).to(device)
 
 
-def _topk_rows(rows: torch.Tensor, live: torch.Tensor,
-               gp: _GroupPlan) -> torch.Tensor:
-    """Indices of the top-k_max magnitudes per row over the live columns,
-    descending, ties to the lowest index (as ``lax.top_k``): padding gets
-    magnitude -1, so it is never selected while k <= n."""
-    mag = torch.where(live, torch.abs(rows.to(torch.float32)),
-                      torch.full((), -1.0, device=rows.device))
-    return torch.sort(mag, dim=1, descending=True,
-                      stable=True).indices[:, :gp.k_max]
+def _row_amax(blocks) -> torch.Tensor:
+    """(R,) f32 per-row max |value| over leaf blocks (m, w), leaf-major. Max
+    is exact, so it is the padded row's: padding adds zeros to a max of
+    magnitudes."""
+    return torch.cat([torch.amax(torch.abs(x.to(torch.float32)), dim=1)
+                      for x in blocks])
 
 
-def _live_cols(width: int, counts: torch.Tensor) -> torch.Tensor:
-    col = torch.arange(width, dtype=torch.int32, device=counts.device)
-    return col[None, :] < counts[:, None]
+def _topk_leaf(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(m, k) indices of the top-k magnitudes per row of one leaf block,
+    descending, ties to the lowest index (as ``lax.top_k``)."""
+    return torch.sort(torch.abs(x.to(torch.float32)), dim=1, descending=True,
+                      stable=True).indices[:, :k]
 
 
-def _group_dither_shape(gp: _GroupPlan, m: int, codec: CodecConfig):
+def _quantize_kept(vals: list, rows: PackedRows, codec: CodecConfig, u32):
+    """The top-k path's kept values (m, k_l) per leaf, quantized in one
+    ``quantize_cols`` launch over their packed rows, or raw where bits is
+    0. Every packed column is a kept one, so the fallback is never read."""
+    if not codec.bits:
+        return vals
+    v_p = _pack(vals)
+    enc = quant_ops.quantize_cols(v_p, v_p, _row_amax(vals),
+                                  _row_counts(rows, v_p.device), codec.bits,
+                                  u32, rows=rows)
+    return leaf_views(enc, rows)
+
+
+def _group_rows(gp: _GroupPlan, m: int, codec: CodecConfig):
+    """The row table of the group's dither, or None where it draws none."""
     if not codec.bits or not codec.stochastic:
         return None
-    return (len(gp.index) * m, gp.n_max if gp.dense else gp.k_max)
+    return gp.rows(m)
 
 
 def uses_fused_private(codec: CodecConfig | None, privacy) -> bool:
@@ -403,30 +430,31 @@ def uses_fused_private(codec: CodecConfig | None, privacy) -> bool:
 
 def dither_shapes(tree_z, codec: CodecConfig | None, *,
                   fused_private: bool = False) -> list:
-    """Per dtype group of the plan, in plan order: the (rows, cols) shape of
-    the uint32 dither plane the round-trip of ``tree_z`` consumes, or None
-    where that group draws nothing. ``fused_private`` asks for the planes
-    of the fused private path (see ``uses_fused_private``)."""
+    """Per dtype group of the plan, in plan order: the row table
+    (``PackedRows``) of the packed uint32 dither plane the round-trip of
+    ``tree_z`` consumes, or None where that group draws nothing.
+    ``fused_private`` asks for the planes of the fused private path (see
+    ``uses_fused_private``)."""
     if codec is None:
         return []
     leaves = tree_leaves(tree_z)
     m = leaves[0].shape[0]
     plan = _codec_plan(leaves, codec)
     if fused_private:
-        return [(len(gp.index) * m, gp.n_max) if codec.stochastic else None
-                for gp in plan]
-    return [_group_dither_shape(gp, m, codec) for gp in plan]
+        return [gp.rows(m) if codec.stochastic else None for gp in plan]
+    return [_group_rows(gp, m, codec) for gp in plan]
 
 
-def _take_dither(dither, g: int, shape, device) -> torch.Tensor | None:
-    if shape is None:
+def _take_dither(dither, g: int, rows, device) -> torch.Tensor | None:
+    if rows is None:
         return None
     u = None if dither is None or g >= len(dither) else dither[g]
     if u is None:
-        raise ValueError(f"dtype group {g} needs a {shape} dither plane")
-    if tuple(u.shape) != tuple(shape):
+        raise ValueError(f"dtype group {g} needs a dither plane of "
+                         f"{rows.numel} values")
+    if u.dim() != 1 or u.numel() != rows.numel:
         raise ValueError(f"dtype group {g}: dither plane {tuple(u.shape)}, "
-                         f"expected {shape}")
+                         f"expected ({rows.numel},) packed")
     return u.to(device)
 
 
@@ -440,34 +468,22 @@ def _codec_group(z_leaves, fb_leaves, u32, codec: CodecConfig,
     m = z_leaves[0].shape[0]
     if gp.dense and not codec.bits:
         return z_leaves  # every coordinate kept and sent raw: identity
-    z_rows = _stack_rows(z_leaves, gp)
-    ncols, kcols = _group_cols(gp, m, z_rows.device)
+    rows = gp.rows(m)
+    z = [x.reshape(m, -1) for x in z_leaves]
 
     if gp.dense:
-        # no coordinate dropping: quantize the live columns in place (the
-        # fallback passes padding through; it is sliced away)
-        scale = torch.amax(torch.abs(z_rows.to(torch.float32)), dim=1)
-        out_rows = quant_ops.quantize_cols(z_rows, z_rows, scale, ncols,
-                                           codec.bits, u32)
-        return _unstack_rows(out_rows, gp, m)
+        # no coordinate dropping: quantize every packed column in place
+        z_p = _pack(z)
+        out = quant_ops.quantize_cols(z_p, z_p, _row_amax(z),
+                                      _row_counts(rows, z_p.device),
+                                      codec.bits, u32, rows=rows)
+        return _unpack(out, gp, m)
 
-    fb_rows = _stack_rows(fb_leaves, gp)
-    idx = _topk_rows(z_rows, _live_cols(gp.n_max, ncols), gp)
-    vals = torch.gather(z_rows, 1, idx)                   # (R, k_max)
-    fbv = torch.gather(fb_rows, 1, idx)
-    live = _live_cols(gp.k_max, kcols)
-    if codec.bits:
-        scale = torch.amax(torch.where(
-            live, torch.abs(vals.to(torch.float32)),
-            torch.zeros((), device=vals.device)), dim=1)
-        enc = quant_ops.quantize_cols(vals, fbv, scale, kcols, codec.bits,
-                                      u32)
-    else:
-        enc = torch.where(live, vals, fbv)
-    # columns past a row's keep count scatter its fallback value back onto
-    # its own index -- a no-op -- so one scatter serves every row width
-    out_rows = fb_rows.scatter(1, idx, enc)
-    return _unstack_rows(out_rows, gp, m)
+    idx = [_topk_leaf(x, k) for x, k in zip(z, gp.k)]
+    vals = _quantize_kept([torch.gather(x, 1, i) for x, i in zip(z, idx)],
+                          rows, codec, u32)
+    return [fb.reshape(m, -1).scatter(1, i, v).view(shape)
+            for fb, i, v, shape in zip(fb_leaves, idx, vals, gp.shape)]
 
 
 def codec_roundtrip(tree_z, tree_fallback, dither, codec: CodecConfig | None):
@@ -475,7 +491,8 @@ def codec_roundtrip(tree_z, tree_fallback, dither, codec: CodecConfig | None):
 
     ``tree_fallback`` supplies dropped coordinates (the server's stale
     copy). Identity when codec is None or is the dense raw codec.
-    ``dither``: one plane per plan group, as ``dither_shapes`` gives.
+    ``dither``: one packed plane per plan group, as ``dither_shapes``
+    gives.
     """
     if codec is None or (codec.topk_frac >= 1.0 and not codec.bits):
         return tree_z
@@ -484,7 +501,7 @@ def codec_roundtrip(tree_z, tree_fallback, dither, codec: CodecConfig | None):
     m = leaves[0].shape[0]
     out = list(leaves)
     for g, gp in enumerate(_codec_plan(leaves, codec)):
-        u32 = _take_dither(dither, g, _group_dither_shape(gp, m, codec),
+        u32 = _take_dither(dither, g, _group_rows(gp, m, codec),
                            leaves[0].device)
         dec = _codec_group([leaves[i] for i in gp.index],
                            [fb_leaves[i] for i in gp.index], u32, codec, gp)
@@ -503,36 +520,27 @@ def _ef_group(z_leaves, h_leaves, u32, codec: CodecConfig, gp: _GroupPlan):
     if gp.dense and not codec.bits:
         # the wire carries the full residual exactly: bit-exact identity
         return z_leaves
-    z_rows = _stack_rows(z_leaves, gp)
-    h_rows = _stack_rows(h_leaves, gp)
-    ncols, kcols = _group_cols(gp, m, z_rows.device)
-    r_rows = z_rows - h_rows
+    rows = gp.rows(m)
+    z = [x.reshape(m, -1) for x in z_leaves]
+    h = [x.reshape(m, -1) for x in h_leaves]
 
     if gp.dense:
-        # padding columns have z = h = 0, so they quantize to exactly 0.
-        # The scale is taken of the f32 residual: jitted XLA drops the
+        # the scale is taken of the f32 residual: jitted XLA drops the
         # round trip through a bf16 residual (excess precision)
-        r32 = z_rows.to(torch.float32) - h_rows.to(torch.float32)
-        scale = torch.amax(torch.abs(r32), dim=1)
-        out_rows = quant_ops.ef_accumulate(z_rows, h_rows, scale, codec.bits,
-                                           u32)
-        return _unstack_rows(out_rows, gp, m)
+        scale = torch.cat([
+            torch.amax(torch.abs(a.to(torch.float32) - b.to(torch.float32)),
+                       dim=1) for a, b in zip(z, h)])
+        out = quant_ops.ef_accumulate(_pack(z), _pack(h), scale, codec.bits,
+                                      u32, rows=rows)
+        return _unpack(out, gp, m)
 
-    idx = _topk_rows(r_rows, _live_cols(gp.n_max, ncols), gp)
-    vals = torch.gather(r_rows, 1, idx)                   # residual values
-    live = _live_cols(gp.k_max, kcols)
-    zeros = torch.zeros_like(vals)
-    if codec.bits:
-        scale = torch.amax(torch.where(
-            live, torch.abs(vals.to(torch.float32)),
-            torch.zeros((), device=vals.device)), dim=1)
-        enc = quant_ops.quantize_cols(vals, zeros, scale, kcols, codec.bits,
-                                      u32)
-    else:
-        enc = torch.where(live, vals, zeros)
-    # accumulate the residual (zero past each row's keep count)
-    out_rows = h_rows.scatter_add(1, idx, enc)
-    return _unstack_rows(out_rows, gp, m)
+    r = [a - b for a, b in zip(z, h)]
+    idx = [_topk_leaf(x, k) for x, k in zip(r, gp.k)]
+    vals = _quantize_kept([torch.gather(x, 1, i) for x, i in zip(r, idx)],
+                          rows, codec, u32)
+    # accumulate the kept residuals
+    return [b.scatter_add(1, i, v).view(shape)
+            for b, i, v, shape in zip(h, idx, vals, gp.shape)]
 
 
 def ef_roundtrip(tree_z, tree_h, dither, codec: CodecConfig | None):
@@ -549,7 +557,7 @@ def ef_roundtrip(tree_z, tree_h, dither, codec: CodecConfig | None):
     m = leaves[0].shape[0]
     out = list(leaves)
     for g, gp in enumerate(_codec_plan(leaves, codec)):
-        u32 = _take_dither(dither, g, _group_dither_shape(gp, m, codec),
+        u32 = _take_dither(dither, g, _group_rows(gp, m, codec),
                            leaves[0].device)
         dec = _ef_group([leaves[i] for i in gp.index],
                         [h_leaves[i] for i in gp.index], u32, codec, gp)
@@ -573,13 +581,15 @@ def _gaussian_from_u32(u32: torch.Tensor) -> torch.Tensor:
 def codec_dither(key: torch.Tensor, shapes: list) -> list:
     """The codec's dither planes for one round: ``key`` split once per plan
     group, as ``codec_roundtrip`` splits it in JAX, and each group's
-    ``jax.random.bits`` drawn from its own key where ``shapes``
-    (``dither_shapes``) asks for a plane, the 32 bits carried in int32 as
-    the quantizer kernels take them; None elsewhere."""
+    packed plane drawn from its own key where ``shapes``
+    (``dither_shapes``) gives a row table: ``jax.random.bits`` of the
+    group's padded plane at the live entries (``random.bits_rows``, one
+    launch), the 32 bits carried in int32 as the quantizer kernels take
+    them; None elsewhere."""
     if all(s is None for s in shapes):
         return [None] * len(shapes)
     keys = random.split(key, len(shapes))
-    return [None if s is None else random.bits(keys[g], s).to(torch.int32)
+    return [None if s is None else random.bits_rows(keys[g], s)
             for g, s in enumerate(shapes)]
 
 
@@ -679,23 +689,22 @@ def _fused_private(tree_z, dither, noise, codec: CodecConfig, clipf, b):
     m = leaves[0].shape[0]
     out = list(leaves)
     for g, gp in enumerate(_codec_plan(leaves, codec)):
-        z_rows = _stack_rows([leaves[i] for i in gp.index], gp)
-        # the unit noise stacks into the same leaf-major layout (padding
-        # columns get zero noise; they exit through the fallback select)
-        lap = _stack_rows([n_leaves[i] for i in gp.index], gp)
-        ncols, _ = _group_cols(gp, m, z_rows.device)
-        R = len(gp.index) * m
+        rows = gp.rows(m)
+        z = [leaves[i].reshape(m, -1) for i in gp.index]
+        # the unit noise packs into the same leaf-major layout
+        lap = _pack([n_leaves[i] for i in gp.index])
         cf_r = clipf.repeat(len(gp.index))
         b_r = b.repeat(len(gp.index))
         # the quantizer range covers the CLIPPED pre-noise magnitudes;
         # noisy outliers saturate at the grid edge (bounded-output DP)
-        scale = torch.amax(torch.abs(z_rows.to(torch.float32)), dim=1) * cf_r
-        shape = (R, gp.n_max)
-        u32q = (_take_dither(dither, g, shape, z_rows.device)
-                if codec.stochastic else None)
-        out_rows = quant_ops.private_quantize_cols(
-            z_rows, z_rows, cf_r, b_r, scale, ncols, codec.bits, u32q, lap)
-        for i, leaf in zip(gp.index, _unstack_rows(out_rows, gp, m)):
+        scale = _row_amax(z) * cf_r
+        u32q = _take_dither(dither, g, rows if codec.stochastic else None,
+                            z[0].device)
+        z_p = _pack(z)
+        dec = quant_ops.private_quantize_cols(
+            z_p, z_p, cf_r, b_r, scale, _row_counts(rows, z_p.device),
+            codec.bits, u32q, lap, rows=rows)
+        for i, leaf in zip(gp.index, _unpack(dec, gp, m)):
             out[i] = leaf
     return tree_unflatten(tree_z, out)
 

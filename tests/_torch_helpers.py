@@ -56,6 +56,15 @@ def ulp_diff(a, b) -> float:
                         initial=0.0))
 
 
+def jax_packed_bits(key, rows) -> torch.Tensor:
+    """``jax.random.bits(key, (R, stride))`` of a packed row layout
+    (``repro_torch.kernels.rows.PackedRows``) at its live entries: the
+    int32-carried plane the port's packed round-trips take."""
+    plane = np.array(jax.random.bits(key, (rows.rows, rows.stride),
+                                     jnp.uint32)).view(np.int32).reshape(-1)
+    return torch.from_numpy(plane[rows.counters().numpy()])
+
+
 def jax_round_draws(cfg, mask_fn=jf.default_round_mask):
     """A jitted ``state -> (mask, unit)`` giving what a JAX round draws from
     ``state.key``: its participation mask (``mask_fn``, FedEPM's

@@ -251,9 +251,14 @@ def test_merge_contribution_bitwise(codec, gamma, privacy):
                       codec=jc, ef=ef, privacy=jp)
     draws = tserver.KeyedDraws(9, device="cpu")
     like = torch.zeros(1, N)
-    dither = draws.merge_dither(serial, tserver.dither_shapes(
+    tables = tserver.dither_shapes(
         like, tc, fused_private=tp is not None and not ef
-        and tserver.uses_fused_private(tc, tp))) if tc else []
+        and tserver.uses_fused_private(tc, tp)) if tc else []
+    dither = draws.merge_dither(serial, tables) if tc else []
+    # one packed plane per dtype group: the row's live (or kept)
+    # coordinates, n = 14 dense and k on the top-k path, no padding
+    assert [None if u is None else tuple(u.shape) for u in dither] == \
+        [None if t is None else (t.m * sum(t.widths),) for t in tables]
     got = tserver.merge_contribution(
         to_torch(Z), to_torch(W), to_torch(H) if ef else None,
         to_torch(zb), to_torch(wb), torch.tensor([row]),

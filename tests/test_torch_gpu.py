@@ -21,8 +21,12 @@ from repro_torch.kernels.prox.prox import prox_update_cuda, prox_update_ref
 from repro_torch.kernels.quant import ops as quant_ops
 from repro_torch.kernels.quant import quant as quant_cuda
 from repro_torch.kernels.quant import ref as quant_ref
+from repro_torch.kernels.rows import PackedRows, leaf_views
 from repro_torch.kernels.threefry import ops as threefry_ops
-from repro_torch.kernels.threefry.threefry import threefry_cuda, threefry_ref
+from repro_torch.kernels.threefry.threefry import (threefry_cuda,
+                                                   threefry_ref,
+                                                   threefry_rows_cuda,
+                                                   threefry_rows_ref)
 from repro_torch.launch.paper import get_task
 
 pytestmark = pytest.mark.gpu
@@ -259,6 +263,101 @@ def test_quant_counters_count_launches(gen):
              quant_cuda.private_quantize_cols_cuda.launches,
              quant_cuda.quantize_cuda.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)
+
+
+# ragged packed layouts (leaf widths, clients): rows of one value, rows
+# past one block (ROW_SPAN = 4096), one client
+PACKED_LAYOUTS = {"ragged": ((7, 1, 300, 9000, 3), 3),
+                  "wide_row": ((8193, 1, 5), 1), "two_leaves": ((14, 3), 5)}
+MANY_ROWS = 70_000  # past gridDim.y's 65535
+
+
+def _packed_args(kind, rows, dt, bits, stochastic, gen):
+    N, R = rows.numel, rows.rows
+    X = (torch.randn(N, generator=gen, device="cuda") * 2).to(dt)
+    F = torch.randn(N, generator=gen, device="cuda").to(dt)
+    leaf_views(X, rows)[0][0] = 0
+    widths = torch.from_numpy(rows.row_widths()).to("cuda")
+    kc = (torch.rand(R, generator=gen, device="cuda") * (widths + 1)).to(
+        torch.int32)
+    u = (torch.randint(-2 ** 31, 2 ** 31, (N,), generator=gen,
+                       device="cuda", dtype=torch.int32)
+         if stochastic else None)
+    s = torch.cat([v.float().abs().amax(1) for v in leaf_views(X, rows)])
+    if kind == "cols":
+        return (X, F, s, kc, bits, u)
+    if kind == "ef":
+        return (X, F, torch.cat([
+            (a.float() - b.float()).abs().amax(1)
+            for a, b in zip(leaf_views(X, rows), leaf_views(F, rows))]),
+            bits, u)
+    cf = 0.2 + torch.rand(R, generator=gen, device="cuda")
+    b = torch.rand(R, generator=gen, device="cuda")
+    lap = torch.randn(N, generator=gen, device="cuda")
+    return (X, F, cf, b, s * cf, kc, bits, u, lap)
+
+
+@pytest.mark.parametrize("kind", ["cols", "ef", "private"])
+@pytest.mark.parametrize("layout", sorted(PACKED_LAYOUTS))
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quant_packed_kernels_bitwise(gen, kind, layout, bits, stochastic,
+                                      dtype):
+    """The column-bounded entries over a packed row layout against their
+    plain versions (the (m, n) version on each leaf's block of rows)."""
+    rows = PackedRows(*PACKED_LAYOUTS[layout])
+    args = _packed_args(kind, rows, DTYPES[dtype], bits, stochastic, gen)
+    op = QUANT_OPS[kind]
+    got = op(*args, rows=rows)
+    assert got.shape == (rows.numel,) and got.dtype == DTYPES[dtype]
+    torch.testing.assert_close(got, op(*args, rows=rows, impl="ref"),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", sorted(QUANT_OPS))
+def test_quant_kernels_past_65535_rows(gen, kind):
+    args = _quant_args(kind, MANY_ROWS, 14, torch.float32, 8, True, gen)
+    op = QUANT_OPS[kind]
+    torch.testing.assert_close(op(*args), op(*args, impl="ref"), rtol=0,
+                               atol=0, equal_nan=True)
+
+
+def test_prox_kernel_past_65535_rows(gen):
+    wi = torch.randn(MANY_ROWS, 14, generator=gen, device="cuda") * 2
+    wt = torch.randn(14, generator=gen, device="cuda") * 2
+    g = torch.randn(MANY_ROWS, 14, generator=gen, device="cuda")
+    mu = 0.05 + torch.rand(MANY_ROWS, generator=gen, device="cuda")
+    got = prox_ops.prox_update(wi, wt, g, mu, 0.05, 0.02)
+    torch.testing.assert_close(got, prox_update_ref(wi, wt, g, mu, 0.05, 0.02),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows", [
+    PackedRows((45222,), 3), PackedRows(*PACKED_LAYOUTS["ragged"]),
+    PackedRows(*PACKED_LAYOUTS["wide_row"]), PackedRows((14,), MANY_ROWS),
+    # counters past 2^32: 65,537 one-value rows after a 65,536-wide one
+    PackedRows((65536,) + (1,) * 65540, 1)], ids=str)
+def test_threefry_rows_kernel_bitwise(gen, rows):
+    key = torch.randint(0, 2 ** 32, (2,), generator=gen, device="cuda",
+                        dtype=torch.int64)
+    before = threefry_rows_cuda.launches
+    got = threefry_ops.threefry_rows(key, rows)
+    assert threefry_rows_cuda.launches - before == 1
+    assert got.dtype == torch.int32 and got.shape == (rows.numel,)
+    assert torch.equal(got, threefry_rows_ref(key, rows))
+
+
+def test_codec_dither_on_card_is_the_cpus(gen):
+    """The packed dither drawn on the card is the CPU's, bit for bit."""
+    from repro_torch.sim import transport as tr
+    tree = [torch.zeros(4, 5, 3), torch.zeros(4, 9000),
+            torch.zeros(4, 2, dtype=torch.bfloat16)]
+    codec = tr.CodecConfig(topk_frac=0.5, bits=8)
+    tables = tr.dither_shapes(tree, codec)
+    got = tr.codec_dither(random.PRNGKey(3, device="cuda"), tables)
+    want = tr.codec_dither(random.PRNGKey(3), tables)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("extra", [

@@ -52,7 +52,9 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "run_dist_reduced", "dist_digest", "check_dist_digests",
              "dist_reduced_run", "run_remat_zamba2",
              "check_zamba2_round_vs_cpu", "run_launch_path",
-             "run_flash_checks", "run_remat_gradients"):
+             "run_flash_checks", "run_remat_gradients",
+             "check_threefry_rows_kernel", "check_xlstm_upload_vs_cpu",
+             "at_child", "lm_leaf_widths"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
@@ -89,7 +91,7 @@ for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.sharding.mesh",
             "repro_torch.launch.mesh", "repro_torch.launch.steps",
             "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
-            "repro_torch.launch.report"):
+            "repro_torch.launch.report", "repro_torch.kernels.rows"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"

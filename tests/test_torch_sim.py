@@ -33,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import jax_round_draws, max_abs_diff, to_np, to_torch
+from _torch_helpers import (jax_packed_bits, jax_round_draws, max_abs_diff,
+                           to_np, to_torch)
 from repro.core import baselines as jbase
 from repro.core import fedepm as jf
 from repro.core.tasks import make_logistic_loss
@@ -80,11 +81,12 @@ class JaxReplayDraws:
         return to_torch(self._round(self.jsim.state)[1])
 
     def dither(self, sim, shapes):
+        """JAX's padded planes at the live entries of the port's packed
+        row tables."""
         key = jax.random.fold_in(self.jsim._codec_key, self.jsim.round_idx)
         keys = jax.random.split(key, len(shapes))
-        return [None if s is None else torch.from_numpy(
-            np.array(jax.random.bits(k, s, jnp.uint32)).view(np.int32))
-            for k, s in zip(keys, shapes)]
+        return [None if s is None else jax_packed_bits(k, s)
+                for k, s in zip(keys, shapes)]
 
     def privacy_noise(self, sim, tree_like):
         js = self.jsim

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import assert_bitwise, to_np, to_torch
+from _torch_helpers import assert_bitwise, jax_packed_bits, to_np, to_torch
 from repro.privacy import PrivacyConfig as JPrivacy
 from repro.sim import transport as jtr
 from repro_torch import random as trandom
@@ -72,12 +72,12 @@ EF_DENSE_ULPS = 1
 
 def _dither(key, tree_t, codec, fused=False):
     """What JAX's round-trip draws from ``key``: split per plan group, then
-    ``jax.random.bits`` of each group's plane, as the port's list."""
+    ``jax.random.bits`` of each group's padded plane, at the live entries of
+    the port's packed layout, as the port's list."""
     shapes = ttr.dither_shapes(tree_t, codec, fused_private=fused)
     keys = jax.random.split(key, len(shapes))
-    return [None if s is None else torch.from_numpy(
-        np.array(jax.random.bits(k, s, jnp.uint32)).view(np.int32))
-        for k, s in zip(keys, shapes)]
+    return [None if s is None else jax_packed_bits(k, s)
+            for k, s in zip(keys, shapes)]
 
 
 CODECS = {
@@ -153,23 +153,25 @@ def test_codec_plan_two_dtypes():
 # --- top-k ties ---
 
 def test_topk_ties_lowest_index_first():
-    """lax.top_k breaks ties by the lowest index; the port's stable sort
-    picks the same columns, including among -x/+x and padding."""
+    """lax.top_k breaks ties by the lowest index; the port's stable sort of
+    each row's live columns, truncated to its keep count, picks the same
+    columns in the same order as JAX's top-k of the padded row (padding at
+    magnitude -1), including among -x/+x and rows shorter than the
+    widest."""
     rows = np.array([[1, -1, 1, 0.5, -1, 0, 0, 0],
                      [0, 0, 0, 0, 0, 0, 0, 0],
                      [2, 2, -2, 2, 1, 1, -1, 1],
                      [3, -3, 3, -3, 3, 0, 0, 0]], np.float32)
     ncols = np.array([5, 8, 8, 5], np.int32)
-    gp = ttr._GroupPlan(index=(0,), shape=((4, 8),), n=(8,), k=(5,),
-                        n_max=8, k_max=5, dense=False)
+    kcols = np.array([3, 5, 5, 3], np.int32)
     jgp = jtr._GroupPlan(index=(0,), shape=((4, 8),), n=(8,), k=(5,),
                          n_max=8, k_max=5, dense=False)
     col = np.arange(8)[None, :]
-    want = jtr._topk_rows(jnp.asarray(rows),
-                          jnp.asarray(col < ncols[:, None]), jgp)
-    got = ttr._topk_rows(to_torch(rows), torch.from_numpy(
-        col < ncols[:, None]), gp)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = np.asarray(jtr._topk_rows(jnp.asarray(rows),
+                                     jnp.asarray(col < ncols[:, None]), jgp))
+    for r, (n, k) in enumerate(zip(ncols, kcols)):
+        got = ttr._topk_leaf(to_torch(rows[r:r + 1, :n]), int(k))
+        np.testing.assert_array_equal(got.numpy()[0], want[r, :k])
 
 
 # --- round-trips, bitwise against the jitted JAX functions ---
