@@ -158,7 +158,26 @@ Phases, in order; any failure exits non-zero before the last line:
    bytes, and its time beside ``F.scaled_dot_product_attention``'s in f32
    and bf16 (a yardstick the port never calls); and one smollm client's
    gradient at 1 x 4096 tokens with remat on and off (peaks, walls, the
-   same bits).
+   same bits). Then the ``mesh`` phase (ROADMAP queue 1 item 14.5, across
+   cards): W NCCL ranks, one a card (4, or the most of 2 and 1 the machine
+   holds; a one-card machine says so and runs W = 1, every collective
+   over a group of one), through ``launch/mesh.py::spawn``; smollm-135m
+   at full width through ``build_fedepm`` on the live mesh (m 4, 4 x 256
+   tokens a client, DIST_FULL's other settings, 2 rounds) as spatial
+   gather, spatial a2a and temporal microbatch 2, each rank's ENS and
+   prox launches asserted, its peak, walls and collective bytes by op
+   printed; on rank 0 the same rounds on its card with no mesh: ENS over
+   the mesh's uploads the mesh's aggregate bit for bit, the first
+   round's states within 2^-7 of the scale (every round bit for bit at W
+   = 1), a2a = gather bit for bit; the second round through one card
+   rerun from the mesh's round-1 state and from its own under noise of
+   the mesh's round-1 size (``_mesh_round2_cause``); gather and temporal
+   again in f32 (``_mesh_f32``); the reduced archs of ``JAX_DIST`` on the
+   mesh within 4e-6 (the temporal ones on min(W, 2) ranks, which their 2
+   sequences a client fill); then, where W > 1, ``train --devices W
+   --mesh-shape W,1`` at 8 x
+   4096 tokens, 2 rounds, its lines from rank 0 with their collective
+   bytes.
 6. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
    the same key (masks bitwise); the reduced LM spec (f32) on the card
@@ -3346,15 +3365,18 @@ def check_dist_digests(got: list, want: list, what: str,
     return worst
 
 
-def dist_reduced_run(arch: str, mode: str, device) -> list:
+def dist_reduced_run(arch: str, mode: str, device, mesh=None) -> list:
     """``build_fedepm`` on ``arch`` reduced at DIST_SETTINGS, DIST_ROUNDS[arch]
-    rounds of ``mode``: each round's ``dist_digest``."""
+    rounds of ``mode``, on one device or on the ranks of a live ``mesh``
+    (the state gathered for the digest): each round's ``dist_digest``."""
     from repro_torch import configs, random
-    from repro_torch.core.distributed import DistConfig, build_fedepm
+    from repro_torch.core.distributed import (DistConfig, batch_specs,
+                                              build_fedepm)
     from repro_torch.core.fedepm import FedEPMConfig
     from repro_torch.core.tasks import LMLoss
     from repro_torch.data.lm import federated_token_batches
     from repro_torch.models.registry import get_model
+    from repro_torch.sharding.specs import gather_tree, shard_tree
     s = DIST_SETTINGS
     cfg = configs.get_reduced(arch)
     raw = next(federated_token_batches(cfg.vocab, s["m"], s["batch"],
@@ -3362,12 +3384,17 @@ def dist_reduced_run(arch: str, mode: str, device) -> list:
     batches = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
     fcfg = FedEPMConfig.paper_defaults(m=s["m"], rho=s["rho"], k0=s["k0"],
                                        eps_dp=s["eps"])
-    init_fn, step_fn, _ = build_fedepm(get_model(cfg), LMLoss(cfg), fcfg,
-                                       None, DistConfig(**DIST_MODES[mode]))
+    dist = DistConfig(**DIST_MODES[mode])
+    init_fn, step_fn, sspecs_fn = build_fedepm(get_model(cfg), LMLoss(cfg),
+                                               fcfg, mesh, dist)
+    sspecs = sspecs_fn(init_fn(random.PRNGKey(0), device="meta"))
+    batches = shard_tree(batches, batch_specs(batches, dist), mesh)
     state, out = init_fn(random.PRNGKey(0), device=device), []
     for _ in range(DIST_ROUNDS[arch]):
         state, met = step_fn(state, batches)
-        out.append(dist_digest(state._asdict(), met.selected))
+        out.append(dist_digest({n: gather_tree(getattr(state, n),
+                                               getattr(sspecs, n, None), mesh)
+                                for n in ("w_tau", "W", "Z")}, met.selected))
     return out
 
 
@@ -3455,7 +3482,8 @@ def _dist_case(model, loss, fcfg, batches, dist, rounds, donate=False,
 
 def _dist_launches(rec, leaves: int, rounds: int, m: int, k0: int):
     """ENS once per leaf and round, prox k0 times per leaf, round and
-    client (temporal: one client a launch; spatial: all m in one)."""
+    client (temporal: one client a launch; spatial: all m in one, or a
+    mesh rank's m / D)."""
     per = m if rec["mode"] == "temporal" else 1
     want = {"ens": leaves * rounds, "prox_update": leaves * k0 * rounds * per,
             "quantize_cols": 0, "ef_accumulate": 0,
@@ -3972,6 +4000,415 @@ def run_launch_path() -> dict:
     out["flash"] = run_flash_checks()
     torch.cuda.empty_cache()
     out["remat"] = run_remat_gradients(LAUNCH_ARCH, (REMAT_LAUNCH_SEQ,))
+    return out
+
+
+# The mesh phase (ROADMAP queue 1 item 14.5, across cards): smollm-135m at
+# full width through ``build_fedepm`` on a live mesh of W NCCL ranks
+# (``launch/mesh.py::spawn``; 4, or the most of 2 and 1 that the cards
+# hold: W divides m = 4), DIST_FULL's settings but 4 x 256 tokens a
+# client (the temporal round cuts a client's batch over the ranks, which
+# DIST_FULL's 2 sequences do not fill on 4), MESH_ROUNDS rounds in each
+# of MESH_MODES, each held on rank 0 to the same rounds on that one card
+# with no mesh; then ``train --devices W``.
+MESH_MODES = {"spatial_gather": {"mode": "spatial", "ens": "gather"},
+              "spatial_a2a": {"mode": "spatial", "ens": "a2a"},
+              "temporal_mb2": {"mode": "temporal", "microbatch": 2}}
+MESH_FULL = dict(DIST_FULL, batch=4)
+MESH_F32_MODES = ("spatial_gather", "temporal_mb2")
+MESH_ROUNDS, MESH_MAX_RANKS, MESH_TIMEOUT_S = 2, 4, 900
+MESH_TRAIN = ["--arch", LAUNCH_ARCH, "--seq", "4096", "--global-batch", "8",
+              "--rounds", str(LAUNCH_ROUNDS), "--k0", str(LAUNCH_K0)]
+
+
+def _mesh_setup(device, compute=None):
+    """smollm-135m at full width (its bf16 compute, or ``compute``), the
+    round's config and MESH_FULL's batches on ``device``."""
+    from repro_torch import configs
+    from repro_torch.core.fedepm import FedEPMConfig
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.models.registry import get_model
+    s = MESH_FULL
+    cfg = configs.get_config(LAUNCH_ARCH)
+    if compute is not None:
+        cfg = dataclasses.replace(cfg, dtype=compute)
+    raw = next(federated_token_batches(cfg.vocab, s["m"], s["batch"],
+                                       s["seq"], steps=1, seed=s["seed"]))
+    batches = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    fcfg = FedEPMConfig.paper_defaults(
+        m=s["m"], rho=s["rho"], k0=s["k0"], eps_dp=s["eps"], mu0=s["mu0"],
+        sensitivity_clip=s["sensitivity_clip"])
+    return get_model(cfg), LMLoss(cfg), fcfg, batches
+
+
+def _mesh_rounds(mesh, model, loss, fcfg, batches, kw) -> tuple:
+    """MESH_ROUNDS rounds of ``build_fedepm`` on ``mesh`` (live, or None
+    for one card), the counters and the census set to 0 just before the
+    init: (the whole state after each round, on every rank of a mesh, its
+    masks, this rank's record, and with no mesh the state after round 1,
+    from which ``_mesh_round2_cause`` runs round 2 again). The peak is
+    above what the process held before the init, the whole copies kept
+    for the checks left out."""
+    from repro_torch import random
+    from repro_torch.core.distributed import (DistConfig, batch_specs,
+                                              build_fedepm)
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.specs import gather_tree, shard_tree
+    dev = batches["tokens"].device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    dist = DistConfig(**kw)
+    reset_counts()
+    comm.reset_census()
+    init_fn, step_fn, sspecs_fn = build_fedepm(model, loss, fcfg, mesh, dist)
+    sspecs = sspecs_fn(init_fn(random.PRNGKey(0), device="meta"))
+    b = shard_tree(batches, batch_specs(batches, dist), mesh)
+    state = init_fn(random.PRNGKey(0), device=dev)
+    sync = torch.cuda.synchronize if cuda else (lambda d: None)
+    sync(dev)
+    walls, masks, states, census, peaks = [], [], [], [], []
+    held, start = 0, None  # the copies kept for the checks, not the run's
+    for r in range(MESH_ROUNDS):
+        n = len(comm.CENSUS)
+        t0 = time.perf_counter()
+        state, met = step_fn(state, b)
+        sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            peaks.append((torch.cuda.max_memory_allocated(dev) - base
+                          - held) / 1e9)
+        census.append(comm.bytes_by_op(comm.CENSUS[n:]))
+        masks.append(met.selected.tolist())
+        states.append(tuple(gather_tree(getattr(state, t),
+                                        getattr(sspecs, t, None), mesh,
+                                        what="check") for t in
+                            ("w_tau", "W", "Z")))
+        held += sum(x.numel() * x.element_size()
+                    for x in tree_leaves(states[-1]))
+        if r == 0 and mesh is None:
+            start = state
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+    rec = {"wall_ms_per_round": walls,
+           "peak_mem_gb": max(peaks) if cuda else None,
+           "launches": read_counts(), "collective_bytes_by_op": census,
+           "mode": kw["mode"]}
+    return states, masks, rec, start
+
+
+def _mesh_hold(name, got, got_masks, ref, ref_masks, W: int,
+               fcfg) -> dict:
+    """Rank 0's checks of one mode: the masks exact; ENS over the mesh's
+    round-1 uploads Z on this one card gives the mesh's round-2 w_tau bit
+    for bit; the first round's states within DIST_BF16_RTOL of the
+    one-card run's (``_dist_diffs``' scales), every round bit for bit on a
+    mesh of one rank. Across ranks a client's bf16 gradient comes from a
+    stack of m / W, whose products cuBLAS rounds otherwise, and the
+    second round amplifies that difference (MESH_R1_DIFF), so round 2 is
+    printed here and held by ``_mesh_round2_cause``."""
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.kernels.ens import ops as ens_ops
+    assert got_masks == ref_masks, (name, got_masks, ref_masks)
+    ens = ens_ops.ens_tree(got[0][2], fcfg.lam, fcfg.eta)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ens), tree_leaves(got[1][0]))), name
+    diffs = [_dist_diffs(g, r) for g, r in zip(got, ref)]
+    for t, v in diffs[0].items():
+        assert v["over_scale"] <= DIST_BF16_RTOL, (name, t, v)
+    bitwise = all(torch.equal(a, b) for g, r in zip(got, ref)
+                  for a, b in zip(tree_leaves(g), tree_leaves(r)))
+    if W == 1:
+        assert bitwise, name
+    return {"vs_one_card": diffs, "bitwise_one_card": bitwise,
+            "ens_bitwise_one_card": True}
+
+
+# Round 2 of the mesh phase. Its aggregate is the ENS of noisy uploads
+# (eps 0.1), and the gradient there is so steep in a few coordinates (the
+# tied embedding's rows, on four H100s) that round 1's bf16 differences
+# between the mesh and one card (about 1e-4 of the scale) move round 2's
+# W by up to 1.7-1.8 of it, in 0.3-0.4% of the values. So round 2 is held
+# by ``_mesh_round2_cause`` instead: one card run again from the mesh's
+# round-1 state lands near the mesh's round 2 (at most MESH_R2_SHARE of
+# W's values farther than DIST_BF16_RTOL of the scale), and one card's
+# round 1 moved by noise as large as the mesh's difference moves round 2
+# as far as the mesh does (at least half the mesh's spread, and beyond
+# DIST_BF16_RTOL). MESH_R1_DIFF is that difference as four H100s
+# measured it, max |mesh - one card| of W and Z, spatial and temporal:
+# the size of the noise on a machine of one card.
+MESH_R1_DIFF = {"spatial": (1.953020691871643e-4, 1.9530951976776123e-4),
+                "temporal": (9.741261601448059e-5, 9.745359420776367e-5)}
+MESH_R2_SHARE = 1e-4
+
+
+def _spread(got, want) -> dict:
+    """Where two round-2 W trees part: the leaf of the largest |got -
+    want| (its index and shape) and the share of all values farther apart
+    than DIST_BF16_RTOL of the scale, max(1, the largest |want|)."""
+    from repro_torch.core.treeutil import tree_leaves
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    worst = [float((g.float() - w.float()).abs().max()) for g, w in pairs]
+    scale = max(1.0, _tree_max(want))
+    far = sum(int(((g.float() - w.float()).abs()
+                   > DIST_BF16_RTOL * scale).sum()) for g, w in pairs)
+    i = int(np.argmax(worst))
+    return {"worst_leaf": i, "worst_leaf_shape": list(pairs[i][0].shape),
+            "share_over_rtol": far / sum(g.numel() for g, _ in pairs)}
+
+
+def _mesh_round2_cause(model, loss, fcfg, batches, kw, start, got, ref,
+                       W: int) -> dict:
+    """Rank 0's check of the mesh's second round (see MESH_R1_DIFF): one
+    card's round 2 run again from its round-1 state ``start`` (a) with
+    the mesh's round-1 w_tau, W and Z (W > 1): at most MESH_R2_SHARE of
+    W's values farther than DIST_BF16_RTOL of the scale from the mesh's
+    round 2; (b) with W and Z moved by uniform noise as large as the
+    mesh's round-1 difference (MESH_R1_DIFF where there is none): W beyond
+    DIST_BF16_RTOL of one card's round 2, and at least half as far as the
+    mesh's round 2 is."""
+    from repro_torch.core.distributed import DistConfig, build_fedepm
+    from repro_torch.core.treeutil import tmap
+    _, step_fn, _ = build_fedepm(model, loss, fcfg, None, DistConfig(**kw))
+
+    def again(W_, Z_, w_tau=start.w_tau) -> tuple:
+        st, _ = step_fn(start._replace(w_tau=w_tau, W=W_, Z=Z_), batches)
+        return st.w_tau, st.W, st.Z
+
+    out, mode = {}, kw["mode"]
+    if W > 1:
+        r2 = again(got[0][1], got[0][2], got[0][0])
+        out["from_mesh_round1"] = {
+            "vs_mesh": _dist_diffs(r2, got[1]),
+            "vs_one_card": _dist_diffs(r2, ref[1]),
+            "W_vs_mesh": _spread(r2[1], got[1][1])}
+        del r2
+        assert out["from_mesh_round1"]["W_vs_mesh"]["share_over_rtol"] \
+            <= MESH_R2_SHARE, (mode, out)
+    r1 = _dist_diffs(got[0], ref[0])
+    dW, dZ = r1["W"]["max_abs_diff"], r1["Z"]["max_abs_diff"]
+    if not dW:  # round 1 bit for bit (always on one rank)
+        dW, dZ = MESH_R1_DIFF[mode]
+    gen = torch.Generator(device=batches["tokens"].device)
+    gen.manual_seed(MESH_FULL["seed"])
+
+    def nudge(tree, d):
+        return tmap(lambda x: x + d * (2 * torch.rand(
+            x.shape, generator=gen, device=x.device, dtype=x.dtype) - 1),
+            tree)
+
+    r2 = again(nudge(start.W, dW), nudge(start.Z, dZ))
+    out["perturbed"] = {"by": [dW, dZ],
+                        "vs_one_card": _dist_diffs(r2, ref[1]),
+                        "W_vs_one_card": _spread(r2[1], ref[1][1])}
+    out["mesh_W_vs_one_card"] = _spread(got[1][1], ref[1][1])
+    moved = out["perturbed"]["vs_one_card"]["W"]["over_scale"]
+    assert moved > DIST_BF16_RTOL, (mode, out)
+    assert moved >= 0.5 * _dist_diffs(got[1], ref[1])["W"]["over_scale"], \
+        (mode, out)
+    return out
+
+
+def _mesh_f32(mesh, lead: bool) -> dict:
+    """MESH_F32_MODES with f32 compute (the state is f32 already) on
+    ``mesh`` and, on rank 0, on its card with no mesh: the masks exact,
+    bit for bit on a mesh of one rank; across ranks round 1 within
+    STATE_RTOL of the scale and every round's W within DIST_BF16_RTOL of
+    it but for at most MESH_R2_SHARE of its values (round 2 amplifies
+    f32's differences too, see MESH_R1_DIFF)."""
+    import torch.distributed as dist
+    from repro_torch.core.treeutil import tree_leaves
+    model, loss, fcfg, batches = _mesh_setup(mesh.device, torch.float32)
+    out = {}
+    for name in MESH_F32_MODES:
+        kw = MESH_MODES[name]
+        got, masks, rec, _ = _mesh_rounds(mesh, model, loss, fcfg, batches,
+                                          kw)
+        if lead:
+            ref, ref_masks, ref_rec, _ = _mesh_rounds(None, model, loss,
+                                                      fcfg, batches, kw)
+            assert masks == ref_masks, (name, masks, ref_masks)
+            out[name] = {"vs_one_card": [_dist_diffs(g, r) for g, r in
+                                         zip(got, ref)],
+                         "W_vs_one_card": [_spread(g[1], r[1]) for g, r in
+                                           zip(got, ref)],
+                         "wall_ms_per_round": rec["wall_ms_per_round"],
+                         "one_card_wall_ms_per_round":
+                             ref_rec["wall_ms_per_round"]}
+            if mesh.size == 1:
+                assert all(torch.equal(a, b) for g, r in zip(got, ref)
+                           for a, b in zip(tree_leaves(g), tree_leaves(r))
+                           ), name
+            for t, v in out[name]["vs_one_card"][0].items():
+                assert v["over_scale"] <= STATE_RTOL, (name, t, v)
+            for v in out[name]["W_vs_one_card"]:
+                assert v["share_over_rtol"] <= MESH_R2_SHARE, (name, v)
+            del ref
+        del got
+        dist.barrier()
+    return out
+
+
+def mesh_rank(mesh) -> dict:
+    """What each rank of the mesh phase runs (``spawn``): MESH_MODES on
+    ``mesh`` and, on rank 0, the same rounds with no mesh on its card and
+    the checks (``_mesh_hold``; gather and a2a the same bits;
+    ``_mesh_round2_cause`` once a mode); each rank's ENS and prox
+    launches asserted; MESH_F32_MODES with f32 compute (``_mesh_f32``);
+    then the reduced archs of ``JAX_DIST`` on the mesh, held to JAX
+    within STATE_RTOL: the spatial round on every rank, the temporal one
+    on the first min(W, 2), which DIST_SETTINGS' 2 sequences a client
+    fill. Returns every rank's records (rank 0's checks included)."""
+    import torch.distributed as dist
+    from repro_torch import random
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.sharding.mesh import LiveMesh
+    device_settings()
+    W, lead = mesh.size, mesh.rank == 0
+    dev = mesh.device
+    model, loss, fcfg, batches = _mesh_setup(dev)
+    leaves = len(tree_leaves(model.init(random.PRNGKey(0).to("meta"))))
+    recs, checks, digests, refs = {}, {}, {}, {}
+    for name, kw in MESH_MODES.items():
+        log(f"mesh[rank {mesh.rank}] {name}")
+        got, masks, rec, _ = _mesh_rounds(mesh, model, loss, fcfg, batches,
+                                          kw)
+        if dev.type == "cuda":  # the plain versions count nothing
+            _dist_launches(rec, leaves, MESH_ROUNDS, fcfg.m, fcfg.k0)
+        recs[name] = rec
+        if lead:
+            digests[name] = _bit_digest(got)
+            key = kw["mode"]
+            start = None
+            if key not in refs:
+                ref, ref_masks, ref_rec, start = _mesh_rounds(
+                    None, model, loss, fcfg, batches, kw)
+                refs[key] = (ref, ref_masks)
+                recs[f"{key}_one_card"] = {
+                    k: ref_rec[k] for k in ("wall_ms_per_round",
+                                            "peak_mem_gb")}
+            checks[name] = _mesh_hold(name, got, masks, *refs[key], W,
+                                      fcfg)
+            if start is not None:
+                checks[f"{key}_round2_cause"] = _mesh_round2_cause(
+                    model, loss, fcfg, batches, kw, start, got,
+                    refs[key][0], W)
+            del start
+        del got
+        dist.barrier()
+    refs.clear()
+    if lead:
+        assert digests["spatial_a2a"] == digests["spatial_gather"]
+        checks["a2a_bitwise_gather"] = True
+    del model, loss, batches
+    torch.cuda.empty_cache()
+    checks["f32"] = _mesh_f32(mesh, lead)
+    pair = dist.new_group([0, 1]) if W > 2 else mesh.groups["data"]
+    reduced_recs = {}
+    for arch, modes in JAX_DIST.items():
+        for mode, want in modes.items():
+            sub = mesh
+            if mode == "temporal" and W > 2:
+                if mesh.rank >= 2:
+                    continue
+                sub = LiveMesh(mesh.axis_names, (2, 1), rank=mesh.rank,
+                               groups={"data": pair}, device=dev)
+            reset_counts()
+            got = dist_reduced_run(arch, mode, dev, sub)
+            reduced_recs[f"{arch}/{mode}"] = {
+                "ranks": sub.size, "launches": read_counts(),
+                "worst_over_scale": check_dist_digests(
+                    got, want, f"{arch} {mode} on {sub.size} ranks")}
+    dist.barrier()
+    mine = {"rank": mesh.rank, "card": torch.cuda.get_device_name(dev)
+            if dev.type == "cuda" else str(dev),
+            "modes": recs, "reduced": reduced_recs}
+    every = [None] * W
+    dist.all_gather_object(every, mine)
+    return {"ranks": every, "checks": checks}
+
+
+def _mesh_train_cli(W: int) -> dict:
+    """``train --devices W --mesh-shape W,1`` at train_4k cut to 8 x 4096
+    tokens, LAUNCH_ROUNDS rounds, in a process of its own (its ranks
+    print through it): the round lines, each with its collective bytes,
+    from rank 0 alone."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *MESH_TRAIN,
+         "--devices", str(W), "--mesh-shape", f"{W},1"],
+        capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    for line in lines:
+        log(f"mesh[train CLI] {line}")
+    assert out.returncode == 0, out.stderr[-4000:]
+    rounds = [re.match(r"round (\d+): drift=(\S+) snr=(\S+) sel=(\d+)/"
+                       r"(\d+) \((\S+)s\)  coll (.*)", ln) for ln in lines
+              if ln.startswith("round ")]
+    assert len(rounds) == LAUNCH_ROUNDS and all(rounds), lines
+    assert all(r[5] == str(W) for r in rounds), lines
+    assert float(rounds[0][2]) == 0.0 and np.isfinite(float(rounds[1][2]))
+    return {"wall_s": wall, "round_s": [float(r[6]) for r in rounds],
+            "collective_mb_by_op": [dict(kv.split("=") for kv in
+                                         r[7].split()) for r in rounds],
+            "lines": lines}
+
+
+def run_mesh_path() -> dict:
+    """The ``mesh`` phase: ``mesh_rank`` on W NCCL ranks, the most of 1, 2
+    and MESH_MAX_RANKS that the cards hold (each rank's peak, launches,
+    walls and collective bytes printed), then ``train --devices W`` where
+    W > 1 (with W = 1 it is the ``launch`` phase's train CLI run)."""
+    from repro_torch.launch.mesh import spawn
+    W = max(w for w in (1, 2, MESH_MAX_RANKS)
+            if w <= torch.cuda.device_count())
+    if W < MESH_MAX_RANKS:
+        log(f"mesh: {torch.cuda.device_count()} card(s) here, so the mesh "
+            f"has {W} rank(s) (a width that divides m = 4): the "
+            f"{MESH_MAX_RANKS}-rank run needs as many cards, since NCCL "
+            f"refuses two ranks on one device; a mesh of one rank still "
+            f"runs every collective over NCCL, held bit for bit to the run "
+            f"without a mesh")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(mesh_rank, W, timeout_s=MESH_TIMEOUT_S,
+                join_s=MESH_TIMEOUT_S)
+    out = {"ranks": W, "wall_s": time.perf_counter() - t0,
+           "checks": res["checks"], "per_rank": res["ranks"]}
+    for r in res["ranks"]:
+        for name, rec in r["modes"].items():
+            if name.endswith("_one_card"):
+                log(f"mesh[{LAUNCH_ARCH} {name}, no mesh, rank "
+                    f"{r['rank']}'s card] wall {rec['wall_ms_per_round']} "
+                    f"ms a round, peak {rec['peak_mem_gb']:.3f} GB")
+                continue
+            log(f"mesh[{LAUNCH_ARCH} {name} rank {r['rank']}/{W}] wall "
+                f"{rec['wall_ms_per_round']} ms a round, peak "
+                f"{rec['peak_mem_gb']:.3f} GB, ENS "
+                f"{rec['launches']['ens']} and prox "
+                f"{rec['launches']['prox_update']} launches (asserted), "
+                f"collective bytes by op a round "
+                f"{rec['collective_bytes_by_op']}")
+        log(f"mesh[reduced vs JAX_DIST rank {r['rank']}] " + json.dumps(
+            {k: (v["ranks"], v["worst_over_scale"])
+             for k, v in r["reduced"].items()}))
+    log("mesh[checks] " + json.dumps(res["checks"]))
+    out["launches"] = {name: rec["launches"] for name, rec in
+                       res["ranks"][0]["modes"].items() if "launches" in rec}
+    if W > 1:
+        out["train_cli"] = _mesh_train_cli(W)
+    else:
+        log("mesh[train CLI] --devices 1 is the launch phase's train CLI "
+            "run (one device, no mesh)")
     return out
 
 
@@ -4572,7 +5009,7 @@ def main() -> int:
                       "smollm-135m": record["lm_path"]["eager"],
                       XLSTM: record["lm_families"]["xlstm-125m/full"][
                           "eager"]}),
-                  "launch": run_launch_path}
+                  "launch": run_launch_path, "mesh": run_mesh_path}
     for name, run in main_paths.items():
         t_path = time.perf_counter()
         record[name] = run()
@@ -4618,6 +5055,8 @@ def main() -> int:
                   for arch, shape, _ in LAUNCH_CASES})
     paths.update({f"launch.remat.{key}": res["launches"]
                   for key, res in launch["remat"].items()})
+    paths.update({f"mesh.{key}": counts
+                  for key, counts in record["mesh"]["launches"].items()})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

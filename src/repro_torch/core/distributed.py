@@ -1,15 +1,23 @@
-"""FedEPM rounds for large models on one device; the counterpart of
-``repro.core.distributed``.
+"""FedEPM rounds for large models, on one device or across the ranks of a
+live mesh; the counterpart of ``repro.core.distributed``.
 
 The two strategies of the JAX module, with its names:
 
 **spatial** -- every client at once: ``core/fedepm.py::fedepm_round``,
-  one backward over the m clients' stacked copies of the broadcast point,
+  one backward over the clients' stacked copies of the broadcast point,
   with the loss under checkpoint when ``dist.remat`` holds and the rows
   stored in ``dist.state_dtype``; on one device it gives ``fedepm_round``'s
-  bits, as JAX's does. ``ens="a2a"`` is the coordinate-sharded ENS, which
-  on one device (one client group, so the all_to_all is the identity) is
-  ``ens="gather"``.
+  bits, as JAX's does. On a live mesh (``sharding/mesh.py``) each rank
+  holds m / D clients (``client_state_specs``: W, Z and the batches cut
+  over "data" along m, w_tau whole): it computes its own clients'
+  gradients, prox steps and uploads, each upload from its global key, and
+  the server's ENS is the one collective: ``ens="gather"`` all_gathers Z
+  (JAX's star transport, (m - m/D) n values received a rank) and runs ENS
+  over all m on every rank; ``ens="a2a"`` all_to_alls Z so that each rank
+  holds all m clients of n/D coordinates, runs ENS there and all_gathers
+  the aggregate ((D-1)/D (m/D + 1) n values). ENS is coordinate-wise with
+  its mean over m in client order, so both give the bits of one device
+  for the same Z.
 
 **temporal** -- one client at a time: its gradient at the broadcast point
   (optionally accumulated in f32 over microbatches), its k0 prox steps,
@@ -18,7 +26,17 @@ The two strategies of the JAX module, with its names:
   clients start and row i of the new W and Z depends only on row i, so the
   donated step (``step_fn(..., donate=True)``, JAX's ``donate_argnums``)
   writes each client's rows into the state's own buffers as it goes; the
-  pure step writes into copies.
+  pure step writes into copies. On a live mesh W, Z and w_tau are cut
+  over "data" by ``state_specs``' fsdp specs (JAX's ZeRO layout) and each
+  client's batch over its rows (``batch_specs``): ENS runs on the local
+  coordinates with no collective; the round all_gathers the broadcast
+  point's compute copy once, each rank takes the gradient of its rows of
+  the batch, normalised by the mask count over every rank's rows, and a
+  reduce_scatter sums the ranks' gradients into their coordinates; the
+  prox kernel runs on the local coordinates; each rank draws a leaf's
+  whole Laplace plane from the client's key and keeps its coordinates;
+  the norms (mu's distance, ||g||_1, the SNR's) are partial sums joined
+  by an all_reduce.
 
 The algorithm (selection, mu schedule, prox update (20), DP noise scale,
 the Laplace draw from ``split(k_noise, m)[i]``, eq. (22)'s carry-through)
@@ -29,14 +47,15 @@ alone is m = 1.
 The spec derivation is JAX's (``param_specs``, ``client_state_specs``,
 ``state_specs``, ``batch_specs``): partition specs for any mesh record
 (``sharding/mesh.py``), the production meshes included, from shaped leaves
-(meta tensors). What runs, runs on one device: ``mesh`` is None, 1 or a
-one-device mesh record; a larger mesh is refused where a round would run
-on it (the mesh across cards is ROADMAP queue 1 item 14.5).
+(meta tensors). What runs, runs on one device (``mesh`` None, 1 or a
+one-device record) or on a live mesh; a record of more than one device is
+refused where a round would run on it (ROADMAP queue 1 item 14.5).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any
 
 import torch
@@ -62,15 +81,18 @@ from repro_torch.core.fedepm import (
 from repro_torch.core.treeutil import (
     tmap,
     tree_broadcast_clients,
+    tree_l1_norm,
     tree_leaves,
     tree_sq_dist,
     tree_sq_norm,
+    tree_unflatten,
 )
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.ens import ops as ens_ops
-from repro_torch.sharding.mesh import require_one_device
 from repro_torch.models.logical import param_logical
+from repro_torch.sharding import comm
 from repro_torch.sharding import specs as sh
+from repro_torch.sharding.mesh import is_live, require_one_device
 from repro_torch.sharding.rules import P
 
 
@@ -79,7 +101,7 @@ class DistConfig:
     mode: str = "spatial"            # "spatial" | "temporal"
     ens: str = "gather"              # "gather" | "a2a" (spatial only)
     # the mesh axes of the clients and (temporal) of the params: they
-    # shape the specs; one device places nothing by them
+    # shape the specs, by which a live mesh places the state
     client_axes: tuple = ("data",)
     fsdp_axes: tuple = ("data",)
     state_dtype: Any = None          # W/Z storage dtype (None = param dtype)
@@ -148,20 +170,46 @@ def batch_specs(batch_tree, dist: DistConfig):
 
 
 # ---------------------------------------------------------------------------
-# ENS on one device
+# ENS
 # ---------------------------------------------------------------------------
 
-def ens_gather(Z, lam, eta):
+def ens_gather(Z, lam, eta, mesh=None):
     """The server's ENS over the stacked uploads: the Hopper kernel on the
-    card, the plain version on the CPU (``ens_ops.ens_tree``)."""
-    return ens_ops.ens_tree(Z, lam, eta)
+    card, the plain version on the CPU (``ens_ops.ens_tree``). On a live
+    mesh ``Z`` is this rank's block of the clients: one all_gather brings
+    every rank's, in rank order, and ENS runs over all m on every rank."""
+    if not is_live(mesh):
+        return ens_ops.ens_tree(Z, lam, eta)
+    leaves = tree_leaves(Z)
+    whole = comm.all_gather(mesh, leaves, what="ens")  # (D, m/D, ...)
+    return ens_ops.ens_tree(tree_unflatten(Z, [
+        g.reshape((-1,) + z.shape[1:]) for g, z in zip(whole, leaves)]),
+        lam, eta)
 
 
 def ens_a2a(Z, lam, eta, mesh=None):
-    """The coordinate-sharded ENS on one client group: the all_to_all and
-    all_gather are the identity, so it is ``ens_gather``."""
-    require_one_device(mesh)
-    return ens_gather(Z, lam, eta)
+    """The coordinate-sharded ENS. On a live mesh each leaf (m/D, ...) is
+    flattened to F coordinates and padded by (-F) % D, one all_to_all
+    leaves every rank all m clients of its F/D coordinates, ENS runs on
+    them, and one all_gather rebuilds the aggregate, the pad cut off. On
+    one client group the collectives are the identity, so it is
+    ``ens_gather``."""
+    if not is_live(mesh):
+        require_one_device(mesh)
+        return ens_gather(Z, lam, eta)
+    D = mesh.shape["data"]
+    leaves = tree_leaves(Z)
+    blocks = []
+    for z in leaves:
+        flat = z.reshape(z.shape[0], -1)
+        flat = torch.nn.functional.pad(flat, (0, (-flat.shape[1]) % D))
+        blocks.append(flat.reshape(z.shape[0], D, -1).transpose(0, 1))
+    mine = comm.all_to_all(mesh, blocks, what="ens")  # (D, m/D, F/D)
+    w = [ens_ops.ens(c.reshape(-1, c.shape[-1]), lam, eta) for c in mine]
+    whole = comm.all_gather(mesh, w, what="ens")  # each (D, F/D)
+    return tree_unflatten(Z, [
+        g.reshape(-1)[:z[0].numel()].reshape(z.shape[1:])
+        for g, z in zip(whole, leaves)])
 
 
 # ---------------------------------------------------------------------------
@@ -188,65 +236,214 @@ def _compute_dtype(arch_cfg):
 
 def spatial_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
                   mesh, dist: DistConfig, sspecs=None, arch_cfg=None):
-    """One communication round, all m clients at once: ``fedepm_round``."""
-    require_one_device(mesh)
-    return fedepm_round(state, batches, _remat_loss(loss_fn, dist.remat),
-                        cfg, compute_dtype=_compute_dtype(arch_cfg),
-                        state_dtype=dist.state_dtype)
+    """One communication round, all m clients at once: ``fedepm_round``.
+    On a live mesh ``state`` and ``batches`` hold this rank's m / D
+    clients, the ENS is ``dist.ens``'s collective, and the metrics are
+    gathered to (m,) (``snr`` the min over every rank's selected
+    clients)."""
+    live = is_live(mesh)
+    if not live:
+        require_one_device(mesh)
+    rows = tree_leaves(state.W)[0].shape[0]
+    ens = ens_a2a if dist.ens == "a2a" else ens_gather
+    new_state, met = fedepm_round(
+        state, batches, _remat_loss(loss_fn, dist.remat), cfg,
+        compute_dtype=_compute_dtype(arch_cfg), state_dtype=dist.state_dtype,
+        aggregate=(lambda Z: ens(Z, cfg.lam, cfg.eta, mesh)) if live
+        else None, offset=mesh.coord("data") * rows if live else 0)
+    if not live:
+        return new_state, met
+    vecs = [met.mu_last, met.grad_l1, met.noise_scale, met.selected]
+    vecs = [v.reshape(-1) for v in comm.all_gather(mesh, vecs,
+                                                   what="metrics")]
+    snr = comm.all_reduce(mesh, met.snr.clone(), "min", what="metrics")
+    return new_state, met._replace(mu_last=vecs[0], grad_l1=vecs[1],
+                                   noise_scale=vecs[2], selected=vecs[3],
+                                   snr=snr)
 
 
-def _client_grad(grad_fn, w_comp, bi, microbatch: int):
+class _Shards:
+    """A client row's leaves on a live mesh (``shards=None`` is one
+    device): ``dims[l]`` is the dim of leaf l (with the row's leading axis)
+    cut over "data", None where every rank holds it whole; ``shapes[l]`` is
+    its whole shape. The norms of the round sum each rank's cut leaves,
+    and the whole ones on rank 0 only, in tree order, then all_reduce."""
+
+    def __init__(self, mesh, wspecs, abstract_w):
+        self.mesh = mesh
+        self.dims = [None if k is None else k + 1 for k in
+                     map(sh.data_dim, sh.spec_leaves(wspecs))]
+        self.shapes = [(1,) + tuple(x.shape) for x in tree_leaves(abstract_w)]
+        self.lead = mesh.coord("data") == 0
+
+    def own(self, leaves) -> list:
+        return [x for x, k in zip(leaves, self.dims)
+                if k is not None or self.lead]
+
+    def _sum(self, part) -> torch.Tensor:
+        return comm.all_reduce(self.mesh, part, what="norms")
+
+    def _part(self, fn, trees, per_client):
+        own = [self.own(tree_leaves(t)) for t in trees]
+        if own[0]:
+            return fn(*own, per_client=per_client)
+        x = tree_leaves(trees[0])[0]
+        return torch.zeros(x.shape[:1] if per_client else (),
+                           dtype=torch.float32, device=x.device)
+
+    def sq_dist(self, a, b, per_client=False):
+        return self._sum(self._part(tree_sq_dist, (a, b), per_client))
+
+    def l1(self, a, per_client=False):
+        return self._sum(self._part(tree_l1_norm, (a,), per_client))
+
+    def cut(self, l: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf l's whole value."""
+        k = self.dims[l]
+        if k is None:
+            return whole
+        n = whole.shape[k] // self.mesh.shape["data"]
+        return whole.narrow(k, self.mesh.coord("data") * n, n)
+
+
+def _client_grad(grad_fn, w_comp, bi, microbatch: int, shards=None):
     """grad f_i at ``w_comp`` for one client's batch ``bi`` (1, B, ...),
     (1, ...): with ``microbatch`` > 1 the B axis split into that many
     chunks in order, accumulated as ``acc + g.float()`` from f32 zeros and
-    divided by their number, as JAX's scan accumulates them."""
-    def at(b):
+    divided by their number, as JAX's scan accumulates them.
+
+    On a live mesh (``shards``) ``bi`` holds this rank's rows of the batch
+    (contiguous, rank order) and ``w_comp`` the whole broadcast point.
+    Microbatch j is still rows j B/mb .. (j+1) B/mb of the whole batch:
+    each rank takes the gradient of its rows of it, the loss normalised by
+    the mask count over every rank's rows (one all_reduce of the counts,
+    handed to the loss as ``loss_denom``), and ``_sum_over_ranks`` sums
+    the ranks' gradients before the division. Returns this rank's block
+    of g_i."""
+    D, c = (1, 0) if shards is None else (shards.mesh.shape["data"],
+                                          shards.mesh.coord("data"))
+    b = tree_leaves(bi)[0].shape[1]
+    nmb = max(microbatch, 1)
+    if (b * D) % nmb:
+        raise ValueError(f"microbatch {nmb} does not divide the client "
+                         f"batch {b * D}")
+    size = b * D // nmb
+    spans = [(max(c * b, j * size) - c * b,
+              min((c + 1) * b, (j + 1) * size) - c * b) for j in range(nmb)]
+    if shards is not None:
+        bi = dict(bi)
+        if bi.get("loss_mask") is None:
+            bi["loss_mask"] = torch.ones(bi["targets"].shape,
+                                         dtype=torch.float32,
+                                         device=bi["targets"].device)
+        counts = torch.stack([bi["loss_mask"][:, lo:max(lo, hi)].sum()
+                              for lo, hi in spans])
+        counts = torch.clamp_min(
+            comm.all_reduce(shards.mesh, counts, what="grads"), 1.0)
+
+    def at(j):
+        lo, hi = spans[j]
+        part = tmap(lambda x: x[:, lo:hi], bi)
+        if shards is not None:
+            part["loss_denom"] = counts[j:j + 1]
         Wg = tmap(lambda x: x.detach().unsqueeze(0).requires_grad_(True),
                   w_comp)
-        return grad_fn(Wg, b)
+        return grad_fn(Wg, part)
 
-    if microbatch <= 1:
-        return at(bi)
-    B = tree_leaves(bi)[0].shape[1]
-    if B % microbatch:
-        raise ValueError(f"microbatch {microbatch} does not divide the "
-                         f"client batch {B}")
-    size = B // microbatch
-    acc = tmap(lambda x: torch.zeros((1,) + x.shape, dtype=torch.float32,
-                                     device=x.device), w_comp)
-    for j in range(microbatch):
-        g = at(tmap(lambda x: x[:, j * size:(j + 1) * size], bi))
-        for a, gl in zip(tree_leaves(acc), tree_leaves(g)):
-            a.add_(gl.to(torch.float32))
-        del g
-    for a in tree_leaves(acc):
-        a.div_(microbatch)
-    return acc
+    if nmb == 1:
+        g = at(0)
+    else:
+        g = tmap(lambda x: torch.zeros((1,) + x.shape, dtype=torch.float32,
+                                       device=x.device), w_comp)
+        for j, (lo, hi) in enumerate(spans):
+            if lo < hi:
+                gj = at(j)
+                for a, gl in zip(tree_leaves(g), tree_leaves(gj)):
+                    a.add_(gl.to(torch.float32))
+                del gj
+    if shards is not None:
+        g = _sum_over_ranks(g, shards)
+    if nmb > 1:
+        for a in tree_leaves(g):
+            a.div_(nmb)
+    return g
 
 
-def _noised_upload(key, wi_upd, scale, z_rows):
+def _sum_over_ranks(g, shards):
+    """The ranks' whole gradients summed in f32: one reduce_scatter leaves
+    each rank its block of the cut leaves, one all_reduce the leaves every
+    rank holds whole; each back in its dtype."""
+    mesh, D = shards.mesh, shards.mesh.shape["data"]
+    leaves = tree_leaves(g)
+    out = list(leaves)
+    cut = [l for l, k in enumerate(shards.dims) if k is not None]
+    whole = [l for l, k in enumerate(shards.dims) if k is None]
+    if cut:
+        send = torch.cat([
+            leaves[l].to(torch.float32).unflatten(shards.dims[l], (D, -1))
+            .movedim(shards.dims[l], 0).reshape(D, -1) for l in cut], dim=1)
+        mine = comm.reduce_scatter(mesh, send, what="grads")
+        o = 0
+        for l in cut:
+            shape = list(leaves[l].shape)
+            shape[shards.dims[l]] //= D
+            n = math.prod(shape)
+            out[l] = mine[o:o + n].view(shape).to(leaves[l].dtype)
+            o += n
+    if whole:
+        flat = comm.all_reduce(mesh, torch.cat(
+            [leaves[l].to(torch.float32).reshape(-1) for l in whole]),
+            what="grads")
+        o = 0
+        for l in whole:
+            n = leaves[l].numel()
+            out[l] = flat[o:o + n].view(leaves[l].shape).to(leaves[l].dtype)
+            o += n
+    return tree_unflatten(g, out)
+
+
+def _noised_upload(key, wi_upd, scale, z_rows, shards=None):
     """Client i's upload z_i = w_i + b_i Laplace, written into its rows
     ``z_rows`` of Z, one leaf at a time: the unit draw of leaf l from
     ``split(key, n_leaves)[l]`` (``laplace_tree``'s keys), ``add_client_
     noise``'s ops and its SNR, log10(||w_i|| / ||eps_i||), with the norms'
-    leaf sums in ``tree_sq_norm``'s order. Returns the SNR (1,)."""
+    leaf sums in ``tree_sq_norm``'s order. On a live mesh (``shards``)
+    each leaf's whole plane is drawn and this rank's block kept, and the
+    norms are summed over the ranks. Returns the SNR (1,)."""
     leaves = tree_leaves(wi_upd)
     keys = random.split(key, len(leaves))
     en = None
     for l, (w, z) in enumerate(zip(leaves, tree_leaves(z_rows))):
         s = scale.reshape((-1,) + (1,) * (w.dim() - 1))
-        noise = (s * dp.unit_laplace(keys[l], w.shape[1:])[None]).to(w.dtype)
+        if shards is None:
+            unit = dp.unit_laplace(keys[l], w.shape[1:])[None]
+        else:
+            unit = shards.cut(l, dp.unit_laplace(
+                keys[l], shards.shapes[l][1:])[None])
+        noise = (s * unit).to(w.dtype)
+        del unit
         z.copy_(w + noise)
-        part = tree_sq_norm(noise, per_client=True)
-        en = part if en is None else en + part
+        if shards is None or shards.dims[l] is not None or shards.lead:
+            part = tree_sq_norm(noise, per_client=True)
+            en = part if en is None else en + part
         del noise
-    wn = torch.sqrt(tree_sq_norm(wi_upd, per_client=True))
+    if shards is None:
+        wn2 = tree_sq_norm(wi_upd, per_client=True)
+    else:
+        own = shards.own(leaves)
+        zero = torch.zeros(1, dtype=torch.float32, device=scale.device)
+        wn2 = tree_sq_norm(own, per_client=True) if own else zero
+        en = zero if en is None else en
+        wn2, en = comm.all_reduce(shards.mesh, torch.cat([wn2, en]),
+                                  what="norms")
+        wn2, en = wn2.reshape(1), en.reshape(1)
+    wn = torch.sqrt(wn2)
     return torch.log10(wn / torch.clamp_min(torch.sqrt(en), 1e-30))
 
 
 def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
                    mesh, dist: DistConfig, sspecs=None, arch_cfg=None, *,
-                   donate: bool = False):
+                   donate: bool = False, abstract=None):
     """One communication round, the clients one after another.
 
     ``donate`` writes the new W and Z into ``state``'s buffers and the new
@@ -254,8 +451,15 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
     otherwise ``state`` is left as it was. The mask is read on the host
     once, so a client that is not selected draws no noise (its rows and
     SNR are carried through, as eq. (22) and JAX's ``where`` keep them).
+    On a live mesh ``state`` holds this rank's blocks by ``sspecs`` (whose
+    whole leaves ``abstract``, a state of stand-ins, gives) and
+    ``batches`` its rows of each client's batch.
     """
-    require_one_device(mesh)
+    shards = None
+    if is_live(mesh):
+        shards = _Shards(mesh, sspecs.w_tau, abstract.w_tau)
+    else:
+        require_one_device(mesh)
     if dist.ens != "gather":
         raise ValueError("the temporal round aggregates with ens='gather'")
     if donate:
@@ -264,10 +468,11 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
     m = cfg.m
     key, k_sel, k_noise = split_round_key(state.key)
     mask = _select(k_sel, cfg, state.k // cfg.k0, device)
+    sq_dist = tree_sq_dist if shards is None else shards.sq_dist
 
     # ---- server: ENS, every upload read before any row is rewritten ----
     w_new = ens_gather(state.Z, cfg.lam, cfg.eta)
-    drift = tree_sq_dist(w_new, state.w_tau)
+    drift = sq_dist(w_new, state.w_tau)
     if donate:
         for old, new in zip(tree_leaves(state.w_tau), tree_leaves(w_new)):
             old.copy_(new)
@@ -275,6 +480,9 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
     else:
         W, Z = (tmap(torch.clone, t) for t in (state.W, state.Z))
     w_comp = compute_params(w_new, _compute_dtype(arch_cfg))
+    if shards is not None:
+        sh.constrain_tree(w_new, sspecs.w_tau, mesh, abstract.w_tau)
+        w_comp = sh.gather_tree(w_comp, sspecs.w_tau, mesh, what="params")
 
     grad_fn = functools.partial(stacked_grads,
                                 _remat_loss(loss_fn, dist.remat))
@@ -286,16 +494,19 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
     mus, l1s, snrs, scales = [], [], [], []
     for i in range(m):
         rows = tmap(lambda x: x[i:i + 1], (W, Z, batches))
-        gi = _client_grad(grad_fn, w_comp, rows[2], dist.microbatch)
-        wi_upd, mu = _client_inner(rows[0], w_new, gi, pows, cfg)
+        gi = _client_grad(grad_fn, w_comp, rows[2], dist.microbatch,
+                          shards)
+        wi_upd, mu = _client_inner(rows[0], w_new, gi, pows, cfg, sq_dist)
         if dist.state_dtype is not None:
             wi_upd = tmap(lambda x: x.to(dist.state_dtype), wi_upd)
-        grad_l1, scale = upload_scale(cfg, gi, mu)
+        grad_l1, scale = upload_scale(
+            cfg, gi, mu, tree_l1_norm if shards is None else shards.l1)
         del gi
         snr = inf
         if selected[i]:
             if cfg.eps_dp > 0:
-                snr = _noised_upload(keys[i], wi_upd, scale, rows[1])
+                snr = _noised_upload(keys[i], wi_upd, scale, rows[1],
+                                     shards)
             else:
                 for z, w in zip(tree_leaves(rows[1]), tree_leaves(wi_upd)):
                     z.copy_(w)
@@ -335,14 +546,19 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
     init_fn(key, device=None)   -> FedEPMState: every client at the same
         w0, W and Z two contiguous buffers and w_tau a third, in
         ``dist.state_dtype`` (else the params'); on the card unless
-        ``device`` says otherwise.
+        ``device`` says otherwise. On a live mesh each rank's blocks by
+        ``state_specs``, except on the meta device, where the state's
+        stand-ins are whole (the specs are derived from them).
     step_fn(state, batches, sspecs=None, donate=False) -> (state, metrics);
-        ``donate`` (temporal) reuses the state's buffers.
+        ``donate`` (temporal) reuses the state's buffers. On a live mesh
+        ``batches`` holds this rank's block by ``batch_specs``.
     sspecs_fn(abstract_state)   -> FedEPMState of specs (``state_specs``)
-        for a mesh record, None without one; one device places nothing
-        by them.
+        for a mesh, None without one; a live mesh places the state by
+        them, one device places nothing.
     """
-    require_one_device(mesh)
+    live = is_live(mesh)
+    if not live:
+        require_one_device(mesh)
     if dist.mode not in ("spatial", "temporal"):
         raise ValueError(f"unknown mode {dist.mode!r}")
     if dist.ens not in ("gather", "a2a"):
@@ -350,26 +566,54 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
     _check_axes(mesh, dist)
     arch_cfg = model.cfg
 
-    def init_fn(key, device=None):
-        dev = resolve_device(device)
-        ks = random.split(key.to(dev), 2)
+    def whole_state(key, device):
+        ks = random.split(key.to(device), 2)
         params = model.init(ks[0])
         if dist.state_dtype is not None:
             params = tmap(lambda x: x.to(dist.state_dtype), params)
-        W = tree_broadcast_clients(params, fed_cfg.m)
-        return FedEPMState(w_tau=params, W=W, Z=tmap(torch.clone, W), k=0,
-                           key=ks[1])
+        return params, ks[1]
 
     def sspecs_fn(abstract_state):
         if not hasattr(mesh, "axis_names"):
             return None
         return state_specs(arch_cfg, abstract_state, mesh, dist)
 
+    abstract = own_specs = None
+    if live:
+        p, k = whole_state(random.PRNGKey(0), torch.device("meta"))
+        abstract = FedEPMState(w_tau=p, W=tree_broadcast_clients(
+            p, fed_cfg.m), Z=None, k=0, key=k)
+        abstract = abstract._replace(Z=abstract.W)
+        own_specs = sspecs_fn(abstract)
+        if dist.mode == "spatial" and fed_cfg.m % mesh.shape["data"]:
+            raise ValueError(f"{fed_cfg.m} clients on {mesh.shape['data']} "
+                             f"ranks: the spatial round gives each rank "
+                             f"m / D clients")
+
+    def init_fn(key, device=None):
+        dev = resolve_device(device)
+        params, k = whole_state(key, dev)
+        if not live or dev.type == "meta":
+            W = tree_broadcast_clients(params, fed_cfg.m)
+            return FedEPMState(w_tau=params, W=W, Z=tmap(torch.clone, W),
+                               k=0, key=k)
+        W = sh.shard_tree(tmap(lambda x: x.unsqueeze(0).expand(
+            (fed_cfg.m,) + x.shape), params), own_specs.W, mesh)
+        return FedEPMState(
+            w_tau=sh.shard_tree(params, own_specs.w_tau, mesh), W=W,
+            Z=tmap(torch.clone, W), k=0, key=k)
+
     def step_fn(state, batches, sspecs=None, donate: bool = False):
+        if live:
+            sspecs = own_specs if sspecs is None else sspecs
+            sh.constrain_tree((state.W, state.Z),
+                              (sspecs.W, sspecs.Z), mesh,
+                              (abstract.W, abstract.Z))
         if dist.mode == "spatial":
             return spatial_round(state, batches, loss_fn, fed_cfg, mesh,
                                  dist, sspecs, arch_cfg)
         return temporal_round(state, batches, loss_fn, fed_cfg, mesh, dist,
-                              sspecs, arch_cfg, donate=donate)
+                              sspecs, arch_cfg, donate=donate,
+                              abstract=abstract)
 
     return init_fn, step_fn, sspecs_fn

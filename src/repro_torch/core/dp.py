@@ -68,14 +68,18 @@ def laplace_tree(key: torch.Tensor, tree, scale):
         for i, leaf in enumerate(leaves)])
 
 
-def client_unit_laplace(k_noise: torch.Tensor, W):
+def client_unit_laplace(k_noise: torch.Tensor, W, offset: int = 0,
+                        m: int | None = None):
     """The rounds' per-client unit-Laplace planes (f32) for a tree ``W``
-    with a leading client axis m: JAX's ``split(k_noise, m)`` and a
+    with a leading client axis: JAX's ``split(k_noise, m)`` and a
     ``laplace_tree`` per client under ``vmap``, written out as one draw per
-    leaf over all m clients' leaf keys."""
+    leaf over the clients' leaf keys. ``W`` may hold a block of the m
+    clients, rows ``offset`` on (a rank's clients on a mesh); its planes
+    are those clients' own, drawn from their keys of all m."""
     leaves = tree_leaves(W)
-    m = leaves[0].shape[0]
-    keys = random.split(random.split(k_noise, m), len(leaves))  # (m, L, 2)
+    rows = leaves[0].shape[0]
+    keys = random.split(k_noise, rows if m is None else m)
+    keys = random.split(keys[offset:offset + rows], len(leaves))  # rows, L
     return tree_unflatten(W, [unit_laplace(keys[:, i], x.shape[1:])
                               for i, x in enumerate(leaves)])
 
@@ -98,9 +102,12 @@ def add_client_noise(W, unit_noise, scale: torch.Tensor,
     return Z, snr
 
 
-def sensitivity_surrogate(g_tree, per_client: bool = False) -> torch.Tensor:
-    """Delta_hat = 2 ||g||_1 (paper eq. (39) commentary)."""
-    return 2.0 * tree_l1_norm(g_tree, per_client)
+def sensitivity_surrogate(g_tree, per_client: bool = False,
+                          l1_norm=tree_l1_norm) -> torch.Tensor:
+    """Delta_hat = 2 ||g||_1 (paper eq. (39) commentary). ``l1_norm(g,
+    per_client)`` is ||g||_1 (a mesh's sums it over the ranks'
+    coordinates)."""
+    return 2.0 * l1_norm(g_tree, per_client)
 
 
 def fedepm_noise_scale(delta_hat, eps_dp, mu, factor: float = 1.0):

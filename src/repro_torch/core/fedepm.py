@@ -190,18 +190,21 @@ def pows_stream(cfg: FedEPMConfig, k_starts, device) -> torch.Tensor:
                      .to(device))
 
 
-def _client_inner(W, w_new, g, pows: torch.Tensor, cfg: FedEPMConfig):
+def _client_inner(W, w_new, g, pows: torch.Tensor, cfg: FedEPMConfig,
+                  sq_dist=tree_sq_dist):
     """k0 closed-form prox iterations (20) for all m clients at once.
 
     mu_{i,k+1} = mu0 (1 + c ||w_i^k - w^{tau+1}||^2) alpha^{k+1} is one
     value per client, recomputed from the current iterate at every step;
-    ``pows`` holds the round's alpha^{k+1}. Returns (W, mu_last).
+    ``pows`` holds the round's alpha^{k+1}; ``sq_dist(W, w_new,
+    per_client=True)`` is the squared distance (a mesh's sums it over the
+    ranks' coordinates). Returns (W, mu_last).
     """
     mu = None
     one = torch.ones((), dtype=torch.float32, device=pows.device)
     c = torch.full((), cfg.c, dtype=torch.float32, device=pows.device)
     for t in range(cfg.k0):
-        sq = tree_sq_dist(W, w_new, per_client=True)
+        sq = sq_dist(W, w_new, per_client=True)
         # jitted XLA:CPU computes mu0 (1 + c sq) alpha^(k+1) as
         # (mu0 alpha^(k+1)) fma(c, sq, 1); addcmul rounds once
         mu = (cfg.mu0 * pows[t]) * torch.addcmul(one, sq, c)
@@ -217,11 +220,13 @@ def compute_params(w, dtype: torch.dtype | None):
     return tmap(lambda x: x.to(dtype) if x.dtype == torch.bfloat16 else x, w)
 
 
-def upload_scale(cfg: FedEPMConfig, g, mu_last: torch.Tensor):
+def upload_scale(cfg: FedEPMConfig, g, mu_last: torch.Tensor,
+                 l1_norm=tree_l1_norm):
     """(grad_l1, the Laplace scale b_i) per client of the stacked gradient
     ``g``: Delta_hat = 2 ||g_i||_1 (clipped at ``sensitivity_clip``) over
-    eps_dp mu_i (21)/(39); zeros without DP."""
-    grad_l1 = dp.sensitivity_surrogate(g, per_client=True) / 2.0
+    eps_dp mu_i (21)/(39); zeros without DP. ``l1_norm(g, per_client=True)``
+    is ||g_i||_1 (a mesh's sums it over the ranks' coordinates)."""
+    grad_l1 = dp.sensitivity_surrogate(g, True, l1_norm) / 2.0
     if cfg.eps_dp <= 0:
         return grad_l1, torch.zeros(grad_l1.shape, dtype=torch.float32,
                                     device=grad_l1.device)
@@ -235,7 +240,8 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
                  cfg: FedEPMConfig, mask: torch.Tensor | None = None, *,
                  unit_noise=None, pows: torch.Tensor | None = None,
                  compute_dtype: torch.dtype | None = None,
-                 state_dtype: torch.dtype | None = None):
+                 state_dtype: torch.dtype | None = None,
+                 aggregate=None, offset: int = 0):
     """One communication round = k0 iterations of Algorithm 2.
 
     ``batches`` is a tree with a leading client axis m. ``mask`` (m,) bool
@@ -248,20 +254,30 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     round that cannot read ``state.k``. ``compute_dtype`` casts a bf16
     aggregate for the gradient (a model's compute dtype); ``state_dtype``
     stores the clients' updated rows (``core/distributed.py``'s
-    ``DistConfig``). Returns (new_state, RoundMetrics).
+    ``DistConfig``).
+
+    On a mesh the state's W and Z, and ``batches``, hold a block of the m
+    clients, rows ``offset`` on: the mask (m,) and the noise keys are drawn
+    for all m and the block's taken, and ``aggregate(Z) -> w`` is the
+    mesh's ENS over every client's upload (default: ENS over the state's
+    Z). Returns (new_state, RoundMetrics), the metrics the block's.
     """
-    m = cfg.m
+    rows = tree_leaves(state.W)[0].shape[0]
     device = _device(state.W)
     key, k_sel, k_noise = split_round_key(state.key)
     if mask is None:
         mask = _select(k_sel, cfg, state.k // cfg.k0, device)
+    mask = mask[offset:offset + rows]
 
     # ---- server: aggregate uploads via ENS (19) and broadcast ----
-    w_new = ens_ops.ens_tree(state.Z, cfg.lam, cfg.eta)
+    if aggregate is None:
+        w_new = ens_ops.ens_tree(state.Z, cfg.lam, cfg.eta)
+    else:
+        w_new = aggregate(state.Z)
 
     # ---- clients: one gradient per round at the broadcast point (18) ----
     g = client_grads(loss_fn, compute_params(w_new, compute_dtype), batches,
-                     m)
+                     rows)
 
     # ---- k0 inner prox iterations per client (20) ----
     if pows is None:
@@ -277,7 +293,7 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     if cfg.eps_dp > 0:
         if unit_noise is None:
             unit_noise = dp.client_unit_laplace(need_key(k_noise, "noise"),
-                                                W_upd)
+                                                W_upd, offset, cfg.m)
         Z_upd, snr = dp.add_client_noise(W_upd, unit_noise, scale, mask)
     else:
         Z_upd = W_upd

@@ -112,13 +112,25 @@ def _nll(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, tgt.unsqueeze(-1).to(torch.int64))[..., 0]
 
 
-def _client_mean(nll: torch.Tensor, mask) -> torch.Tensor:
-    """(m, B, T) -> (m,): the mean, or the masked sum over max(sum(mask),
-    1), over each client's positions."""
+def _denominator(mask: torch.Tensor, batches) -> torch.Tensor:
+    """(m,): max(sum(mask), 1) over each client's positions, or the
+    batch's ``loss_denom``, which a rank of a mesh holding some of a
+    client's rows sets to the count over every rank's rows
+    (``core/distributed.py::_client_grad``, which also gives a batch
+    without a ``loss_mask`` one of ones so that it is read). It is the
+    only field of a batch that does not come from the data."""
+    denom = batches.get("loss_denom")
+    if denom is not None:
+        return denom
+    return torch.clamp_min(mask.flatten(1).sum(dim=1), 1.0)
+
+
+def _client_mean(nll: torch.Tensor, mask, batches) -> torch.Tensor:
+    """(m, B, T) -> (m,): the mean, or the masked sum over
+    ``_denominator``, over each client's positions."""
     if mask is None:
         return nll.flatten(1).mean(dim=1)
-    return (nll * mask).flatten(1).sum(dim=1) \
-        / torch.clamp_min(mask.flatten(1).sum(dim=1), 1.0)
+    return (nll * mask).flatten(1).sum(dim=1) / _denominator(mask, batches)
 
 
 class LMLoss(nn.Module):
@@ -134,7 +146,7 @@ class LMLoss(nn.Module):
     def forward(self, W, batches) -> torch.Tensor:
         logits = self.model.apply_clients(W, batches)  # (m, B, T, V)
         return _client_mean(_nll(logits, batches["targets"]),
-                            batches.get("loss_mask"))
+                            batches.get("loss_mask"), batches)
 
 
 class ChunkedLMLoss(nn.Module):
@@ -168,7 +180,7 @@ class ChunkedLMLoss(nn.Module):
             logits = self.family.unembed(h[:, :, s:s + c], W, self.cfg)
             nll = _nll(logits, tgt[:, :, s:s + c])
             total = total + (nll * mask[:, :, s:s + c]).flatten(1).sum(dim=1)
-        return total / torch.clamp_min(mask.flatten(1).sum(dim=1), 1.0)
+        return total / _denominator(mask, batches)
 
 
 def accuracy_logistic(w: torch.Tensor, X: torch.Tensor,

@@ -136,8 +136,8 @@ def run_one(arch: str, shape: str, mesh_kind: str = "single", *,
             del out, args
             static = dict(bundle.static)
             cfg = static.pop("cfg", None)
-            static.pop("fed", None)
-            static.pop("init", None)
+            for k in ("fed", "init", "sspecs", "bspecs"):
+                static.pop(k, None)  # objects, and the shardings' record
             rec.update(
                 status="ok", notes=bundle.notes, kind=bundle.kind,
                 build_s=round(t1 - t0, 3), args_s=round(t2 - t1, 3),

@@ -5,8 +5,9 @@ Terms per (arch x shape), in seconds:
 
   compute    = FLOPs / (chips * PEAK_FLOPS)
   memory     = HBM bytes / (chips * HBM_BW)
-  collective = 0 on one card (the mesh across cards is ROADMAP queue 1
-               item 14.5; LINK_BW is kept for it)
+  collective = the step's collective bytes received per rank / LINK_BW
+               (the census of ``sharding/comm.py``, which a step on a
+               live mesh records); 0 on one card
 
 The peaks are one NVIDIA H100 SXM's, from NVIDIA's data sheet at its 700 W
 limit: 989e12 dense bf16 FLOP/s on the tensor cores, 3.35e12 B/s of HBM3,
@@ -16,12 +17,15 @@ The FLOP and byte counts are JAX's analytic model, line for line (the
 same float arithmetic gives the same numbers): ``train_flops``,
 ``prefill_flops``, ``decode_flops``, the ``*_hbm_bytes`` functions and
 ``total_param_bytes``. JAX's HLO parts (``parse_hlo_loops``,
-``_computation_multipliers``, ``_chain_multiplier`` and the collective
-census) read XLA's compiled HLO and have no PyTorch counterpart: the
-port's dry-run record holds what the card measured instead (wall, peak
-device memory, the port kernels' launches), and ``analyse`` sets the
-measured wall beside the analytic times with the share of the bf16 peak
-the model's FLOPs reach in it.
+``_computation_multipliers``, ``_chain_multiplier``) read XLA's compiled
+HLO and have no PyTorch counterpart: the port's dry-run record holds what
+the card measured instead (wall, peak device memory, the port kernels'
+launches), and ``analyse`` sets the measured wall beside the analytic
+times with the share of the bf16 peak the model's FLOPs reach in it. The
+collective census is the one the port's collectives keep as they run
+(``sharding/comm.py::CENSUS``), in JAX's record shape: a ``collectives``
+list of {"op", "bytes"} per rank, each op run once (no loop to
+trip-correct: the port's loops are Python's).
 
     python -m repro_torch.launch.roofline [--dir artifacts/dryrun_torch/single]
 """
@@ -38,12 +42,18 @@ import torch
 # ---- one NVIDIA H100 SXM, data sheet at 700 W ------------------------------
 PEAK_FLOPS = 989e12          # dense bf16, tensor cores
 HBM_BW = 3.35e12             # bytes/s
-LINK_BW = 450e9              # NVLink bytes/s each way (unused on one card)
+LINK_BW = 450e9              # NVLink bytes/s each way
 
 
 def collective_seconds(rec: dict, chips: int) -> tuple[float, dict]:
-    """One card moves nothing between cards."""
-    return 0.0, {"bytes_by_op": {}, "total_bytes": 0.0}
+    """The record's collective bytes received per rank over LINK_BW, and
+    its bytes by op; one card moves nothing between cards."""
+    per_op: dict[str, float] = {}
+    if chips > 1:
+        for op in rec.get("collectives", []):
+            per_op[op["op"]] = per_op.get(op["op"], 0.0) + op["bytes"]
+    total = sum(per_op.values())
+    return total / LINK_BW, {"bytes_by_op": per_op, "total_bytes": total}
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,13 @@ Shape semantics, as in JAX:
                  sliding-window VARIANT (window 4096); encoder-only archs
                  skip the decode shapes.
 
-The steps run on one device: the mesh is a record (``launch/mesh.py``),
-and only a one-device mesh runs a step (ROADMAP queue 1 item 14.5 keeps
-the mesh across cards). Each builder takes ``shape`` to cut the batch or
-the sequence of its ``INPUT_SHAPES`` entry.
+A step runs on one device (a one-device mesh record) or, the train step,
+on the ranks of a live mesh (``sharding/mesh.py``): there each rank holds
+its blocks of the state (``static["init"]``) and of the batch, which
+``shard_tree`` cuts by ``static["bspecs"]``. The serve steps and a record
+mesh of more than one device stay for ROADMAP queue 1 item 14.5. Each
+builder takes ``shape`` to cut the batch or the sequence of its
+``INPUT_SHAPES`` entry.
 """
 from __future__ import annotations
 
@@ -290,7 +293,7 @@ def build_train_step(arch: str, mesh, *, ens: str = "gather", k0: int = 4,
                                             f"k0={k0} ens={dist.ens}"])),
         static={"mode": dist.mode, "m": m, "k0": k0, "b_local": b_local,
                 "ens": dist.ens, "cfg": cfg, "fed": fed_cfg,
-                "init": init_fn})
+                "init": init_fn, "sspecs": sspecs, "bspecs": bspecs})
 
 
 # ---------------------------------------------------------------------------

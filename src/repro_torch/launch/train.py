@@ -9,34 +9,41 @@ Two modes, as in JAX:
                 with the port's prox, ENS and quantizer kernels on the card;
   (no --spec)   ``launch/steps.py``'s train step: FedEPM rounds through
                 ``core/distributed.py``'s ``build_fedepm`` at the arch's
-                ``fed_plan`` on a one-device mesh (``--mesh-shape 1,1``, the
-                default), on batches of ``data/lm.py``.
+                ``fed_plan``, on batches of ``data/lm.py``: on one device
+                (``--devices 1``, ``--mesh-shape 1,1``, the defaults), or
+                on N ranks of a live (N, 1) mesh (``--devices N``,
+                ``--mesh-shape N,1``; ``launch/mesh.py::spawn``: one card
+                a rank over NCCL, gloo ranks with ``--device cpu``), where
+                the spatial archs federate m = N client groups.
 
     python -m repro_torch.launch.train --spec examples/specs/lm_federated.toml
     python -m repro_torch.launch.train --spec FILE --engine eager \\
         --rounds 3 --json summary.json --checkpoint ckpt/w_tau
     python -m repro_torch.launch.train --arch smollm-135m --seq 4096 \\
         --global-batch 8 --rounds 2
+    python -m repro_torch.launch.train --arch smollm-135m --devices 4 \\
+        --mesh-shape 4,1 --seq 4096 --global-batch 8 --rounds 2
 
 run on the CUDA card; ``--device cpu`` runs the plain PyTorch path. Both
-print JAX's lines, and ``--checkpoint`` writes the final broadcast point in
-the JAX package's npz layout, which ``repro.checkpoint.restore`` reads.
-More than one device (``--devices`` above 1, a ``--mesh-shape`` other than
-1,1) is refused: the mesh across cards is ROADMAP queue 1 item 14.5.
+print JAX's lines (on a mesh rank 0 alone prints, adding the round's
+collective bytes by op), and ``--checkpoint`` writes the final broadcast
+point in the JAX package's npz layout, which ``repro.checkpoint.restore``
+reads (rank 0 alone writes it). More ranks than cards exit 2; a "model"
+axis above 1 is refused, naming ROADMAP queue 1 item 14.5.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 import time
 
+import torch
+
 from repro_torch.core.treeutil import tree_leaves
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.mesh import MESH_ACROSS_CARDS
+from repro_torch.sharding.mesh import MODEL_AXIS_NOT_PORTED
 from repro_torch.spec import ExperimentSpec, SpecError
-
-MESH_NOT_PORTED = (f"{MESH_ACROSS_CARDS}; train runs on one device "
-                   f"(--devices 1, --mesh-shape 1,1)")
 
 
 def run_spec(args) -> int:
@@ -94,10 +101,11 @@ def run_spec(args) -> int:
     return 0
 
 
-def run_mesh(args) -> int:
-    """The train step of ``launch/steps.py`` on one device, JAX's loop:
-    ``--rounds`` rounds over ``federated_token_batches``, padded into the
-    step's targets and loss mask."""
+def run_mesh(args, mesh=None) -> int:
+    """The train step of ``launch/steps.py``, JAX's loop: ``--rounds``
+    rounds over ``federated_token_batches``, padded into the step's targets
+    and loss mask, on one device (``mesh`` None) or on this rank of the
+    live ``mesh``, whose rank 0 alone prints and saves."""
     import dataclasses
 
     from repro_torch import configs, random
@@ -105,10 +113,15 @@ def run_mesh(args) -> int:
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.config import INPUT_SHAPES
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.specs import gather_tree, shard_tree
 
-    device = resolve_device(args.device)
-    mesh = make_mesh((1, 1), ("data", "model"))
-    print(f"mesh: {mesh.shape}  devices: 1")
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    if mesh is None:
+        mesh = make_mesh((1, 1), ("data", "model"))
+    say(f"mesh: {mesh.shape}  devices: {mesh.size}")
     base = INPUT_SHAPES["train_4k"]
     shape = dataclasses.replace(
         base, seq_len=args.seq or base.seq_len,
@@ -122,13 +135,13 @@ def run_mesh(args) -> int:
     finally:
         configs.get_config = real_get
     if isinstance(bundle, steps_mod.Skip):
-        print("SKIP:", bundle.reason)
+        say("SKIP:", bundle.reason)
         return 1
     cfg = bundle.static["cfg"]
     m = bundle.static["m"]
     b_local = bundle.static["b_local"]
-    print(f"arch={cfg.name} fedepm[{bundle.static['mode']}] m={m} "
-          f"b_local={b_local} seq={shape.seq_len} k0={args.k0}")
+    say(f"arch={cfg.name} fedepm[{bundle.static['mode']}] m={m} "
+        f"b_local={b_local} seq={shape.seq_len} k0={args.k0}")
 
     specs = bundle.args[1]
     seq = specs["tokens"].shape[-1] if "tokens" in specs \
@@ -137,19 +150,26 @@ def run_mesh(args) -> int:
                                      steps=args.rounds)
     state = bundle.static["init"](random.PRNGKey(0), device=device)
     for r, raw in enumerate(stream):
-        batch = steps_mod.lm_batch(specs, raw, random.PRNGKey(r), cfg.vocab,
-                                   device)
+        batch = shard_tree(steps_mod.lm_batch(specs, raw, random.PRNGKey(r),
+                                              cfg.vocab, device),
+                           bundle.static["bspecs"], mesh)
+        comm.reset_census()
         t0 = time.time()
         state, metrics = bundle.fn(state, batch)
         drift = float(metrics.drift)  # waits for the round
-        print(f"round {r}: drift={drift:.3e} "
-              f"snr={float(metrics.snr):.2f} "
-              f"sel={int(metrics.selected.sum())}/{m} "
-              f"({time.time()-t0:.1f}s)", flush=True)
+        coll = "" if mesh.size == 1 else "  coll " + " ".join(
+            f"{op}={b / 1e6:.2f}MB" for op, b in
+            sorted(comm.bytes_by_op().items()))
+        say(f"round {r}: drift={drift:.3e} "
+            f"snr={float(metrics.snr):.2f} "
+            f"sel={int(metrics.selected.sum())}/{m} "
+            f"({time.time()-t0:.1f}s){coll}", flush=True)
     if args.checkpoint:
         from repro_torch.checkpoint import save
-        save(args.checkpoint, state.w_tau, {"arch": cfg.name})
-        print("saved", args.checkpoint)
+        w_tau = gather_tree(state.w_tau, bundle.static["sspecs"].w_tau, mesh)
+        if lead:
+            save(args.checkpoint, w_tau, {"arch": cfg.name})
+            print("saved", args.checkpoint)
     return 0
 
 
@@ -171,9 +191,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced config (CPU-sized)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="(mesh path) device count: one device only")
+                    help="(mesh path) ranks, one card each (gloo ranks "
+                         "with --device cpu); default 1")
     ap.add_argument("--mesh-shape", default="",
-                    help="(mesh path) data,model: 1,1 only (the default)")
+                    help="(mesh path) data,model: N,1 for --devices N "
+                         "(the default)")
     ap.add_argument("--ens", default="gather", choices=["gather", "a2a"])
     ap.add_argument("--k0", type=int, default=4)
     ap.add_argument("--seq", type=int, default=0,
@@ -202,10 +224,26 @@ def main(argv=None) -> int:
                      f"--spec (the file defines the experiment; only "
                      f"--rounds/--engine override it)")
         return run_spec(args)
-    if args.devices > 1 or args.mesh_shape not in ("", "1,1"):
-        ap.error(MESH_NOT_PORTED)
+    n = max(args.devices, 1)
+    if args.mesh_shape:
+        shape = tuple(int(v) for v in args.mesh_shape.split(","))
+        if len(shape) != 2 or shape[1] != 1:
+            ap.error(f"--mesh-shape {args.mesh_shape}: "
+                     f"{MODEL_AXIS_NOT_PORTED}")
+        if args.devices and shape[0] != n:
+            ap.error(f"--mesh-shape {args.mesh_shape} needs --devices "
+                     f"{shape[0]}")
+        n = shape[0]
     args.rounds = args.rounds_flag if args.rounds_flag is not None else 3
-    return run_mesh(args)
+    if n == 1:
+        return run_mesh(args)
+    device = resolve_device(args.device)
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        print(f"--devices {n}: this machine has "
+              f"{torch.cuda.device_count()} cards", file=sys.stderr)
+        return 2
+    from repro_torch.launch.mesh import spawn
+    return spawn(functools.partial(run_mesh, args), n, device=device.type)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ Models name their activations' and params' axes logically; a rules table
 Outside any rules context nothing is mapped. A spec is :class:`P`, a
 tuple of mesh axis names, ``None`` or tuples of names per dim, as JAX's
 ``PartitionSpec`` is; a sharding is :class:`NamedSharding`, a mesh and a
-spec. Only one device runs: ``constrain`` returns its input there and
-refuses a mesh of more than one device (ROADMAP queue 1 item 14.5).
+spec. ``constrain`` moves nothing: it returns its input on one device,
+checks the input's rank against its spec on a live mesh
+(``sharding/mesh.py``), and refuses a record mesh of more than one device
+(ROADMAP queue 1 item 14.5).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import contextlib
 import threading
 from typing import Mapping, NamedTuple, Optional, Sequence
 
-from repro_torch.sharding.mesh import require_one_device
+from repro_torch.sharding.mesh import is_live, require_one_device
 
 _tls = threading.local()
 
@@ -124,12 +126,20 @@ def logical_sharding(logical: Sequence[Optional[str]]):
 
 def constrain(x, *logical: Optional[str]):
     """JAX's ``with_sharding_constraint`` by logical names (which drops an
-    axis whose dim the mesh axes do not divide). One device holds every
-    tensor whole, so this returns ``x``; under a mesh of more than one
-    device it raises, naming ROADMAP item 14.5."""
+    axis whose dim the mesh axes do not divide). It returns ``x``: one
+    device holds every tensor whole, and on a live mesh ``x`` is this
+    rank's block, which must have one logical name per dim; under a
+    record mesh of more than one device it raises, naming ROADMAP item
+    14.5."""
     ctx = current_rules()
-    if ctx is not None:
-        require_one_device(ctx[0])
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    if not is_live(mesh):
+        require_one_device(mesh)
+    elif len(logical) != x.dim():
+        raise ValueError(f"{len(logical)} logical names for a block "
+                         f"{tuple(x.shape)}")
     return x
 
 

@@ -11,17 +11,21 @@ large leaf that no rule put on "model" its largest divisible dim there,
 and gives ``fsdp_axes`` the largest dim left (ZeRO-3 style).
 
 The leaves' shapes come from anything with a ``.shape``: the launch
-layer's stand-ins, or tensors on the meta device. One device places
-nothing: ``named`` pairs specs with the mesh for the record, and
-``constrain_tree`` returns its tree (ROADMAP queue 1 item 14.5 keeps the
-mesh across cards).
+layer's stand-ins, or tensors on the meta device. ``named`` pairs specs
+with the mesh for the record. On a live mesh (``sharding/mesh.py``)
+``shard_tree`` cuts each leaf to this rank's block along the dim its spec
+gives the "data" axis and ``gather_tree`` undoes it (one all_gather);
+``constrain_tree`` checks the blocks' shapes and moves nothing. One device
+places nothing: there ``constrain_tree`` returns its tree.
 """
 from __future__ import annotations
 
 import math
 from typing import Mapping, Optional, Sequence
 
-from repro_torch.sharding.mesh import require_one_device
+from repro_torch.sharding import comm
+from repro_torch.sharding.mesh import MESH_ACROSS_CARDS, is_live, \
+    require_one_device
 from repro_torch.sharding.rules import NamedSharding, P, logical_map
 
 # logical axis name -> preferred mesh axes (tried in order, first that fits)
@@ -138,8 +142,116 @@ def named(tree_of_specs, mesh):
     return spec_map(lambda s: NamedSharding(mesh, s), tree_of_specs)
 
 
-def constrain_tree(tree, tree_of_specs, mesh):
-    """JAX's ``with_sharding_constraint`` over a tree: the identity on one
-    device; a mesh of more than one device raises (ROADMAP item 14.5)."""
-    require_one_device(mesh)
+def data_dim(spec) -> Optional[int]:
+    """The dim that ``spec`` cuts over the "data" axis; None where the
+    leaf is whole on every rank."""
+    for i, e in enumerate(spec):
+        if "data" in (e if isinstance(e, tuple) else (e,)):
+            return i
+    return None
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of this rank's block of a leaf of ``shape`` on the live
+    ``mesh``. A dim that the "data" axis does not divide is refused: JAX's
+    GSPMD pads it, the port does not (item 14.5)."""
+    shape = tuple(shape)
+    k = data_dim(spec)
+    if k is None:
+        return shape
+    D = mesh.shape["data"]
+    if shape[k] % D:
+        raise ValueError(
+            f"dim {k} of a leaf {shape} is cut over 'data' ({spec}), which "
+            f"{D} ranks do not divide; {MESH_ACROSS_CARDS}")
+    return shape[:k] + (shape[k] // D,) + shape[k + 1:]
+
+
+def _zip_map(fn, tree, specs, *more):
+    """``fn(leaf, spec, *more_leaves)`` over a tree, its spec tree and
+    trees of its structure (dicts, lists, tuples and NamedTuples; a spec
+    is a :class:`P`)."""
+    if isinstance(specs, P):
+        return fn(tree, specs, *more)
+    if isinstance(specs, dict):
+        return {k: _zip_map(fn, tree[k], specs[k], *(t[k] for t in more))
+                for k in specs}
+    out = [_zip_map(fn, t, sp, *(o[i] for o in more))
+           for i, (t, sp) in enumerate(zip(tree, specs))]
+    if isinstance(tree, list):
+        return out
+    return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+
+
+def shard_leaf(x, spec, mesh):
+    """This rank's block of the whole leaf ``x`` (contiguous, a copy where
+    it is cut)."""
+    k = data_dim(spec)
+    if k is None or not hasattr(x, "shape"):
+        return x.contiguous() if hasattr(x, "contiguous") else x
+    n = local_shape(x.shape, spec, mesh)[k]
+    return x.narrow(k, mesh.coord("data") * n, n).contiguous()
+
+
+def shard_tree(tree, tree_of_specs, mesh):
+    """Each leaf of ``tree`` (whole, the same on every rank) cut to this
+    rank's block of the live ``mesh``; the identity elsewhere."""
+    if not is_live(mesh):
+        require_one_device(mesh)
+        return tree
+    return _zip_map(lambda x, sp: shard_leaf(x, sp, mesh), tree,
+                    tree_of_specs)
+
+
+def gather_tree(tree, tree_of_specs, mesh, what: str = "gather_tree"):
+    """``shard_tree`` undone: every rank's blocks in one all_gather (its
+    census entry labelled ``what``), each cut leaf whole again on every
+    rank."""
+    if not is_live(mesh):
+        require_one_device(mesh)
+        return tree
+    cut = []
+    _zip_map(lambda x, sp: cut.append(x) if data_dim(sp) is not None
+             and hasattr(x, "shape") else None, tree, tree_of_specs)
+    whole = iter(comm.all_gather(mesh, cut, what=what) if cut else [])
+
+    def one(x, sp):
+        k = data_dim(sp)
+        if k is None or not hasattr(x, "shape"):
+            return x
+        g = next(whole).movedim(0, k)
+        return g.reshape(x.shape[:k] + (-1,) + x.shape[k + 1:])
+
+    return _zip_map(one, tree, tree_of_specs)
+
+
+def _check_block(x, spec, mesh, like=None) -> None:
+    """A live mesh's block check: ``spec`` names the mesh's axes, at most
+    one entry per dim (JAX's trailing dims whole), and the block has the
+    shape ``spec`` cuts from ``like``'s (the whole leaf's stand-in) where
+    that is given."""
+    if not hasattr(x, "dim"):
+        return
+    if len(spec) > x.dim() or any(
+            a is not None and a not in mesh.axis_names
+            for e in spec for a in (e if isinstance(e, tuple) else (e,))):
+        raise ValueError(f"spec {spec} does not fit a block "
+                         f"{tuple(x.shape)} on the mesh {mesh.shape}")
+    if like is not None and tuple(x.shape) != local_shape(like.shape, spec,
+                                                          mesh):
+        raise ValueError(f"a block {tuple(x.shape)} is not the {spec} "
+                         f"block of {tuple(like.shape)} on {mesh.shape}")
+
+
+def constrain_tree(tree, tree_of_specs, mesh, like=None):
+    """JAX's ``with_sharding_constraint`` over a tree, which moves nothing
+    here: on a live mesh each block is checked (``_check_block``, against
+    the stand-ins ``like`` where given) and the tree returned; on one
+    device the tree is returned; a record mesh of more than one device
+    raises (item 14.5)."""
+    if not is_live(mesh):
+        require_one_device(mesh)
+        return tree
+    _zip_map(lambda x, sp, *lk: _check_block(x, sp, mesh, *lk), tree,
+             tree_of_specs, *(() if like is None else (like,)))
     return tree

@@ -55,11 +55,13 @@ S = chip_smoke.DIST_SETTINGS
 STATE_RTOL = chip_smoke.STATE_RTOL
 
 
-def batches(arch):
+def batches(arch, batch=None):
+    """The clients' numpy batches: m of ``batch`` (default
+    ``DIST_SETTINGS``') x 16 tokens."""
     cfg = jconfigs.get_reduced(arch)
-    return next(jlm.federated_token_batches(cfg.vocab, S["m"], S["batch"],
-                                            S["seq"], steps=1,
-                                            seed=S["seed"]))
+    return next(jlm.federated_token_batches(
+        cfg.vocab, S["m"], batch or S["batch"], S["seq"], steps=1,
+        seed=S["seed"]))
 
 
 def fed_cfg(pkg, **over):
@@ -67,13 +69,15 @@ def fed_cfg(pkg, **over):
     return pkg.FedEPMConfig.paper_defaults(**{**kw, **over})
 
 
-def jax_rounds(arch, rounds, state_dtype=None, **kw):
-    """JAX's ``build_fedepm`` rounds on the one-device Auto mesh, jitted
-    with the state's shardings as ``launch/steps.py`` jits them: (the
-    state after each round as a dict of numpy trees, metrics of each
+def jax_rounds(arch, rounds, state_dtype=None, devices=1, batch=None, **kw):
+    """JAX's ``build_fedepm`` rounds on the Auto mesh of ``devices`` x 1
+    (more than one needs forced host devices, ``tests/_torch_mesh_jax.py``),
+    jitted with the state's shardings as ``launch/steps.py`` jits them:
+    (the state after each round as a dict of numpy trees, metrics of each
     round)."""
-    mesh = jax.make_mesh((1, 1), ("data", "model"),
-                         axis_types=(AxisType.Auto, AxisType.Auto))
+    mesh = jax.make_mesh((devices, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto),
+                         devices=jax.devices()[:devices])
     cfg = jconfigs.get_reduced(arch)
     model = jregistry.get_model(cfg)
     dist = jdist.DistConfig(client_axes=("data",), fsdp_axes=("data",),
@@ -84,8 +88,10 @@ def jax_rounds(arch, rounds, state_dtype=None, **kw):
         (2,), jnp.uint32)))
     step = jax.jit(lambda s, b: step_fn(s, b, sspecs),
                    in_shardings=(_named(sspecs, mesh), None))
-    b = {k: jnp.asarray(v) for k, v in batches(arch).items()}
-    state, states, mets = init_fn(jax.random.PRNGKey(0)), [], []
+    b = {k: jnp.asarray(v) for k, v in batches(arch, batch).items()}
+    state = jax.device_put(init_fn(jax.random.PRNGKey(0)),
+                           _named(sspecs, mesh))
+    states, mets = [], []
     for _ in range(rounds):
         state, met = step(state, b)
         mets.append(jax.device_get(met))

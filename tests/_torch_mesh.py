@@ -1,0 +1,359 @@
+"""Shared by the ``test_torch_mesh*.py`` files: the cases, the port's run
+of them on the ranks of a live mesh, and the JAX oracle's subprocess.
+
+The port runs every case of a file in ONE spawned group of gloo ranks per
+world size (``repro_torch.launch.mesh.spawn``; ``OMP_NUM_THREADS=2`` in
+their environment, so four ranks do not crowd the cores):
+``run_cases`` is what each rank runs, and this module imports nothing of
+JAX, so the ranks never load it. JAX runs the same cases in a
+subprocess (``tests/_torch_mesh_jax.py``) with
+``XLA_FLAGS=--xla_force_host_platform_device_count=4`` set before JAX is
+imported (the pytest worker has JAX on one device already), one
+subprocess for each D side by side: its ``build_fedepm`` on
+``jax.make_mesh((D, 1), ("data", "model"), axis_types=(AxisType.Auto,
+AxisType.Auto))``, jitted with the state's shardings
+(``tests/_torch_distributed.py::jax_rounds``). ``run_both`` starts them,
+runs the port's groups meanwhile, then reads their npz.
+
+Both take ``chip_smoke.DIST_SETTINGS`` (m 4 clients of 16 tokens, k0 3,
+eps 0.1, rho 0.5, seed 3): 2 sequences a client in the spatial cases,
+``TEMPORAL_BATCH`` = 4 in the temporal ones (a per-client batch that 2
+and 4 ranks divide; the port refuses one they do not). The ``train``
+case is ``launch/steps.py``'s ``build_train_step`` on reduced
+smollm-135m at ``test_torch_steps``' cut shape (seq 64, global batch 2),
+two rounds, against JAX's bundle on the same (D, 1) mesh.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke
+
+ROOT = Path(__file__).resolve().parent.parent
+S = chip_smoke.DIST_SETTINGS
+TEMPORAL_BATCH = 4
+THREADS = "2"         # torch threads a rank (OMP_NUM_THREADS)
+JOIN_S = 300          # the wall limit on a spawned group (about twice a
+                      # mesh file's fixture in a run of six workers)
+JAX_S = 300           # and on the JAX subprocess
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS = 64, 2, 2
+
+SMOLLM = "smollm-135m"
+CASES = {
+    "smollm-135m/spatial_gather": (SMOLLM, 2, dict(
+        mode="spatial", ens="gather", remat=False)),
+    "smollm-135m/spatial_a2a": (SMOLLM, 2, dict(
+        mode="spatial", ens="a2a", remat=True)),
+    "smollm-135m/temporal_mb1": (SMOLLM, 2, dict(
+        mode="temporal", microbatch=1, remat=False)),
+    "smollm-135m/temporal_mb2": (SMOLLM, 2, dict(
+        mode="temporal", microbatch=2, remat=True)),
+    "xlstm-125m/spatial_a2a": ("xlstm-125m", 1, dict(
+        mode="spatial", ens="a2a", remat=False)),
+    "xlstm-125m/temporal": ("xlstm-125m", 1, dict(
+        chip_smoke.DIST_MODES["temporal"])),
+    "zamba2-1.2b/spatial_a2a": ("zamba2-1.2b", 1, dict(
+        mode="spatial", ens="a2a", remat=False)),
+    "zamba2-1.2b/temporal": ("zamba2-1.2b", 1, dict(
+        chip_smoke.DIST_MODES["temporal"])),
+}
+
+
+def batch_size(case: str) -> int:
+    return TEMPORAL_BATCH if CASES[case][2]["mode"] == "temporal" \
+        else S["batch"]
+
+
+# ---------------------------------------------------------------------------
+# the port, on each rank
+# ---------------------------------------------------------------------------
+
+def _port_case(mesh, case: str):
+    """One case's rounds on ``mesh`` (a live mesh or None): per round the
+    whole state (every rank's blocks gathered) as {"w_tau", "W", "Z"}
+    lists of leaves, the metrics, and the census of the round."""
+    from repro_torch import configs, random
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.fedepm import FedEPMConfig
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import specs as sh
+    arch, rounds, kw = CASES[case]
+    cfg = configs.get_reduced(arch)
+    raw = next(federated_token_batches(cfg.vocab, S["m"], batch_size(case),
+                                       S["seq"], steps=1, seed=S["seed"]))
+    b = {k: torch.from_numpy(v) for k, v in raw.items()}
+    fcfg = FedEPMConfig.paper_defaults(m=S["m"], rho=S["rho"], k0=S["k0"],
+                                       eps_dp=S["eps"])
+    dist = tdist.DistConfig(**kw)
+    init_fn, step_fn, sspecs_fn = tdist.build_fedepm(
+        get_model(cfg), LMLoss(cfg), fcfg, mesh, dist)
+    state = init_fn(random.PRNGKey(0), device="cpu")
+    sspecs = None
+    if mesh is not None:
+        sspecs = sspecs_fn(init_fn(random.PRNGKey(0), device="meta"))
+        b = sh.shard_tree(b, tdist.batch_specs(b, dist), mesh)
+    out = []
+    for _ in range(rounds):
+        comm.reset_census()
+        state, met = step_fn(state, b)
+        census = list(comm.CENSUS)
+        whole = {n: getattr(state, n) for n in ("w_tau", "W", "Z")}
+        if mesh is not None:
+            whole = {n: sh.gather_tree(t, getattr(sspecs, n), mesh)
+                     for n, t in whole.items()}
+        out.append({"state": {n: [x.clone() for x in tree_leaves(t)]
+                              for n, t in whole.items()},
+                    "met": met, "census": census})
+    return out
+
+
+def _port_train(mesh):
+    """The ``train`` case: ``build_train_step`` at the reduced config and
+    the cut shape, ``TRAIN_ROUNDS`` rounds, the state gathered after each."""
+    import dataclasses
+
+    from repro_torch import configs, random
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.launch import steps
+    from repro_torch.models.config import INPUT_SHAPES
+    from repro_torch.sharding import specs as sh
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    real = configs.get_config
+    configs.get_config = configs.get_reduced
+    try:
+        bundle = steps.build_train_step(SMOLLM, mesh, shape=shape)
+    finally:
+        configs.get_config = real
+    cfg, m, b_local = (bundle.static[k] for k in ("cfg", "m", "b_local"))
+    state = bundle.static["init"](random.PRNGKey(0), device="cpu")
+    out = []
+    for r, raw in enumerate(federated_token_batches(
+            cfg.vocab, m, b_local, TRAIN_SEQ, steps=TRAIN_ROUNDS)):
+        batch = sh.shard_tree(steps.lm_batch(bundle.args[1], raw,
+                                             random.PRNGKey(r), cfg.vocab,
+                                             "cpu"),
+                              bundle.static["bspecs"], mesh)
+        state, met = bundle.fn(state, batch)
+        whole = {n: sh.gather_tree(getattr(state, n),
+                                   getattr(bundle.static["sspecs"], n), mesh)
+                 for n in ("w_tau", "W", "Z")}
+        out.append({"state": {n: [x.clone() for x in tree_leaves(t)]
+                              for n, t in whole.items()}, "met": met})
+    return {"rounds": out, "m": m, "b_local": b_local, "notes": bundle.notes}
+
+
+def ens_uploads() -> dict:
+    """A tree of m uploads whose leaves 2 and 4 ranks pad differently
+    (15, 7 and 1 coordinates; one bf16), from numpy's seed 7."""
+    rng = np.random.default_rng(7)
+    m = S["m"]
+    return {"a": torch.from_numpy(rng.standard_normal((m, 5, 3),
+                                                      dtype=np.float32)),
+            "b": torch.from_numpy(rng.standard_normal((m, 7), dtype=np.float32)
+                                  ).to(torch.bfloat16),
+            "c": torch.from_numpy(rng.standard_normal((m, 1),
+                                                      dtype=np.float32))}
+
+
+def _ens_case(mesh):
+    """``ens_gather`` and ``ens_a2a`` over this rank's block of
+    ``ens_uploads``."""
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.treeutil import tmap
+    rows = S["m"] // mesh.shape["data"]
+    block = tmap(lambda z: z[mesh.coord("data") * rows:][:rows].clone(),
+                 ens_uploads())
+    return {ens: fn(block, 1e-2, 2e-2, mesh) for ens, fn in
+            (("gather", tdist.ens_gather), ("a2a", tdist.ens_a2a))}
+
+
+def live_round(mesh):
+    """``build_fedepm`` on the live ``mesh``: one spatial a2a round of
+    reduced smollm-135m at m = 2 ranks' clients, and ``ens_a2a`` across
+    the ranks against the one-device ENS; (mask, drift, ENS the same
+    bits)."""
+    from repro_torch import configs, random
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.fedepm import FedEPMConfig
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.kernels.ens import ops as ens_ops
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import specs as sh
+    cfg = configs.get_reduced(SMOLLM)
+    D = mesh.shape["data"]
+    dist = tdist.DistConfig(mode="spatial", ens="a2a")
+    init_fn, step_fn, _ = tdist.build_fedepm(
+        get_model(cfg), LMLoss(cfg), FedEPMConfig.paper_defaults(m=D),
+        mesh, dist)
+    raw = next(federated_token_batches(cfg.vocab, D, 1, S["seq"], steps=1))
+    b = {k: torch.from_numpy(v) for k, v in raw.items()}
+    state, met = step_fn(init_fn(random.PRNGKey(0), device="cpu"),
+                         sh.shard_tree(b, tdist.batch_specs(b, dist), mesh))
+    whole = ens_uploads()
+    rows = S["m"] // D
+    mine = {k: z[mesh.coord("data") * rows:][:rows] for k, z in whole.items()}
+    same = all(torch.equal(a, b) for a, b in zip(
+        tdist.ens_a2a(mine, 1e-2, 2e-2, mesh).values(),
+        ens_ops.ens_tree(whole, 1e-2, 2e-2).values()))
+    return met.selected, met.drift, same
+
+
+def foreign_modules(mesh) -> list:
+    """The modules of JAX or of the JAX package that a spawned rank has
+    loaded."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def spawn_live_round(D: int = 2):
+    return _spawn(live_round, D)
+
+
+def run_cases(mesh, cases, with_plain: bool = False, train: bool = False):
+    """What each rank runs: ENS over ``ens_uploads``, every case of
+    ``cases`` on the live ``mesh`` (and, with ``with_plain``, with no mesh
+    in the same process), and the ``train`` case; rank 0's results come
+    back."""
+    out = {"ens": _ens_case(mesh)}
+    out.update({c: _port_case(mesh, c) for c in cases})
+    if with_plain:
+        out.update({f"{c}/plain": _port_case(None, c) for c in cases})
+    if train:
+        out["train"] = _port_train(mesh)
+    return out
+
+
+@contextlib.contextmanager
+def rank_threads():
+    """Ranks spawned inside start with THREADS torch threads each."""
+    before = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = THREADS
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = before
+
+
+def _spawn(fn, D: int, *args):
+    """``fn`` on D gloo ranks (``rank_threads``): rank 0's value."""
+    from repro_torch.launch.mesh import spawn
+    with rank_threads():
+        return spawn(fn, D, *args, device="cpu", join_s=JOIN_S)
+
+
+def spawn_cases(D: int, cases, with_plain: bool = False,
+                train: bool = False) -> dict:
+    """``run_cases`` on D gloo ranks; rank 0's results."""
+    return _spawn(run_cases, D, list(cases), with_plain, train)
+
+
+def states(rounds) -> tuple[list, list]:
+    """A run's per-round states and metrics, as the tests hold them."""
+    return [r["state"] for r in rounds], [r["met"] for r in rounds]
+
+
+def bitwise(a, b) -> bool:
+    """Two of the port's runs: every state leaf and metric the same bits."""
+    return all(torch.equal(x, y) for r, s in zip(a, b)
+               for t in ("w_tau", "W", "Z")
+               for x, y in zip(r["state"][t], s["state"][t])) and all(
+        torch.equal(getattr(r["met"], k), getattr(s["met"], k))
+        for r, s in zip(a, b) for k in r["met"]._fields)
+
+
+# ---------------------------------------------------------------------------
+# the JAX oracle, in a subprocess
+# ---------------------------------------------------------------------------
+
+def start_jax(out: Path, devices, cases, train: int = 0) -> list:
+    """Start ``tests/_torch_mesh_jax.py`` once for each D of ``devices``,
+    the processes side by side, each writing ``out``.D.npz for ``cases``
+    (a list, or {D: list}) and the ``train`` case where D is ``train``."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]), JAX_PLATFORMS="cpu")
+    procs = []
+    for D in devices:
+        path = out.with_suffix(f".{D}.npz")
+        cmd = [sys.executable, str(ROOT / "tests" / "_torch_mesh_jax.py"),
+               str(path), str(D), ",".join(cases[D] if isinstance(cases, dict)
+                                            else cases)]
+        if train == D:
+            cmd.append(f"train={D}")
+        procs.append((subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      path))
+    return procs
+
+
+class _Met:
+    """JAX's metrics of a round, as attributes."""
+
+    def __init__(self, d: dict):
+        self.__dict__.update(d)
+
+
+def finish_jax(procs) -> dict:
+    """Wait for the subprocesses (``JAX_S`` at most) and read their npz:
+    {(D, case): [{"state": {tree: [leaves]}, "met": _Met}, ...]}."""
+    runs: dict = {}
+    deadline = time.monotonic() + JAX_S
+    for proc, path in procs:
+        try:
+            log, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for p, _ in procs:
+                p.kill()
+            log, _ = proc.communicate()
+            raise AssertionError(f"the JAX oracle passed {JAX_S} s:\n{log}")
+        assert proc.returncode == 0, log
+        with np.load(path) as z:
+            for key in sorted(z.files):
+                D, case, r, tree, leaf = key.split("|")
+                rounds = runs.setdefault((int(D), case), [])
+                while len(rounds) <= int(r):
+                    rounds.append({"state": {}, "met": {}})
+                slot = rounds[int(r)]
+                if tree == "met":
+                    slot["met"][leaf] = z[key]
+                else:
+                    slot["state"].setdefault(tree, {})[int(leaf)] = z[key]
+    for rounds in runs.values():
+        for slot in rounds:
+            slot["met"] = _Met(slot["met"])
+            slot["state"] = {t: [v[i] for i in sorted(v)]
+                             for t, v in slot["state"].items()}
+    return runs
+
+
+def run_both(tmp: Path, devices, cases, port_groups: dict,
+             train: int = 0):
+    """JAX's subprocesses started, the port's groups ({D: (cases,
+    with_plain, train)}) run meanwhile on gloo ranks, JAX's npz read:
+    (JAX's runs, {D: the port's results})."""
+    procs = start_jax(tmp / "jax", devices, cases, train)
+    try:
+        port = {D: spawn_cases(D, *group) for D, group in port_groups.items()}
+    except BaseException:
+        for p, _ in procs:
+            p.kill()
+        raise
+    return finish_jax(procs), port

@@ -14,9 +14,10 @@ the tolerance).
 - the donated temporal step equals the pure one and writes the state's
   own buffers; the pure one leaves its input; ``init_fn``'s W, Z and
   w_tau are distinct contiguous buffers;
-- a mesh of more than one device, or mesh axes other than the
+- a record mesh of more than one device, or mesh axes other than the
   defaults, raises, naming ROADMAP item 14.5, in ``build_fedepm`` and in
   ``run_rounds``, whose ``mesh=1`` is the run without a mesh bit for bit;
+  on a live mesh of two gloo ranks ``build_fedepm`` and ``ens_a2a`` run;
 - JAX's digests for smollm-135m equal ``chip_smoke.JAX_DIST``; the
   port's CPU digests meet ``chip_smoke.check_dist_digests``, which a
   zeroed W fails.
@@ -192,6 +193,12 @@ def test_init_state_buffers_are_distinct():
 
 
 def test_more_than_one_device_names_item_14_5():
+    """A record mesh of more than one device, or mesh axes that name none
+    of its axes, is refused, naming item 14.5; on a live mesh of two gloo
+    ranks ``build_fedepm`` runs a round and ``ens_a2a`` runs across the
+    ranks with the one-device ENS's bits (``tests/test_torch_mesh*.py``
+    hold the rounds to JAX)."""
+    import _torch_mesh
     model, loss, fcfg, _ = _setup()
     for mesh in (2, 8):
         with pytest.raises(ValueError, match="item 14.5"):
@@ -203,6 +210,8 @@ def test_more_than_one_device_names_item_14_5():
                                tdist.DistConfig(**axes))
     with pytest.raises(ValueError, match="item 14.5"):
         tdist.ens_a2a({}, 0.1, 0.1, mesh=4)
+    selected, drift, ens_same = _torch_mesh.spawn_live_round(2)
+    assert selected.shape == (2,) and float(drift) == 0.0 and ens_same
 
 
 def test_run_rounds_one_device_mesh_is_no_mesh():

@@ -54,7 +54,7 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "check_zamba2_round_vs_cpu", "run_launch_path",
              "run_flash_checks", "run_remat_gradients",
              "check_threefry_rows_kernel", "check_xlstm_upload_vs_cpu",
-             "at_child", "lm_leaf_widths"):
+             "at_child", "lm_leaf_widths", "run_mesh_path", "mesh_rank"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
@@ -91,7 +91,8 @@ for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
             "repro_torch.sharding.mesh",
             "repro_torch.launch.mesh", "repro_torch.launch.steps",
             "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
-            "repro_torch.launch.report", "repro_torch.kernels.rows"):
+            "repro_torch.launch.report", "repro_torch.kernels.rows",
+            "repro_torch.sharding.comm"):
     assert sub in walked, sub
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -107,6 +108,19 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+def test_a_spawned_rank_imports_no_jax_and_nothing_of_repro():
+    """A rank that ``launch/mesh.py::spawn`` starts (a gloo rank here, a
+    card's NCCL rank on the card) loads neither JAX nor the JAX package:
+    the card's machine has no JAX."""
+    import _torch_mesh
+    from repro_torch.launch.mesh import spawn
+    assert spawn(_torch_mesh.foreign_modules, 1, device="cpu",
+                 join_s=120) == []
+    for name in ("spawn", "make_live_mesh", "LiveMesh", "is_live"):
+        assert callable(getattr(__import__(
+            "repro_torch.launch.mesh", fromlist=[name]), name)), name
 
 
 @pytest.mark.parametrize("d,m", [(2000, 16), (45222, 128)])

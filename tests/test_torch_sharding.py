@@ -197,7 +197,9 @@ def test_rules_match_jax(mesh):
 
 def test_one_device_places_nothing_and_refuses_a_larger_mesh():
     """On the (1, 1) mesh ``constrain`` and ``constrain_tree`` return their
-    input; under a larger mesh they raise, naming ROADMAP item 14.5."""
+    input; under a record mesh of more than one device they raise, naming
+    ROADMAP item 14.5; on a live (2, 1) mesh they check this rank's
+    blocks and move nothing, and ``shard_tree`` cuts them."""
     x = torch.ones(3)
     one = tmesh.make_mesh((1, 1), ("data", "model"))
     with trules.axis_rules(one, trules.DEFAULT_RULES):
@@ -209,6 +211,19 @@ def test_one_device_places_nothing_and_refuses_a_larger_mesh():
             trules.constrain(x, "batch")
     with pytest.raises(ValueError, match="item 14.5"):
         tspecs.constrain_tree({"a": x}, {"a": trules.P()}, pod)
+    live = tmesh.LiveMesh(("data", "model"), (2, 1), rank=1)
+    whole = {"a": torch.arange(12.0).reshape(4, 3), "b": x}
+    specs = {"a": trules.P("data", None), "b": trules.P()}
+    mine = tspecs.shard_tree(whole, specs, live)
+    assert torch.equal(mine["a"], whole["a"][2:]) and mine["b"] is x
+    assert tspecs.constrain_tree(mine, specs, live, whole) is mine
+    with trules.axis_rules(live, trules.DEFAULT_RULES):
+        assert trules.constrain(x, "batch") is x
+    with pytest.raises(ValueError, match="block"):
+        tspecs.constrain_tree(whole, specs, live, whole)
+    with pytest.raises(ValueError, match="item 14.5"):
+        tspecs.shard_tree({"a": torch.ones(3, 2)}, {"a": trules.P("data")},
+                          live)
     assert tmesh.n_client_groups(tmesh.make_production_mesh(
         multi_pod=True)) == 32
     assert tmesh.client_axes(pod) == ("data",)
