@@ -223,6 +223,11 @@ SMOLLM_LEAF = 49152 * 576   # smollm-135m tied embedding, 28,311,552
 ZAMBA2_LEAF = 38 * 2048 * 8384
 WIDE_PIECE = 1 << 26        # the plain versions run wider inputs in pieces
 STATE_RTOL = 4e-6           # the CPU parity tests' trajectory tolerance
+# the profiles' depth: rounds (events) in the profiled window of the
+# paper, sim, engine, async and baseline profiles, of the LM ones, and the
+# decode steps of the serving one (10, 2 and 8 until the engine_mesh
+# phase took their time)
+PROFILE_ROUNDS, PROFILE_LM_ROUNDS, PROFILE_SERVE_TOKENS = 2, 1, 4
 OUT_DIR = ROOT / "chiprun_out"  # git-ignored; every shape's numbers
 LAM, ETA = 0.05, 0.02
 
@@ -1264,7 +1269,7 @@ def _launches_in(by_name: dict, kernel: str) -> int:
     return sum(c for name, (_, c) in by_name.items() if kernel in name)
 
 
-def profile_main_path(rounds: int = 10) -> dict:
+def profile_main_path(rounds: int = PROFILE_ROUNDS) -> dict:
     """Profile the main path's entry point, ``run_fedepm`` at m = 128 cut
     to ``rounds`` rounds, and read the device inside its timed-rounds span:
     busy time and idle share, device operations per round and the kernels
@@ -1371,7 +1376,7 @@ def run_sim_path() -> dict:
     return out
 
 
-def profile_sim_path(rounds: int = 10) -> dict:
+def profile_sim_path(rounds: int = PROFILE_ROUNDS) -> dict:
     """Profile ``run_sim`` in configuration (a) cut to ``rounds`` rounds and
     read the device inside its ``simulate.rounds`` span; the span must hold
     one ENS and one quantize_cols launch per merged round."""
@@ -1664,7 +1669,7 @@ def _hold_profile_to_counts(by_name, in_graphs, counts, graph, tag, trace):
     return seen
 
 
-def profile_async_path(rounds: int = 10) -> dict:
+def profile_async_path(rounds: int = PROFILE_ROUNDS) -> dict:
     """Profile ``rounds`` aggregation events of async configuration (f)
     through the engine, one chunk, after a first run from the same
     snapshot captured the graphs, and read the device inside the span as
@@ -2331,7 +2336,7 @@ def run_lm_families() -> dict:
     return out
 
 
-def profile_lm_path(rounds: int = 2, over=None,
+def profile_lm_path(rounds: int = PROFILE_LM_ROUNDS, over=None,
                     leaves: int = LM_LEAVES) -> dict:
     """Profile the full-width LM spec's rounds (``over`` sets the arch):
     ``rounds`` eager ``FedSim.step`` calls after one unprofiled step, then
@@ -2981,9 +2986,9 @@ def profile_serve_path() -> dict:
 
 
 def profile_serve_arch(arch: str) -> dict:
-    """``arch`` at full width and serve's defaults: after a prefill and one
-    unprofiled decode of each kind (the graph captured there), the
-    ``new_tokens`` eager steps and the graph's ``new_tokens`` replays,
+    """``arch`` at full width and serve's default batch and prompt: after
+    a prefill and one unprofiled decode of each kind (the graph captured
+    there), PROFILE_SERVE_TOKENS eager steps and as many graph replays,
     each in a span, from the same start."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch import configs, random
@@ -2991,7 +2996,7 @@ def profile_serve_arch(arch: str) -> dict:
     from repro_torch.models.registry import get_model
     cfg = configs.get_config(arch)
     model = get_model(cfg)
-    n, B = SERVE_DEFAULTS["new_tokens"], SERVE_DEFAULTS["batch"]
+    n, B = PROFILE_SERVE_TOKENS, SERVE_DEFAULTS["batch"]
     Tp = SERVE_DEFAULTS["prompt_len"]
     with torch.inference_mode():
         params = model.init(random.PRNGKey(0, device="cuda"))
@@ -4369,8 +4374,7 @@ def run_mesh_path() -> dict:
     walls and collective bytes printed), then ``train --devices W`` where
     W > 1 (with W = 1 it is the ``launch`` phase's train CLI run)."""
     from repro_torch.launch.mesh import spawn
-    W = max(w for w in (1, 2, MESH_MAX_RANKS)
-            if w <= torch.cuda.device_count())
+    W = mesh_width()
     if W < MESH_MAX_RANKS:
         log(f"mesh: {torch.cuda.device_count()} card(s) here, so the mesh "
             f"has {W} rank(s) (a width that divides m = 4): the "
@@ -4409,6 +4413,376 @@ def run_mesh_path() -> dict:
     else:
         log("mesh[train CLI] --devices 1 is the launch phase's train CLI "
             "run (one device, no mesh)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the simulator's engine across cards (ROADMAP queue 1 item 14.5 part 3)
+# ---------------------------------------------------------------------------
+
+# (A) the paper-size engine: SIM_CONFIGS at m 128, d 45222, SIM_ROUNDS
+# rounds in chunks of ENGINE_MESH_CHUNK; on one card (a) and (e) alone.
+# (B) lm_federated.toml at smollm-135m's full width, m 4 (one client a card
+# on four), LM_ROUNDS rounds in chunks of 1 (the state gathered after each
+# round) and in one chunk of 3, and its 8-bit codec in chunks of 1; on one
+# card the chunk of 3 alone. The rank's run and rank 0's run on its card
+# with no mesh, each from the same seeds; the simulate CLI on
+# fig6_deadline.toml with [engine] mesh = W beside the file itself.
+ENGINE_MESH_CHUNK = 8
+ENGINE_MESH_ONE_CARD = ("a", "e")
+ENGINE_MESH_LM_ONE_CARD = ("lm_chunk3",)
+# the kernels a rank launches as often as one card: the threefry hash
+# draws a leaf's noise in pieces of UNIFORM_CHUNK values over all its
+# clients' keys, so a rank with fewer clients of a wide leaf takes fewer
+# pieces
+ENGINE_MESH_SAME_LAUNCHES = ("ens", "prox_update", "quantize_cols",
+                             "ef_accumulate", "private_quantize_cols",
+                             "quantize", "threefry_rows")
+ENGINE_MESH_M = int(SIM_COMMON[SIM_COMMON.index("--m") + 1])
+ENGINE_MESH_N = int(SIM_COMMON[SIM_COMMON.index("--n") + 1])
+ENGINE_MESH_LM = {"lm_chunk1": ({}, 1), "lm_chunk3": ({}, LM_ROUNDS),
+                  "lm_codec8_chunk1": ({"codec.bits": 8}, 1)}
+FIG6_SPEC = ROOT / "examples/specs/fig6_deadline.toml"
+
+
+def mesh_width() -> int:
+    """The ranks of the mesh phases: the most of 1, 2 and MESH_MAX_RANKS
+    that the cards hold (widths that divide m = 4)."""
+    return max(w for w in (1, 2, MESH_MAX_RANKS)
+               if w <= torch.cuda.device_count())
+
+
+def _census_per_round(records, rounds: int) -> dict:
+    """The census's bytes a rank received, by what moved, per round (the
+    checks' gathers left out)."""
+    out: dict = {}
+    for r in records:
+        if r["what"] == "check":
+            continue
+        key = f"{r['what']}:{r['op']}"
+        out[key] = out.get(key, 0.0) + r["bytes"]
+    return {k: v / rounds for k, v in out.items()}
+
+
+def _engine_run(make_sim, mesh, rounds: int, chunk: int, dev,
+                states: bool = False, keep: bool = True) -> dict:
+    """``run_rounds`` of the sim ``make_sim()`` builds on ``mesh`` (None:
+    the card alone), from its placed state, in chunks of ``chunk``: first
+    a run that captures the graph, then from a snapshot the timed run (the
+    launch counters and the census set to 0 just before it). With
+    ``states`` the timed run goes round by round and keeps the whole state
+    after each (every rank gathers, ``keep`` keeps), else the final one.
+    The peak is the card's memory the run holds at its most: from before
+    the sim was built, its state, batches and captured graph included,
+    the copies kept for the checks left out."""
+    from repro_torch.sharding import comm
+    from repro_torch.sim import engine
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    sim = make_sim()
+    engine.place(sim, mesh)
+    snap = sim.snapshot()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    engine.run_rounds(sim, rounds, chunk=chunk, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    cold = (time.perf_counter() - t0) / rounds * 1e3
+    sim.restore(snap)
+    del snap
+    reset_counts()
+    comm.reset_census()
+    walls, kept, peaks, held = [], [], [], 0
+    for _ in range(rounds if states else 1):
+        t1 = time.perf_counter()
+        engine.run_rounds(sim, 1 if states else rounds, chunk=chunk,
+                          mesh=mesh)
+        torch.cuda.synchronize(dev)
+        walls.append((time.perf_counter() - t1) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated(dev) - base - held)
+        if states:  # the copies kept for the checks are not the run's
+            before = torch.cuda.memory_allocated(dev)
+            kept.append(_engine_whole(sim, keep))
+            held += torch.cuda.memory_allocated(dev) - before
+            torch.cuda.reset_peak_memory_stats(dev)
+    wall = sum(walls) / rounds
+    peak = max(peaks) / 1e9
+    launches = read_counts()
+    census = _census_per_round(comm.CENSUS, rounds)
+    if not states:
+        kept.append(_engine_whole(sim, keep))
+    return {"states": kept, "cfg": sim.cfg, "rec": {
+        "wall_ms_per_round": wall, "walls_ms": walls,
+        "first_run_ms_per_round": cold, "peak_mem_gb": peak,
+        "launches_per_round": {k: v / rounds for k, v in launches.items()},
+        "launches": launches, "census_bytes_per_round": census},
+        "host": {"t": sim.t, "metrics": [tuple(m) for m in sim.metrics],
+                 "ledger": sim.ledger.rounds,
+                 "events": list(sim.telemetry.events)
+                 if sim.telemetry.enabled else []}}
+
+
+def _engine_whole(sim, keep: bool = True) -> tuple | None:
+    """(w_tau, W, Z, key, H) with every client's rows, copies (a gather on
+    a mesh, one all_gather a tree, on every rank; None unless
+    ``keep``)."""
+    from repro_torch.core.treeutil import tmap
+    from repro_torch.sim.engine import gathered_state
+    st, H = gathered_state(sim)
+    if not keep:
+        return None
+    trees = (st.w_tau, st.W, st.Z, st.key, H)
+    return tuple(None if t is None else tmap(torch.clone, t) for t in trees)
+
+
+def _engine_sim(key: str, dev):
+    from repro_torch.launch.simulate import build_sim, parser
+    a = parser().parse_args(SIM_COMMON + SIM_CONFIGS[key][0]
+                            + ["--telemetry"])
+    return build_sim(a, dev)[0]
+
+
+def _engine_lm_sim(over: dict, dev):
+    spec = _lm_spec(reduced=False, **{"engine.name": "scan", **over})
+    return spec.build(device=dev).sim
+
+
+def _engine_bitwise(got: tuple, ref: tuple) -> bool:
+    from repro_torch.core.treeutil import tree_leaves
+    return all(torch.equal(a, b) for g, r in zip(got, ref)
+               if r is not None
+               for a, b in zip(tree_leaves(g), tree_leaves(r)))
+
+
+def _engine_hold_sim(key, got, ref, W: int, m: int, leaf_bytes: int):
+    """(A) on rank 0: the clock, metrics, ledger and events exactly one
+    card's, the launches of ENGINE_MESH_SAME_LAUNCHES too; the states
+    (w_tau, W, Z, key, H) bit for bit on one rank and within STATE_RTOL
+    of each tree's scale across ranks (the bitwise flag printed); the
+    census per round a rank: the uploads' (W-1) blocks of m / W clients,
+    none on one rank."""
+    assert got["host"] == ref["host"], key
+    for k in ENGINE_MESH_SAME_LAUNCHES:
+        assert got["rec"]["launches"][k] == ref["rec"]["launches"][k], \
+            (key, k, got["rec"]["launches"], ref["rec"]["launches"])
+    bit = _engine_bitwise(got["states"][-1], ref["states"][-1])
+    diffs = {t: {"max_abs_diff": _tree_diff(g, r),
+                 "over_scale": _tree_diff(g, r) / max(1.0, _tree_max(r))}
+             for t, g, r in zip(("w_tau", "W", "Z", "key", "H"),
+                                got["states"][-1], ref["states"][-1])
+             if r is not None and t != "key"}
+    if W == 1:
+        assert bit, (key, diffs)
+    for t, d in diffs.items():
+        assert d["over_scale"] <= STATE_RTOL, (key, t, d)
+    census = got["rec"]["census_bytes_per_round"]
+    what = "ens:all-gather" if key != "e" else "mean:all-gather"
+    assert census[what] == (W - 1) * (m // W) * leaf_bytes, (key, census)
+    if W == 1:
+        assert sum(census.values()) == 0, census
+    return {"bitwise_one_card": bit, "vs_one_card": diffs,
+            "census_bytes_per_round": census}
+
+
+def _engine_hold_lm(name, got, ref, W: int, rerun, cfg,
+                    bits: int = 0) -> dict:
+    """(B) on rank 0, a run kept round by round: the host numbers exactly
+    one card's; bit for bit on one rank. Across ranks round 1 within
+    DIST_BF16_RTOL of one card's (``_dist_diffs``' scales), ENS over the
+    mesh's Z on this card is the mesh's next w_tau bit for bit, and a
+    later round within DIST_BF16_RTOL of one card's, or else (round 2's
+    conditioning, ``_mesh_round2_cause``) one card run again from the
+    mesh's state of the round before (``rerun(r, state)``) lands within
+    it but for at most MESH_R2_SHARE of W's values. The launches of
+    ENGINE_MESH_SAME_LAUNCHES are one card's. ``cfg`` is the sim's
+    algorithm config. Under a ``bits``-bit codec Z may also be one step
+    of its row's grid (1 / ``quant_levels(bits)`` of the scale) away:
+    the two runs draw the same dither, and a value whose stochastic
+    rounding falls within their W difference of a grid point rounds to
+    the neighbouring level."""
+    from repro_torch.kernels.quant.ref import quant_levels
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.kernels.ens import ops as ens_ops
+    assert got["host"] == ref["host"], name
+    for k in ENGINE_MESH_SAME_LAUNCHES:
+        assert got["rec"]["launches"][k] == ref["rec"]["launches"][k], \
+            (name, k, got["rec"]["launches"], ref["rec"]["launches"])
+    bit = _engine_bitwise(got["states"][-1], ref["states"][-1])
+    if W == 1:
+        assert all(_engine_bitwise(g, r) for g, r in
+                   zip(got["states"], ref["states"])), name
+    abandoned = [m[8] for m in got["host"]["metrics"]]
+    step = 1.0 / quant_levels(bits) if bits else 0.0
+    rounds = []
+    for r, (g, f) in enumerate(zip(got["states"], ref["states"])):
+        d = _dist_diffs(g[:3], f[:3])
+        rec = {"vs_one_card": d}
+        if r + 1 < len(got["states"]) and not abandoned[r + 1]:
+            ens = ens_ops.ens_tree(g[2], cfg.lam, cfg.eta)
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(ens), tree_leaves(got["states"][r + 1][0]))), \
+                (name, r)
+        within = all(v["over_scale"] <= DIST_BF16_RTOL
+                     + (step if t == "Z" else 0.0) for t, v in d.items())
+        if r == 0:
+            assert within, (name, d)
+        elif not within:
+            again = rerun(r, got["states"][r - 1])
+            rec["from_mesh_round_before"] = _spread(again[1], g[1])
+            assert rec["from_mesh_round_before"]["share_over_rtol"] \
+                <= MESH_R2_SHARE, (name, r, rec)
+        rounds.append(rec)
+    return {"bitwise_one_card": bit, "rounds": rounds}
+
+
+def engine_mesh_rank(mesh) -> dict:
+    """What each rank of the ``engine_mesh`` phase runs (``spawn``): (A)
+    and (B) on ``mesh``, and on rank 0 the same runs on its card with no
+    mesh and the holds (``_engine_hold_sim``, ``_engine_hold_lm``; the
+    chunk-3 LM run bit for bit the chunk-1 run on the mesh); each rank's
+    records (walls, peak, launches and census per round) come back."""
+    import torch.distributed as dist
+    from repro_torch.core.treeutil import tree_leaves
+    device_settings()
+    W, lead, dev = mesh.size, mesh.rank == 0, mesh.device
+    recs, checks = {}, {}
+    keys = tuple(SIM_CONFIGS) if W > 1 else ENGINE_MESH_ONE_CARD
+    for key in keys:
+        log(f"engine_mesh[rank {mesh.rank}] sim {key}")
+        got = _engine_run(lambda: _engine_sim(key, dev), mesh, SIM_ROUNDS,
+                          ENGINE_MESH_CHUNK, dev, keep=lead)
+        recs[f"sim.{key}"] = got["rec"]
+        if lead:
+            ref = _engine_run(lambda: _engine_sim(key, dev), None, SIM_ROUNDS,
+                              ENGINE_MESH_CHUNK, dev)
+            recs[f"sim.{key}_one_card"] = ref["rec"]
+            checks[f"sim.{key}"] = _engine_hold_sim(
+                key, got, ref, W, ENGINE_MESH_M, ENGINE_MESH_N * 4)
+            log(f"engine_mesh[check sim.{key}] "
+                + json.dumps(checks[f"sim.{key}"]))
+            del ref
+        del got
+        dist.barrier()
+    lm_final = None
+    names = tuple(ENGINE_MESH_LM) if W > 1 else ENGINE_MESH_LM_ONE_CARD
+    for name in names:
+        over, chunk = ENGINE_MESH_LM[name]
+        log(f"engine_mesh[rank {mesh.rank}] {name}")
+        by_round = chunk == 1
+        got = _engine_run(lambda: _engine_lm_sim(over, dev), mesh,
+                          LM_ROUNDS, chunk, dev, states=by_round, keep=lead)
+        recs[name] = got["rec"]
+        if lead and name == "lm_chunk1":
+            lm_final = got["states"][-1]
+        if lead and W > 1 and name == "lm_chunk3":
+            checks["lm_chunk3_bitwise_chunk1"] = _engine_bitwise(
+                got["states"][-1], lm_final)
+            assert checks["lm_chunk3_bitwise_chunk1"]
+            lm_final = None
+        if lead and (by_round or W == 1):
+            ref = _engine_run(lambda: _engine_lm_sim(over, dev), None,
+                              LM_ROUNDS, chunk, dev, states=by_round)
+            recs[f"{name}_one_card"] = ref["rec"]
+            torch.cuda.empty_cache()
+
+            def rerun(r, state, over=over):
+                from repro_torch.sim import run_rounds
+                one = _engine_lm_sim(over, dev)
+                run_rounds(one, r, chunk=1)
+                one.state = one.state._replace(w_tau=state[0], W=state[1],
+                                               Z=state[2], key=state[3])
+                run_rounds(one, 1, chunk=1)
+                return _engine_whole(one)
+
+            if by_round:
+                checks[name] = _engine_hold_lm(
+                    name, got, ref, W, rerun, ref["cfg"],
+                    over.get("codec.bits", 0))
+            else:  # one card: the chunk of 3 against one card's
+                assert got["host"] == ref["host"], name
+                checks[name] = {"bitwise_one_card": _engine_bitwise(
+                    got["states"][-1], ref["states"][-1])}
+                assert checks[name]["bitwise_one_card"], name
+            log(f"engine_mesh[check {name}] " + json.dumps(checks[name]))
+            leaves = tree_leaves(got["states"][0][1])
+            per_client = sum(x[0].numel() * x.element_size()
+                             for x in leaves)
+            census = got["rec"]["census_bytes_per_round"]
+            assert census["ens:all-gather"] == (W - 1) * (LM_M // W) \
+                * per_client, (name, census)
+            del ref
+        del got
+        torch.cuda.empty_cache()
+        dist.barrier()
+    mine = {"rank": mesh.rank, "card": torch.cuda.get_device_name(dev),
+            "runs": recs}
+    every = [None] * W
+    dist.all_gather_object(every, mine)
+    return {"ranks": every, "checks": checks}
+
+
+def _engine_mesh_cli(W: int) -> dict:
+    """``simulate --spec`` of a copy of fig6_deadline.toml with ``[engine]
+    mesh = W`` (W ranks through ``spawn``; on one card mesh = 1 is the
+    card alone) in a process of its own: its summary equals the file's
+    own run, here in this process (``run_sim``)."""
+    import os
+    import tempfile
+    from repro_torch.launch.simulate import parser, run_sim
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    text = FIG6_SPEC.read_text()
+    meshed = text.replace('name = "scan"\nrounds = 30',
+                          f'name = "scan"\nrounds = 30\nmesh = {W}')
+    assert meshed != text
+    with tempfile.TemporaryDirectory() as tmp:
+        spec, js = Path(tmp) / "fig6_mesh.toml", Path(tmp) / "mesh.json"
+        spec.write_text(meshed)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.simulate",
+             "--spec", str(spec), "--json", str(js), "--quiet"],
+            capture_output=True, text=True, env=env, cwd=ROOT,
+            timeout=MESH_TIMEOUT_S)
+        assert run.returncode == 0, run.stderr[-4000:]
+        out = {"mesh": {"summary": json.loads(js.read_text()),
+                        "wall_s": time.perf_counter() - t0}}
+    t0 = time.perf_counter()
+    summary, _, _ = run_sim(parser().parse_args(["--spec", str(FIG6_SPEC),
+                                                 "--quiet"]))
+    out["one_card"] = {"summary": json.loads(json.dumps(summary)),
+                       "wall_s": time.perf_counter() - t0}
+    assert out["mesh"]["summary"] == out["one_card"]["summary"]
+    return out
+
+
+def run_engine_mesh_path() -> dict:
+    """The ``engine_mesh`` phase: ``engine_mesh_rank`` on W NCCL ranks (W
+    = ``mesh_width()``; each rank's walls, peak, launches and census per
+    round printed beside one card's), then ``_engine_mesh_cli(W)``."""
+    from repro_torch.launch.mesh import spawn
+    W = mesh_width()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(engine_mesh_rank, W, timeout_s=MESH_TIMEOUT_S,
+                join_s=MESH_TIMEOUT_S)
+    out = {"ranks": W, "wall_s": time.perf_counter() - t0,
+           "checks": res["checks"], "per_rank": res["ranks"]}
+    for r in res["ranks"]:
+        for name, rec in r["runs"].items():
+            log(f"engine_mesh[{name} rank {r['rank']}/{W}] wall "
+                f"{rec['wall_ms_per_round']:.3f} ms a round (first run "
+                f"{rec['first_run_ms_per_round']:.3f}), peak "
+                f"{rec['peak_mem_gb']:.6f} GB, launches a round "
+                f"{json.dumps(rec['launches_per_round'])}, census bytes a "
+                f"round {json.dumps(rec['census_bytes_per_round'])}")
+    log("engine_mesh[checks] " + json.dumps(res["checks"]))
+    out["simulate_cli"] = _engine_mesh_cli(W)
+    log(f"engine_mesh[simulate --spec fig6, mesh = {W}] equal to the file's "
+        f"run: " + json.dumps({k: v["wall_s"] for k, v in
+                               out["simulate_cli"].items()}))
+    out["launches"] = {name: rec["launches"] for name, rec in
+                       res["ranks"][0]["runs"].items()}
     return out
 
 
@@ -4542,7 +4916,7 @@ DEVICE_KERNELS = {"ens_kernel": ("ens",), "prox_kernel": ("prox_update",),
                   "threefry_rows_kernel": ("threefry_rows",)}
 
 
-def profile_engine_path(key: str, rounds: int = 10) -> dict:
+def profile_engine_path(key: str, rounds: int = PROFILE_ROUNDS) -> dict:
     """Profile ``rounds`` engine rounds of simulator configuration ``key``,
     one chunk, after a first run from the same snapshot captured the graph,
     and read the device inside the span: busy time, idle share, operations
@@ -4762,7 +5136,7 @@ def run_paper_twins() -> dict:
     return out
 
 
-def profile_baselines(rounds: int = 10) -> dict:
+def profile_baselines(rounds: int = PROFILE_ROUNDS) -> dict:
     """Profile ``run_algorithm`` for SFedAvg and SFedProx at the main
     path's settings (m = 128, k0 = 12, rho = 0.5, eps = 0.1), cut to
     ``rounds`` rounds, and read the device inside the timed-rounds span;
@@ -4795,16 +5169,32 @@ def profile_baselines(rounds: int = 10) -> dict:
 # (a), (b) and (c) launch quantize_cols, ef_accumulate and
 # private_quantize_cols inside the graph; (d) repeats (a)'s graph within 20%
 PROFILE_ENGINE = ("a", "b", "c", "e")
+
+
+def profile_engine_paths() -> dict:
+    """``profile_engine_path`` of each of PROFILE_ENGINE in turn, in this
+    one process, each in a profiler session of its own."""
+    return {key: profile_engine_path(key) for key in PROFILE_ENGINE}
+
+
+def profile_host_paths() -> dict:
+    """The paper path's, the baselines' and sim (a)'s profiles in turn, in
+    this one process, each in a profiler session of its own."""
+    return {"profile_main_path": profile_main_path(),
+            "profile_baselines": profile_baselines(),
+            "profile_sim_path": profile_sim_path()}
+
+
+# each entry runs in a fresh process (``run_profiles``): a few short
+# profiles share one, since a process's start and its first profiler
+# session cost about 15-20 s on the card's host
 PROFILES = {
-    **{f"engine.{key}": (profile_engine_path, (key,),
-                         ("profile_engine_path", key))
-       for key in PROFILE_ENGINE},
+    "engine": (profile_engine_paths, (), ("profile_engine_path",)),
     "async.f": (profile_async_path, (), ("profile_async_path",)),
-    "main": (profile_main_path, (), ("profile_main_path",)),
-    "baselines": (profile_baselines, (), ("profile_baselines",)),
-    "sim.a": (profile_sim_path, (), ("profile_sim_path",)),
+    "host": (profile_host_paths, (), ()),
     "lm": (profile_lm_path, (), ("profile_lm_path",)),
-    "lm.xlstm": (profile_lm_path, (2, {"task.arch": XLSTM}, XLSTM_LEAVES),
+    "lm.xlstm": (profile_lm_path, (PROFILE_LM_ROUNDS, {"task.arch": XLSTM},
+                                   XLSTM_LEAVES),
                  ("profile_lm_path_xlstm",)),
     "serve": (profile_serve_path, (), ("profile_serve_path",)),
 }
@@ -4812,13 +5202,14 @@ PROFILES = {
 
 def run_profiles() -> dict:
     """Each of ``PROFILES`` in a fresh process of its own
-    (``chip_smoke.py --profile NAME``), one after another: their launch
-    checks are exact and need every device record. In one long process on
-    the H100, profiles that ran after the main paths lost records
-    of outside-graph launches, more the more the process had run before
-    and the same number in every retry within it; the cause is not known.
-    A fresh process starts each profile from the same state. The child's
-    log lines pass through; its last line is its result."""
+    (``chip_smoke.py --profile NAME``; a group's profiles one after
+    another in theirs), one after another: their launch checks are exact
+    and need every device record. In one long process on the H100,
+    profiles that ran after the main paths lost records of outside-graph
+    launches, more the more the process had run before and the same
+    number in every retry within it; the cause is not known. A fresh
+    process starts each group from the same state. The child's log lines
+    pass through; its last line is its result."""
     record: dict = {}
     for name, (_, _, where) in PROFILES.items():
         t0 = time.perf_counter()
@@ -4834,7 +5225,10 @@ def run_profiles() -> dict:
         node = record
         for k in where[:-1]:
             node = node.setdefault(k, {})
-        node[where[-1]] = json.loads(lines[-1])
+        if where:
+            node[where[-1]] = json.loads(lines[-1])
+        else:  # a group of profiles, each under its own key
+            node.update(json.loads(lines[-1]))
         seconds = time.perf_counter() - t0
         record.setdefault("profile_s", {})[name] = seconds
         log(f"profile {name}: {seconds:.1f} s")
@@ -5009,7 +5403,8 @@ def main() -> int:
                       "smollm-135m": record["lm_path"]["eager"],
                       XLSTM: record["lm_families"]["xlstm-125m/full"][
                           "eager"]}),
-                  "launch": run_launch_path, "mesh": run_mesh_path}
+                  "launch": run_launch_path, "mesh": run_mesh_path,
+                  "engine_mesh": run_engine_mesh_path}
     for name, run in main_paths.items():
         t_path = time.perf_counter()
         record[name] = run()
@@ -5057,6 +5452,8 @@ def main() -> int:
                   for key, res in launch["remat"].items()})
     paths.update({f"mesh.{key}": counts
                   for key, counts in record["mesh"]["launches"].items()})
+    paths.update({f"engine_mesh.{key}": counts for key, counts in
+                  record["engine_mesh"]["launches"].items()})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -65,6 +65,7 @@ from repro_torch.core.participation import sample_uniform
 from repro_torch.core.treeutil import (
     tmap,
     tree_broadcast_clients,
+    tree_leaves,
     tree_where_client,
 )
 
@@ -165,34 +166,45 @@ def _aggregate_selected_mean(Z, mask: torch.Tensor):
 
 
 def _noisy_upload(k_noise, W_upd, g, mask, cfg: BaselineConfig,
-                  denom: torch.Tensor, unit_noise):
+                  denom: torch.Tensor, unit_noise, offset: int = 0):
     grad_l1 = dp.sensitivity_surrogate(g, per_client=True) / 2.0
     device = grad_l1.device
     if cfg.eps_dp <= 0:
         return W_upd, torch.full((), torch.inf, device=device), grad_l1
     scale = (2.0 * (2.0 * grad_l1)) / denom
     if unit_noise is None:
-        unit_noise = dp.client_unit_laplace(need_key(k_noise, "noise"), W_upd)
+        unit_noise = dp.client_unit_laplace(need_key(k_noise, "noise"), W_upd,
+                                            offset, cfg.m)
     Z_upd, snr = dp.add_client_noise(W_upd, unit_noise, scale, mask)
     return Z_upd, snr, grad_l1
 
 
 def _round(state: BaselineState, batches: Batch, loss_fn: LossFn,
-           cfg: BaselineConfig, mask, agg_mask, unit_noise, sched, client):
-    """Algorithm 3 around ``client(w_new, neg_gamma) -> W_upd``."""
+           cfg: BaselineConfig, mask, agg_mask, unit_noise, sched, client,
+           aggregate=None, offset: int = 0):
+    """Algorithm 3 around ``client(w_new, neg_gamma, rows) -> W_upd``.
+
+    On a mesh the state's W and Z, and ``batches``, hold a block of the m
+    clients, rows ``offset`` on: the masks (m,) and the noise keys are
+    drawn for all m and the block's taken, and ``aggregate(Z, agg_mask)
+    -> w`` is eq. (34) over every client's upload (the mesh's gather of
+    Z, then the one-device mean)."""
+    rows = tree_leaves(state.W)[0].shape[0]
     if sched is None:
         sched = round_schedule(cfg, state.k, _device(state.W))
     neg_gamma, denom = sched
     key, k_sel, k_noise = split_round_key(state.key)
     if mask is None:
         mask = sample_uniform(need_key(k_sel, "mask"), cfg.m, cfg.rho)
-    w_new = _aggregate_selected_mean(
-        state.Z, mask if agg_mask is None else agg_mask)
-    W_upd = client(w_new, neg_gamma)
+    agg = mask if agg_mask is None else agg_mask
+    w_new = (_aggregate_selected_mean(state.Z, agg) if aggregate is None
+             else aggregate(state.Z, agg))
+    mask = mask[offset:offset + rows]
+    W_upd = client(w_new, neg_gamma, rows)
     g = stacked_grads(loss_fn, W_upd, batches)
     W_next = tree_where_client(mask, W_upd, state.W)
     Z_upd, snr, grad_l1 = _noisy_upload(k_noise, W_upd, g, mask, cfg,
-                                        denom, unit_noise)
+                                        denom, unit_noise, offset)
     Z_next = tree_where_client(mask, Z_upd, state.Z)
     new_state = BaselineState(w_tau=w_new, W=W_next, Z=Z_next,
                               k=state.k + cfg.k0, key=key)
@@ -203,37 +215,39 @@ def _round(state: BaselineState, batches: Batch, loss_fn: LossFn,
 def sfedavg_round(state: BaselineState, batches: Batch, loss_fn: LossFn,
                   cfg: BaselineConfig, mask: torch.Tensor | None = None,
                   agg_mask: torch.Tensor | None = None, *, unit_noise=None,
-                  sched=None):
+                  sched=None, aggregate=None, offset: int = 0):
     """k0 iterations of SFedAvg (Algorithm 3 + eq. (35)).
 
     ``mask`` supplies the participation set (the key advances either way);
     ``agg_mask`` decouples eq. (34)'s aggregation support from it, as in
     JAX; ``unit_noise`` supplies the per-client unit-Laplace planes;
     ``sched`` the round's (-gamma per iteration, noise denominator) as
-    device tensors (default: ``round_schedule`` of ``state.k``)."""
+    device tensors (default: ``round_schedule`` of ``state.k``);
+    ``aggregate`` and ``offset`` run it on a block of the clients
+    (``_round``)."""
 
-    def client(w_new, neg_gamma):
-        W = tree_broadcast_clients(w_new, cfg.m)  # t = 0: the broadcast
+    def client(w_new, neg_gamma, rows):
+        W = tree_broadcast_clients(w_new, rows)  # t = 0: the broadcast
         for t in range(cfg.k0):
             gi = stacked_grads(loss_fn, W, batches)
             W = tmap(lambda a, g_: torch.addcmul(a, g_, neg_gamma[t]), W, gi)
         return W
 
     return _round(state, batches, loss_fn, cfg, mask, agg_mask, unit_noise,
-                  sched, client)
+                  sched, client, aggregate, offset)
 
 
 def sfedprox_round(state: BaselineState, batches: Batch, loss_fn: LossFn,
                    cfg: BaselineConfig, mask: torch.Tensor | None = None,
                    agg_mask: torch.Tensor | None = None, *, unit_noise=None,
-                   sched=None):
+                   sched=None, aggregate=None, offset: int = 0):
     """k0 iterations of SFedProx (Algorithm 3 + (36), inner solver Alg. 4);
-    ``mask``, ``agg_mask``, ``unit_noise`` and ``sched`` as in
-    ``sfedavg_round``."""
+    ``mask``, ``agg_mask``, ``unit_noise``, ``sched``, ``aggregate`` and
+    ``offset`` as in ``sfedavg_round``."""
     mu = float(np.float32(cfg.prox_mu))
 
-    def client(w_new, neg_gamma):
-        V = tree_broadcast_clients(w_new, cfg.m)  # Alg. 4: v^1 = w^tau
+    def client(w_new, neg_gamma, rows):
+        V = tree_broadcast_clients(w_new, rows)  # Alg. 4: v^1 = w^tau
         for t in range(cfg.k0):
             for _ in range(cfg.prox_ell):
                 gi = stacked_grads(loss_fn, V, batches)
@@ -243,21 +257,23 @@ def sfedprox_round(state: BaselineState, batches: Batch, loss_fn: LossFn,
         return V
 
     return _round(state, batches, loss_fn, cfg, mask, agg_mask, unit_noise,
-                  sched, client)
+                  sched, client, aggregate, offset)
 
 
 def scan_round(state: BaselineState, xs, batches: Batch, loss_fn: LossFn,
-               cfg: BaselineConfig, round_fn, post=None):
+               cfg: BaselineConfig, round_fn, post=None, aggregate=None,
+               offset: int = 0):
     """Scan-compatible round body, as ``core.fedepm.scan_round``: ``xs =
     (mask, abandoned, neg_gamma, denom, ...)``, the round's (m,) mask, 0-d
     bool, (k0,) and 0-d ``schedule_stream`` rows; ``round_fn`` is
-    ``sfedavg_round`` or ``sfedprox_round``; ``post`` and the abandoned
-    select as there."""
+    ``sfedavg_round`` or ``sfedprox_round``; ``post``, ``aggregate``,
+    ``offset`` and the abandoned select as there."""
     mask, abandoned, neg_gamma, denom = xs[:4]
     new_state, metrics = round_fn(state, batches, loss_fn, cfg, mask=mask,
-                                  sched=(neg_gamma, denom))
+                                  sched=(neg_gamma, denom),
+                                  aggregate=aggregate, offset=offset)
     if post is not None:
-        new_state = post(state, new_state, mask, xs)
+        new_state = post(state, new_state, metrics.selected, xs)
     return keep_abandoned(abandoned, state, new_state), metrics
 
 

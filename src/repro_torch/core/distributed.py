@@ -62,7 +62,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random
-from repro_torch.core import dp
+from repro_torch.core import baselines, dp
 from repro_torch.core.fedepm import (
     FedEPMConfig,
     FedEPMState,
@@ -173,6 +173,15 @@ def batch_specs(batch_tree, dist: DistConfig):
 # ENS
 # ---------------------------------------------------------------------------
 
+def gather_clients(Z, mesh, what: str):
+    """Every rank's block of the stacked tree ``Z`` (this rank's m / D
+    clients), in rank order: the whole (m, ...) tree, one all_gather."""
+    leaves = tree_leaves(Z)
+    whole = comm.all_gather(mesh, leaves, what=what)  # (D, m/D, ...)
+    return tree_unflatten(Z, [g.reshape((-1,) + z.shape[1:])
+                              for g, z in zip(whole, leaves)])
+
+
 def ens_gather(Z, lam, eta, mesh=None):
     """The server's ENS over the stacked uploads: the Hopper kernel on the
     card, the plain version on the CPU (``ens_ops.ens_tree``). On a live
@@ -180,11 +189,29 @@ def ens_gather(Z, lam, eta, mesh=None):
     every rank's, in rank order, and ENS runs over all m on every rank."""
     if not is_live(mesh):
         return ens_ops.ens_tree(Z, lam, eta)
-    leaves = tree_leaves(Z)
-    whole = comm.all_gather(mesh, leaves, what="ens")  # (D, m/D, ...)
-    return ens_ops.ens_tree(tree_unflatten(Z, [
-        g.reshape((-1,) + z.shape[1:]) for g, z in zip(whole, leaves)]),
-        lam, eta)
+    return ens_ops.ens_tree(gather_clients(Z, mesh, "ens"), lam, eta)
+
+
+def mean_gather(Z, mask, mesh):
+    """The baselines' aggregate, eq. (34), on a live mesh: one all_gather
+    of this rank's uploads, then the one-device selected mean over all m
+    with the whole mask, so its sums run in the one-device order."""
+    return baselines._aggregate_selected_mean(
+        gather_clients(Z, mesh, "mean"), mask)
+
+
+def gather_metrics(met, mesh):
+    """A round's metrics over this rank's block of the clients, made the
+    whole round's on every rank: each per-client field gathered to (m,),
+    ``snr`` the min over every rank's selected clients, a 0-d field (the
+    drift, from the whole broadcast points) as it is."""
+    per = [f for f in met._fields if f != "snr" and getattr(met, f).dim()]
+    whole = comm.all_gather(mesh, [getattr(met, f) for f in per],
+                            what="metrics")
+    out = {f: v.reshape(-1) for f, v in zip(per, whole)}
+    out["snr"] = comm.all_reduce(mesh, met.snr.clone(), "min",
+                                 what="metrics")
+    return met._replace(**out)
 
 
 def ens_a2a(Z, lam, eta, mesh=None):
@@ -253,13 +280,7 @@ def spatial_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
         else None, offset=mesh.coord("data") * rows if live else 0)
     if not live:
         return new_state, met
-    vecs = [met.mu_last, met.grad_l1, met.noise_scale, met.selected]
-    vecs = [v.reshape(-1) for v in comm.all_gather(mesh, vecs,
-                                                   what="metrics")]
-    snr = comm.all_reduce(mesh, met.snr.clone(), "min", what="metrics")
-    return new_state, met._replace(mu_last=vecs[0], grad_l1=vecs[1],
-                                   noise_scale=vecs[2], selected=vecs[3],
-                                   snr=snr)
+    return new_state, gather_metrics(met, mesh)
 
 
 class _Shards:

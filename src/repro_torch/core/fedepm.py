@@ -322,7 +322,8 @@ def keep_abandoned(abandoned: torch.Tensor, old, new):
 
 
 def scan_round(state: FedEPMState, xs, batches: Batch, loss_fn: LossFn,
-               cfg: FedEPMConfig, post=None):
+               cfg: FedEPMConfig, post=None, aggregate=None,
+               offset: int = 0):
     """Scan-compatible round body: ``xs = (mask, abandoned, pows, ...)``,
     the round's (m,) mask, 0-d bool and (k0,) ``round_pows`` row, all
     tensors on the state's device; what follows is the caller's. An
@@ -330,14 +331,17 @@ def scan_round(state: FedEPMState, xs, batches: Batch, loss_fn: LossFn,
     round still runs and ``keep_abandoned`` keeps the old values, so a
     captured body needs no branch. ``post(state, new_state, mask, xs) ->
     new_state`` runs between the round and the select (the simulator's
-    engine merges the uploads through its codec there). ``state.k`` is
-    left to the caller. Returns (state, RoundMetrics); the metrics of an
-    abandoned round are to be ignored."""
+    engine merges the uploads through its codec there), with the mask of
+    the state's rows. ``aggregate`` and ``offset`` are ``fedepm_round``'s
+    (a block of the clients on a mesh). ``state.k`` is left to the
+    caller. Returns (state, RoundMetrics); the metrics of an abandoned
+    round are to be ignored."""
     mask, abandoned, pows = xs[:3]
     new_state, metrics = fedepm_round(state, batches, loss_fn, cfg,
-                                      mask=mask, pows=pows)
+                                      mask=mask, pows=pows,
+                                      aggregate=aggregate, offset=offset)
     if post is not None:
-        new_state = post(state, new_state, mask, xs)
+        new_state = post(state, new_state, metrics.selected, xs)
     return keep_abandoned(abandoned, state, new_state), metrics
 
 

@@ -35,7 +35,10 @@ called, and under capture it is called without launching. The program
 takes those counts off again after the capture and adds them back once per
 replay, so each counter still counts the kernel's launches on the card.
 ``GRAPH_STATS`` sums, over all programs since ``reset_graph_stats``, the
-captures, the replays and the kernel launches made by replays.
+captures, the replays and the kernel launches made by replays. The
+collectives' census (``sharding/comm.py``) is kept the same way: a
+collective captured in the graph (the engine's round on a mesh) is taken
+off the census after the capture and recorded again at each replay.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import torch
 
 from repro_torch.core.treeutil import tree_leaves, tree_unflatten
 from repro_torch.kernels.counters import launch_counters
+from repro_torch.sharding import comm
 
 GRAPH_STATS: dict = {}
 
@@ -80,6 +84,7 @@ class ScanProgram:
             self.step = step
         self._box = share._box if share is not None else _CarryBox()
         self.graph_launches: dict = {}  # kernel -> launches per replay
+        self.graph_census: list = []    # the collectives of one replay
         self._graph = None
         self._graph_version = -1
         self._xs: list = []
@@ -151,6 +156,7 @@ class ScanProgram:
         for name, k in self.graph_launches.items():
             counters[name].launches += k
             GRAPH_STATS["kernel_launches"][name] += k
+        comm.CENSUS.extend(dict(r) for r in self.graph_census)
         GRAPH_STATS["replays"] += 1
 
     def outputs(self, n: int) -> list:
@@ -175,6 +181,7 @@ class ScanProgram:
                                 device=dev) for y in ys]
         counters = launch_counters()
         before = {name: fn.launches for name, fn in counters.items()}
+        census0 = len(comm.CENSUS)
         graph = torch.cuda.CUDAGraph()
         # a collection during the capture could destroy another program's
         # graph, a call that invalidates the capture
@@ -199,6 +206,8 @@ class ScanProgram:
                 if fn.launches != before[name]}
             for name, fn in counters.items():
                 fn.launches = before[name]
+            self.graph_census = comm.CENSUS[census0:]
+            del comm.CENSUS[census0:]
         self._graph = graph
         self._graph_version = self._box.version
         self._box.captured = True

@@ -18,6 +18,12 @@ reads the same buffers on every replay):
   ``r * stride``, with ``stride`` the widest row. A value's counter is its
   flat index in the padded (R, stride) plane that ``jax.random.bits``
   draws, so the packed dither is JAX's padded one at the live entries.
+
+A layout may hold a block of the clients of a larger plane: rows
+``row0 .. row0 + m - 1`` of each leaf's ``m_all`` (a rank's clients on a
+mesh). Its row (l, i) then takes the counters of row ``l * m_all + row0 +
+i`` of the whole (L m_all, stride) plane, so each rank draws its clients'
+bits of JAX's one plane.
 """
 from __future__ import annotations
 
@@ -41,14 +47,20 @@ class RowTables(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class PackedRows:
-    """``m`` rows of ``widths[l]`` values per leaf l, leaf-major."""
+    """``m`` rows of ``widths[l]`` values per leaf l, leaf-major: clients
+    ``row0 .. row0 + m - 1`` of ``m_all`` (0: ``m``, the whole plane)."""
 
     widths: tuple[int, ...]
     m: int
+    m_all: int = 0
+    row0: int = 0
 
     def __post_init__(self):
         if self.m < 0 or any(w < 0 for w in self.widths):
             raise ValueError(f"negative rows or widths: {self}")
+        if self.row0 < 0 or self.row0 + self.m > (self.m_all or self.m):
+            raise ValueError(f"rows {self.row0} .. {self.row0 + self.m} of "
+                             f"{self.m_all} clients: {self}")
 
     @property
     def rows(self) -> int:
@@ -81,14 +93,24 @@ class PackedRows:
         row's ``base`` plus the value's column."""
         hi = self.numel if hi is None else hi
         start = torch.from_numpy(_host_start(self)).to(device)
+        base = torch.from_numpy(_host_base(self)).to(device)
         flat = torch.arange(lo, hi, dtype=torch.int64, device=device)
         row = torch.searchsorted(start, flat, right=True) - 1
-        return row * self.stride + (flat - start[row])
+        return base[row] + (flat - start[row])
 
 
 def _host_start(rows: PackedRows) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(rows.row_widths())]).astype(
         np.int64)
+
+
+def _host_base(rows: PackedRows) -> np.ndarray:
+    """Each row's first counter: its row of the whole padded plane, l *
+    m_all + row0 + i, times the stride."""
+    r = np.arange(rows.rows, dtype=np.int64)
+    if rows.m:
+        r = (r // rows.m) * (rows.m_all or rows.m) + rows.row0 + r % rows.m
+    return r * rows.stride
 
 
 @functools.cache
@@ -99,7 +121,7 @@ def _tables(rows: PackedRows, device: torch.device) -> RowTables:
     if block[-1] > MAX_BLOCKS:
         raise ValueError(f"a packed launch over {rows.numel} values needs "
                          f"{block[-1]} blocks, past {MAX_BLOCKS}")
-    base = np.arange(rows.rows, dtype=np.int64) * rows.stride
+    base = _host_base(rows)
     return RowTables(*(torch.from_numpy(t).to(device)
                        for t in (start, block, base)), int(block[-1]))
 

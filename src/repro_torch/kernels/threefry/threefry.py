@@ -85,7 +85,7 @@ def threefry_rows_cuda(key: torch.Tensor, rows: PackedRows) -> torch.Tensor:
     if key.numel() != 2 or key.dtype != torch.int64:
         raise TypeError(f"threefry_rows_cuda takes one int64 key (2,); got "
                         f"{key.dtype} {tuple(key.shape)}")
-    if rows.rows * rows.stride >= 2 ** 64:
+    if len(rows.widths) * (rows.m_all or rows.m) * rows.stride >= 2 ** 64:
         raise ValueError(f"the counters of {rows} leave 64 bits")
     key = key.reshape(2).contiguous()
     out = torch.empty(rows.numel, dtype=torch.int32, device=key.device)

@@ -42,11 +42,16 @@ so it stops at the eager round. The ``--fault-*`` flags fill the spec's
 telemetry sinks, and ``--torch-profile DIR`` takes the place of the JAX
 CLI's ``--jax-profile``. ``--quant-impl`` is replaced by dispatch by
 device. The sim draws from keys seeded by ``--seed`` as in JAX, so its
-masks, noise and dither are the JAX CLI's.
+masks, noise and dither are the JAX CLI's. A spec whose ``[engine] mesh``
+is N > 1 runs on N ranks (``launch/mesh.py::spawn``: one card a rank over
+NCCL, gloo ranks with ``--device cpu``), the clients cut over them; rank 0
+alone prints and writes ``--json`` and the telemetry sinks. A sweep cell
+with a mesh is refused (``launch/sweep_run.py``).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 
@@ -66,7 +71,8 @@ from repro_torch.spec import (
     SpecError,
     TaskSpec,
 )
-from repro_torch.spec.build import build
+from repro_torch.kernels.common import resolve_device
+from repro_torch.spec.build import build, rank_spec, spec_ranks
 from repro_torch.spec.registry import ASYNC_KNOBS
 
 # a profiler span over the simulated rounds, so that a profile of a run
@@ -238,16 +244,20 @@ def build_sim(a, device: torch.device, *, draws=None):
     return h.sim, task
 
 
-def run_sim(a) -> tuple[dict, object, list]:
-    """``RunHandle.run`` of the flags' (or file's) spec on ``a.device``;
-    returns (summary, the sim, f per round)."""
-    h = build(resolve_spec(a), a.device)
+def run_sim(a, mesh=None) -> tuple[dict, object, list]:
+    """``RunHandle.run`` of the flags' (or file's) spec on ``a.device``, or
+    on this rank's card of the live ``mesh`` (rank 0 alone prints and
+    writes the sinks); returns (summary, the sim, f per round)."""
+    lead = mesh is None or mesh.rank == 0
+    exp = resolve_spec(a) if mesh is None else rank_spec(resolve_spec(a),
+                                                          mesh.rank)
+    h = build(exp, a.device if mesh is None else mesh.device)
     m = h.spec.task.m
     f_hist: list[float] = []
 
     def report(met, f):
         f_hist.append(f)
-        if not a.quiet:
+        if lead and not a.quiet:
             print(f"round {met.round_idx:3d}  f/m={f / m:.6f}  "
                   f"t={met.t_total:9.4f}s (+{met.t_round:.4f})  "
                   f"agg={met.n_aggregated}/{met.n_contacted} "
@@ -391,16 +401,12 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> int:
-    ap = parser()
-    a = ap.parse_args(argv)
-    err = check_args(a, ap)
-    if err:
-        ap.error(err)
-    try:
-        summary, _, _ = run_sim(a)
-    except SpecError as e:
-        ap.error(str(e))
+def _run_and_report(a, mesh=None) -> int:
+    """The run, then the summary printed and ``--json`` written (by rank 0
+    alone on a mesh)."""
+    summary, _, _ = run_sim(a, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return 0
     if not a.quiet:
         print("\nsummary:")
         for k, v in summary.items():
@@ -409,6 +415,28 @@ def main(argv=None) -> int:
         with open(a.json, "w") as f:
             json.dump(summary, f, indent=1)
     return 0
+
+
+def main(argv=None) -> int:
+    ap = parser()
+    a = ap.parse_args(argv)
+    err = check_args(a, ap)
+    if err:
+        ap.error(err)
+    try:
+        n = spec_ranks(resolve_spec(a))
+        if n == 1:
+            return _run_and_report(a)
+    except SpecError as e:
+        ap.error(str(e))
+    device = resolve_device(a.device)
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        print(f"[engine] mesh = {n}: this machine has "
+              f"{torch.cuda.device_count()} cards", file=sys.stderr)
+        return 2
+    from repro_torch.launch.mesh import spawn
+    return spawn(functools.partial(_run_and_report, a), n,
+                 device=device.type)
 
 
 if __name__ == "__main__":

@@ -189,6 +189,19 @@ class SweepResult:
         return not self.failed and not self.pending
 
 
+def refuse_meshed(cells: Sequence) -> None:
+    """Raise if a cell runs on a mesh (``[engine] mesh`` > 1): a cell runs
+    in one process on one device; cells across cards are ROADMAP queue 1
+    item 14.5."""
+    from repro_torch.spec.build import spec_ranks
+    meshed = [c.name for c in cells if spec_ranks(c) > 1]
+    if meshed:
+        raise ValueError(
+            f"sweep cell(s) {meshed[:3]} run on a mesh ([engine] mesh > "
+            f"1): a cell runs in one process on one device; a sweep of "
+            f"cells across cards is ROADMAP queue 1 item 14.5")
+
+
 def execute_cells(cells: Sequence, *, out_dir, jobs: int = 1,
                   runner: str = DEFAULT_RUNNER,
                   ctx: Mapping | None = None,
@@ -209,6 +222,7 @@ def execute_cells(cells: Sequence, *, out_dir, jobs: int = 1,
     """
     ctx = dict(ctx or {})
     cell_ctx = cell_ctx or {}
+    refuse_meshed(cells)
     names = [c.name for c in cells]
     if len(set(names)) != len(names):
         dupe = sorted({n for n in names if names.count(n) > 1})
@@ -349,6 +363,11 @@ def main(argv=None) -> int:
             print(f"# [{done}/{total}] {status:6s} {name}{tail}",
                   file=sys.stderr, flush=True)
 
+    try:
+        refuse_meshed(cells)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     res = execute_cells(
         cells, out_dir=out_dir, jobs=args.jobs, max_cells=args.max_cells,
         rerun=args.rerun,

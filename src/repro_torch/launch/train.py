@@ -28,8 +28,10 @@ run on the CUDA card; ``--device cpu`` runs the plain PyTorch path. Both
 print JAX's lines (on a mesh rank 0 alone prints, adding the round's
 collective bytes by op), and ``--checkpoint`` writes the final broadcast
 point in the JAX package's npz layout, which ``repro.checkpoint.restore``
-reads (rank 0 alone writes it). More ranks than cards exit 2; a "model"
-axis above 1 is refused, naming ROADMAP queue 1 item 14.5.
+reads (rank 0 alone writes it). A ``--spec`` whose ``[engine] mesh`` is N
+> 1 runs its FedSim on N ranks the same way, the clients cut over them
+(``sim/engine.py``). More ranks than cards exit 2; a "model" axis above 1
+is refused, naming ROADMAP queue 1 item 14.5.
 """
 from __future__ import annotations
 
@@ -44,32 +46,64 @@ from repro_torch.core.treeutil import tree_leaves
 from repro_torch.kernels.common import resolve_device
 from repro_torch.sharding.mesh import MODEL_AXIS_NOT_PORTED
 from repro_torch.spec import ExperimentSpec, SpecError
+from repro_torch.spec.build import rank_spec, spec_ranks
 
 
-def run_spec(args) -> int:
-    """Federated-simulation mode: drive the spec's LM arch through
-    FedSim / the scan engine (``repro_torch.spec.build.RunHandle``)."""
+def _load_spec(args) -> ExperimentSpec:
+    exp = ExperimentSpec.load(args.spec)
+    if args.rounds_flag is not None:
+        exp = exp.replace(**{"engine.rounds": args.rounds_flag})
+    if args.engine_flag is not None:
+        exp = exp.replace(**{"engine.name": args.engine_flag})
+    exp.validate()
+    if exp.task.kind != "lm":
+        raise SpecError(
+            f"train --spec expects an lm-kind task (this is the "
+            f"LM-scale launcher); got kind={exp.task.kind!r} -- run "
+            f"logreg specs via python -m repro_torch.launch.simulate "
+            f"--spec")
+    return exp
+
+
+def spawn_spec(args) -> int:
+    """``run_spec`` on the spec's ``[engine] mesh`` ranks
+    (``launch/mesh.py::spawn``), or in this process where that is 1."""
     try:
-        exp = ExperimentSpec.load(args.spec)
-        if args.rounds_flag is not None:
-            exp = exp.replace(**{"engine.rounds": args.rounds_flag})
-        if args.engine_flag is not None:
-            exp = exp.replace(**{"engine.name": args.engine_flag})
-        exp.validate()
-        if exp.task.kind != "lm":
-            raise SpecError(
-                f"train --spec expects an lm-kind task (this is the "
-                f"LM-scale launcher); got kind={exp.task.kind!r} -- run "
-                f"logreg specs via python -m repro_torch.launch.simulate "
-                f"--spec")
-        handle = exp.build(device=resolve_device(args.device))
+        n = spec_ranks(_load_spec(args))
+    except SpecError as e:
+        print(f"SPEC ERROR: {e}", file=sys.stderr)
+        return 2
+    if n == 1:
+        return run_spec(args)
+    device = resolve_device(args.device)
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        print(f"[engine] mesh = {n}: this machine has "
+              f"{torch.cuda.device_count()} cards", file=sys.stderr)
+        return 2
+    from repro_torch.launch.mesh import spawn
+    return spawn(functools.partial(run_spec, args), n, device=device.type)
+
+
+def run_spec(args, mesh=None) -> int:
+    """Federated-simulation mode: drive the spec's LM arch through
+    FedSim / the scan engine (``repro_torch.spec.build.RunHandle``), on
+    one device or on this rank of the live ``mesh`` (rank 0 alone prints
+    and writes)."""
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    try:
+        exp = _load_spec(args)
+        if mesh is not None:
+            exp = rank_spec(exp, mesh.rank)
+        handle = exp.build(device=resolve_device(args.device)
+                           if mesh is None else mesh.device)
     except SpecError as e:
         print(f"SPEC ERROR: {e}", file=sys.stderr)
         return 2
 
     cfg = handle.data.aux["arch_cfg"]
     n_params = sum(x.numel() for x in tree_leaves(handle.data.params0))
-    print(f"spec={exp.name} arch={cfg.name} params={n_params/1e6:.2f}M "
+    say(f"spec={exp.name} arch={cfg.name} params={n_params/1e6:.2f}M "
           f"m={exp.task.m} alg={exp.algorithm.name} "
           f"policy={exp.policy.name} engine={exp.engine.name} "
           f"rounds={exp.engine.rounds}")
@@ -78,17 +112,19 @@ def run_spec(args) -> int:
 
     def report(met, f):
         loss_str = f"loss={f / exp.task.m:.4f}  " if f is not None else ""
-        print(f"round {met.round_idx:3d}  {loss_str}"
-              f"t_sim={met.t_total:.3f}s  "
-              f"agg={met.n_aggregated}/{met.n_contacted}  "
-              f"up={met.bytes_up/1e6:.2f}MB  ({time.time()-t0:.1f}s)",
-              flush=True)
+        say(f"round {met.round_idx:3d}  {loss_str}"
+            f"t_sim={met.t_total:.3f}s  "
+            f"agg={met.n_aggregated}/{met.n_contacted}  "
+            f"up={met.bytes_up/1e6:.2f}MB  ({time.time()-t0:.1f}s)",
+            flush=True)
 
     summary = handle.run(report=report)
-    print(f"\nfinal loss/m={summary['f_final']:.4f}  "
-          f"sim_time={summary['sim_time_s']:.3f}s  "
-          f"bytes_total={summary['bytes_total']:.0f}  "
-          f"({time.time()-t0:.1f}s wall)")
+    say(f"\nfinal loss/m={summary['f_final']:.4f}  "
+        f"sim_time={summary['sim_time_s']:.3f}s  "
+        f"bytes_total={summary['bytes_total']:.0f}  "
+        f"({time.time()-t0:.1f}s wall)")
+    if not lead:
+        return 0
     if args.json:
         import json
         with open(args.json, "w") as f:
@@ -223,7 +259,7 @@ def main(argv=None) -> int:
             ap.error(f"{', '.join(ignored)} cannot be combined with "
                      f"--spec (the file defines the experiment; only "
                      f"--rounds/--engine override it)")
-        return run_spec(args)
+        return spawn_spec(args)
     n = max(args.devices, 1)
     if args.mesh_shape:
         shape = tuple(int(v) for v in args.mesh_shape.split(","))

@@ -9,8 +9,9 @@ keys (leading axes ``...``) and acts on each key as ``jax.vmap`` would:
 ``PRNGKey(seed)``         -- ``[0, seed mod 2**32]``, as in ``jax.random``.
 ``split(key, num)``       -- (..., num, 2): the hash of counter i.
 ``fold_in(key, data)``    -- (..., 2): the hash of counter ``data``.
-``bits(key, shape)``      -- (..., *shape) int64: ``y1 ^ y2`` of the hash of
-                             each flat index.
+``bits(key, shape, offset)`` -- (..., *shape) int64: ``y1 ^ y2`` of the
+                             hash of each flat index, from ``offset`` (a
+                             block of a larger draw's values).
 ``bits_rows(key, rows)``  -- (rows.numel,) int32 carrying 32 bits: one key's
                              ``bits(key, (rows.rows, rows.stride))`` at the
                              live entries of a packed row layout.
@@ -68,10 +69,12 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return _hash(key, 1, int(data) & MASK, "keys")[..., 0, :]
 
 
-def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (32 bits) as int64 values."""
+def bits(key: torch.Tensor, shape=(), offset: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (32 bits) as int64 values; with
+    ``offset`` the values of flat indices offset .. offset + prod(shape) -
+    1 of a larger draw from ``key``."""
     shape = tuple(shape)
-    out = _hash(key, math.prod(shape), 0, "bits")
+    out = _hash(key, math.prod(shape), offset, "bits")
     return out.reshape(key.shape[:-1] + shape)
 
 

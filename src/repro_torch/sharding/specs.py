@@ -16,7 +16,8 @@ with the mesh for the record. On a live mesh (``sharding/mesh.py``)
 ``shard_tree`` cuts each leaf to this rank's block along the dim its spec
 gives the "data" axis and ``gather_tree`` undoes it (one all_gather);
 ``constrain_tree`` checks the blocks' shapes and moves nothing. One device
-places nothing: there ``constrain_tree`` returns its tree.
+places nothing: there ``constrain_tree`` returns its tree. ``client_specs``
+gives the simulator's stacked client trees JAX's client-axis specs.
 """
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ from typing import Mapping, Optional, Sequence
 from repro_torch.sharding import comm
 from repro_torch.sharding.mesh import MESH_ACROSS_CARDS, is_live, \
     require_one_device
-from repro_torch.sharding.rules import NamedSharding, P, logical_map
+from repro_torch.core.treeutil import tmap
+from repro_torch.sharding.rules import (NamedSharding, P, logical_map,
+                                        single_pod_rules)
 
 # logical axis name -> preferred mesh axes (tried in order, first that fits)
 MODEL_AXIS_RULES: dict = {
@@ -108,6 +111,23 @@ def tree_specs(logical_tree, abstract_tree, mesh,
         return P(*prepend, *leaf_spec(logical, core, mesh, rules, fsdp_axes))
 
     return logical_map(one, logical_tree, abstract_tree)
+
+
+def client_specs(tree, m: int, mesh):
+    """JAX's ``_client_sharded`` (``repro.sim.engine``) as specs: a leaf
+    whose leading dim is m gets ``leaf_spec(("client", None, ...))`` under
+    ``single_pod_rules`` (client -> "data"), which replicates it where the
+    mesh's "data" axis does not divide m; every other leaf is whole
+    (``P()``)."""
+    rules = single_pod_rules()
+
+    def one(x):
+        if getattr(x, "ndim", 0) and x.shape[0] == m:
+            return leaf_spec(("client",) + (None,) * (x.ndim - 1),
+                             tuple(x.shape), mesh, rules)
+        return P()
+
+    return tmap(one, tree)
 
 
 def spec_map(fn, tree):

@@ -72,11 +72,35 @@ rewinds between passes), uploads the effective masks and bills and emits
 from the outcomes; the async recording pass makes the eager pump's fault
 decisions, and a lost upload only frees its table slot.
 
-One device only: ``mesh`` is None or 1, the same run bit for bit, as a
-single-device mesh is in JAX; the mesh records and the partition specs
-are ported (``sharding/``), the client axis across cards is ROADMAP
-queue 1 item 14.5. A sim with its own ``SimDraws`` runs
-under ``FedSim.step`` only.
+**Across cards** (``mesh``, the clocked policies): the client axis is cut
+over the "data" axis of a live mesh (``sharding/mesh.py::LiveMesh``, one
+rank a card, ``launch/mesh.py::spawn``), as JAX's ``_client_sharded``
+cuts it: at entry each leaf of W, Z, the EF memory and the client batches
+whose leading dim is m becomes this rank's block of m / D clients
+(``sharding/specs.py::client_specs``; where D does not divide m every
+leaf stays whole on every rank, JAX's divisibility rail, and the rounds
+run as on one device); w_tau, the key and k stay whole. Each rank runs
+the same host work from the same seeds (arrivals, the policy's fixpoint,
+faults, ledger, telemetry) and its own clients' rounds: FedEPM's ENS is
+``core/distributed.py::ens_gather`` (one all_gather of Z, ENS over all m
+on every rank), the baselines' mean one all_gather and the one-device
+sum; the round's masks and noise keys are drawn for all m and the
+block's taken, and the codec's dither and the upload noise are the
+block's rows of JAX's whole planes (``sim/transport.py``); the metrics
+are gathered to (m,). So a rank's state is JAX's sharded state, and w_tau
+the same bits on every rank. Once a chunk the ranks all_gather a digest
+of the chunk's masks, durations and ledger rows and raise if they differ.
+On the card a round stays ONE captured CUDA graph with its NCCL
+collectives inside it: NCCL collectives are capturable, the round's
+collectives read and write the graph's static buffers, and splitting the
+round around them would put a host step between its halves every round,
+which is what the graph exists to remove. A capture that fails raises;
+nothing falls back. The census (``sharding/comm.py``) records the
+captured round's collectives once per replay. The async policy under a
+mesh is refused (ROADMAP queue 1 item 14.5 part 3b), as is a "model" axis
+above 1.
+
+A sim with its own ``SimDraws`` runs under ``FedSim.step`` only.
 """
 from __future__ import annotations
 
@@ -89,10 +113,15 @@ import torch
 
 from repro_torch import random
 from repro_torch.core import baselines, fedepm, participation
+from repro_torch.core.distributed import (ens_gather, gather_metrics,
+                                          mean_gather)
 from repro_torch.core.scan import ScanProgram, StateCarry, round_starts
 from repro_torch.core.treeutil import (tmap, tree_leaves, tree_unflatten,
                                        tree_where)
-from repro_torch.sharding.mesh import require_one_device
+from repro_torch.sharding import comm
+from repro_torch.sharding import specs as sh
+from repro_torch.sharding.mesh import (MESH_ACROSS_CARDS, LiveMesh, is_live,
+                                       make_live_mesh, require_one_device)
 from repro_torch.sim import clients as simclients
 from repro_torch.sim.server import (_EAGER_ASYNC_EXEC, _EV_UPLOAD, FedSim,
                                     KeyedDraws, SimMetrics,
@@ -259,6 +288,111 @@ def _schedule(sim: FedSim, ks: list, device) -> list:
 # the round body
 # ---------------------------------------------------------------------------
 
+class _Placement(NamedTuple):
+    """Where a sim's client rows live on a live mesh: ``cut`` where the
+    mesh cuts the client axis, and then this rank's block starts at client
+    ``offset`` and holds ``rows`` of them (else all m, offset 0);
+    ``specs`` are the (state.W, state.Z, H) specs."""
+    mesh: LiveMesh
+    cut: bool
+    offset: int
+    rows: int
+    specs: tuple
+
+
+def _resolve_mesh(mesh, sim: FedSim) -> LiveMesh | None:
+    """None | int | mesh -> the live mesh to run on, or None for one
+    device. An int N > 1 is the live (N, 1) mesh of the initialised N-rank
+    default process group; a live mesh of one rank runs its collectives
+    over a group of one."""
+    if is_live(mesh):
+        if mesh.shape.get("model", 1) != 1:
+            raise ValueError(f"a live mesh {mesh.shape}: the engine cuts "
+                             f"the clients over 'data' alone; a 'model' "
+                             f"axis above 1 is ROADMAP queue 1 item 14.5")
+        return mesh
+    if isinstance(mesh, int) and mesh > 1:
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError(
+                f"run_rounds(mesh={mesh}) runs on the live ({mesh}, 1) mesh "
+                f"of an initialised {mesh}-rank process group (one rank a "
+                f"card, launch/mesh.py::spawn), and this process has none; "
+                f"nothing runs it on one device instead (the mesh across "
+                f"cards is ROADMAP queue 1 item 14.5)")
+        return make_live_mesh((mesh, 1), device=sim.device)
+    require_one_device(mesh)
+    return None
+
+
+def place(sim: FedSim, mesh) -> None:
+    """Cut the sim's client rows over ``mesh`` (``run_rounds``' ``mesh``)
+    now, as ``run_rounds`` does at its entry and JAX's
+    ``_client_sharded`` does at its: once, so that a caller may snapshot
+    the placed sim; a sim already placed on this mesh is left as it
+    is."""
+    mesh = _resolve_mesh(mesh, sim)
+    placed = sim._placed
+    if placed is not None:
+        if mesh is None or placed.mesh != mesh:
+            raise ValueError(
+                f"this sim's client rows are cut over {placed.mesh.shape} "
+                f"(rank {placed.mesh.rank}); run it on that mesh")
+        return
+    if mesh is None:
+        return
+    m = sim.cfg.m
+    specs = tuple(sh.client_specs(t, m, mesh)
+                  for t in (sim.state.W, sim.state.Z, sim.H))
+    cut = sh.data_dim(sh.spec_leaves(specs[0])[0]) is not None
+    rows = m // mesh.shape["data"] if cut else m
+    sim.state = sim.state._replace(
+        W=sh.shard_tree(sim.state.W, specs[0], mesh),
+        Z=sh.shard_tree(sim.state.Z, specs[1], mesh))
+    if sim.H is not None:
+        sim.H = sh.shard_tree(sim.H, specs[2], mesh)
+    sim._batches = sh.shard_tree(
+        sim._batches, sh.client_specs(sim._batches, m, mesh), mesh)
+    sim._placed = _Placement(mesh, cut, mesh.coord("data") * rows if cut
+                             else 0, rows, specs)
+
+
+def gathered_state(sim: FedSim) -> tuple:
+    """(state, H) of a sim with every client's rows, on every rank: the
+    blocks of a sim placed on a mesh gathered (one all_gather a tree),
+    else the sim's own."""
+    placed = sim._placed
+    if placed is None or not placed.cut:
+        return sim.state, sim.H
+    mesh, specs = placed.mesh, placed.specs
+    st = sim.state._replace(
+        W=sh.gather_tree(sim.state.W, specs[0], mesh, what="check"),
+        Z=sh.gather_tree(sim.state.Z, specs[1], mesh, what="check"))
+    H = None if sim.H is None else sh.gather_tree(sim.H, specs[2], mesh,
+                                                  what="check")
+    return st, H
+
+
+def _agree(mesh: LiveMesh, *host) -> None:
+    """Raise unless every rank's host schedule of the chunk (``host``:
+    arrays and ledger rows) has the same digest: one all_gather of 8
+    bytes a rank."""
+    import hashlib
+    import json
+    h = hashlib.sha256()
+    for x in host:
+        h.update(x.tobytes() if isinstance(x, np.ndarray)
+                 else json.dumps(x, sort_keys=True, default=repr).encode())
+    digest = int.from_bytes(h.digest()[:8], "little", signed=True)
+    mine = torch.tensor([digest], dtype=torch.int64, device=mesh.device)
+    every = comm.all_gather(mesh, [mine], what="schedule")[0].reshape(-1)
+    if not bool((every == mine).all()):
+        raise RuntimeError(
+            f"rank {mesh.rank}: the ranks' host schedules of a chunk differ "
+            f"(digests {every.tolist()}): arrivals, policy, faults and "
+            f"ledger must come from the same seeds on every rank")
+
+
 class _Body(ScanProgram):
     """The engine's round body for one sim, as the program that runs it.
 
@@ -269,7 +403,9 @@ class _Body(ScanProgram):
     the EF memory takes the same abandoned select as the state. The ys are
     the round's metrics, then (with ``collect_w_tau``) the leaves of the
     new w_tau. ``sig`` is what the body was built for: the engine builds
-    another when it changes.
+    another when it changes. On a mesh that cuts the clients the round
+    runs on this rank's block: the aggregate over every rank's uploads,
+    the draws at the block's offset, the metrics gathered to (m,).
     """
 
     def __init__(self, sim: FedSim, sig):
@@ -279,12 +415,23 @@ class _Body(ScanProgram):
         # its graph go when the sim goes
         batches, loss_fn, cfg = sim._batches, sim._loss_fn, sim.cfg
         round_fn = sim._round_fn
+        placed = sim._placed
+        mesh = placed.mesh if placed is not None and placed.cut else None
+        self.mesh, self.offset = mesh, placed.offset if mesh else 0
+        off = self.offset
         if sim.alg == "fedepm":
+            agg = None if mesh is None else (
+                lambda Z: ens_gather(Z, cfg.lam, cfg.eta, mesh))
             self.scan_round = lambda st, x, post: fedepm.scan_round(
-                st, x, batches, loss_fn, cfg, post=post)
+                st, x, batches, loss_fn, cfg, post=post, aggregate=agg,
+                offset=off)
         else:
+            agg = None if mesh is None else (
+                lambda Z, mask: mean_gather(Z, mask, mesh))
             self.scan_round = lambda st, x, post: baselines.scan_round(
-                st, x, batches, loss_fn, cfg, round_fn, post=post)
+                st, x, batches, loss_fn, cfg, round_fn, post=post,
+                aggregate=agg, offset=off)
+        self.m = cfg.m
         self.codec, self.privacy = sim.sim.codec, sim._privacy_tx
         self.ef, self.fused = sim._ef, sim._fused_private
         self.H_like = sim.H
@@ -309,8 +456,9 @@ class _Body(ScanProgram):
         def post(old, new, mask, xs):
             ckey, pkey = xs[2 + self.n_sched:4 + self.n_sched]
             dither = codec_dither(ckey, dither_shapes(
-                new.Z, self.codec, fused_private=self.fused))
-            noise = (draw_unit_noise(pkey, old.Z, self.privacy)
+                new.Z, self.codec, fused_private=self.fused, m_all=self.m,
+                row0=self.offset))
+            noise = (draw_unit_noise(pkey, old.Z, self.privacy, self.offset)
                      if self.privacy is not None else None)
             Z, merged["H"] = merge_uploads(old.Z, new.Z, H, mask, dither,
                                            noise, self.codec, self.privacy,
@@ -318,6 +466,8 @@ class _Body(ScanProgram):
             return new._replace(Z=Z)
 
         out_st, rm = self.scan_round(st, x, post if self.merged else None)
+        if self.mesh is not None:
+            rm = gather_metrics(rm, self.mesh)
         out = self.sc.leaves(out_st)
         if H is not None:
             out += tree_leaves(tree_where(x[1], H, merged["H"]))
@@ -336,11 +486,18 @@ def _body(sim: FedSim, collect_w_tau: bool) -> _Body:
     change."""
     sig = (collect_w_tau, tuple((tuple(x.shape), x.dtype) for x in
                                 tree_leaves(sim.state.W)
-                                + tree_leaves(sim.state.w_tau)))
+                                + tree_leaves(sim.state.w_tau)),
+           sim._placed)
     body = sim._engine_body
     if body is None or body.sig != sig:
         body = sim._engine_body = _Body(sim, sig)
     return body
+
+
+def _mesh_size(mesh) -> int:
+    if mesh is None:
+        return 1
+    return mesh if isinstance(mesh, int) else mesh.size
 
 
 def _check(sim: FedSim, rounds: int, chunk, mesh, event_table_capacity):
@@ -352,7 +509,11 @@ def _check(sim: FedSim, rounds: int, chunk, mesh, event_table_capacity):
     if event_table_capacity is not None and event_table_capacity < 1:
         raise ValueError(f"event_table_capacity must be >= 1; "
                          f"got {event_table_capacity}")
-    require_one_device(mesh)
+    if sim.sim.policy == "async" and _mesh_size(mesh) > 1:
+        raise ValueError(
+            f"policy='async' on a mesh of {_mesh_size(mesh)} devices: "
+            f"the async engine runs on one device; across cards it is "
+            f"ROADMAP queue 1 item 14.5 part 3b ({MESH_ACROSS_CARDS})")
     if sim.sim.policy != "async" and event_table_capacity is not None:
         raise ValueError("event_table_capacity is owned by policy='async'; "
                          f"policy is {sim.sim.policy!r}")
@@ -383,13 +544,21 @@ def run_rounds(sim: FedSim, rounds: int, *, chunk: int | None = None,
     returns every round's broadcast point on the host, (rounds, ...) per
     leaf. The state the caller handed in is never written: the engine
     copies it into its own buffers and hands back fresh tensors. ``mesh``
-    is None or 1 (one device, the same run).
+    is None or 1 (one device), a live mesh, or an int N > 1 (the live (N,
+    1) mesh of this process's initialised N-rank group): the clocked
+    policies then run on this rank's block of the clients (module
+    docstring), and ``sim.state``, ``sim.H`` stay this rank's blocks
+    (``gathered_state`` makes them whole); every other field ends as on
+    one device, on every rank. With ``collect_w_tau`` each rank reads its
+    own copy of the broadcast points, the same bits on every rank, so the
+    ranks' objectives and stopping decisions agree with no broadcast.
     """
     _check(sim, rounds, chunk, mesh, event_table_capacity)
     if sim.sim.policy == "async":
         return _run_async(sim, rounds, chunk=chunk,
                           collect_w_tau=collect_w_tau,
                           event_table_capacity=event_table_capacity)
+    place(sim, mesh)
     body = _body(sim, collect_w_tau)
     body.load(body.carry_of(sim))
     dev, cfg = sim.device, sim.cfg
@@ -473,6 +642,9 @@ def run_rounds(sim: FedSim, rounds: int, *, chunk: int | None = None,
             sim.metrics.append(m)
             out_metrics.append(m)
             sim.round_idx += 1
+        if sim._placed is not None:
+            _agree(sim._placed.mesh, masks, abandoned, durs,
+                   sim.ledger.rounds[-C:])
         done += C
     carry = [c.clone() for c in body.carry]
     sim.state = body.sc.state(carry[:body.n_state], k)

@@ -597,8 +597,10 @@ class FedSim:
         self.host_syncs = 0
         self.last_round_metrics = None
         # the engine's round body and its captured graph (sim.engine),
-        # built at the first run_rounds
+        # built at the first run_rounds, and where a mesh put the client
+        # rows (None: every row here, on one device)
         self._engine_body = None
+        self._placed = None
         self.rho_eff = min(1.0, cfg.rho * sim.overselect_factor)
         self._n_keep = min(cfg.m, max(1, math.ceil(cfg.rho * cfg.m)))
 
@@ -733,6 +735,10 @@ class FedSim:
         return new._replace(Z=Z)
 
     def step(self) -> SimMetrics:
+        if self._placed is not None:
+            raise ValueError("this sim's client rows are cut over a mesh: "
+                             "it steps under run_rounds on that mesh, the "
+                             "eager step runs on one device")
         if self.sim.policy == "async":
             return self._step_async()
         candidates = np.array(self._draws.candidates(self), bool)

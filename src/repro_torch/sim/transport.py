@@ -46,6 +46,14 @@ the packed dither, each row hashed from its padded row's first counter, is
 JAX's bit for bit at the live entries; the noise is JAX's within one ulp
 (log1p).
 
+Every codec and privacy op here is per client: each row's keep set, scale,
+l1 norm, clip factor and noise depend on that client's row alone, and no
+op reduces across clients. So a rank of a mesh runs them on its block of
+the clients (``sim/engine.py``), and only the draws need to know where
+the block sits: ``dither_shapes(..., m_all, row0)`` gives the block's rows
+the counters of JAX's whole padded plane, and ``draw_unit_noise(...,
+row0)`` draws the block's values of each whole leaf.
+
 Ties in the top-k select go to the lowest index, as ``lax.top_k`` breaks
 them (a stable descending sort per leaf, truncated to the leaf's keep
 count: the set and order ``lax.top_k`` picks from a padded row, whose
@@ -339,8 +347,8 @@ class _GroupPlan:
     k_max: int
     dense: bool       # every leaf keeps all coordinates (k == n)
 
-    def rows(self, m: int) -> PackedRows:
-        return PackedRows(self.n if self.dense else self.k, m)
+    def rows(self, m: int, m_all: int = 0, row0: int = 0) -> PackedRows:
+        return PackedRows(self.n if self.dense else self.k, m, m_all, row0)
 
 
 _PLAN_CACHE: dict = {}
@@ -414,11 +422,12 @@ def _quantize_kept(vals: list, rows: PackedRows, codec: CodecConfig, u32):
     return leaf_views(enc, rows)
 
 
-def _group_rows(gp: _GroupPlan, m: int, codec: CodecConfig):
+def _group_rows(gp: _GroupPlan, m: int, codec: CodecConfig, m_all: int = 0,
+                row0: int = 0):
     """The row table of the group's dither, or None where it draws none."""
     if not codec.bits or not codec.stochastic:
         return None
-    return gp.rows(m)
+    return gp.rows(m, m_all, row0)
 
 
 def uses_fused_private(codec: CodecConfig | None, privacy) -> bool:
@@ -429,20 +438,24 @@ def uses_fused_private(codec: CodecConfig | None, privacy) -> bool:
 
 
 def dither_shapes(tree_z, codec: CodecConfig | None, *,
-                  fused_private: bool = False) -> list:
+                  fused_private: bool = False, m_all: int = 0,
+                  row0: int = 0) -> list:
     """Per dtype group of the plan, in plan order: the row table
     (``PackedRows``) of the packed uint32 dither plane the round-trip of
     ``tree_z`` consumes, or None where that group draws nothing.
     ``fused_private`` asks for the planes of the fused private path (see
-    ``uses_fused_private``)."""
+    ``uses_fused_private``). ``tree_z`` may hold clients ``row0`` on of
+    ``m_all`` (a rank's block): the tables then take their rows' counters
+    of the whole plane."""
     if codec is None:
         return []
     leaves = tree_leaves(tree_z)
     m = leaves[0].shape[0]
     plan = _codec_plan(leaves, codec)
     if fused_private:
-        return [gp.rows(m) if codec.stochastic else None for gp in plan]
-    return [_group_rows(gp, m, codec) for gp in plan]
+        return [gp.rows(m, m_all, row0) if codec.stochastic else None
+                for gp in plan]
+    return [_group_rows(gp, m, codec, m_all, row0) for gp in plan]
 
 
 def _take_dither(dither, g: int, rows, device) -> torch.Tensor | None:
@@ -593,17 +606,21 @@ def codec_dither(key: torch.Tensor, shapes: list) -> list:
             for g, s in enumerate(shapes)]
 
 
-def draw_unit_noise(pkey: torch.Tensor, tree_like, privacy):
+def draw_unit_noise(pkey: torch.Tensor, tree_like, privacy,
+                    row0: int = 0):
     """Unit-scale DP noise tree, f32 leaves shaped like ``tree_like``: JAX's
     ``_draw_noise_leaves``, ``pkey`` split once per leaf in flatten order
     and each leaf's bits mapped through the mechanism's inverse CDF. Drawn
-    on ``pkey``'s device."""
+    on ``pkey``'s device. Where ``tree_like`` holds clients ``row0`` on of
+    stacked leaves (a rank's block), each leaf's values are those rows of
+    the whole leaf's draw."""
     to_noise = (laplace_from_u32 if privacy.mechanism == "laplace"
                 else _gaussian_from_u32)
     leaves = tree_leaves(tree_like)
     keys = random.split(pkey, len(leaves))
     return tree_unflatten(tree_like, [
-        to_noise(random.bits(keys[i], tuple(x.shape)))
+        to_noise(random.bits(keys[i], tuple(x.shape),
+                             row0 * math.prod(x.shape[1:])))
         for i, x in enumerate(leaves)])
 
 

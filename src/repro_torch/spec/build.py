@@ -10,7 +10,11 @@ execution loop the simulate CLI, the sweep runner and the Fig. 8 twin
 share: the eager per-round path or ``run_rounds`` chunks (the same
 trajectory), the objective of every round's broadcast point, and the
 paper's termination rule under ``engine.terminate``. Its summary has the
-JAX package's schema key for key.
+JAX package's schema key for key. A spec whose ``[engine] mesh`` is N > 1
+runs on N ranks (``spec_ranks``): the entry points spawn them, each rank
+builds the spec on its card (``rank_spec``) and its ``run_rounds`` cuts
+the clients over the ranks' live mesh; every rank computes the same
+summary, and rank 0 prints and writes.
 
 Task data is memoized per resolved :class:`TaskSpec` and device (bounded
 FIFO), so the cells of a sweep over one task share one device copy of the
@@ -118,6 +122,24 @@ def _privacy_config(spec: ExperimentSpec):
         mechanism=pv.mechanism, eps=pv.eps, delta=pv.delta,
         sensitivity=pv.sensitivity, clip=pv.clip,
         secure_agg=pv.secure_agg, mask_bytes=pv.mask_bytes, seed=seed)
+
+
+def spec_ranks(spec: ExperimentSpec) -> int:
+    """The ranks a spec runs on: its ``[engine] mesh`` under the scan
+    engine, one card a rank (``launch/mesh.py::spawn``); else 1."""
+    eng = spec.engine
+    return (eng.mesh or 1) if eng.name == "scan" else 1
+
+
+def rank_spec(spec: ExperimentSpec, rank: int) -> ExperimentSpec:
+    """Rank ``rank``'s copy of a spec run on a mesh: rank 0 keeps the
+    telemetry sinks, every other rank records the same events and writes
+    none."""
+    if rank == 0:
+        return spec
+    return spec.replace(**{"telemetry.events_jsonl": None,
+                           "telemetry.trace_out": None,
+                           "telemetry.jax_profiler_dir": None})
 
 
 def build(spec: ExperimentSpec, device=None, *, draws=None) -> "RunHandle":

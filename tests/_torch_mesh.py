@@ -224,17 +224,151 @@ def spawn_live_round(D: int = 2):
     return _spawn(live_round, D)
 
 
-def run_cases(mesh, cases, with_plain: bool = False, train: bool = False):
+def run_cases(mesh, cases, with_plain: bool = False, train: bool = False,
+              engine=()):
     """What each rank runs: ENS over ``ens_uploads``, every case of
     ``cases`` on the live ``mesh`` (and, with ``with_plain``, with no mesh
-    in the same process), and the ``train`` case; rank 0's results come
-    back."""
+    in the same process), the ``train`` case, and the ``engine`` cases
+    (``engine_case``, each also with no mesh); rank 0's results come
+    back (the engine cases' runs with no mesh on rank 0 alone)."""
     out = {"ens": _ens_case(mesh)}
     out.update({c: _port_case(mesh, c) for c in cases})
     if with_plain:
         out.update({f"{c}/plain": _port_case(None, c) for c in cases})
     if train:
         out["train"] = _port_train(mesh)
+    for c in engine:
+        out[f"engine/{c}"] = engine_case(c, mesh)
+        if mesh.rank == 0:  # the rank whose results come back
+            out[f"engine/{c}/plain"] = engine_case(c, None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the simulator's engine across ranks (ROADMAP queue 1 item 14.5 part 3)
+# ---------------------------------------------------------------------------
+
+# the logreg task of tests/test_engine_async.py (d 2000 samples of n 14
+# features, k0 2, pareto latency at alpha 1.3, availability 0.9, seed 9):
+# 5 rounds in chunks of 2. Each case: (alg, policy, policy knobs, codec,
+# upload privacy, FedEPM's or the baselines' eps, m). At m 16 the data
+# axis of 2 and 4 ranks cuts the clients; at m 50, 4 ranks do not divide
+# them and every leaf stays whole on every rank.
+ENGINE_D, ENGINE_N, ENGINE_K0 = 2000, 14, 2
+ENGINE_ROUNDS, ENGINE_CHUNK = 5, 2
+ENGINE_CODECS = {"dense8": {"bits": 8},
+                 "topk8_ef": {"topk_frac": 0.5, "bits": 8,
+                              "error_feedback": True}}
+ENGINE_PRIVACY = {"dp": {"eps": 1.0, "seed": 3}}
+ENGINE_CASES = {
+    "sync": ("fedepm", "sync", {}, None, None, 0.1, 16),
+    "deadline_codec8": ("fedepm", "deadline", {"deadline": 0.002},
+                        "dense8", None, 0.1, 16),
+    "overselect_dp": ("fedepm", "overselect", {}, "dense8", "dp", 0.0, 16),
+    "adaptive_topk_ef": ("fedepm", "adaptive", {"deadline_slack": 1.5},
+                         "topk8_ef", None, 0.0, 16),
+    "sfedprox": ("sfedprox", "deadline", {"deadline": 0.002}, "dense8",
+                 None, 0.0, 16),
+    "sync_m50": ("fedepm", "sync", {}, None, None, 0.1, 50),
+}
+# examples/specs/lm_federated.toml (reduced smollm-135m, m 4), 2 rounds
+# in chunks of 1
+ENGINE_LM, ENGINE_LM_ROUNDS = "lm", 2
+LM_SPEC = ROOT / "examples" / "specs" / "lm_federated.toml"
+
+
+def engine_sim(case: str, lib: dict):
+    """One case's ``FedSim`` of either package: ``lib`` names the
+    package's ``FedSim``, ``SimConfig``, ``CodecConfig``,
+    ``PrivacyConfig``, ``make_profiles``, ``EventRecorder``, ``fedepm``,
+    ``baselines``, the logistic loss (``loss``), ``synth``,
+    ``partition_iid``, ``key(seed)``, ``zeros(n)`` and ``array(np)``."""
+    alg, policy, kw, codec, privacy, eps, m = ENGINE_CASES[case]
+    X, y = lib["synth"].adult_like(d=ENGINE_D, n=ENGINE_N, seed=0)
+    batches = {k: lib["array"](v) for k, v in
+               lib["partition_iid"](X, y, m=m, seed=0).items()}
+    if alg == "fedepm":
+        cfg = lib["fedepm"].FedEPMConfig.paper_defaults(
+            m=m, rho=0.5, k0=ENGINE_K0, eps_dp=eps)
+        s0 = lib["fedepm"].init_state(lib["key"](0), lib["zeros"](ENGINE_N),
+                                      cfg)
+    else:
+        cfg = lib["baselines"].BaselineConfig(m=m, k0=ENGINE_K0, rho=0.5,
+                                              eps_dp=eps)
+        s0 = lib["baselines"].init_state(lib["key"](0),
+                                         lib["zeros"](ENGINE_N), cfg)
+    return lib["FedSim"](
+        alg=alg, cfg=cfg, state=s0, batches=batches, loss_fn=lib["loss"](),
+        profiles=lib["make_profiles"](m, seed=5, availability=0.9),
+        sim=lib["SimConfig"](
+            policy=policy, latency="pareto", latency_alpha=1.3, seed=9,
+            codec=None if codec is None
+            else lib["CodecConfig"](**ENGINE_CODECS[codec]),
+            privacy=None if privacy is None
+            else lib["PrivacyConfig"](**ENGINE_PRIVACY[privacy]), **kw),
+        telemetry=lib["EventRecorder"]())
+
+
+def engine_record(sim, state, H, w_hist) -> dict:
+    """What the tests hold of an engine run, in numpy and plain Python:
+    the whole state's leaves (and the EF memory's), the key and k, the
+    clock, the metrics, ledger rows and events, the broadcast points of
+    every round."""
+    def leaves(t):
+        from repro_torch.core.treeutil import tree_leaves
+        return [np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                for x in tree_leaves(t)]
+    return {"state": {"w_tau": leaves(state.w_tau), "W": leaves(state.W),
+                      "Z": leaves(state.Z),
+                      "H": [] if H is None else leaves(H)},
+            "key": leaves(state.key)[0], "k": int(state.k), "t": sim.t,
+            "metrics": [tuple(m) for m in sim.metrics],
+            "ledger": sim.ledger.rounds,
+            "events": [tuple(e) for e in getattr(sim.telemetry, "events", [])],
+            "w_hist": [] if w_hist is None else leaves(w_hist)}
+
+
+def _port_lib() -> dict:
+    from repro_torch import random
+    from repro_torch.core import baselines, fedepm
+    from repro_torch.core.tasks import LogisticLoss
+    from repro_torch.data import synth
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.privacy import PrivacyConfig
+    from repro_torch.sim import (CodecConfig, FedSim, SimConfig,
+                                 make_profiles)
+    from repro_torch.telemetry.events import EventRecorder
+    return dict(FedSim=FedSim, SimConfig=SimConfig, CodecConfig=CodecConfig,
+                PrivacyConfig=PrivacyConfig, make_profiles=make_profiles,
+                EventRecorder=EventRecorder, fedepm=fedepm,
+                baselines=baselines, loss=LogisticLoss, synth=synth,
+                partition_iid=partition_iid, key=random.PRNGKey,
+                zeros=lambda n: torch.zeros(n), array=torch.from_numpy)
+
+
+def engine_case(case: str, mesh) -> dict:
+    """One engine case on this rank of the live ``mesh`` (None: one
+    device): ``run_rounds`` in chunks, the state gathered after, and the
+    census of the run by op and by what it moves."""
+    from repro_torch.sharding import comm
+    from repro_torch.sim import run_rounds
+    from repro_torch.sim.engine import gathered_state
+    if case == ENGINE_LM:
+        from repro_torch.spec import ExperimentSpec
+        sim = ExperimentSpec.load(str(LM_SPEC)).build(device="cpu").sim
+        rounds, chunk, collect = ENGINE_LM_ROUNDS, 1, False
+    else:
+        sim = engine_sim(case, _port_lib())
+        rounds, chunk, collect = ENGINE_ROUNDS, ENGINE_CHUNK, True
+    comm.reset_census()
+    res = run_rounds(sim, rounds, chunk=chunk, collect_w_tau=collect,
+                     mesh=mesh)
+    census = list(comm.CENSUS)
+    state, H = gathered_state(sim)
+    out = engine_record(sim, state, H, res.w_tau)
+    out["census"] = census
+    out["last"] = {k: np.asarray(v) for k, v in
+                   sim.last_round_metrics._asdict().items()}
     return out
 
 
@@ -260,9 +394,10 @@ def _spawn(fn, D: int, *args):
 
 
 def spawn_cases(D: int, cases, with_plain: bool = False,
-                train: bool = False) -> dict:
+                train: bool = False, engine=()) -> dict:
     """``run_cases`` on D gloo ranks; rank 0's results."""
-    return _spawn(run_cases, D, list(cases), with_plain, train)
+    return _spawn(run_cases, D, list(cases), with_plain, train,
+                  list(engine))
 
 
 def states(rounds) -> tuple[list, list]:
@@ -283,10 +418,13 @@ def bitwise(a, b) -> bool:
 # the JAX oracle, in a subprocess
 # ---------------------------------------------------------------------------
 
-def start_jax(out: Path, devices, cases, train: int = 0) -> list:
+def start_jax(out: Path, devices, cases, train: int = 0,
+              engine=None, alone=None) -> list:
     """Start ``tests/_torch_mesh_jax.py`` once for each D of ``devices``,
     the processes side by side, each writing ``out``.D.npz for ``cases``
-    (a list, or {D: list}) and the ``train`` case where D is ``train``."""
+    (a list, or {D: list}), the ``train`` case where D is ``train``, the
+    engine cases ``engine[D]`` on D devices and ``alone[D]`` with no mesh
+    ({D: list} each)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]), JAX_PLATFORMS="cpu")
     procs = []
@@ -297,6 +435,9 @@ def start_jax(out: Path, devices, cases, train: int = 0) -> list:
                                             else cases)]
         if train == D:
             cmd.append(f"train={D}")
+        for key, table in (("engine", engine), ("alone", alone)):
+            if table and table.get(D):
+                cmd.append(f"{key}=" + ",".join(table[D]))
         procs.append((subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       path))
@@ -312,8 +453,11 @@ class _Met:
 
 def finish_jax(procs) -> dict:
     """Wait for the subprocesses (``JAX_S`` at most) and read their npz:
-    {(D, case): [{"state": {tree: [leaves]}, "met": _Met}, ...]}."""
+    {(D, case): [{"state": {tree: [leaves]}, "met": _Met}, ...]}, and the
+    engine runs as {("engine", D or None, case): engine_record}."""
+    import pickle
     runs: dict = {}
+    engine: dict = {}
     deadline = time.monotonic() + JAX_S
     for proc, path in procs:
         try:
@@ -325,6 +469,11 @@ def finish_jax(procs) -> dict:
             log, _ = proc.communicate()
             raise AssertionError(f"the JAX oracle passed {JAX_S} s:\n{log}")
         assert proc.returncode == 0, log
+        pkl = Path(str(path) + ".engine.pkl")
+        if pkl.exists():  # written by the subprocess just run
+            with open(pkl, "rb") as f:
+                engine.update({("engine",) + k: v
+                               for k, v in pickle.load(f).items()})
         with np.load(path) as z:
             for key in sorted(z.files):
                 D, case, r, tree, leaf = key.split("|")
@@ -341,15 +490,16 @@ def finish_jax(procs) -> dict:
             slot["met"] = _Met(slot["met"])
             slot["state"] = {t: [v[i] for i in sorted(v)]
                              for t, v in slot["state"].items()}
+    runs.update(engine)
     return runs
 
 
 def run_both(tmp: Path, devices, cases, port_groups: dict,
-             train: int = 0):
+             train: int = 0, engine=None, alone=None):
     """JAX's subprocesses started, the port's groups ({D: (cases,
-    with_plain, train)}) run meanwhile on gloo ranks, JAX's npz read:
-    (JAX's runs, {D: the port's results})."""
-    procs = start_jax(tmp / "jax", devices, cases, train)
+    with_plain, train, engine cases)}) run meanwhile on gloo ranks, JAX's
+    npz read: (JAX's runs, {D: the port's results})."""
+    procs = start_jax(tmp / "jax", devices, cases, train, engine, alone)
     try:
         port = {D: spawn_cases(D, *group) for D, group in port_groups.items()}
     except BaseException:

@@ -1,6 +1,7 @@
 """The JAX oracle of the mesh tests, run as a subprocess:
 
-    python tests/_torch_mesh_jax.py OUT.npz D[,D...] CASE[,CASE...] [train=D]
+    python tests/_torch_mesh_jax.py OUT.npz D[,D...] CASE[,CASE...] \
+        [train=D] [engine=CASE[,CASE...]] [alone=CASE[,CASE...]]
 
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` is set before JAX
 is imported. Each case of ``tests/_torch_mesh.py::CASES`` runs through
@@ -8,7 +9,13 @@ JAX's ``build_fedepm`` on the Auto mesh of D x 1 forced host devices
 (``_torch_distributed.jax_rounds``), and ``train=D`` runs JAX's
 ``build_train_step`` on D devices as ``test_torch_steps`` runs it; every
 round's w_tau, W and Z leaves and metrics go to OUT.npz under
-"D|case|round|tree|leaf".
+"D|case|round|tree|leaf". ``engine=`` runs each case of
+``tests/_torch_mesh.py::ENGINE_CASES`` (and ``ENGINE_LM``, the reduced
+``lm_federated.toml``) through JAX's ``run_rounds`` on that Auto mesh of
+each D, and ``alone=`` with no mesh (JAX's own spread is the distance
+between the two; the tests run a case's no-mesh run once, in one of the
+subprocesses); ``engine_record`` of each run goes to OUT.npz.engine.pkl
+under (D or None, case).
 """
 from __future__ import annotations
 
@@ -41,6 +48,61 @@ def _put(out: dict, prefix: str, states, mets) -> None:
             out[f"{prefix}|{r}|met|{name}"] = np.asarray(getattr(met, name))
 
 
+def _auto_mesh(D: int):
+    return jax.make_mesh((D, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto),
+                         devices=jax.devices()[:D])
+
+
+def _jax_lib() -> dict:
+    import jax.numpy as jnp
+    from repro.core import baselines, fedepm
+    from repro.core.tasks import make_logistic_loss
+    from repro.data import synth
+    from repro.data.partition import partition_iid
+    from repro.privacy import PrivacyConfig
+    from repro.sim import CodecConfig, FedSim, SimConfig, make_profiles
+    from repro.telemetry.events import EventRecorder
+    return dict(FedSim=FedSim, SimConfig=SimConfig, CodecConfig=CodecConfig,
+                PrivacyConfig=PrivacyConfig, make_profiles=make_profiles,
+                EventRecorder=EventRecorder, fedepm=fedepm,
+                baselines=baselines, loss=make_logistic_loss, synth=synth,
+                partition_iid=partition_iid, key=jax.random.PRNGKey,
+                zeros=jnp.zeros, array=jnp.asarray)
+
+
+def _plain(x):
+    """JAX's and numpy's scalars in an event or ledger row as Python's."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_plain(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if hasattr(x, "dtype") and getattr(x, "ndim", 1) == 0:
+        return x.item()
+    return x
+
+
+def engine_run(case: str, D):
+    """One engine case through JAX's ``run_rounds`` on the Auto mesh of D
+    host devices (None: no mesh)."""
+    from repro.sim import run_rounds
+    if case == M.ENGINE_LM:
+        from repro.spec import ExperimentSpec
+        sim = ExperimentSpec.load(str(M.LM_SPEC)).build().sim
+        rounds, chunk, collect = M.ENGINE_LM_ROUNDS, 1, False
+    else:
+        sim = M.engine_sim(case, _jax_lib())
+        rounds, chunk, collect = M.ENGINE_ROUNDS, M.ENGINE_CHUNK, True
+    res = run_rounds(sim, rounds, chunk=chunk, collect_w_tau=collect,
+                     mesh=None if D is None else _auto_mesh(D))
+    rec = M.engine_record(sim, jax.device_get(sim.state),
+                          jax.device_get(sim._H), res.w_tau)
+    rec["ledger"], rec["events"] = _plain(rec["ledger"]), _plain(
+        rec["events"])
+    rec["metrics"] = _plain(rec["metrics"])
+    return rec
+
+
 def main(argv) -> int:
     path, devices, cases = argv[0], argv[1], argv[2]
     out = {}
@@ -50,15 +112,24 @@ def main(argv) -> int:
             states, mets = H.jax_rounds(arch, rounds, devices=D,
                                         batch=M.batch_size(case), **kw)
             _put(out, f"{D}|{case}", states, mets)
+    engine = {}
     for arg in argv[3:]:
+        if arg.startswith(("engine=", "alone=")):
+            key, _, cases = arg.partition("=")
+            for case in cases.split(","):
+                for D in (map(int, devices.split(",")) if key == "engine"
+                          else (None,)):
+                    engine[D, case] = engine_run(case, D)
+            continue
         D = int(arg.removeprefix("train="))
         import test_torch_steps as T
-        mesh = jax.make_mesh((D, 1), ("data", "model"),
-                             axis_types=(AxisType.Auto, AxisType.Auto),
-                             devices=jax.devices()[:D])
-        run = T._jax_train(M.SMOLLM, mesh)
+        run = T._jax_train(M.SMOLLM, _auto_mesh(D))
         _put(out, f"{D}|train", run["states"], run["mets"])
     np.savez(path, **out)
+    if engine:
+        import pickle
+        with open(path + ".engine.pkl", "wb") as f:
+            pickle.dump(engine, f)
     return 0
 
 

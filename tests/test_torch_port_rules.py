@@ -54,7 +54,8 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "check_zamba2_round_vs_cpu", "run_launch_path",
              "run_flash_checks", "run_remat_gradients",
              "check_threefry_rows_kernel", "check_xlstm_upload_vs_cpu",
-             "at_child", "lm_leaf_widths", "run_mesh_path", "mesh_rank"):
+             "at_child", "lm_leaf_widths", "run_mesh_path", "mesh_rank",
+             "mesh_width", "run_engine_mesh_path", "engine_mesh_rank"):
     assert callable(getattr(chip_smoke, name)), name
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
