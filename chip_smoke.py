@@ -132,8 +132,7 @@ Phases, in order; any failure exits non-zero before the last line:
    bit the port's ``fedepm_round``, and temporal with microbatch 1 and 2,
    the first round within 2^-7 of its scale (bf16 compute); (c)
    zamba2-1.2b at full width (1,170,473,856 params) under the donated
-   temporal round, microbatch 2, f32 state, 1 round, twice with the same
-   bits, f/m finite; (d) reduced smollm-135m,
+   temporal round, microbatch 2, f32 state, 1 round, f/m finite; (d) reduced smollm-135m,
    xlstm-125m and zamba2-1.2b, spatial and temporal, held to ``JAX_DIST``
    (JAX's ``build_fedepm`` on a one-device mesh); ENS once per leaf and
    round and prox k0 times per leaf, round and client (one launch for all
@@ -146,8 +145,8 @@ Phases, in order; any failure exits non-zero before the last line:
    recorded) for smollm-135m's ``train_4k`` at B 8, ``prefill_32k`` at B
    1, ``decode_32k`` at B 8 and ``long_500k`` at B 1 (the sliding-window
    variant, a ring of 4096), and zamba2-1.2b's ``prefill_32k`` at B 1
-   (its 32-head shared block through ``flash_attention`` over 32768
-   tokens), a ``fail`` record failing the run; each case's wall, peak
+   cut to 16384 tokens (``LAUNCH_SEQ``; its 32-head shared block through
+   ``flash_attention``), a ``fail`` record failing the run; each case's wall, peak
    above the start, launches and ``launch/roofline.py::analyse`` (the
    analytic compute and memory times at the H100's peaks, the bottleneck,
    the share of the bf16 peak in the measured wall) printed; then
@@ -169,15 +168,20 @@ Phases, in order; any failure exits non-zero before the last line:
    printed; on rank 0 the same rounds on its card with no mesh: ENS over
    the mesh's uploads the mesh's aggregate bit for bit, the first
    round's states within 2^-7 of the scale (every round bit for bit at W
-   = 1), a2a = gather bit for bit; the second round through one card
-   rerun from the mesh's round-1 state and from its own under noise of
-   the mesh's round-1 size (``_mesh_round2_cause``); gather and temporal
-   again in f32 (``_mesh_f32``); the reduced archs of ``JAX_DIST`` on the
-   mesh within 4e-6 (the temporal ones on min(W, 2) ranks, which their 2
-   sequences a client fill); then, where W > 1, ``train --devices W
-   --mesh-shape W,1`` at 8 x
-   4096 tokens, 2 rounds, its lines from rank 0 with their collective
-   bytes.
+   = 1), a2a = gather bit for bit; where W > 1 the second round through
+   one card rerun from the mesh's round-1 state and from its own under
+   noise of the mesh's round-1 size (``_mesh_round2_cause``), gather and
+   temporal again in f32 (``_mesh_f32``), the reduced archs of
+   ``JAX_DIST`` on the mesh within 4e-6 (the temporal ones on min(W, 2)
+   ranks, which their 2 sequences a client fill), and ``train --devices
+   W --mesh-shape W,1`` at 8 x 4096 tokens, 2 rounds, its lines from
+   rank 0 with their collective bytes. On four cards the "model" axis:
+   (A) smollm-135m at (D, M) = (2, 2) and (1, 4) in the three modes, (B)
+   zamba2-1.2b temporal at both against one card's round on every rank's
+   card, (C) ``train --devices 4 --mesh-shape 2,2`` at its defaults, each
+   rank's census held to ``model_axis_census``; on one card ``train
+   --devices 1 --mesh-shape 1,1`` bit for bit the run without a mesh,
+   and the (1, 1) mesh with both axes' groups moving 0 bytes.
 6. card against CPU: 5 rounds at m = 50 of the paper round, of two
    simulator configurations (same draws), and of SFedAvg and SFedProx from
    the same key (masks bitwise); the reduced LM spec (f32) on the card
@@ -3097,7 +3101,7 @@ def run_remat_path(eager: dict) -> dict:
 # one client's zamba2 gradient: a sequence of the temporal round, where the
 # weights' gradient and per-use bf16 casts set the peak, and a longer one,
 # where the activations do
-REMAT_SEQS = (256, 1024)
+REMAT_SEQS = (1024,)  # at 256 tokens remat saved no memory
 
 
 def run_remat_zamba2() -> dict:
@@ -3582,42 +3586,33 @@ def run_dist_smollm() -> dict:
 
 def run_dist_zamba2() -> dict:
     """(c) zamba2-1.2b at full width, temporal, microbatch 2, f32 state,
-    the donated step, DIST_ZAMBA2_ROUNDS rounds, twice: the same bits
-    (digests of every state leaf), f/m at the last w_tau finite."""
+    the donated step, DIST_ZAMBA2_ROUNDS rounds, once (four cards hold
+    the round to one card's bits, the ``mesh`` phase's (B)): the digests
+    of every state leaf, f/m at the last w_tau finite."""
     from repro_torch.core.distributed import DistConfig
     from repro_torch.core.treeutil import tree_leaves
     s = DIST_FULL
     model, loss, fcfg, batches = _dist_full_setup("zamba2-1.2b")
     dist = DistConfig(mode="temporal", microbatch=2,
                       state_dtype=torch.float32)
-    runs = []
-    for _ in range(2):
-        st, masks, _, rec = _dist_case(model, loss, fcfg, batches, dist,
-                                       DIST_ZAMBA2_ROUNDS, donate=True)
-        rec["mode"] = "temporal"
-        leaves = tree_leaves(st.w_tau)
-        assert (sum(x.numel() for x in leaves), len(leaves),
-                max(x.numel() for x in leaves)) == \
-            (ZAMBA2_PARAMS, ZAMBA2_LEAVES, ZAMBA2_LEAF)
-        _dist_launches(rec, ZAMBA2_LEAVES, DIST_ZAMBA2_ROUNDS, s["m"],
-                       s["k0"])
-        rec["bits"] = {t: _bit_digest(getattr(st, t))
-                       for t in ("w_tau", "W", "Z")}
-        rec["key"] = st.key.tolist()
-        rec["selected"] = [m.tolist() for m in masks]
-        rec["f_per_m"] = _f_per_m(loss, st.w_tau, batches)
-        runs.append(rec)
-        del st, leaves
-        torch.cuda.empty_cache()
-    for rec in runs:
-        log("distributed[zamba2-1.2b temporal] " + json.dumps(
-            {k: v for k, v in rec.items() if k != "bits"}))
-    for k in ("bits", "key", "selected", "f_per_m"):
-        assert runs[0][k] == runs[1][k], k
-    assert np.isfinite(runs[0]["f_per_m"]), runs[0]["f_per_m"]
-    for rec in runs:
-        del rec["bits"]
-    return {"run": runs[0], "again": runs[1]}
+    st, masks, _, rec = _dist_case(model, loss, fcfg, batches, dist,
+                                   DIST_ZAMBA2_ROUNDS, donate=True)
+    rec["mode"] = "temporal"
+    leaves = tree_leaves(st.w_tau)
+    assert (sum(x.numel() for x in leaves), len(leaves),
+            max(x.numel() for x in leaves)) == \
+        (ZAMBA2_PARAMS, ZAMBA2_LEAVES, ZAMBA2_LEAF)
+    _dist_launches(rec, ZAMBA2_LEAVES, DIST_ZAMBA2_ROUNDS, s["m"], s["k0"])
+    rec["key"] = st.key.tolist()
+    rec["selected"] = [m.tolist() for m in masks]
+    rec["f_per_m"] = _f_per_m(loss, st.w_tau, batches)
+    log("distributed[zamba2-1.2b temporal] " + json.dumps(rec))
+    rec["bits"] = {t: _bit_digest(getattr(st, t))
+                   for t in ("w_tau", "W", "Z")}
+    del st, leaves
+    torch.cuda.empty_cache()
+    assert np.isfinite(rec["f_per_m"]), rec["f_per_m"]
+    return {"run": rec}
 
 
 # one full-width zamba2-1.2b temporal round against the port's CPU path on
@@ -3809,6 +3804,9 @@ LAUNCH_CASES = (("smollm-135m", "train_4k", 8), ("smollm-135m",
                 ("smollm-135m", "decode_32k", 8),
                 ("smollm-135m", "long_500k", 1),
                 ("zamba2-1.2b", "prefill_32k", 1))
+# a case's sequence cut below its shape's, to keep the script's time: the
+# zamba2 prefill at 32768 tokens took 35 s of it
+LAUNCH_SEQ = {("zamba2-1.2b", "prefill_32k"): 16384}
 LAUNCH_ROUNDS = 2
 LAUNCH_K0 = 4
 # chunked attention on the card against the port's CPU path: one smollm
@@ -3826,6 +3824,8 @@ def _launch_case(arch: str, shape: str, batch: int) -> dict:
     from repro_torch.launch.steps import resolve_arch
     from repro_torch.models.config import INPUT_SHAPES
     ishape = dataclasses.replace(INPUT_SHAPES[shape], global_batch=batch)
+    if (arch, shape) in LAUNCH_SEQ:
+        ishape = dataclasses.replace(ishape, seq_len=LAUNCH_SEQ[arch, shape])
     torch.cuda.empty_cache()
     reset_counts()
     rec = dryrun.run_one(arch, shape, out_dir=str(OUT_DIR / "dryrun_torch"),
@@ -4026,6 +4026,133 @@ MESH_TRAIN = ["--arch", LAUNCH_ARCH, "--seq", "4096", "--global-batch", "8",
               "--rounds", str(LAUNCH_ROUNDS), "--k0", str(LAUNCH_K0)]
 
 
+def model_axis_census(kw: dict, shape, m: int, rows: int, k0: int,
+                      sizes, specs, itemsize: int, selected: int,
+                      dp: bool = True) -> dict:
+    """The bytes one rank of the live (D, M) ``shape`` receives in one
+    round of ``build_fedepm`` at ``kw`` (DistConfig's mode, ens,
+    microbatch), by "op|axis|what", as ``sharding/comm.py``'s census
+    counts them (a gather or scatter (n - 1) blocks, an all_to_all (n -
+    1) / n of its buffer, an all_reduce 2 (n - 1) / n of it; nothing over
+    an axis of one rank). ``sizes`` are one copy's leaf sizes, ``specs``
+    W's specs of them (the client axis first), ``rows`` a client's batch
+    rows, ``itemsize`` the state's and compute copy's bytes a value,
+    ``selected`` the round's selected clients. With n_l a leaf's size,
+    C_M and C_D the leaves its spec cuts over "model" and "data", b_l =
+    n_l / M_l / D_l its block (M_l = M on C_M, else 1; D_l likewise, in
+    the temporal round), r = m / D the spatial round's clients a rank:
+
+    spatial  ens gather   all-gather data  (D-1) r sum b_l s
+             ens a2a      all-to-all data  (D-1) r sum pad(b_l) s / D,
+                          all-gather data  (D-1) sum pad(b_l) s / D
+                          (pad: up to a multiple of D)
+             params       all-gather model (M-1) sum_{C_M} b_l s
+             grads (rows cut over model: M divides ``rows``)
+                          reduce-scatter model (M-1) r sum_{C_M} b_l 4,
+                          all-reduce model  2 (M-1)/M r (sum_{not C_M}
+                          n_l + 1) 4 (the +1: the mask counts)
+             norms        all-reduce model 2 (M-1)/M (k0 r + r [rows
+                          cut] + 2 r [DP] + 1) 4, where C_M is not empty
+             metrics      all-gather data (D-1) r 13, all-reduce data
+                          2 (D-1)/D 4
+    temporal params       all-gather model (M-1) sum_{C_M} b_l s,
+                          all-gather data  (D-1) sum_{C_D} n_l / D s
+             grads, each of the m clients, over each axis that cuts its
+                          rows (data where D > 1; model where M divides
+                          rows / D), model first: reduce-scatter model
+                          (M-1) sum_{C_M} n_l / M 4, all-reduce model
+                          2 (M-1)/M sum_{not C_M} n_l 4; reduce-scatter
+                          data (D-1) sum_{C_D} n_l / (M_l D) 4,
+                          all-reduce data 2 (D-1)/D sum_{not C_D} n_l /
+                          M_l 4 (a model rank with the whole rows keeps
+                          its block first, so the data sums move n_l /
+                          M_l either way); the counts, all-reduce 2
+                          (n-1)/n mb 4 over each such axis
+             norms        all-reduce over model and data, each where it
+                          cuts a leaf: 2 (n-1)/n (m (k0 + [rows cut]) +
+                          2 selected [DP] + 1) 4
+    """
+    from repro_torch.sharding.specs import cut_axes
+    from repro_torch.launch.mesh import make_mesh
+    D, M = shape
+    mesh = make_mesh(shape, ("data", "model"))
+    cuts = [cut_axes(sp[1:], mesh) for sp in specs]
+    out: dict = {}
+
+    def add(op, axis, what, nbytes):
+        n = mesh.shape[axis]
+        if n > 1 and nbytes:
+            key = f"{op}|{axis}|{what}"
+            out[key] = out.get(key, 0.0) + nbytes
+
+    def ar(axis, nbytes):
+        n = mesh.shape[axis]
+        return 2 * (n - 1) * nbytes / n
+
+    join = [a for a in ("model", "data") if any(a in c for c in cuts)
+            and mesh.shape[a] > 1]
+    ml = [M if "model" in c else 1 for c in cuts]
+    dl = [D if "data" in c else 1 for c in cuts]
+    add("all-gather", "model", "params", (M - 1) * itemsize * sum(
+        n // (mm * d) for n, mm, d in zip(sizes, ml, dl) if mm > 1))
+    if kw["mode"] == "spatial":
+        r = m // D
+        b = [n // mm for n, mm in zip(sizes, ml)]
+        if kw.get("ens", "gather") == "gather":
+            add("all-gather", "data", "ens", (D - 1) * r * sum(b) * itemsize)
+        else:
+            pad = sum(x + (-x) % D for x in b)
+            add("all-to-all", "data", "ens",
+                (D - 1) * r * pad * itemsize / D)
+            add("all-gather", "data", "ens", (D - 1) * pad * itemsize / D)
+        cut = M > 1 and rows % M == 0
+        if cut:
+            add("reduce-scatter", "model", "grads", (M - 1) * r * 4 * sum(
+                x for x, mm in zip(b, ml) if mm > 1))
+            add("all-reduce", "model", "grads", ar("model", r * 4 * (sum(
+                n for n, mm in zip(sizes, ml) if mm == 1) + 1)))
+        if "model" in join:
+            add("all-reduce", "model", "norms", ar("model", 4 * (
+                k0 * r + (r if cut else 0) + (2 * r if dp else 0) + 1)))
+        add("all-gather", "data", "metrics", (D - 1) * r * 13)
+        add("all-reduce", "data", "metrics", ar("data", 4))
+        return out
+    mb = max(kw.get("microbatch", 1), 1)
+    add("all-gather", "data", "params", (D - 1) * itemsize * sum(
+        n // D for n, d in zip(sizes, dl) if d > 1))
+    by_model = M > 1 and (rows // D) % M == 0
+    summed = [a for a in ("model", "data") if mesh.shape[a] > 1
+              and (a == "data" or by_model)]
+    for a in summed:
+        add("all-reduce", a, "grads", m * ar(a, mb * 4))
+    if "model" in summed:
+        add("reduce-scatter", "model", "grads", m * (M - 1) * 4 * sum(
+            n // M for n, mm in zip(sizes, ml) if mm > 1))
+        add("all-reduce", "model", "grads", m * ar("model", 4 * sum(
+            n for n, mm in zip(sizes, ml) if mm == 1)))
+    if "data" in summed:  # each leaf already its model block: n_l / M_l
+        add("reduce-scatter", "data", "grads", m * (D - 1) * 4 * sum(
+            n // (mm * D) for n, mm, d in zip(sizes, ml, dl) if d > 1))
+        add("all-reduce", "data", "grads", m * ar("data", 4 * sum(
+            n // mm for n, mm, d in zip(sizes, ml, dl) if d == 1)))
+    calls = m * (k0 + (1 if summed else 0)) + (2 * selected if dp else 0) \
+        + 1
+    for a in join:
+        add("all-reduce", a, "norms", ar(a, 4 * calls))
+    return out
+
+
+def census_by_key(records) -> dict:
+    """The census's bytes by "op|axis|what", the checks' gathers and the
+    entries of 0 bytes left out."""
+    out: dict = {}
+    for r in records:
+        if r["what"] != "check" and r["bytes"]:
+            key = f"{r['op']}|{r['axis']}|{r['what']}"
+            out[key] = out.get(key, 0.0) + r["bytes"]
+    return out
+
+
 def _mesh_setup(device, compute=None):
     """smollm-135m at full width (its bf16 compute, or ``compute``), the
     round's config and MESH_FULL's batches on ``device``."""
@@ -4060,6 +4187,7 @@ def _mesh_rounds(mesh, model, loss, fcfg, batches, kw) -> tuple:
                                               build_fedepm)
     from repro_torch.core.treeutil import tree_leaves
     from repro_torch.sharding import comm
+    from repro_torch.sharding.mesh import is_live
     from repro_torch.sharding.specs import gather_tree, shard_tree
     dev = batches["tokens"].device
     cuda = dev.type == "cuda"
@@ -4072,22 +4200,24 @@ def _mesh_rounds(mesh, model, loss, fcfg, batches, kw) -> tuple:
     comm.reset_census()
     init_fn, step_fn, sspecs_fn = build_fedepm(model, loss, fcfg, mesh, dist)
     sspecs = sspecs_fn(init_fn(random.PRNGKey(0), device="meta"))
-    b = shard_tree(batches, batch_specs(batches, dist), mesh)
+    bspecs = batch_specs(batches, dist, mesh) if is_live(mesh) else None
+    b = shard_tree(batches, bspecs, mesh)
     state = init_fn(random.PRNGKey(0), device=dev)
     sync = torch.cuda.synchronize if cuda else (lambda d: None)
     sync(dev)
-    walls, masks, states, census, peaks = [], [], [], [], []
+    walls, masks, states, census, peaks, keyed = [], [], [], [], [], []
     held, start = 0, None  # the copies kept for the checks, not the run's
     for r in range(MESH_ROUNDS):
         n = len(comm.CENSUS)
         t0 = time.perf_counter()
-        state, met = step_fn(state, b)
+        state, met = step_fn(state, b, bspecs=bspecs)
         sync(dev)
         walls.append((time.perf_counter() - t0) * 1e3)
         if cuda:
             peaks.append((torch.cuda.max_memory_allocated(dev) - base
                           - held) / 1e9)
         census.append(comm.bytes_by_op(comm.CENSUS[n:]))
+        keyed.append(census_by_key(comm.CENSUS[n:]))
         masks.append(met.selected.tolist())
         states.append(tuple(gather_tree(getattr(state, t),
                                         getattr(sspecs, t, None), mesh,
@@ -4102,7 +4232,7 @@ def _mesh_rounds(mesh, model, loss, fcfg, batches, kw) -> tuple:
     rec = {"wall_ms_per_round": walls,
            "peak_mem_gb": max(peaks) if cuda else None,
            "launches": read_counts(), "collective_bytes_by_op": census,
-           "mode": kw["mode"]}
+           "census": keyed, "mode": kw["mode"]}
     return states, masks, rec, start
 
 
@@ -4258,6 +4388,237 @@ def _mesh_f32(mesh, lead: bool) -> dict:
     return out
 
 
+# The "model" axis (ROADMAP item 14.5 part 1) on the four cards of the mesh
+# phase: (A) smollm-135m at MESH_FULL's settings in MESH_MODES at each
+# shape of MODEL_SHAPES (the same four ranks, the live meshes built on
+# them), held as the (W, 1) mesh is, the census to ``model_axis_census``
+# on every rank; (B) zamba2-1.2b at DIST_FULL's settings, temporal,
+# microbatch 2, f32 state, donated, MODEL_ZAMBA2_ROUNDS round, at each
+# shape, against one card's round run on every rank's card after the
+# mesh's blocks went to the host; (C) ``train --devices 4 --mesh-shape
+# 2,2`` at its defaults (``MODEL_TRAIN``).
+MODEL_SHAPES = ((2, 2), (1, 4))
+MODEL_ZAMBA2 = {"mode": "temporal", "microbatch": 2,
+                "state_dtype": torch.float32}
+MODEL_ZAMBA2_ROUNDS = 1
+MODEL_TRAIN = ["--arch", LAUNCH_ARCH, "--rounds", "2"]
+
+
+def _w_specs(cfg, m: int, shape, kw: dict) -> tuple:
+    """(one copy's leaf sizes, W's specs of them) for ``cfg`` at m
+    clients on a (D, M) ``shape``, from stand-ins."""
+    from repro_torch import random
+    from repro_torch.core.distributed import DistConfig, client_state_specs
+    from repro_torch.core.treeutil import tree_broadcast_clients, tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.specs import spec_leaves
+    w0 = get_model(cfg).init(random.PRNGKey(0).to("meta"))
+    specs = client_state_specs(cfg, tree_broadcast_clients(w0, m),
+                               make_mesh(shape, ("data", "model")),
+                               DistConfig(**kw))
+    return [x.numel() for x in tree_leaves(w0)], spec_leaves(specs)
+
+
+def _hold_census(rec, masks, kw, shape, cfg, m, rows, k0, itemsize,
+                 what) -> list:
+    """Each round's census of this rank against ``model_axis_census``,
+    to the byte; returns the formula's rounds."""
+    sizes, specs = _w_specs(cfg, m, shape, {k: v for k, v in kw.items()
+                                            if k != "state_dtype"})
+    want = [model_axis_census(kw, shape, m, rows, k0, sizes, specs,
+                              itemsize, sum(mask)) for mask in masks]
+    assert rec["census"] == want, (what, rec["census"], want)
+    return want
+
+
+def _model_axis_smollm(mesh, model, loss, fcfg, batches, leaves, refs,
+                       starts) -> tuple:
+    """(A) on every rank: each shape of MODEL_SHAPES in MESH_MODES, the
+    launches and the census asserted; rank 0 holds each against its
+    card's run with no mesh (``refs``, ``starts``: ``_mesh_hold`` and
+    ``_mesh_round2_cause``). Returns (this rank's records, rank 0's
+    checks)."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import batch_specs, DistConfig
+    from repro_torch.launch.steps import _batch_branch
+    from repro_torch.sharding.mesh import make_live_mesh
+    recs, checks = {}, {}
+    for shape in MODEL_SHAPES:
+        sub = make_live_mesh(shape, device=mesh.device)
+        for name, kw in MESH_MODES.items():
+            what = f"{shape[0]}x{shape[1]}/{name}"
+            log(f"mesh[rank {mesh.rank}] model axis {what}")
+            got, masks, rec, _ = _mesh_rounds(sub, model, loss, fcfg,
+                                              batches, kw)
+            _dist_launches(rec, leaves, MESH_ROUNDS, fcfg.m, fcfg.k0)
+            rec["formula"] = _hold_census(
+                rec, masks, kw, shape, model.cfg, fcfg.m,
+                MESH_FULL["batch"], fcfg.k0, 4, what)
+            rec["batch_rows"] = _batch_branch(
+                batch_specs(batches, DistConfig(**kw), sub))
+            recs[what] = rec
+            if mesh.rank == 0:
+                key = kw["mode"]
+                checks[what] = _mesh_hold(what, got, masks, *refs[key],
+                                          mesh.size, fcfg)
+                checks[f"{what}/round2_cause"] = _mesh_round2_cause(
+                    model, loss, fcfg, batches, kw, starts[key], got,
+                    refs[key][0], mesh.size)
+            del got
+            dist.barrier()
+    return recs, checks
+
+
+def model_grad_bitwise(sub, model, loss, fcfg, batches, dist_cfg) -> dict:
+    """The round's gradients at w0 through ``_Shards`` on the live mesh
+    ``sub`` (the spatial round's clients of this rank, the temporal
+    round's client 0) against the one-device gradients, cut to this
+    rank's blocks: {"branch": the batch's rows "whole rows" or "cut over
+    model", "bitwise": every leaf (and ||g_i||_1 where taken whole) the
+    same bits, "gathered": the compute copy gathered over the mesh is
+    w0's bit for bit}."""
+    import functools
+
+    from repro_torch import random
+    from repro_torch.core import distributed as D_
+    from repro_torch.core.fedepm import compute_params, stacked_grads
+    from repro_torch.core.treeutil import tmap, tree_l1_norm, tree_leaves
+    from repro_torch.sharding import specs as sh
+    init_fn, _, sspecs_fn = D_.build_fedepm(model, loss, fcfg, sub,
+                                            dist_cfg)
+    abstract = init_fn(random.PRNGKey(0), device="meta")
+    sspecs = sspecs_fn(abstract)
+    bspecs = D_.batch_specs(batches, dist_cfg, sub)
+    shards = D_._Shards(sub, sspecs.W, abstract.w_tau, bspecs)
+    dev = batches["tokens"].device
+    w0 = model.init(random.split(random.PRNGKey(0).to(dev), 2)[0])
+    if dist_cfg.state_dtype is not None:
+        w0 = tmap(lambda x: x.to(dist_cfg.state_dtype), w0)
+    w0 = compute_params(w0, D_._compute_dtype(model.cfg))
+    grad_fn = functools.partial(stacked_grads,
+                                D_._remat_loss(loss, dist_cfg.remat))
+    whole = shards.gather(sh.shard_tree(w0, sspecs.w_tau, sub))
+    gathered = all(torch.equal(x, y) for x, y in zip(tree_leaves(whole),
+                                                     tree_leaves(w0)))
+    mine = sh.shard_tree(batches, bspecs, sub)
+    rows, lo = 1, 0
+    if dist_cfg.mode == "spatial":
+        rows = fcfg.m // sub.shape["data"]
+        lo = sub.coord("data") * rows
+    mb = dist_cfg.microbatch if dist_cfg.mode == "temporal" else 1
+    g, l1 = shards.grads(grad_fn, whole, tmap(lambda x: x[:rows], mine), mb)
+    del whole
+    want = D_._client_grad(grad_fn, w0, tmap(lambda x: x[lo:lo + rows],
+                                             batches), mb)
+    same = all(torch.equal(x, shards.cut(i, y)) for i, (x, y) in
+               enumerate(zip(tree_leaves(g), tree_leaves(want))))
+    if l1 is not None:
+        same = same and torch.equal(l1, tree_l1_norm(want, per_client=True))
+    return {"branch": "cut over model" if "model" in shards.summed
+            else "whole rows", "bitwise": same, "gathered": gathered}
+
+
+def _model_axis_zamba2(mesh) -> tuple:
+    """(B) on every rank: zamba2-1.2b at each shape of MODEL_SHAPES, the
+    peak, wall, launches and census asserted, the state's blocks moved to
+    the host; the whole-rows gradient checked (bitwise one card's where
+    "data" is 1); then one card's round on this rank's card, each shape's
+    blocks against its cut within DIST_BF16_RTOL of ``_dist_diffs``'
+    scales (maxima over the ranks). Returns (records, checks)."""
+    import torch.distributed as dist
+    from repro_torch import random
+    from repro_torch.core.distributed import (DistConfig, batch_specs,
+                                              build_fedepm)
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.mesh import make_live_mesh
+    from repro_torch.sharding.specs import block_of, shard_tree, spec_leaves
+    dev = mesh.device
+    model, loss, fcfg, batches = _dist_full_setup("zamba2-1.2b")
+    dcfg = DistConfig(**MODEL_ZAMBA2)
+    recs, checks, kept = {}, {}, {}
+    for shape in MODEL_SHAPES:
+        what = f"{shape[0]}x{shape[1]}"
+        log(f"mesh[rank {mesh.rank}] model axis zamba2-1.2b {what}")
+        sub = make_live_mesh(shape, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        comm.reset_census()
+        init_fn, step_fn, sspecs_fn = build_fedepm(model, loss, fcfg, sub,
+                                                   dcfg)
+        sspecs = sspecs_fn(init_fn(random.PRNGKey(0), device="meta"))
+        bspecs = batch_specs(batches, dcfg, sub)
+        b = shard_tree(batches, bspecs, sub)
+        state = init_fn(random.PRNGKey(0), device=dev)
+        torch.cuda.synchronize(dev)
+        init_peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        walls, masks, keyed = [], [], []
+        for _ in range(MODEL_ZAMBA2_ROUNDS):
+            n = len(comm.CENSUS)
+            t0 = time.perf_counter()
+            state, met = step_fn(state, b, donate=True, bspecs=bspecs)
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            masks.append(met.selected.tolist())
+            keyed.append(census_by_key(comm.CENSUS[n:]))
+        rec = {"wall_ms_per_round": walls, "peak_mem_gb": (
+            torch.cuda.max_memory_allocated(dev) - base) / 1e9,
+            "init_peak_gb": init_peak, "launches": read_counts(),
+            "census": keyed, "mode": "temporal"}
+        _dist_launches(rec, ZAMBA2_LEAVES, MODEL_ZAMBA2_ROUNDS, fcfg.m,
+                       fcfg.k0)
+        rec["formula"] = _hold_census(
+            rec, masks, MODEL_ZAMBA2, shape, model.cfg, fcfg.m,
+            DIST_FULL["batch"], fcfg.k0, 4, f"zamba2 {what}")
+        kept[shape] = (sub, [spec_leaves(getattr(sspecs, t)) for t in
+                             ("w_tau", "W", "Z")],
+                       [[x.cpu() for x in tree_leaves(getattr(state, t))]
+                        for t in ("w_tau", "W", "Z")], masks)
+        del state, b
+        torch.cuda.empty_cache()
+        rec["gradient"] = model_grad_bitwise(sub, model, loss, fcfg,
+                                             batches, dcfg)
+        assert rec["gradient"]["branch"] == "whole rows", rec["gradient"]
+        if shape[0] == 1:
+            assert rec["gradient"]["bitwise"], (what, rec["gradient"])
+        torch.cuda.empty_cache()
+        recs[what] = rec
+        dist.barrier()
+    # one card's round on every rank's card, each rank holding its blocks
+    one, one_masks, _, one_rec = _dist_case(model, loss, fcfg, batches,
+                                            dcfg, MODEL_ZAMBA2_ROUNDS,
+                                            donate=True)
+    recs["one_card"] = {k: one_rec[k] for k in ("wall_ms_per_round",
+                                                "peak_mem_gb")}
+    whole = [tree_leaves(getattr(one, t)) for t in ("w_tau", "W", "Z")]
+    tau_max = max(float(x.abs().max()) for x in whole[0])
+    for shape, (sub, specs, blocks, masks) in kept.items():
+        what = f"{shape[0]}x{shape[1]}"
+        assert masks == [m.tolist() for m in one_masks], what
+        diffs = torch.zeros(6, dtype=torch.float64, device=dev)
+        for t in range(3):
+            for x, sp, blk in zip(whole[t], specs[t], blocks[t]):
+                mine = block_of(x, sp, sub)
+                diffs[t] = max(float(diffs[t]), float(
+                    (blk.to(dev) - mine).abs().max()))
+                diffs[3 + t] = max(float(diffs[3 + t]),
+                                   float(x.abs().max()))
+        dist.all_reduce(diffs, op=dist.ReduceOp.MAX)
+        out = {}
+        for t, name in enumerate(("w_tau", "W", "Z")):
+            scale = max(1.0, tau_max, float(diffs[3 + t]))
+            out[name] = {"max_abs_diff": float(diffs[t]), "scale": scale,
+                         "over_scale": float(diffs[t]) / scale}
+            assert out[name]["over_scale"] <= DIST_BF16_RTOL, (what, out)
+        checks[f"zamba2/{what}"] = {"vs_one_card": out}
+    del one, whole, kept
+    torch.cuda.empty_cache()
+    return recs, checks
+
+
 def mesh_rank(mesh) -> dict:
     """What each rank of the mesh phase runs (``spawn``): MESH_MODES on
     ``mesh`` and, on rank 0, the same rounds with no mesh on its card and
@@ -4267,7 +4628,10 @@ def mesh_rank(mesh) -> dict:
     then the reduced archs of ``JAX_DIST`` on the mesh, held to JAX
     within STATE_RTOL: the spatial round on every rank, the temporal one
     on the first min(W, 2), which DIST_SETTINGS' 2 sequences a client
-    fill. Returns every rank's records (rank 0's checks included)."""
+    fill. On four ranks the "model" axis follows (``_model_axis_smollm``,
+    ``_model_axis_zamba2``); on one rank its mesh has both axes' groups
+    and every mode's census is 0 bytes. Returns every rank's records
+    (rank 0's checks included)."""
     import torch.distributed as dist
     from repro_torch import random
     from repro_torch.core.treeutil import tree_leaves
@@ -4275,22 +4639,27 @@ def mesh_rank(mesh) -> dict:
     device_settings()
     W, lead = mesh.size, mesh.rank == 0
     dev = mesh.device
+    if W == 1:
+        assert set(mesh.groups) == {"data", "model"}, mesh.groups
     model, loss, fcfg, batches = _mesh_setup(dev)
     leaves = len(tree_leaves(model.init(random.PRNGKey(0).to("meta"))))
-    recs, checks, digests, refs = {}, {}, {}, {}
+    recs, checks, digests, refs, starts = {}, {}, {}, {}, {}
     for name, kw in MESH_MODES.items():
         log(f"mesh[rank {mesh.rank}] {name}")
         got, masks, rec, _ = _mesh_rounds(mesh, model, loss, fcfg, batches,
                                           kw)
         if dev.type == "cuda":  # the plain versions count nothing
             _dist_launches(rec, leaves, MESH_ROUNDS, fcfg.m, fcfg.k0)
+        if W == 1:  # a mesh of one rank moves nothing
+            assert not any(b for c in rec["collective_bytes_by_op"]
+                           for b in c.values()), rec
         recs[name] = rec
         if lead:
             digests[name] = _bit_digest(got)
             key = kw["mode"]
-            start = None
-            if key not in refs:
-                ref, ref_masks, ref_rec, start = _mesh_rounds(
+            new = key not in refs
+            if new:
+                ref, ref_masks, ref_rec, starts[key] = _mesh_rounds(
                     None, model, loss, fcfg, batches, kw)
                 refs[key] = (ref, ref_masks)
                 recs[f"{key}_one_card"] = {
@@ -4298,23 +4667,29 @@ def mesh_rank(mesh) -> dict:
                                             "peak_mem_gb")}
             checks[name] = _mesh_hold(name, got, masks, *refs[key], W,
                                       fcfg)
-            if start is not None:
+            if new and W > 1:  # one rank: round 2 is one card's
                 checks[f"{key}_round2_cause"] = _mesh_round2_cause(
-                    model, loss, fcfg, batches, kw, start, got,
+                    model, loss, fcfg, batches, kw, starts[key], got,
                     refs[key][0], W)
-            del start
         del got
         dist.barrier()
+    if W == MESH_MAX_RANKS:
+        recs["model_axis"], checks["model_axis"] = _model_axis_smollm(
+            mesh, model, loss, fcfg, batches, leaves, refs, starts)
     refs.clear()
+    starts.clear()
     if lead:
         assert digests["spatial_a2a"] == digests["spatial_gather"]
         checks["a2a_bitwise_gather"] = True
     del model, loss, batches
     torch.cuda.empty_cache()
-    checks["f32"] = _mesh_f32(mesh, lead)
-    pair = dist.new_group([0, 1]) if W > 2 else mesh.groups["data"]
     reduced_recs = {}
-    for arch, modes in JAX_DIST.items():
+    # on one rank the f32 modes and the reduced archs are the runs with no
+    # mesh, which the modes above and the distributed phase hold
+    if W > 1:
+        checks["f32"] = _mesh_f32(mesh, lead)
+        pair = dist.new_group([0, 1]) if W > 2 else mesh.groups["data"]
+    for arch, modes in JAX_DIST.items() if W > 1 else ():
         for mode, want in modes.items():
             sub = mesh
             if mode == "temporal" and W > 2:
@@ -4329,6 +4704,10 @@ def mesh_rank(mesh) -> dict:
                 "worst_over_scale": check_dist_digests(
                     got, want, f"{arch} {mode} on {sub.size} ranks")}
     dist.barrier()
+    if W == MESH_MAX_RANKS:
+        torch.cuda.empty_cache()
+        recs["model_axis_zamba2"], checks["model_axis_zamba2"] = \
+            _model_axis_zamba2(mesh)
     mine = {"rank": mesh.rank, "card": torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else str(dev),
             "modes": recs, "reduced": reduced_recs}
@@ -4337,42 +4716,102 @@ def mesh_rank(mesh) -> dict:
     return {"ranks": every, "checks": checks}
 
 
-def _mesh_train_cli(W: int) -> dict:
-    """``train --devices W --mesh-shape W,1`` at train_4k cut to 8 x 4096
-    tokens, LAUNCH_ROUNDS rounds, in a process of its own (its ranks
-    print through it): the round lines, each with its collective bytes,
-    from rank 0 alone."""
+def _mesh_train_cli(W: int, argv=MESH_TRAIN, shape=None) -> dict:
+    """``train --devices W --mesh-shape D,M`` (W,1 by default) with
+    ``argv``, in a process of its own (its ranks print through it): the
+    round lines from rank 0 alone, each with its collective bytes by op,
+    m = D client groups selected from."""
     import os
     import re
+    shape = shape or (W, 1)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *MESH_TRAIN,
-         "--devices", str(W), "--mesh-shape", f"{W},1"],
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--devices", str(W), "--mesh-shape", f"{shape[0]},{shape[1]}"],
         capture_output=True, text=True, env=env, cwd=ROOT,
         timeout=MESH_TIMEOUT_S)
     wall = time.perf_counter() - t0
     lines = out.stdout.splitlines()
     for line in lines:
-        log(f"mesh[train CLI] {line}")
+        log(f"mesh[train CLI {shape[0]}x{shape[1]}] {line}")
     assert out.returncode == 0, out.stderr[-4000:]
     rounds = [re.match(r"round (\d+): drift=(\S+) snr=(\S+) sel=(\d+)/"
-                       r"(\d+) \((\S+)s\)  coll (.*)", ln) for ln in lines
-              if ln.startswith("round ")]
-    assert len(rounds) == LAUNCH_ROUNDS and all(rounds), lines
-    assert all(r[5] == str(W) for r in rounds), lines
+                       r"(\d+) \((\S+)s\)  coll (.*?)  peak=(\S+)GB$", ln)
+              for ln in lines if ln.startswith("round ")]
+    n = int(argv[argv.index("--rounds") + 1])
+    assert len(rounds) == n and all(rounds), lines
+    assert all(r[5] == str(shape[0]) for r in rounds), lines
     assert float(rounds[0][2]) == 0.0 and np.isfinite(float(rounds[1][2]))
     return {"wall_s": wall, "round_s": [float(r[6]) for r in rounds],
             "collective_mb_by_op": [dict(kv.split("=") for kv in
                                          r[7].split()) for r in rounds],
-            "lines": lines}
+            "rank0_peak_gb": [float(r[8]) for r in rounds],
+            "selected": [int(r[4]) for r in rounds], "lines": lines}
+
+
+def _model_train_cli() -> dict:
+    """(C): ``train --devices 4 --mesh-shape 2,2`` at its defaults
+    (MODEL_TRAIN), each round's printed bytes by op the census formula's
+    (``model_axis_census``: the spatial gather round, m = 2, 128 rows a
+    client, k0 4, f32) to the printed 0.01 MB."""
+    from repro_torch import configs
+    out = _mesh_train_cli(MESH_MAX_RANKS, MODEL_TRAIN, (2, 2))
+    kw = {"mode": "spatial", "ens": "gather"}
+    sizes, specs = _w_specs(configs.get_config(LAUNCH_ARCH), 2, (2, 2), kw)
+    for sel, printed in zip(out["selected"], out["collective_mb_by_op"]):
+        by_op: dict = {}
+        for key, b in model_axis_census(kw, (2, 2), 2, 128, 4, sizes, specs,
+                                        4, sel).items():
+            op = key.split("|")[0]
+            by_op[op] = by_op.get(op, 0.0) + b
+        assert printed == {op: f"{b / 1e6:.2f}MB" for op, b in
+                           by_op.items()}, (printed, by_op)
+    out["census_is_formula"] = True
+    return out
+
+
+def _mesh_train_one_card() -> dict:
+    """``train --devices 1 --mesh-shape 1,1`` on this card, in this
+    process, against ``train`` with neither flag: the same checkpoint bit
+    for bit, and no collective bytes printed (smollm-135m, 2 x 256
+    tokens, LAUNCH_ROUNDS rounds)."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.checkpoint import restore
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.launch import train
+    argv = ["--arch", LAUNCH_ARCH, "--seq", "256", "--global-batch", "2",
+            "--rounds", str(LAUNCH_ROUNDS), "--k0", str(LAUNCH_K0)]
+    t0 = time.perf_counter()
+    saved, printed = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, extra in enumerate(([], ["--devices", "1", "--mesh-shape",
+                                        "1,1"])):
+            buf = io.StringIO()
+            path = str(Path(tmp) / f"w_tau{i}")
+            with contextlib.redirect_stdout(buf):
+                assert train.main(argv + extra + ["--checkpoint",
+                                                  path]) == 0
+            printed.append([ln for ln in buf.getvalue().splitlines()
+                            if ln.startswith("round ")])
+            saved.append(tree_leaves(restore(path, device="cuda")[0]))
+    assert len(printed[1]) == LAUNCH_ROUNDS
+    assert not any("coll" in ln for ln in printed[1]), printed
+    assert all(torch.equal(a, b) for a, b in zip(*saved))
+    return {"wall_s": time.perf_counter() - t0, "bitwise_no_mesh": True,
+            "lines": printed[1]}
 
 
 def run_mesh_path() -> dict:
     """The ``mesh`` phase: ``mesh_rank`` on W NCCL ranks, the most of 1, 2
     and MESH_MAX_RANKS that the cards hold (each rank's peak, launches,
     walls and collective bytes printed), then ``train --devices W`` where
-    W > 1 (with W = 1 it is the ``launch`` phase's train CLI run)."""
+    W > 1 (with W = 1 it is the ``launch`` phase's train CLI run); on
+    four cards also (C), ``train --devices 4 --mesh-shape 2,2`` at its
+    defaults, and on one ``train --devices 1 --mesh-shape 1,1``
+    (``_mesh_train_one_card``)."""
     from repro_torch.launch.mesh import spawn
     W = mesh_width()
     if W < MESH_MAX_RANKS:
@@ -4381,39 +4820,65 @@ def run_mesh_path() -> dict:
             f"{MESH_MAX_RANKS}-rank run needs as many cards, since NCCL "
             f"refuses two ranks on one device; a mesh of one rank still "
             f"runs every collective over NCCL, held bit for bit to the run "
-            f"without a mesh")
+            f"without a mesh; the \"model\" axis's (D, M) meshes need "
+            f"four")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = spawn(mesh_rank, W, timeout_s=MESH_TIMEOUT_S,
                 join_s=MESH_TIMEOUT_S)
     out = {"ranks": W, "wall_s": time.perf_counter() - t0,
            "checks": res["checks"], "per_rank": res["ranks"]}
+    launches = {}
     for r in res["ranks"]:
-        for name, rec in r["modes"].items():
-            if name.endswith("_one_card"):
-                log(f"mesh[{LAUNCH_ARCH} {name}, no mesh, rank "
-                    f"{r['rank']}'s card] wall {rec['wall_ms_per_round']} "
-                    f"ms a round, peak {rec['peak_mem_gb']:.3f} GB")
+        for name, rec in _mesh_records(r["modes"]):
+            if "launches" in rec and r["rank"] == 0:
+                launches[name] = rec["launches"]
+            if name.endswith("one_card"):
+                log(f"mesh[{name}, no mesh, rank {r['rank']}'s card] wall "
+                    f"{rec['wall_ms_per_round']} ms a round, peak "
+                    f"{rec['peak_mem_gb']:.3f} GB")
                 continue
-            log(f"mesh[{LAUNCH_ARCH} {name} rank {r['rank']}/{W}] wall "
+            coll = rec.get("collective_bytes_by_op", rec["census"])
+            more = ""
+            if "formula" in rec:
+                more = (f", census by op, axis and what {rec['census']} "
+                        f"= the formula (asserted), batch rows "
+                        f"{rec.get('batch_rows', 'whole rows')}")
+            if "gradient" in rec:
+                more += f", client 0's gradient {rec['gradient']}"
+            log(f"mesh[{name} rank {r['rank']}/{W}] wall "
                 f"{rec['wall_ms_per_round']} ms a round, peak "
                 f"{rec['peak_mem_gb']:.3f} GB, ENS "
                 f"{rec['launches']['ens']} and prox "
                 f"{rec['launches']['prox_update']} launches (asserted), "
-                f"collective bytes by op a round "
-                f"{rec['collective_bytes_by_op']}")
+                f"collective bytes by op a round {coll}{more}")
         log(f"mesh[reduced vs JAX_DIST rank {r['rank']}] " + json.dumps(
             {k: (v["ranks"], v["worst_over_scale"])
              for k, v in r["reduced"].items()}))
     log("mesh[checks] " + json.dumps(res["checks"]))
-    out["launches"] = {name: rec["launches"] for name, rec in
-                       res["ranks"][0]["modes"].items() if "launches" in rec}
+    out["launches"] = launches
     if W > 1:
         out["train_cli"] = _mesh_train_cli(W)
-    else:
-        log("mesh[train CLI] --devices 1 is the launch phase's train CLI "
-            "run (one device, no mesh)")
+    if W == MESH_MAX_RANKS:
+        out["train_cli_model_axis"] = _model_train_cli()
+    if W == 1:
+        out["train_cli_one_card"] = _mesh_train_one_card()
+        log("mesh[train CLI 1x1] " + json.dumps(out["train_cli_one_card"]))
     return out
+
+
+def _mesh_records(modes: dict):
+    """(name, record) of a rank's mesh records, the "model" axis's
+    flattened into "model_axis.SHAPE/MODE" and "model_axis_zamba2.SHAPE"
+    ("one_card" last)."""
+    for name, rec in modes.items():
+        if name.startswith("model_axis"):
+            for what, r in rec.items():
+                yield f"{name}.{what}", r
+        elif name.endswith("_one_card"):
+            yield f"{LAUNCH_ARCH} {name}", rec
+        else:
+            yield name, rec
 
 
 # ---------------------------------------------------------------------------

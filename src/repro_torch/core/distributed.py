@@ -38,6 +38,30 @@ The two strategies of the JAX module, with its names:
   the norms (mu's distance, ||g||_1, the SNR's) are partial sums joined
   by an all_reduce.
 
+**the "model" axis** -- on a live (D, M) mesh with M > 1 each rank holds
+  the block of every leaf that JAX's own specs give it, "model" dims
+  included (``leaf_spec``; ranks row-major, rank = data index * M + model
+  index). Neither round changes a model's forward: it gathers the
+  broadcast point's compute copy whole over "model" (and over "data" in
+  the temporal round), and the forward and backward run on that copy.
+  Where M divides a rank's rows of a client's batch (``batch_specs``,
+  ``model_rows``) each model rank takes its contiguous share of them, the
+  loss normalised by the mask count over every rank's rows, and the
+  gradients are summed into each rank's block: a reduce_scatter over each
+  axis that cuts a leaf, an all_reduce over each where it is whole (the
+  tiny archs' branch of ``launch/steps.py``, weights whole over "model",
+  is the case where no leaf is cut). Where M does not divide them, every
+  model rank takes the whole rows and keeps its block of the gradient
+  without a sum: that gradient is one device's, bit for bit, and so is
+  its ||g_i||_1, taken whole. The prox kernel runs on the rank's
+  coordinates, ENS over "data" on its "model" block of Z (gather or a2a
+  within its model column: the bits of one device for the same Z), the
+  norms are partial sums joined by an all_reduce over each axis that
+  cuts a leaf, and each Laplace plane is drawn whole from the client's key
+  and cut (``_Shards``). A model's features are not cut: JAX's GSPMD cuts
+  the forward's matmuls over "model"; the port computes the same function
+  with fewer collectives a layer.
+
 The algorithm (selection, mu schedule, prox update (20), DP noise scale,
 the Laplace draw from ``split(k_noise, m)[i]``, eq. (22)'s carry-through)
 is ``fedepm_round``'s in both. ``loss_fn`` takes the port's stacked
@@ -159,14 +183,36 @@ def state_specs(cfg_arch, abstract_state: FedEPMState, mesh,
         k=P(), key=P())
 
 
-def batch_specs(batch_tree, dist: DistConfig):
+def batch_specs(batch_tree, dist: DistConfig, mesh=None):
     """Stacked client batches (m, b, ...): spatial shards m over the client
-    axes; temporal keeps m local and shards the inner batch dim."""
+    axes; temporal keeps m local and shards the inner batch dim. On a live
+    ``mesh`` with a "model" axis above 1 the rows of a client's batch are
+    cut over "model" too where its ranks divide a rank's rows (spatial: b,
+    temporal: b over the client axes' ranks; ``model_rows``); else every
+    model rank takes the whole rows."""
     ca = _single(dist.client_axes)
+    axes = dist.client_axes if dist.mode == "temporal" else ()
+
+    def rows(x):
+        if not model_rows(x.shape[1], mesh, axes):
+            return ca if dist.mode == "temporal" else None
+        return tuple(axes) + ("model",) if axes else "model"
+
     if dist.mode == "spatial":
-        return tmap(lambda x: P(ca, *([None] * (x.dim() - 1))), batch_tree)
-    return tmap(lambda x: P(None, ca, *([None] * (x.dim() - 2))),
+        return tmap(lambda x: P(ca, *((rows(x),) if x.dim() > 1 else ()),
+                                *([None] * (x.dim() - 2))), batch_tree)
+    return tmap(lambda x: P(None, rows(x), *([None] * (x.dim() - 2))),
                 batch_tree)
+
+
+def model_rows(b: int, mesh, axes=()) -> bool:
+    """Whether a client's ``b`` rows, cut over ``axes`` first, are cut over
+    a live ``mesh``'s "model" axis: it is above 1 and its ranks divide
+    each rank's rows."""
+    if not is_live(mesh) or mesh.shape["model"] == 1:
+        return False
+    return (b // math.prod(mesh.shape[a] for a in axes)) \
+        % mesh.shape["model"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -262,119 +308,253 @@ def _compute_dtype(arch_cfg):
 
 
 def spatial_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
-                  mesh, dist: DistConfig, sspecs=None, arch_cfg=None):
+                  mesh, dist: DistConfig, sspecs=None, arch_cfg=None, *,
+                  abstract=None, bspecs=None):
     """One communication round, all m clients at once: ``fedepm_round``.
     On a live mesh ``state`` and ``batches`` hold this rank's m / D
-    clients, the ENS is ``dist.ens``'s collective, and the metrics are
-    gathered to (m,) (``snr`` the min over every rank's selected
-    clients)."""
+    clients, the ENS is ``dist.ens``'s collective over "data" (within
+    this rank's model column), and the metrics are gathered to (m,)
+    (``snr`` the min over every rank's selected clients). With a "model"
+    axis above 1 each client's leaves are this rank's blocks by
+    ``sspecs`` (whose whole leaves ``abstract`` gives) and ``fedepm_round``
+    runs on them through ``_Shards``: the compute copy gathered over
+    "model", the gradient of the rank's rows of the batch (``bspecs``)
+    summed into the blocks, the norms joined, the noise drawn whole and
+    cut."""
     live = is_live(mesh)
     if not live:
         require_one_device(mesh)
     rows = tree_leaves(state.W)[0].shape[0]
     ens = ens_a2a if dist.ens == "a2a" else ens_gather
+    loss = _remat_loss(loss_fn, dist.remat)
+    hooks = {}
+    if live and mesh.shape["model"] > 1:
+        shards = _Shards(mesh, sspecs.W, abstract.w_tau, bspecs)
+        grad_fn = functools.partial(stacked_grads, loss)
+        hooks = dict(grads=lambda w, b: shards.grads(
+            grad_fn, shards.gather(w), b, 1), norms=shards,
+            noise=shards.unit_noise)
     new_state, met = fedepm_round(
-        state, batches, _remat_loss(loss_fn, dist.remat), cfg,
+        state, batches, loss, cfg,
         compute_dtype=_compute_dtype(arch_cfg), state_dtype=dist.state_dtype,
         aggregate=(lambda Z: ens(Z, cfg.lam, cfg.eta, mesh)) if live
-        else None, offset=mesh.coord("data") * rows if live else 0)
+        else None, offset=mesh.coord("data") * rows if live else 0, **hooks)
     if not live:
         return new_state, met
     return new_state, gather_metrics(met, mesh)
 
 
 class _Shards:
-    """A client row's leaves on a live mesh (``shards=None`` is one
-    device): ``dims[l]`` is the dim of leaf l (with the row's leading axis)
-    cut over "data", None where every rank holds it whole; ``shapes[l]`` is
-    its whole shape. The norms of the round sum each rank's cut leaves,
-    and the whole ones on rank 0 only, in tree order, then all_reduce."""
+    """A client's leaves on a live mesh (``shards=None`` is one device):
+    this rank holds the block of each leaf that ``wspecs`` (W's, the
+    client axis first) gives it, cut over "model" and, in the temporal
+    round, over "data"; ``abstract_w`` holds one copy's whole leaves. The
+    rows of a client's batch are cut over the axes that ``bspecs`` (the
+    batch's, dim 1) names: ``summed``, of more than one rank, where the
+    ranks' gradients are summed; along any other axis every rank took the
+    whole rows. The axes that cut some leaf are ``join``: the compute
+    copy is gathered over them and the norms of the round are partial
+    sums joined by an all_reduce over each, a leaf whole along one of
+    them counted on its first rank only."""
 
-    def __init__(self, mesh, wspecs, abstract_w):
+    def __init__(self, mesh, wspecs, abstract_w, bspecs=None):
         self.mesh = mesh
-        self.dims = [None if k is None else k + 1 for k in
-                     map(sh.data_dim, sh.spec_leaves(wspecs))]
-        self.shapes = [(1,) + tuple(x.shape) for x in tree_leaves(abstract_w)]
-        self.lead = mesh.coord("data") == 0
+        rows = [P(None, *sp[1:]) for sp in sh.spec_leaves(wspecs)]
+        self.rows = rows  # a row (1, ...) or a block of clients' specs
+        self.copy = sh.spec_map(lambda sp: P(*sp[1:]), wspecs)
+        self.shapes = [tuple(x.shape) for x in tree_leaves(abstract_w)]
+        self.cuts = [sh.cut_axes(sp, mesh) for sp in rows]
+        live = [a for a in reversed(mesh.axis_names) if mesh.shape[a] > 1]
+        self.join = tuple(a for a in live if any(a in c for c in self.cuts))
+        spec = sh.spec_leaves(bspecs)[0] if bspecs is not None else P()
+        self.row_entry = spec[1] if len(spec) > 1 else None
+        self.summed = tuple(a for a in live
+                            if a in sh.entry_axes(self.row_entry))
+        self.lead = [all(mesh.coord(a) == 0 for a in self.join
+                         if a not in c) for c in self.cuts]
+
+    def row_blocks(self) -> tuple:
+        """(the blocks a client's rows are cut into, this rank's)."""
+        e = self.row_entry
+        return (math.prod(self.mesh.shape[a] for a in sh.entry_axes(e)),
+                sh.block_index(e, self.mesh))
 
     def own(self, leaves) -> list:
-        return [x for x, k in zip(leaves, self.dims)
-                if k is not None or self.lead]
+        return [x for x, lead in zip(leaves, self.lead) if lead]
 
     def _sum(self, part) -> torch.Tensor:
-        return comm.all_reduce(self.mesh, part, what="norms")
+        for a in self.join:
+            part = comm.all_reduce(self.mesh, part, axis=a, what="norms")
+        return part
 
     def _part(self, fn, trees, per_client):
+        if not self.join:
+            return fn(*trees, per_client=per_client)
         own = [self.own(tree_leaves(t)) for t in trees]
         if own[0]:
-            return fn(*own, per_client=per_client)
+            return self._sum(fn(*own, per_client=per_client))
         x = tree_leaves(trees[0])[0]
-        return torch.zeros(x.shape[:1] if per_client else (),
-                           dtype=torch.float32, device=x.device)
+        return self._sum(torch.zeros(x.shape[:1] if per_client else (),
+                                     dtype=torch.float32, device=x.device))
 
     def sq_dist(self, a, b, per_client=False):
-        return self._sum(self._part(tree_sq_dist, (a, b), per_client))
+        return self._part(tree_sq_dist, (a, b), per_client)
 
     def l1(self, a, per_client=False):
-        return self._sum(self._part(tree_l1_norm, (a,), per_client))
+        return self._part(tree_l1_norm, (a,), per_client)
+
+    def sq_norm(self, a, per_client=False):
+        return self._part(tree_sq_norm, (a,), per_client)
 
     def cut(self, l: int, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's block of leaf l's whole value."""
-        k = self.dims[l]
-        if k is None:
-            return whole
-        n = whole.shape[k] // self.mesh.shape["data"]
-        return whole.narrow(k, self.mesh.coord("data") * n, n)
+        """This rank's block of leaf l's whole value (a row, or a block of
+        clients), a copy where it is cut."""
+        return sh.block_of(whole, self.rows[l], self.mesh).contiguous()
+
+    def gather(self, w):
+        """One copy's blocks made whole on every rank: one all_gather over
+        each axis of ``join``."""
+        if not self.join:
+            return w
+        return sh.gather_tree(w, self.copy, self.mesh, what="params",
+                              axes=self.join)
+
+    def unit_noise(self, k_noise, W, offset: int, m: int):
+        """``dp.client_unit_laplace``'s planes of the clients' whole
+        leaves, each cut to this rank's block as it is drawn."""
+        return dp.client_unit_laplace(k_noise, W, offset, m, self.shapes,
+                                      self.cut)
+
+    def grads(self, grad_fn, w_whole, bi, microbatch: int):
+        """(this rank's block of the clients' gradients g_i at the whole
+        compute copy ``w_whole`` on its rows ``bi``, ||g_i||_1 or None).
+        Where the rows are cut (``summed``), ``_client_grad`` sums the
+        ranks' gradients into the blocks and the norm is left to ``l1``;
+        where every rank took the whole rows, the gradient is one
+        device's, bit for bit: its norm is taken whole and its block
+        kept."""
+        g = _client_grad(grad_fn, w_whole, bi, microbatch, self)
+        if self.summed:
+            return g, None
+        l1 = tree_l1_norm(g, per_client=True)
+        return tree_unflatten(g, [self.cut(l, x) for l, x in
+                                  enumerate(tree_leaves(g))]), l1
+
+    def reduce(self, g):
+        """The ranks' whole gradients ``g`` (rows, ...) made this rank's
+        blocks: along an axis where every rank took the whole rows the
+        block kept; then, for each axis of ``summed`` (inner first), in
+        f32, one reduce_scatter over it of the leaves it cuts (each rank
+        its block of their sum) and one all_reduce of the others; each
+        back in its dtype."""
+        mesh = self.mesh
+        leaves = list(tree_leaves(g))
+        dtypes = [x.dtype for x in leaves]
+        gone = [set() for _ in leaves]
+
+        def view(l, a):
+            k = self.cuts[l][a]
+            return k, sh.axis_view(leaves[l], k, self.rows[l][k], a, mesh,
+                                   gone[l])
+
+        for a in self.join:
+            if a in self.summed:
+                continue
+            for l, c in enumerate(self.cuts):
+                if a in c:
+                    k, v = view(l, a)
+                    leaves[l] = v.select(k + 1, mesh.coord(a)).flatten(
+                        k, k + 1)
+                    gone[l].add(a)
+        for a in self.summed:
+            n = mesh.shape[a]
+            cut = [l for l, c in enumerate(self.cuts) if a in c]
+            whole = [l for l, c in enumerate(self.cuts) if a not in c]
+            if cut:
+                parts = []
+                for l in cut:
+                    leaves[l] = leaves[l].to(torch.float32)
+                    k, v = view(l, a)
+                    parts.append(v.movedim(k + 1, 0).reshape(n, -1))
+                mine = comm.reduce_scatter(mesh, torch.cat(parts, dim=1),
+                                           axis=a, what="grads")
+                del parts
+                o = 0
+                for l in cut:
+                    shape = list(leaves[l].shape)
+                    shape[self.cuts[l][a]] //= n
+                    size = math.prod(shape)
+                    leaves[l] = mine[o:o + size].view(shape)
+                    gone[l].add(a)
+                    o += size
+            if whole:
+                flat = comm.all_reduce(mesh, torch.cat(
+                    [leaves[l].to(torch.float32).reshape(-1) for l in whole]),
+                    axis=a, what="grads")
+                o = 0
+                for l in whole:
+                    size = leaves[l].numel()
+                    leaves[l] = flat[o:o + size].view(leaves[l].shape)
+                    o += size
+        return tree_unflatten(g, [x.to(d) for x, d in zip(leaves, dtypes)])
+
+    def sum_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        for a in self.summed:
+            counts = comm.all_reduce(self.mesh, counts, axis=a, what="grads")
+        return counts
 
 
 def _client_grad(grad_fn, w_comp, bi, microbatch: int, shards=None):
-    """grad f_i at ``w_comp`` for one client's batch ``bi`` (1, B, ...),
-    (1, ...): with ``microbatch`` > 1 the B axis split into that many
+    """grad f_i at ``w_comp`` for the clients' batches ``bi`` (r, B, ...),
+    (r, ...) each: with ``microbatch`` > 1 the B axis split into that many
     chunks in order, accumulated as ``acc + g.float()`` from f32 zeros and
     divided by their number, as JAX's scan accumulates them.
 
-    On a live mesh (``shards``) ``bi`` holds this rank's rows of the batch
-    (contiguous, rank order) and ``w_comp`` the whole broadcast point.
-    Microbatch j is still rows j B/mb .. (j+1) B/mb of the whole batch:
-    each rank takes the gradient of its rows of it, the loss normalised by
-    the mask count over every rank's rows (one all_reduce of the counts,
-    handed to the loss as ``loss_denom``), and ``_sum_over_ranks`` sums
-    the ranks' gradients before the division. Returns this rank's block
-    of g_i."""
-    D, c = (1, 0) if shards is None else (shards.mesh.shape["data"],
-                                          shards.mesh.coord("data"))
-    b = tree_leaves(bi)[0].shape[1]
+    On a live mesh (``shards``) ``w_comp`` is the whole broadcast point
+    and ``bi`` holds this rank's rows of each batch: its block of them,
+    contiguous, in row-major rank order over the axes that cut them
+    (``shards.summed``), or the whole rows. Microbatch j is still rows j
+    B/mb .. (j+1) B/mb of the whole batch: where the rows are cut each
+    rank takes the gradient of its rows of it, the loss normalised by the
+    mask count over every rank's rows (one all_reduce of the counts over
+    each cut axis, handed to the loss as ``loss_denom``), and
+    ``shards.reduce`` sums the ranks' gradients into this rank's blocks
+    before the division. Returns that block of g_i where the rows are
+    cut, else the whole g_i."""
+    R, c = (1, 0) if shards is None else shards.row_blocks()
+    rows, b = tree_leaves(bi)[0].shape[:2]
     nmb = max(microbatch, 1)
-    if (b * D) % nmb:
+    if (b * R) % nmb:
         raise ValueError(f"microbatch {nmb} does not divide the client "
-                         f"batch {b * D}")
-    size = b * D // nmb
+                         f"batch {b * R}")
+    size = b * R // nmb
     spans = [(max(c * b, j * size) - c * b,
               min((c + 1) * b, (j + 1) * size) - c * b) for j in range(nmb)]
-    if shards is not None:
+    summed = shards is not None and bool(shards.summed)
+    if summed:
         bi = dict(bi)
         if bi.get("loss_mask") is None:
             bi["loss_mask"] = torch.ones(bi["targets"].shape,
                                          dtype=torch.float32,
                                          device=bi["targets"].device)
-        counts = torch.stack([bi["loss_mask"][:, lo:max(lo, hi)].sum()
-                              for lo, hi in spans])
-        counts = torch.clamp_min(
-            comm.all_reduce(shards.mesh, counts, what="grads"), 1.0)
+        counts = torch.stack([bi["loss_mask"][:, lo:max(lo, hi)]
+                              .flatten(1).sum(dim=1) for lo, hi in spans])
+        counts = torch.clamp_min(shards.sum_counts(counts), 1.0)
 
     def at(j):
         lo, hi = spans[j]
         part = tmap(lambda x: x[:, lo:hi], bi)
-        if shards is not None:
-            part["loss_denom"] = counts[j:j + 1]
-        Wg = tmap(lambda x: x.detach().unsqueeze(0).requires_grad_(True),
-                  w_comp)
+        if summed:
+            part["loss_denom"] = counts[j]
+        Wg = tmap(lambda x: x.detach().unsqueeze(0).expand(
+            (rows,) + x.shape), w_comp)
         return grad_fn(Wg, part)
 
     if nmb == 1:
         g = at(0)
     else:
-        g = tmap(lambda x: torch.zeros((1,) + x.shape, dtype=torch.float32,
+        g = tmap(lambda x: torch.zeros((rows,) + x.shape,
+                                       dtype=torch.float32,
                                        device=x.device), w_comp)
         for j, (lo, hi) in enumerate(spans):
             if lo < hi:
@@ -382,45 +562,12 @@ def _client_grad(grad_fn, w_comp, bi, microbatch: int, shards=None):
                 for a, gl in zip(tree_leaves(g), tree_leaves(gj)):
                     a.add_(gl.to(torch.float32))
                 del gj
-    if shards is not None:
-        g = _sum_over_ranks(g, shards)
+    if summed:
+        g = shards.reduce(g)
     if nmb > 1:
         for a in tree_leaves(g):
             a.div_(nmb)
     return g
-
-
-def _sum_over_ranks(g, shards):
-    """The ranks' whole gradients summed in f32: one reduce_scatter leaves
-    each rank its block of the cut leaves, one all_reduce the leaves every
-    rank holds whole; each back in its dtype."""
-    mesh, D = shards.mesh, shards.mesh.shape["data"]
-    leaves = tree_leaves(g)
-    out = list(leaves)
-    cut = [l for l, k in enumerate(shards.dims) if k is not None]
-    whole = [l for l, k in enumerate(shards.dims) if k is None]
-    if cut:
-        send = torch.cat([
-            leaves[l].to(torch.float32).unflatten(shards.dims[l], (D, -1))
-            .movedim(shards.dims[l], 0).reshape(D, -1) for l in cut], dim=1)
-        mine = comm.reduce_scatter(mesh, send, what="grads")
-        o = 0
-        for l in cut:
-            shape = list(leaves[l].shape)
-            shape[shards.dims[l]] //= D
-            n = math.prod(shape)
-            out[l] = mine[o:o + n].view(shape).to(leaves[l].dtype)
-            o += n
-    if whole:
-        flat = comm.all_reduce(mesh, torch.cat(
-            [leaves[l].to(torch.float32).reshape(-1) for l in whole]),
-            what="grads")
-        o = 0
-        for l in whole:
-            n = leaves[l].numel()
-            out[l] = flat[o:o + n].view(leaves[l].shape).to(leaves[l].dtype)
-            o += n
-    return tree_unflatten(g, out)
 
 
 def _noised_upload(key, wi_upd, scale, z_rows, shards=None):
@@ -430,7 +577,7 @@ def _noised_upload(key, wi_upd, scale, z_rows, shards=None):
     noise``'s ops and its SNR, log10(||w_i|| / ||eps_i||), with the norms'
     leaf sums in ``tree_sq_norm``'s order. On a live mesh (``shards``)
     each leaf's whole plane is drawn and this rank's block kept, and the
-    norms are summed over the ranks. Returns the SNR (1,)."""
+    norms are joined over the ranks. Returns the SNR (1,)."""
     leaves = tree_leaves(wi_upd)
     keys = random.split(key, len(leaves))
     en = None
@@ -439,12 +586,12 @@ def _noised_upload(key, wi_upd, scale, z_rows, shards=None):
         if shards is None:
             unit = dp.unit_laplace(keys[l], w.shape[1:])[None]
         else:
-            unit = shards.cut(l, dp.unit_laplace(
-                keys[l], shards.shapes[l][1:])[None])
+            unit = shards.cut(l, dp.unit_laplace(keys[l],
+                                                 shards.shapes[l])[None])
         noise = (s * unit).to(w.dtype)
         del unit
         z.copy_(w + noise)
-        if shards is None or shards.dims[l] is not None or shards.lead:
+        if shards is None or shards.lead[l]:
             part = tree_sq_norm(noise, per_client=True)
             en = part if en is None else en + part
         del noise
@@ -455,16 +602,16 @@ def _noised_upload(key, wi_upd, scale, z_rows, shards=None):
         zero = torch.zeros(1, dtype=torch.float32, device=scale.device)
         wn2 = tree_sq_norm(own, per_client=True) if own else zero
         en = zero if en is None else en
-        wn2, en = comm.all_reduce(shards.mesh, torch.cat([wn2, en]),
-                                  what="norms")
-        wn2, en = wn2.reshape(1), en.reshape(1)
+        if shards.join:
+            wn2, en = shards._sum(torch.cat([wn2, en]))
+            wn2, en = wn2.reshape(1), en.reshape(1)
     wn = torch.sqrt(wn2)
     return torch.log10(wn / torch.clamp_min(torch.sqrt(en), 1e-30))
 
 
 def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
                    mesh, dist: DistConfig, sspecs=None, arch_cfg=None, *,
-                   donate: bool = False, abstract=None):
+                   donate: bool = False, abstract=None, bspecs=None):
     """One communication round, the clients one after another.
 
     ``donate`` writes the new W and Z into ``state``'s buffers and the new
@@ -473,12 +620,13 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
     once, so a client that is not selected draws no noise (its rows and
     SNR are carried through, as eq. (22) and JAX's ``where`` keep them).
     On a live mesh ``state`` holds this rank's blocks by ``sspecs`` (whose
-    whole leaves ``abstract``, a state of stand-ins, gives) and
-    ``batches`` its rows of each client's batch.
+    whole leaves ``abstract``, a state of stand-ins, gives), over "data"
+    and "model", and ``batches`` its rows of each client's batch by
+    ``bspecs`` (``_Shards``).
     """
     shards = None
     if is_live(mesh):
-        shards = _Shards(mesh, sspecs.w_tau, abstract.w_tau)
+        shards = _Shards(mesh, sspecs.W, abstract.w_tau, bspecs)
     else:
         require_one_device(mesh)
     if dist.ens != "gather":
@@ -503,7 +651,7 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
     w_comp = compute_params(w_new, _compute_dtype(arch_cfg))
     if shards is not None:
         sh.constrain_tree(w_new, sspecs.w_tau, mesh, abstract.w_tau)
-        w_comp = sh.gather_tree(w_comp, sspecs.w_tau, mesh, what="params")
+        w_comp = shards.gather(w_comp)
 
     grad_fn = functools.partial(stacked_grads,
                                 _remat_loss(loss_fn, dist.remat))
@@ -515,13 +663,16 @@ def temporal_round(state: FedEPMState, batches, loss_fn, cfg: FedEPMConfig,
     mus, l1s, snrs, scales = [], [], [], []
     for i in range(m):
         rows = tmap(lambda x: x[i:i + 1], (W, Z, batches))
-        gi = _client_grad(grad_fn, w_comp, rows[2], dist.microbatch,
-                          shards)
+        if shards is None:
+            gi, l1 = _client_grad(grad_fn, w_comp, rows[2],
+                                  dist.microbatch), None
+        else:
+            gi, l1 = shards.grads(grad_fn, w_comp, rows[2], dist.microbatch)
         wi_upd, mu = _client_inner(rows[0], w_new, gi, pows, cfg, sq_dist)
         if dist.state_dtype is not None:
             wi_upd = tmap(lambda x: x.to(dist.state_dtype), wi_upd)
         grad_l1, scale = upload_scale(
-            cfg, gi, mu, tree_l1_norm if shards is None else shards.l1)
+            cfg, gi, mu, tree_l1_norm if shards is None else shards.l1, l1)
         del gi
         snr = inf
         if selected[i]:
@@ -564,15 +715,20 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
                  dist: DistConfig = DistConfig()):
     """Returns (init_fn, step_fn, sspecs_fn).
 
-    init_fn(key, device=None)   -> FedEPMState: every client at the same
-        w0, W and Z two contiguous buffers and w_tau a third, in
+    init_fn(key, device=None, sspecs=None) -> FedEPMState: every client at
+        the same w0, W and Z two contiguous buffers and w_tau a third, in
         ``dist.state_dtype`` (else the params'); on the card unless
         ``device`` says otherwise. On a live mesh each rank's blocks by
-        ``state_specs``, except on the meta device, where the state's
-        stand-ins are whole (the specs are derived from them).
-    step_fn(state, batches, sspecs=None, donate=False) -> (state, metrics);
-        ``donate`` (temporal) reuses the state's buffers. On a live mesh
-        ``batches`` holds this rank's block by ``batch_specs``.
+        ``sspecs`` (default ``state_specs``), made leaf by leaf from one
+        copy of w0, each leaf cut as it is made, with the same bits: no
+        rank holds the whole m-client state. On the meta device the
+        state's stand-ins are whole (the specs are derived from them).
+    step_fn(state, batches, sspecs=None, donate=False, bspecs=None)
+        -> (state, metrics); ``donate`` (temporal) reuses the state's
+        buffers. On a live mesh ``batches`` holds this rank's block by
+        ``bspecs`` (default ``batch_specs(batches, dist)``, which a
+        "model" axis above 1 cannot infer from a block: there it is
+        required).
     sspecs_fn(abstract_state)   -> FedEPMState of specs (``state_specs``)
         for a mesh, None without one; a live mesh places the state by
         them, one device places nothing.
@@ -587,12 +743,13 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
     _check_axes(mesh, dist)
     arch_cfg = model.cfg
 
+    def cast(x):
+        return x if dist.state_dtype is None else x.to(dist.state_dtype)
+
     def whole_state(key, device):
+        """w0 (not yet in ``dist.state_dtype``) and the state's key."""
         ks = random.split(key.to(device), 2)
-        params = model.init(ks[0])
-        if dist.state_dtype is not None:
-            params = tmap(lambda x: x.to(dist.state_dtype), params)
-        return params, ks[1]
+        return model.init(ks[0]), ks[1]
 
     def sspecs_fn(abstract_state):
         if not hasattr(mesh, "axis_names"):
@@ -602,6 +759,7 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
     abstract = own_specs = None
     if live:
         p, k = whole_state(random.PRNGKey(0), torch.device("meta"))
+        p = tmap(cast, p)
         abstract = FedEPMState(w_tau=p, W=tree_broadcast_clients(
             p, fed_cfg.m), Z=None, k=0, key=k)
         abstract = abstract._replace(Z=abstract.W)
@@ -611,30 +769,50 @@ def build_fedepm(model, loss_fn, fed_cfg: FedEPMConfig, mesh=None,
                              f"ranks: the spatial round gives each rank "
                              f"m / D clients")
 
-    def init_fn(key, device=None):
+    def init_fn(key, device=None, sspecs=None):
         dev = resolve_device(device)
         params, k = whole_state(key, dev)
         if not live or dev.type == "meta":
+            params = tmap(cast, params)
             W = tree_broadcast_clients(params, fed_cfg.m)
             return FedEPMState(w_tau=params, W=W, Z=tmap(torch.clone, W),
                                k=0, key=k)
-        W = sh.shard_tree(tmap(lambda x: x.unsqueeze(0).expand(
-            (fed_cfg.m,) + x.shape), params), own_specs.W, mesh)
+        specs = own_specs if sspecs is None else sspecs
+        leaves = tree_leaves(params)
+        del params
+        out = {"w_tau": [], "W": [], "Z": []}
+        for l, (pw, pW) in enumerate(zip(sh.spec_leaves(specs.w_tau),
+                                         sh.spec_leaves(specs.W))):
+            x, leaves[l] = cast(leaves[l]), None  # w0's leaf, then freed
+            out["w_tau"].append(sh.shard_leaf(x, pw, mesh))
+            out["W"].append(sh.shard_leaf(x.unsqueeze(0).expand(
+                (fed_cfg.m,) + x.shape), pW, mesh))
+            out["Z"].append(out["W"][-1].clone())
+            del x
         return FedEPMState(
-            w_tau=sh.shard_tree(params, own_specs.w_tau, mesh), W=W,
-            Z=tmap(torch.clone, W), k=0, key=k)
+            **{t: tree_unflatten(getattr(abstract, t), v)
+               for t, v in out.items()}, k=0, key=k)
 
-    def step_fn(state, batches, sspecs=None, donate: bool = False):
+    def step_fn(state, batches, sspecs=None, donate: bool = False,
+                bspecs=None):
         if live:
             sspecs = own_specs if sspecs is None else sspecs
             sh.constrain_tree((state.W, state.Z),
                               (sspecs.W, sspecs.Z), mesh,
                               (abstract.W, abstract.Z))
+            if bspecs is None:
+                if mesh.shape["model"] > 1:
+                    raise ValueError(
+                        "on a 'model' axis above 1 step_fn needs the "
+                        "batch's specs: bspecs=batch_specs(whole batch, "
+                        "dist, mesh)")
+                bspecs = batch_specs(batches, dist)
         if dist.mode == "spatial":
             return spatial_round(state, batches, loss_fn, fed_cfg, mesh,
-                                 dist, sspecs, arch_cfg)
+                                 dist, sspecs, arch_cfg, abstract=abstract,
+                                 bspecs=bspecs)
         return temporal_round(state, batches, loss_fn, fed_cfg, mesh, dist,
                               sspecs, arch_cfg, donate=donate,
-                              abstract=abstract)
+                              abstract=abstract, bspecs=bspecs)
 
     return init_fn, step_fn, sspecs_fn

@@ -69,26 +69,33 @@ def laplace_tree(key: torch.Tensor, tree, scale):
 
 
 def client_unit_laplace(k_noise: torch.Tensor, W, offset: int = 0,
-                        m: int | None = None):
+                        m: int | None = None, shapes=None, cut=None):
     """The rounds' per-client unit-Laplace planes (f32) for a tree ``W``
     with a leading client axis: JAX's ``split(k_noise, m)`` and a
     ``laplace_tree`` per client under ``vmap``, written out as one draw per
     leaf over the clients' leaf keys. ``W`` may hold a block of the m
     clients, rows ``offset`` on (a rank's clients on a mesh); its planes
-    are those clients' own, drawn from their keys of all m."""
+    are those clients' own, drawn from their keys of all m. Where each
+    leaf of ``W`` is a block of its coordinates too, ``shapes[i]`` is leaf
+    i's whole shape (without the client axis): its plane is drawn whole
+    and ``cut(i, plane)`` keeps the block's, one leaf at a time."""
     leaves = tree_leaves(W)
     rows = leaves[0].shape[0]
     keys = random.split(k_noise, rows if m is None else m)
     keys = random.split(keys[offset:offset + rows], len(leaves))  # rows, L
-    return tree_unflatten(W, [unit_laplace(keys[:, i], x.shape[1:])
-                              for i, x in enumerate(leaves)])
+    if shapes is None:
+        return tree_unflatten(W, [unit_laplace(keys[:, i], x.shape[1:])
+                                  for i, x in enumerate(leaves)])
+    return tree_unflatten(W, [cut(i, unit_laplace(keys[:, i], shape))
+                              for i, shape in enumerate(shapes)])
 
 
 def add_client_noise(W, unit_noise, scale: torch.Tensor,
-                     mask: torch.Tensor):
+                     mask: torch.Tensor, sq_norm=tree_sq_norm):
     """The noised upload Z = W + b_i * unit (in W's dtype) for per-client
     scales ``scale`` (m,), and the paper's SNR, min over the selected
-    clients of log10(||w_i|| / ||eps_i||). Returns (Z, snr)."""
+    clients of log10(||w_i|| / ||eps_i||), the norms by ``sq_norm(tree,
+    per_client)`` (a mesh's joins the ranks' blocks). Returns (Z, snr)."""
 
     def noisy(u, w):
         s = scale.reshape((-1,) + (1,) * (u.dim() - 1))
@@ -96,7 +103,7 @@ def add_client_noise(W, unit_noise, scale: torch.Tensor,
 
     noise = tmap(noisy, unit_noise, W)
     Z = tmap(torch.add, W, noise)
-    snr_i = snr_db10(W, noise, per_client=True)
+    snr_i = snr_db10(W, noise, per_client=True, sq_norm=sq_norm)
     snr = torch.min(torch.where(mask, snr_i, torch.full_like(snr_i,
                                                              torch.inf)))
     return Z, snr
@@ -116,10 +123,11 @@ def fedepm_noise_scale(delta_hat, eps_dp, mu, factor: float = 1.0):
     return factor * delta_hat / (eps_dp * mu)
 
 
-def snr_db10(w_tree, eps_tree, per_client: bool = False) -> torch.Tensor:
+def snr_db10(w_tree, eps_tree, per_client: bool = False,
+             sq_norm=tree_sq_norm) -> torch.Tensor:
     """Paper's SNR for one client: log10(||w|| / ||eps||)."""
-    wn = torch.sqrt(tree_sq_norm(w_tree, per_client))
-    en = torch.sqrt(tree_sq_norm(eps_tree, per_client))
+    wn = torch.sqrt(sq_norm(w_tree, per_client))
+    en = torch.sqrt(sq_norm(eps_tree, per_client))
     return torch.log10(wn / torch.clamp_min(en, 1e-30))
 
 

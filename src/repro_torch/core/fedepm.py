@@ -221,12 +221,14 @@ def compute_params(w, dtype: torch.dtype | None):
 
 
 def upload_scale(cfg: FedEPMConfig, g, mu_last: torch.Tensor,
-                 l1_norm=tree_l1_norm):
+                 l1_norm=tree_l1_norm, grad_l1=None):
     """(grad_l1, the Laplace scale b_i) per client of the stacked gradient
     ``g``: Delta_hat = 2 ||g_i||_1 (clipped at ``sensitivity_clip``) over
     eps_dp mu_i (21)/(39); zeros without DP. ``l1_norm(g, per_client=True)``
-    is ||g_i||_1 (a mesh's sums it over the ranks' coordinates)."""
-    grad_l1 = dp.sensitivity_surrogate(g, True, l1_norm) / 2.0
+    is ||g_i||_1 (a mesh's sums it over the ranks' coordinates), unless
+    ``grad_l1`` hands it in (a mesh rank that took the gradient whole)."""
+    if grad_l1 is None:
+        grad_l1 = dp.sensitivity_surrogate(g, True, l1_norm) / 2.0
     if cfg.eps_dp <= 0:
         return grad_l1, torch.zeros(grad_l1.shape, dtype=torch.float32,
                                     device=grad_l1.device)
@@ -241,7 +243,8 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
                  unit_noise=None, pows: torch.Tensor | None = None,
                  compute_dtype: torch.dtype | None = None,
                  state_dtype: torch.dtype | None = None,
-                 aggregate=None, offset: int = 0):
+                 aggregate=None, offset: int = 0, grads=None, norms=None,
+                 noise=None):
     """One communication round = k0 iterations of Algorithm 2.
 
     ``batches`` is a tree with a leading client axis m. ``mask`` (m,) bool
@@ -260,7 +263,16 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
     clients, rows ``offset`` on: the mask (m,) and the noise keys are drawn
     for all m and the block's taken, and ``aggregate(Z) -> w`` is the
     mesh's ENS over every client's upload (default: ENS over the state's
-    Z). Returns (new_state, RoundMetrics), the metrics the block's.
+    Z). Where each leaf is a block of its coordinates too (a "model" axis
+    of ``core/distributed.py``), three more hooks run the round on them:
+    ``grads(w_comp, batches) -> (g, grad_l1 or None)`` the clients'
+    gradients at the block's coordinates (default ``client_grads`` and
+    ``upload_scale``'s norm); ``norms``, with ``sq_dist``, ``l1`` and
+    ``sq_norm`` as ``treeutil``'s, joins the block's partial sums into the
+    whole tree's (mu's distance, ||g_i||_1, the SNR's norms, the drift);
+    ``noise(k_noise, W, offset, m)`` draws the unit-Laplace planes whole
+    and keeps the block's (default ``dp.client_unit_laplace``). Returns
+    (new_state, RoundMetrics), the metrics the block's.
     """
     rows = tree_leaves(state.W)[0].shape[0]
     device = _device(state.W)
@@ -276,31 +288,42 @@ def fedepm_round(state: FedEPMState, batches: Batch, loss_fn: LossFn,
         w_new = aggregate(state.Z)
 
     # ---- clients: one gradient per round at the broadcast point (18) ----
-    g = client_grads(loss_fn, compute_params(w_new, compute_dtype), batches,
-                     rows)
+    w_comp = compute_params(w_new, compute_dtype)
+    if grads is None:
+        g, grad_l1 = client_grads(loss_fn, w_comp, batches, rows), None
+    else:
+        g, grad_l1 = grads(w_comp, batches)
+    del w_comp
 
     # ---- k0 inner prox iterations per client (20) ----
     if pows is None:
         pows = round_pows(cfg, state.k, device)
-    W_upd, mu_last = _client_inner(state.W, w_new, g, pows, cfg)
+    W_upd, mu_last = _client_inner(state.W, w_new, g, pows, cfg,
+                                   tree_sq_dist if norms is None
+                                   else norms.sq_dist)
     if state_dtype is not None:
         W_upd = tmap(lambda x: x.to(state_dtype), W_upd)
     W_next = tree_where_client(mask, W_upd, state.W)
 
     # ---- DP-noised upload (21)/(39) ----
-    grad_l1, scale = upload_scale(cfg, g, mu_last)  # (m,) each
+    grad_l1, scale = upload_scale(
+        cfg, g, mu_last, tree_l1_norm if norms is None else norms.l1,
+        grad_l1)  # (m,) each
     del g  # its memory goes to the noise planes
     if cfg.eps_dp > 0:
         if unit_noise is None:
-            unit_noise = dp.client_unit_laplace(need_key(k_noise, "noise"),
-                                                W_upd, offset, cfg.m)
-        Z_upd, snr = dp.add_client_noise(W_upd, unit_noise, scale, mask)
+            unit_noise = (dp.client_unit_laplace if noise is None else noise)(
+                need_key(k_noise, "noise"), W_upd, offset, cfg.m)
+        Z_upd, snr = dp.add_client_noise(
+            W_upd, unit_noise, scale, mask,
+            tree_sq_norm if norms is None else norms.sq_norm)
     else:
         Z_upd = W_upd
         snr = torch.full((), torch.inf, dtype=torch.float32, device=device)
     Z_next = tree_where_client(mask, Z_upd, state.Z)
 
-    drift = tree_sq_norm(tmap(torch.sub, w_new, state.w_tau))
+    drift = tree_sq_norm(tmap(torch.sub, w_new, state.w_tau)) \
+        if norms is None else norms.sq_dist(w_new, state.w_tau)
     new_state = FedEPMState(w_tau=w_new, W=W_next, Z=Z_next,
                             k=state.k + cfg.k0, key=key)
     metrics = RoundMetrics(mu_last=mu_last, grad_l1=grad_l1, snr=snr,

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import xla_cpu
 
@@ -152,7 +153,12 @@ class LMLoss(nn.Module):
 class ChunkedLMLoss(nn.Module):
     """``LMLoss`` without the full (m, B, T, V) logits: the final-norm
     hidden states go through the unembedding ``chunk`` positions at a
-    time, padded to a multiple of it with masked positions."""
+    time, padded to a multiple of it with masked positions. Where
+    ``cfg.remat`` holds (the default) and a gradient is taken, each chunk
+    runs under checkpoint, as the blocks do: its backward recomputes the
+    chunk's logits, so the residuals held are one chunk's, not T / chunk
+    of them (at 64 x 4096 tokens of smollm-135m a chunk's f32
+    log-probabilities are 6.4 GB); the values are the same bits."""
 
     def __init__(self, cfg, chunk: int = 512):
         super().__init__()
@@ -175,11 +181,18 @@ class ChunkedLMLoss(nn.Module):
             h = torch.nn.functional.pad(h, (0, 0, 0, pad))
             tgt = torch.nn.functional.pad(tgt, (0, pad))
             mask = torch.nn.functional.pad(mask, (0, pad))
+
+        def piece(hc, tc, mc):
+            nll = _nll(self.family.unembed(hc, W, self.cfg), tc)
+            return (nll * mc).flatten(1).sum(dim=1)
+
+        remat = getattr(self.cfg, "remat", False) and torch.is_grad_enabled()
         total = torch.zeros(h.shape[0], dtype=torch.float32, device=h.device)
         for s in range(0, h.shape[2], c):
-            logits = self.family.unembed(h[:, :, s:s + c], W, self.cfg)
-            nll = _nll(logits, tgt[:, :, s:s + c])
-            total = total + (nll * mask[:, :, s:s + c]).flatten(1).sum(dim=1)
+            part = (h[:, :, s:s + c], tgt[:, :, s:s + c], mask[:, :, s:s + c])
+            total = total + (checkpoint(piece, *part, use_reentrant=False,
+                                        preserve_rng_state=False)
+                             if remat else piece(*part))
         return total / _denominator(mask, batches)
 
 

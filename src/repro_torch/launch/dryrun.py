@@ -90,7 +90,7 @@ def run_one(arch: str, shape: str, mesh_kind: str = "single", *,
     from repro_torch.models.config import INPUT_SHAPES
 
     if mesh_kind != "single":
-        raise ValueError(f"--mesh {mesh_kind}: {MESH_ACROSS_CARDS}")
+        raise ValueError(f"--mesh {mesh_kind}: {MESH_ACROSS_CARDS} part 4")
     os.makedirs(os.path.join(out_dir, mesh_kind), exist_ok=True)
     stem = f"{arch}__{shape}" + (f"__{tag}" if tag else "")
     path = os.path.join(out_dir, mesh_kind, stem + ".json")
@@ -179,7 +179,7 @@ def main(argv=None):
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
     if args.mesh != "single":
-        ap.error(f"--mesh {args.mesh}: {MESH_ACROSS_CARDS}")
+        ap.error(f"--mesh {args.mesh}: {MESH_ACROSS_CARDS} part 4")
 
     archs = [args.arch] if args.arch else configs.ALL_ARCHS
     shapes = [args.shape] if args.shape else list(INPUT_SHAPES)

@@ -14,8 +14,9 @@ one build directory. Each joins one process group through
 ``init_process_group`` over a ``FileStore`` in a temporary directory: on
 the card rank r takes ``cuda:r`` (``torch.cuda.set_device`` first) and
 NCCL, on the CPU gloo.
-Each calls ``fn(mesh, *args)`` on the live (n, 1) mesh over ("data",
-"model"), and rank 0's return value comes back. A rank that raises
+Each calls ``fn(mesh, *args)`` on the live mesh of ``shape`` over
+("data", "model"), (n, 1) by default, and rank 0's return value comes
+back. A rank that raises
 prints its traceback and exits at once (a graceful teardown would wait on
 the ranks still inside a collective); a rank that exits, a collective
 past ``timeout_s`` or a group past ``join_s`` fails the whole run; nothing falls back to fewer ranks, the CPU or a plain kernel. This
@@ -69,7 +70,7 @@ def n_client_groups(mesh) -> int:
 
 
 def _rank_main(rank, fn, n, device_type, store_path, out_path, timeout_s,
-               args):
+               args, shape=None):
     import torch
     import torch.distributed as dist
     store = dist.FileStore(store_path, n)
@@ -85,7 +86,8 @@ def _rank_main(rank, fn, n, device_type, store_path, out_path, timeout_s,
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=n, timeout=timeout)
     try:
-        out = fn(make_live_mesh((n, 1), ("data", "model"), device), *args)
+        out = fn(make_live_mesh(shape or (n, 1), ("data", "model"), device),
+                 *args)
         if rank == 0:
             torch.save(out, out_path)
         dist.barrier()
@@ -99,8 +101,9 @@ def _rank_main(rank, fn, n, device_type, store_path, out_path, timeout_s,
 
 
 def spawn(fn, n: int, *args, device=None, timeout_s: float = 300.0,
-          join_s: float | None = None):
-    """``fn(mesh, *args)`` on each of ``n`` ranks of a live (n, 1) mesh;
+          join_s: float | None = None, shape=None):
+    """``fn(mesh, *args)`` on each of ``n`` ranks of a live mesh of
+    ``shape`` (data, model), whose product is n, (n, 1) by default;
     returns rank 0's value. ``device`` is the torch device type (default
     the card; ``"cpu"`` runs gloo ranks); ``timeout_s`` bounds each
     collective and ``join_s`` the whole group (None: no bound). ``fn``
@@ -108,6 +111,10 @@ def spawn(fn, n: int, *args, device=None, timeout_s: float = 300.0,
     processes, which inherit the environment)."""
     import torch
     import torch.multiprocessing as mp
+    shape = (n, 1) if shape is None else tuple(int(d) for d in shape)
+    if len(shape) != 2 or shape[0] * shape[1] != n:
+        raise ValueError(f"a mesh of shape {shape} over ('data', 'model') "
+                         f"does not hold {n} ranks")
     device_type = torch.device(device or "cuda").type
     if device_type == "cuda":
         if n > torch.cuda.device_count():
@@ -119,7 +126,7 @@ def spawn(fn, n: int, *args, device=None, timeout_s: float = 300.0,
         out_path = os.path.join(tmp, "rank0.pt")
         ctx = mp.start_processes(
             _rank_main, args=(fn, n, device_type, os.path.join(tmp, "store"),
-                              out_path, timeout_s, args),
+                              out_path, timeout_s, args, shape),
             nprocs=n, join=False, start_method="spawn")
         deadline = None if join_s is None else time.monotonic() + join_s
         try:

@@ -40,8 +40,9 @@ from repro_torch.launch.mesh import MESH_ACROSS_CARDS
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import Model, get_model
 
-MESH_NOT_PORTED = (f"{MESH_ACROSS_CARDS}; serve runs on one device "
-                   f"(--devices 1, --mesh-shape 1,1)")
+MESH_NOT_PORTED = (f"{MESH_ACROSS_CARDS} part 2 (serving across cards); "
+                   f"serve runs on one device (--devices 1, --mesh-shape "
+                   f"1,1)")
 
 
 def prompt_batch(cfg: ArchConfig, batch: int, prompt_len: int,

@@ -19,9 +19,14 @@ Shape semantics, as in JAX:
                  skip the decode shapes.
 
 A step runs on one device (a one-device mesh record) or, the train step,
-on the ranks of a live mesh (``sharding/mesh.py``): there each rank holds
-its blocks of the state (``static["init"]``) and of the batch, which
-``shard_tree`` cuts by ``static["bspecs"]``. The serve steps and a record
+on the ranks of a live (D, M) mesh (``sharding/mesh.py``): there each rank
+holds its blocks of the state (``static["init"]``, cut over "data" and
+"model" by ``static["sspecs"]``) and of the batch, which ``shard_tree``
+cuts by ``static["bspecs"]`` (a client's rows over "model" too where M
+divides them: ``static["batch_rows"]``). A tiny arch (its params over M
+below 128 MiB, M dividing its rows) takes JAX's branch: weights whole
+over "model", W and Z cut over the client axis only, the batch cut over
+"model", the gradient all_reduced over it. The serve steps and a record
 mesh of more than one device stay for ROADMAP queue 1 item 14.5. Each
 builder takes ``shape`` to cut the batch or the sequence of its
 ``INPUT_SHAPES`` entry.
@@ -29,6 +34,7 @@ builder takes ``shape`` to cut the batch or the sequence of its
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional
 
@@ -44,7 +50,9 @@ from repro_torch.launch.roofline import total_param_bytes
 from repro_torch.models.config import INPUT_SHAPES, ArchConfig, InputShape
 from repro_torch.models.registry import get_model
 from repro_torch.sharding.rules import DEFAULT_RULES, P, axis_rules
-from repro_torch.sharding.specs import named, spec_leaves, spec_map
+from repro_torch.sharding.mesh import is_live
+from repro_torch.sharding.specs import entry_axes, named, spec_leaves, \
+    spec_map
 
 SWA_WINDOW = 4096  # sliding-window width for the long_500k dense variant
 
@@ -262,7 +270,10 @@ def build_train_step(arch: str, mesh, *, ens: str = "gather", k0: int = 4,
     abstract_state = init_fn(random.PRNGKey(0), device="meta")
     sspecs = sspecs_fn(abstract_state)
     batch = lm_batch_specs(cfg, (m, b_local), shape.seq_len)
-    bspecs = dist_mod.batch_specs(batch, dist)
+    # a live mesh also cuts a client's rows over "model" where its ranks
+    # divide them; the record keeps JAX's specs
+    bspecs = dist_mod.batch_specs(batch, dist,
+                                  mesh if is_live(mesh) else None)
 
     # sequence-parallel residuals only where the stored residual stream
     # would otherwise threaten memory
@@ -271,7 +282,9 @@ def build_train_step(arch: str, mesh, *, ens: str = "gather", k0: int = 4,
     resid_bytes = cfg.n_layers * b_step * shape.seq_len * cfg.d_model * 2
     rules = train_activation_rules(mesh, dist.mode,
                                    seq_parallel=resid_bytes > 4e9)
-    if dist.mode == "spatial" and tiny and b_local % mesh.shape["model"] == 0:
+    tiny = dist.mode == "spatial" and tiny \
+        and b_local % mesh.shape["model"] == 0
+    if tiny:
         rules.update({"batch": ("model",), "heads": None, "kv_heads": None,
                       "mlp": None, "vocab": None, "seq_res": None})
         sspecs = sspecs._replace(
@@ -281,7 +294,8 @@ def build_train_step(arch: str, mesh, *, ens: str = "gather", k0: int = 4,
 
     def fn(state, batches):
         with axis_rules(mesh, rules):
-            return step_fn(state, batches, sspecs, donate=True)
+            return step_fn(state, batches, sspecs, donate=True,
+                           bspecs=bspecs)
 
     in_sh = (named(sspecs, mesh), named(bspecs, mesh))
     out_sh = (named(sspecs, mesh), None)
@@ -293,7 +307,17 @@ def build_train_step(arch: str, mesh, *, ens: str = "gather", k0: int = 4,
                                             f"k0={k0} ens={dist.ens}"])),
         static={"mode": dist.mode, "m": m, "k0": k0, "b_local": b_local,
                 "ens": dist.ens, "cfg": cfg, "fed": fed_cfg,
-                "init": init_fn, "sspecs": sspecs, "bspecs": bspecs})
+                "init": functools.partial(init_fn, sspecs=sspecs),
+                "sspecs": sspecs, "bspecs": bspecs, "tiny": tiny,
+                "batch_rows": _batch_branch(bspecs)})
+
+
+def _batch_branch(bspecs) -> str:
+    """Which rows of a client's batch a rank takes: "cut over model" or
+    "whole rows" over it (``core/distributed.py::batch_specs``)."""
+    spec = spec_leaves(bspecs)[0]
+    cut = len(spec) > 1 and "model" in entry_axes(spec[1])
+    return "cut over model" if cut else "whole rows"
 
 
 # ---------------------------------------------------------------------------

@@ -11,10 +11,12 @@ Two modes, as in JAX:
                 ``core/distributed.py``'s ``build_fedepm`` at the arch's
                 ``fed_plan``, on batches of ``data/lm.py``: on one device
                 (``--devices 1``, ``--mesh-shape 1,1``, the defaults), or
-                on N ranks of a live (N, 1) mesh (``--devices N``,
-                ``--mesh-shape N,1``; ``launch/mesh.py::spawn``: one card
-                a rank over NCCL, gloo ranks with ``--device cpu``), where
-                the spatial archs federate m = N client groups.
+                on N = D x M ranks of a live (D, M) mesh over ("data",
+                "model") (``--devices N --mesh-shape D,M``, N,1 by
+                default; ``launch/mesh.py::spawn``: one card a rank over
+                NCCL, gloo ranks with ``--device cpu``), where the spatial
+                archs federate m = D client groups and each client's state
+                is cut over "model" by JAX's specs.
 
     python -m repro_torch.launch.train --spec examples/specs/lm_federated.toml
     python -m repro_torch.launch.train --spec FILE --engine eager \\
@@ -22,7 +24,7 @@ Two modes, as in JAX:
     python -m repro_torch.launch.train --arch smollm-135m --seq 4096 \\
         --global-batch 8 --rounds 2
     python -m repro_torch.launch.train --arch smollm-135m --devices 4 \\
-        --mesh-shape 4,1 --seq 4096 --global-batch 8 --rounds 2
+        --mesh-shape 2,2 --seq 4096 --global-batch 8 --rounds 2
 
 run on the CUDA card; ``--device cpu`` runs the plain PyTorch path. Both
 print JAX's lines (on a mesh rank 0 alone prints, adding the round's
@@ -30,8 +32,8 @@ collective bytes by op), and ``--checkpoint`` writes the final broadcast
 point in the JAX package's npz layout, which ``repro.checkpoint.restore``
 reads (rank 0 alone writes it). A ``--spec`` whose ``[engine] mesh`` is N
 > 1 runs its FedSim on N ranks the same way, the clients cut over them
-(``sim/engine.py``). More ranks than cards exit 2; a "model" axis above 1
-is refused, naming ROADMAP queue 1 item 14.5.
+(``sim/engine.py``). More ranks than cards, and a mesh shape whose
+product is not ``--devices``, exit 2.
 """
 from __future__ import annotations
 
@@ -44,7 +46,6 @@ import torch
 
 from repro_torch.core.treeutil import tree_leaves
 from repro_torch.kernels.common import resolve_device
-from repro_torch.sharding.mesh import MODEL_AXIS_NOT_PORTED
 from repro_torch.spec import ExperimentSpec, SpecError
 from repro_torch.spec.build import rank_spec, spec_ranks
 
@@ -178,6 +179,10 @@ def run_mesh(args, mesh=None) -> int:
     b_local = bundle.static["b_local"]
     say(f"arch={cfg.name} fedepm[{bundle.static['mode']}] m={m} "
         f"b_local={b_local} seq={shape.seq_len} k0={args.k0}")
+    if mesh.shape["model"] > 1:
+        tiny = " (tiny arch: weights whole over model)" \
+            if bundle.static["tiny"] else ""
+        say(f"batch rows over model: {bundle.static['batch_rows']}{tiny}")
 
     specs = bundle.args[1]
     seq = specs["tokens"].shape[-1] if "tokens" in specs \
@@ -190,12 +195,17 @@ def run_mesh(args, mesh=None) -> int:
                                               cfg.vocab, device),
                            bundle.static["bspecs"], mesh)
         comm.reset_census()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.time()
         state, metrics = bundle.fn(state, batch)
         drift = float(metrics.drift)  # waits for the round
         coll = "" if mesh.size == 1 else "  coll " + " ".join(
             f"{op}={b / 1e6:.2f}MB" for op, b in
             sorted(comm.bytes_by_op().items()))
+        if mesh.size > 1 and device.type == "cuda":  # this rank's card
+            coll += (f"  peak="
+                     f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}GB")
         say(f"round {r}: drift={drift:.3e} "
             f"snr={float(metrics.snr):.2f} "
             f"sel={int(metrics.selected.sum())}/{m} "
@@ -230,8 +240,8 @@ def parser() -> argparse.ArgumentParser:
                     help="(mesh path) ranks, one card each (gloo ranks "
                          "with --device cpu); default 1")
     ap.add_argument("--mesh-shape", default="",
-                    help="(mesh path) data,model: N,1 for --devices N "
-                         "(the default)")
+                    help="(mesh path) data,model, whose product is "
+                         "--devices (default N,1)")
     ap.add_argument("--ens", default="gather", choices=["gather", "a2a"])
     ap.add_argument("--k0", type=int, default=4)
     ap.add_argument("--seq", type=int, default=0,
@@ -261,15 +271,19 @@ def main(argv=None) -> int:
                      f"--rounds/--engine override it)")
         return spawn_spec(args)
     n = max(args.devices, 1)
+    shape = (n, 1)
     if args.mesh_shape:
-        shape = tuple(int(v) for v in args.mesh_shape.split(","))
-        if len(shape) != 2 or shape[1] != 1:
-            ap.error(f"--mesh-shape {args.mesh_shape}: "
-                     f"{MODEL_AXIS_NOT_PORTED}")
-        if args.devices and shape[0] != n:
-            ap.error(f"--mesh-shape {args.mesh_shape} needs --devices "
-                     f"{shape[0]}")
-        n = shape[0]
+        try:
+            shape = tuple(int(v) for v in args.mesh_shape.split(","))
+        except ValueError:
+            shape = ()
+        if len(shape) != 2 or min(shape) < 1:
+            ap.error(f"--mesh-shape {args.mesh_shape}: data,model, two "
+                     f"positive counts")
+        if args.devices and shape[0] * shape[1] != n:
+            ap.error(f"--mesh-shape {args.mesh_shape} holds "
+                     f"{shape[0] * shape[1]} ranks, not --devices {n}")
+        n = shape[0] * shape[1]
     args.rounds = args.rounds_flag if args.rounds_flag is not None else 3
     if n == 1:
         return run_mesh(args)
@@ -279,7 +293,8 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} cards", file=sys.stderr)
         return 2
     from repro_torch.launch.mesh import spawn
-    return spawn(functools.partial(run_mesh, args), n, device=device.type)
+    return spawn(functools.partial(run_mesh, args), n, device=device.type,
+                 shape=shape)
 
 
 if __name__ == "__main__":

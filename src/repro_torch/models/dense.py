@@ -130,11 +130,20 @@ def block_forward(x, lp, cfg: ArchConfig, positions):
 # ---------------------------------------------------------------------------
 
 
+# the one-hot of the embedding's backward is built at most this many bytes
+# at a time: a batch whose (B T, V) one-hot is larger takes it in pieces of
+# positions, their products added in order (at 64 x 4096 tokens of
+# smollm-135m's 49152-token vocabulary the whole f32 one-hot is 48 GiB)
+ONEHOT_TILE_BYTES = 8 << 30
+
+
 class _EmbedGather(torch.autograd.Function):
     """``embed[i, tokens[i]]`` for each client i: an exact gather forward;
     backward, the scatter-add of the rows' gradients as a one-hot matmul,
     whose sums run in a fixed order (an indexed accumulate on the card
-    adds with atomics, in whatever order they land)."""
+    adds with atomics, in whatever order they land); in pieces of
+    positions where the one-hot passes ``ONEHOT_TILE_BYTES``, one piece
+    (the same bits as before) below it."""
 
     @staticmethod
     def forward(ctx, embed, tokens):
@@ -148,11 +157,17 @@ class _EmbedGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (flat,) = ctx.saved_tensors
-        m = flat.shape[0]
+        m, n = flat.shape
         vocab = torch.arange(ctx.vocab, device=flat.device)
-        onehot = (flat[..., None] == vocab).to(g.dtype)  # (m, B T, V)
-        gd = g.reshape(m, flat.shape[1], -1)
-        return torch.bmm(onehot.transpose(1, 2), gd), None
+        gd = g.reshape(m, n, -1)
+        step = max(1, ONEHOT_TILE_BYTES // (m * ctx.vocab * g.element_size()))
+        out = None
+        for s in range(0, n, step):
+            onehot = (flat[:, s:s + step, None] == vocab).to(g.dtype)
+            part = torch.bmm(onehot.transpose(1, 2), gd[:, s:s + step])
+            del onehot
+            out = part if out is None else out.add_(part)
+        return out, None
 
 
 def embed_inputs(params, batch, cfg: ArchConfig):

@@ -18,7 +18,9 @@ all-to-all, reduce-scatter, all-reduce), the bytes one rank receives (the
 ring's counts: (D - 1) blocks for a gather or a scatter, (D - 1) / D of
 the buffer for an all_to_all, twice that for an all_reduce), the axis, its
 ranks and what the caller says it moves (``what``).
-``launch/roofline.py::collective_seconds`` reads it.
+``launch/roofline.py::collective_seconds`` reads it. Over an axis of one
+rank that has no group (``sharding/mesh.py::make_live_mesh``) each call
+returns what the collective would and records 0 bytes.
 """
 from __future__ import annotations
 
@@ -54,8 +56,15 @@ def _single(new: str, old: str):
 
 
 def _group(mesh, axis: str):
+    """The axis's process group and its ranks; (None, 1) for an axis of
+    one rank without a group."""
     import torch.distributed as dist
-    group = mesh.groups[axis]
+    group = mesh.groups.get(axis)
+    if group is None:
+        if mesh.shape[axis] != 1:
+            raise ValueError(f"the mesh {mesh.shape} has no group for "
+                             f"'{axis}'")
+        return None, 1
     return group, dist.get_world_size(group)
 
 
@@ -93,6 +102,9 @@ def all_gather(mesh, tensors, axis: str = "data",
     (D, *t.shape) tensors, one all_gather for the list."""
     import torch.distributed as dist
     group, D = _group(mesh, axis)
+    if group is None:
+        _record("all-gather", 0, axis, 1, what)
+        return [t.unsqueeze(0).clone() for t in tensors]
     send, offs = _pack(tensors)
     recv = torch.empty((D, send.shape[1]), dtype=torch.uint8,
                        device=send.device)
@@ -109,6 +121,9 @@ def all_to_all(mesh, tensors, axis: str = "data",
     one all_to_all for the list."""
     import torch.distributed as dist
     group, D = _group(mesh, axis)
+    if group is None:
+        _record("all-to-all", 0, axis, 1, what)
+        return [t.clone() for t in tensors]
     send, offs = _pack(tensors, rows=D)
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv.view(-1), send.view(-1), group=group)
@@ -120,6 +135,9 @@ def reduce_scatter(mesh, x: torch.Tensor, axis: str = "data",
                    what: str = "") -> torch.Tensor:
     """``x`` (D, c): the sum over ranks of block r, on rank r, (c,)."""
     group, D = _group(mesh, axis)
+    if group is None:
+        _record("reduce-scatter", 0, axis, 1, what)
+        return x[0].clone()
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
     _single("reduce_scatter_single", "reduce_scatter_tensor")(
         out.view(-1), x.contiguous().view(-1), group=group)
@@ -133,6 +151,9 @@ def all_reduce(mesh, x: torch.Tensor, op: str = "sum", axis: str = "data",
     """The sum (or ``op="min"``) of ``x`` over the ranks, in place."""
     import torch.distributed as dist
     group, D = _group(mesh, axis)
+    if group is None:
+        _record("all-reduce", 0, axis, 1, what)
+        return x
     red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
     dist.all_reduce(x, op=red, group=group)
     _record("all-reduce", 2 * (D - 1) * x.numel() * x.element_size() / D,

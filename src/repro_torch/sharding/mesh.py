@@ -7,18 +7,20 @@ meshes stay such records. A :class:`LiveMesh` is a mesh bound to a
 ``torch.distributed`` process group: this process is one rank of it, the
 ranks are laid out row-major over the axes as ``jax.make_mesh`` lays out
 devices (rank = data index * model size + model index), and each axis
-has the group of the ranks that differ only along it. Each rank holds the
-local block of every tensor that its partition spec gives it
-(``sharding/specs.py::shard_tree``) and the collectives are explicit
-(``sharding/comm.py``), as under ``shard_map``.
+has the group of the ranks that differ only along it: the "model" group
+of each data row, the "data" group of each model column (the whole
+process group where the axis holds every rank; none where it holds one).
+Each rank holds the local block of every tensor that its partition spec
+gives it (``sharding/specs.py::shard_tree``), over "data" and "model"
+alike, and the collectives are explicit (``sharding/comm.py``), as under
+``shard_map``.
 
-Only a "model" axis of 1 runs: tensor parallelism across cards, and the
-intra-client batch of tiny archs over "model", remain ROADMAP queue 1
-item 14.5, and a live mesh with a larger "model" axis is refused. Where
-a step runs on one device only, ``require_one_device`` refuses a larger
-mesh, naming the same item. The launch layer's meshes
-(``launch/mesh.py``) build on this module, so the core and the simulator
-need nothing of the launch layer.
+What still runs on one device, or on a "model" axis of 1, names its part
+of ROADMAP queue 1 item 14.5: ``require_one_device`` refuses a larger
+mesh where a step runs on one device only, and ``MODEL_AXIS_NOT_PORTED``
+names what a "model" axis above 1 does not run yet. The launch layer's
+meshes (``launch/mesh.py``) build on this module, so the core and the
+simulator need nothing of the launch layer.
 """
 from __future__ import annotations
 
@@ -28,9 +30,9 @@ import math
 MESH_ACROSS_CARDS = ("a mesh of more than one device is not ported here: "
                      "the rest of the mesh across cards is ROADMAP queue 1 "
                      "item 14.5")
-MODEL_AXIS_NOT_PORTED = ('a "model" axis above 1 (tensor parallelism, the '
-                         'intra-client batch of tiny archs) is ROADMAP '
-                         'queue 1 item 14.5')
+MODEL_AXIS_NOT_PORTED = ('a "model" axis above 1 runs the LM train step '
+                         'alone; the engine\'s is ROADMAP queue 1 item 14.5 '
+                         'part 3c, serving across cards part 2')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +75,24 @@ def make_mesh(shape, axes) -> Mesh:
     return Mesh(tuple(axes), tuple(int(d) for d in shape))
 
 
+def axis_members(mesh, axis: str) -> list:
+    """The groups of ``axis``: for each coordinate of the other axes, the
+    ranks that differ only along ``axis``, in its order (row-major
+    ranks)."""
+    import numpy as np
+    ranks = np.arange(mesh.size).reshape(mesh.dims)
+    i = mesh.axis_names.index(axis)
+    return np.moveaxis(ranks, i, -1).reshape(-1, mesh.dims[i]).tolist()
+
+
 def make_live_mesh(shape, axes=("data", "model"), device=None) -> LiveMesh:
     """The live mesh of the initialised default process group: ``shape``
-    over ``axes`` must hold every rank. The "data" axis is the whole
-    group; a "model" axis above 1 is refused (item 14.5)."""
+    over ``axes`` ("data", "model") must hold every rank. An axis that
+    holds every rank has the whole group; an axis of more than one rank
+    and fewer than all gets one group for each slice of the other axis,
+    which every rank creates in the same order (``new_group`` is
+    collective) and keeps its own; an axis of one rank has none, and
+    ``comm`` moves nothing over it."""
     import torch.distributed as dist
     mesh = make_mesh(shape, axes)
     world = dist.get_world_size()
@@ -86,10 +102,19 @@ def make_live_mesh(shape, axes=("data", "model"), device=None) -> LiveMesh:
     if set(mesh.axis_names) != {"data", "model"}:
         raise ValueError(f"a live mesh is over ('data', 'model'); got "
                          f"{mesh.axis_names}")
-    if mesh.shape["model"] != 1:
-        raise ValueError(f"{MODEL_AXIS_NOT_PORTED}; got {mesh.shape}")
-    return LiveMesh(mesh.axis_names, mesh.dims, rank=dist.get_rank(),
-                    groups={"data": dist.group.WORLD}, device=device)
+    rank = dist.get_rank()
+    groups = {}
+    for axis in mesh.axis_names:
+        n = mesh.shape[axis]
+        if n == world:
+            groups[axis] = dist.group.WORLD
+        elif n > 1:
+            for members in axis_members(mesh, axis):
+                group = dist.new_group(members)
+                if rank in members:
+                    groups[axis] = group
+    return LiveMesh(mesh.axis_names, mesh.dims, rank=rank, groups=groups,
+                    device=device)
 
 
 def is_live(mesh) -> bool:

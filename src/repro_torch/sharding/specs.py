@@ -13,9 +13,11 @@ and gives ``fsdp_axes`` the largest dim left (ZeRO-3 style).
 The leaves' shapes come from anything with a ``.shape``: the launch
 layer's stand-ins, or tensors on the meta device. ``named`` pairs specs
 with the mesh for the record. On a live mesh (``sharding/mesh.py``)
-``shard_tree`` cuts each leaf to this rank's block along the dim its spec
-gives the "data" axis and ``gather_tree`` undoes it (one all_gather);
-``constrain_tree`` checks the blocks' shapes and moves nothing. One device
+``shard_tree`` cuts each leaf to this rank's block along every dim its
+spec gives an axis ("model" from the rules or the fallback, "data" from
+the client axis or fsdp, or a tuple of both) and ``gather_tree`` undoes
+it (one all_gather an axis); ``constrain_tree`` checks the blocks' shapes
+and moves nothing. One device
 places nothing: there ``constrain_tree`` returns its tree. ``client_specs``
 gives the simulator's stacked client trees JAX's client-axis specs.
 """
@@ -25,8 +27,7 @@ import math
 from typing import Mapping, Optional, Sequence
 
 from repro_torch.sharding import comm
-from repro_torch.sharding.mesh import MESH_ACROSS_CARDS, is_live, \
-    require_one_device
+from repro_torch.sharding.mesh import is_live, require_one_device
 from repro_torch.core.treeutil import tmap
 from repro_torch.sharding.rules import (NamedSharding, P, logical_map,
                                         single_pod_rules)
@@ -162,29 +163,95 @@ def named(tree_of_specs, mesh):
     return spec_map(lambda s: NamedSharding(mesh, s), tree_of_specs)
 
 
-def data_dim(spec) -> Optional[int]:
-    """The dim that ``spec`` cuts over the "data" axis; None where the
-    leaf is whole on every rank."""
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry: () for None, a tuple for an axis
+    name or a tuple of them (row-major over them, outer first)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def axis_dim(spec, axis: str) -> Optional[int]:
+    """The dim that ``spec`` cuts over ``axis``; None where no dim is."""
     for i, e in enumerate(spec):
-        if "data" in (e if isinstance(e, tuple) else (e,)):
+        if axis in entry_axes(e):
             return i
     return None
 
 
+def data_dim(spec) -> Optional[int]:
+    """The dim that ``spec`` cuts over the "data" axis; None where the
+    leaf is whole along it."""
+    return axis_dim(spec, "data")
+
+
+def cut_axes(spec, mesh) -> dict:
+    """{axis: dim} for each axis of more than one rank that ``spec`` cuts
+    a dim over."""
+    return {a: k for k, e in enumerate(spec) for a in entry_axes(e)
+            if mesh.shape[a] > 1}
+
+
+def _check_entries(spec, mesh) -> None:
+    """Each axis of the mesh at most once in ``spec``, and a tuple
+    entry's axes in the mesh's order (its block index is row-major over
+    them)."""
+    seen = [a for e in spec for a in entry_axes(e)]
+    if len(seen) != len(set(seen)) or any(
+            a not in mesh.axis_names for a in seen) or any(
+            list(entry_axes(e)) != sorted(entry_axes(e),
+                                          key=mesh.axis_names.index)
+            for e in spec):
+        raise ValueError(f"spec {spec} does not fit the mesh {mesh.shape}: "
+                         f"each axis once, a tuple's in the mesh's order")
+
+
 def local_shape(shape, spec, mesh) -> tuple:
     """The shape of this rank's block of a leaf of ``shape`` on the live
-    ``mesh``. A dim that the "data" axis does not divide is refused: JAX's
-    GSPMD pads it, the port does not (item 14.5)."""
-    shape = tuple(shape)
-    k = data_dim(spec)
-    if k is None:
-        return shape
-    D = mesh.shape["data"]
-    if shape[k] % D:
-        raise ValueError(
-            f"dim {k} of a leaf {shape} is cut over 'data' ({spec}), which "
-            f"{D} ranks do not divide; {MESH_ACROSS_CARDS}")
-    return shape[:k] + (shape[k] // D,) + shape[k + 1:]
+    ``mesh``: each dim divided by the ranks of the axes its entry names.
+    A dim that they do not divide is refused: JAX's GSPMD pads it, the
+    port does not (item 14.5 part 5)."""
+    shape = list(shape)
+    for k, e in enumerate(spec):
+        n = math.prod(mesh.shape[a] for a in entry_axes(e))
+        if shape[k] % n:
+            raise ValueError(
+                f"dim {k} of a leaf {tuple(shape)} is cut over {e} "
+                f"({spec}), which {n} ranks do not divide: dims that the "
+                f"ranks do not divide are ROADMAP queue 1 item 14.5 "
+                f"part 5")
+        shape[k] //= n
+    return tuple(shape)
+
+
+def block_index(entry, mesh) -> int:
+    """This rank's block along a dim cut over ``entry``'s axes: row-major
+    over them, outer first."""
+    i = 0
+    for a in entry_axes(entry):
+        i = i * mesh.shape[a] + mesh.coord(a)
+    return i
+
+
+def axis_view(x, k: int, entry, axis: str, mesh, gone=()):
+    """``x`` with dim k, cut over ``entry``, unflattened to (pre, n,
+    rest): n the ranks of ``axis``, pre those of the entry's axes before
+    it that are still in the dim (not in ``gone``). ``axis``'s blocks are
+    index 0..n-1 of dim k + 1."""
+    axes = entry_axes(entry)
+    pre = math.prod(mesh.shape[a] for a in axes[:axes.index(axis)]
+                    if a not in gone)
+    return x.unflatten(k, (pre, mesh.shape[axis], -1))
+
+
+def block_of(x, spec, mesh):
+    """A view of this rank's block of the whole leaf ``x``."""
+    for k, e in enumerate(spec):
+        if e is None:
+            continue
+        n = local_shape(x.shape, P(*([None] * k), e), mesh)[k]
+        x = x.narrow(k, block_index(e, mesh) * n, n)
+    return x
 
 
 def _zip_map(fn, tree, specs, *more):
@@ -206,11 +273,10 @@ def _zip_map(fn, tree, specs, *more):
 def shard_leaf(x, spec, mesh):
     """This rank's block of the whole leaf ``x`` (contiguous, a copy where
     it is cut)."""
-    k = data_dim(spec)
-    if k is None or not hasattr(x, "shape"):
-        return x.contiguous() if hasattr(x, "contiguous") else x
-    n = local_shape(x.shape, spec, mesh)[k]
-    return x.narrow(k, mesh.coord("data") * n, n).contiguous()
+    if not hasattr(x, "shape"):
+        return x
+    _check_entries(spec, mesh)
+    return block_of(x, spec, mesh).contiguous()
 
 
 def shard_tree(tree, tree_of_specs, mesh):
@@ -223,40 +289,51 @@ def shard_tree(tree, tree_of_specs, mesh):
                     tree_of_specs)
 
 
-def gather_tree(tree, tree_of_specs, mesh, what: str = "gather_tree"):
-    """``shard_tree`` undone: every rank's blocks in one all_gather (its
-    census entry labelled ``what``), each cut leaf whole again on every
-    rank."""
+def gather_tree(tree, tree_of_specs, mesh, what: str = "gather_tree",
+                axes=None):
+    """``shard_tree`` undone over ``axes`` (default every axis of the
+    mesh): for each axis of more than one rank, innermost first, the
+    blocks of every leaf cut over it in one all_gather over that axis
+    (its census entry labelled ``what``), each such leaf whole along it
+    again on every rank."""
     if not is_live(mesh):
         require_one_device(mesh)
         return tree
-    cut = []
-    _zip_map(lambda x, sp: cut.append(x) if data_dim(sp) is not None
-             and hasattr(x, "shape") else None, tree, tree_of_specs)
-    whole = iter(comm.all_gather(mesh, cut, what=what) if cut else [])
+    axes = mesh.axis_names if axes is None else tuple(axes)
+    for axis in reversed(mesh.axis_names):
+        if axis not in axes or mesh.shape[axis] == 1:
+            continue
+        cut = []
+        _zip_map(lambda x, sp: cut.append(x) if hasattr(x, "shape")
+                 and axis_dim(sp, axis) is not None else None, tree,
+                 tree_of_specs)
+        if not cut:
+            continue
+        whole = iter(comm.all_gather(mesh, cut, axis=axis, what=what))
 
-    def one(x, sp):
-        k = data_dim(sp)
-        if k is None or not hasattr(x, "shape"):
-            return x
-        g = next(whole).movedim(0, k)
-        return g.reshape(x.shape[:k] + (-1,) + x.shape[k + 1:])
+        def one(x, sp):
+            k = axis_dim(sp, axis) if hasattr(x, "shape") else None
+            if k is None:
+                return x
+            return next(whole).movedim(0, k).flatten(k, k + 1)
 
-    return _zip_map(one, tree, tree_of_specs)
+        tree = _zip_map(one, tree, tree_of_specs)
+    return tree
 
 
 def _check_block(x, spec, mesh, like=None) -> None:
-    """A live mesh's block check: ``spec`` names the mesh's axes, at most
-    one entry per dim (JAX's trailing dims whole), and the block has the
-    shape ``spec`` cuts from ``like``'s (the whole leaf's stand-in) where
-    that is given."""
+    """A live mesh's block check: ``spec`` names the mesh's axes, each
+    once and a tuple entry's in the mesh's order, at most one entry per
+    dim (JAX's trailing dims whole), and the block has the shape ``spec``
+    cuts from ``like``'s (the whole leaf's stand-in) where that is
+    given."""
     if not hasattr(x, "dim"):
         return
     if len(spec) > x.dim() or any(
-            a is not None and a not in mesh.axis_names
-            for e in spec for a in (e if isinstance(e, tuple) else (e,))):
+            a not in mesh.axis_names for e in spec for a in entry_axes(e)):
         raise ValueError(f"spec {spec} does not fit a block "
                          f"{tuple(x.shape)} on the mesh {mesh.shape}")
+    _check_entries(spec, mesh)
     if like is not None and tuple(x.shape) != local_shape(like.shape, spec,
                                                           mesh):
         raise ValueError(f"a block {tuple(x.shape)} is not the {spec} "

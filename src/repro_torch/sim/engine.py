@@ -98,7 +98,7 @@ which is what the graph exists to remove. A capture that fails raises;
 nothing falls back. The census (``sharding/comm.py``) records the
 captured round's collectives once per replay. The async policy under a
 mesh is refused (ROADMAP queue 1 item 14.5 part 3b), as is a "model" axis
-above 1.
+above 1 (part 3c).
 
 A sim with its own ``SimDraws`` runs under ``FedSim.step`` only.
 """
@@ -120,8 +120,10 @@ from repro_torch.core.treeutil import (tmap, tree_leaves, tree_unflatten,
                                        tree_where)
 from repro_torch.sharding import comm
 from repro_torch.sharding import specs as sh
-from repro_torch.sharding.mesh import (MESH_ACROSS_CARDS, LiveMesh, is_live,
-                                       make_live_mesh, require_one_device)
+from repro_torch.sharding.mesh import (MESH_ACROSS_CARDS,
+                                       MODEL_AXIS_NOT_PORTED, LiveMesh,
+                                       is_live, make_live_mesh,
+                                       require_one_device)
 from repro_torch.sim import clients as simclients
 from repro_torch.sim.server import (_EAGER_ASYNC_EXEC, _EV_UPLOAD, FedSim,
                                     KeyedDraws, SimMetrics,
@@ -308,8 +310,8 @@ def _resolve_mesh(mesh, sim: FedSim) -> LiveMesh | None:
     if is_live(mesh):
         if mesh.shape.get("model", 1) != 1:
             raise ValueError(f"a live mesh {mesh.shape}: the engine cuts "
-                             f"the clients over 'data' alone; a 'model' "
-                             f"axis above 1 is ROADMAP queue 1 item 14.5")
+                             f"the clients over 'data' alone; "
+                             f"{MODEL_AXIS_NOT_PORTED}")
         return mesh
     if isinstance(mesh, int) and mesh > 1:
         import torch.distributed as dist

@@ -69,15 +69,16 @@ def fed_cfg(pkg, **over):
     return pkg.FedEPMConfig.paper_defaults(**{**kw, **over})
 
 
-def jax_rounds(arch, rounds, state_dtype=None, devices=1, batch=None, **kw):
-    """JAX's ``build_fedepm`` rounds on the Auto mesh of ``devices`` x 1
-    (more than one needs forced host devices, ``tests/_torch_mesh_jax.py``),
-    jitted with the state's shardings as ``launch/steps.py`` jits them:
-    (the state after each round as a dict of numpy trees, metrics of each
-    round)."""
-    mesh = jax.make_mesh((devices, 1), ("data", "model"),
+def jax_rounds(arch, rounds, state_dtype=None, devices=1, batch=None,
+               model=1, **kw):
+    """JAX's ``build_fedepm`` rounds on the Auto mesh of ``devices`` x
+    ``model`` (more than one device needs forced host devices, ``tests/
+    _torch_mesh_jax.py``), jitted with the state's shardings as
+    ``launch/steps.py`` jits them: (the state after each round as a dict
+    of numpy trees, metrics of each round)."""
+    mesh = jax.make_mesh((devices, model), ("data", "model"),
                          axis_types=(AxisType.Auto, AxisType.Auto),
-                         devices=jax.devices()[:devices])
+                         devices=jax.devices()[:devices * model])
     cfg = jconfigs.get_reduced(arch)
     model = jregistry.get_model(cfg)
     dist = jdist.DistConfig(client_axes=("data",), fsdp_axes=("data",),

@@ -2,10 +2,11 @@
 of them on the ranks of a live mesh, and the JAX oracle's subprocess.
 
 The port runs every case of a file in ONE spawned group of gloo ranks per
-world size (``repro_torch.launch.mesh.spawn``; ``OMP_NUM_THREADS=2`` in
-their environment, so four ranks do not crowd the cores):
-``run_cases`` is what each rank runs, and this module imports nothing of
-JAX, so the ranks never load it. JAX runs the same cases in a
+mesh shape, (D, 1) or (D, M) (``repro_torch.launch.mesh.spawn``;
+``OMP_NUM_THREADS=2`` in their environment, so four ranks do not crowd
+the cores): ``run_cases`` (``run_model_cases`` on a "model" axis) is what
+each rank runs, and this module imports nothing of JAX, so the ranks
+never load it. JAX runs the same cases in a
 subprocess (``tests/_torch_mesh_jax.py``) with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` set before JAX is
 imported (the pytest worker has JAX on one device already), one
@@ -64,10 +65,17 @@ CASES = {
         mode="spatial", ens="a2a", remat=False)),
     "zamba2-1.2b/temporal": ("zamba2-1.2b", 1, dict(
         chip_smoke.DIST_MODES["temporal"])),
+    # DIST_SETTINGS' 2 rows a client, which a "model" axis of 4 does not
+    # divide: every model rank takes the whole rows
+    "smollm-135m/temporal_mb2_rows2": (SMOLLM, 2, dict(
+        mode="temporal", microbatch=2, remat=True)),
 }
+BATCH = {"smollm-135m/temporal_mb2_rows2": S["batch"]}
 
 
 def batch_size(case: str) -> int:
+    if case in BATCH:
+        return BATCH[case]
     return TEMPORAL_BATCH if CASES[case][2]["mode"] == "temporal" \
         else S["batch"]
 
@@ -100,14 +108,15 @@ def _port_case(mesh, case: str):
     init_fn, step_fn, sspecs_fn = tdist.build_fedepm(
         get_model(cfg), LMLoss(cfg), fcfg, mesh, dist)
     state = init_fn(random.PRNGKey(0), device="cpu")
-    sspecs = None
+    sspecs = bspecs = None
     if mesh is not None:
         sspecs = sspecs_fn(init_fn(random.PRNGKey(0), device="meta"))
-        b = sh.shard_tree(b, tdist.batch_specs(b, dist), mesh)
+        bspecs = tdist.batch_specs(b, dist, mesh)
+        b = sh.shard_tree(b, bspecs, mesh)
     out = []
     for _ in range(rounds):
         comm.reset_census()
-        state, met = step_fn(state, b)
+        state, met = step_fn(state, b, bspecs=bspecs)
         census = list(comm.CENSUS)
         whole = {n: getattr(state, n) for n in ("w_tau", "W", "Z")}
         if mesh is not None:
@@ -211,6 +220,131 @@ def live_round(mesh):
         tdist.ens_a2a(mine, 1e-2, 2e-2, mesh).values(),
         ens_ops.ens_tree(whole, 1e-2, 2e-2).values()))
     return met.selected, met.drift, same
+
+
+def case_grads(mesh, case: str) -> dict:
+    """``chip_smoke.model_grad_bitwise`` of one case at w0 on this rank of
+    the live ``mesh``: the gradients of its first round through
+    ``_Shards`` against the one-device ones, cut to this rank's
+    blocks."""
+    from repro_torch import configs
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.fedepm import FedEPMConfig
+    from repro_torch.core.tasks import LMLoss
+    from repro_torch.data.lm import federated_token_batches
+    from repro_torch.models.registry import get_model
+    arch, _, kw = CASES[case]
+    cfg = configs.get_reduced(arch)
+    raw = next(federated_token_batches(cfg.vocab, S["m"], batch_size(case),
+                                       S["seq"], steps=1, seed=S["seed"]))
+    fcfg = FedEPMConfig.paper_defaults(m=S["m"], rho=S["rho"], k0=S["k0"],
+                                       eps_dp=S["eps"])
+    return chip_smoke.model_grad_bitwise(
+        mesh, get_model(cfg), LMLoss(cfg), fcfg,
+        {k: torch.from_numpy(v) for k, v in raw.items()},
+        tdist.DistConfig(**kw))
+
+
+def roundtrip(mesh) -> dict:
+    """``shard_tree`` then ``gather_tree`` over every reduced arch's
+    state specs on this rank of the live ``mesh``, spatial and temporal
+    (and temporal with fsdp over ("data", "model"), whose small leaves
+    take a tuple entry): {arch/mode: the whole state back bit for bit}."""
+    from repro_torch import configs, random
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.fedepm import FedEPMState
+    from repro_torch.core.treeutil import tmap, tree_broadcast_clients, \
+        tree_leaves
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import specs as sh
+    out = {}
+    modes = {"spatial": {"mode": "spatial"}, "temporal": {"mode": "temporal"},
+             "temporal_fsdp2": {"mode": "temporal",
+                                "fsdp_axes": ("data", "model")}}
+    for arch in configs.ALL_ARCHS:
+        cfg = configs.get_reduced(arch)
+        p = get_model(cfg).init(random.PRNGKey(0).to("meta"))
+        m = 2 * mesh.shape["data"]
+        W = tree_broadcast_clients(p, m)
+        abstract = FedEPMState(w_tau=p, W=W, Z=W, k=0, key=None)
+        rng = np.random.default_rng(11)
+        whole = tmap(lambda x: torch.from_numpy(rng.integers(
+            -99, 99, tuple(x.shape)).astype(np.float32)),
+            (abstract.w_tau, abstract.W))
+        for name, kw in modes.items():
+            specs = tdist.state_specs(cfg, abstract, mesh,
+                                      tdist.DistConfig(**kw))
+            specs = (specs.w_tau, specs.W)
+            back = sh.gather_tree(sh.shard_tree(whole, specs, mesh), specs,
+                                  mesh)
+            out[f"{arch}/{name}"] = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(back), tree_leaves(whole)))
+            out[f"{arch}/{name}/model_cut"] = any(
+                "model" in sh.cut_axes(sp, mesh) for sp in
+                sh.spec_leaves(specs))
+    return out
+
+
+def comm_checks(mesh) -> dict:
+    """Each collective of ``sharding/comm.py`` over each axis of the live
+    ``mesh``, on values that name their rank, against what the axis's
+    members (``axis_members``) hold; every rank's verdicts and its census
+    of them (op, axis, ranks, bytes)."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.mesh import axis_members
+    out = {}
+    comm.reset_census()
+    for axis in mesh.axis_names:
+        members = next(g for g in axis_members(mesh, axis)
+                       if mesh.rank in g)
+        n, i = len(members), members.index(mesh.rank)
+
+        def val(r, c=6):
+            return torch.arange(c, dtype=torch.float32) + 100 * r
+
+        g = comm.all_gather(mesh, [val(mesh.rank),
+                                   torch.tensor([mesh.rank > 0])],
+                            axis=axis, what="check")
+        rs = comm.reduce_scatter(mesh, torch.stack(
+            [val(mesh.rank, 3) + j for j in range(n)]), axis=axis,
+            what="check")
+        ar = comm.all_reduce(mesh, val(mesh.rank), axis=axis, what="check")
+        a2a = comm.all_to_all(mesh, [torch.stack(
+            [val(mesh.rank, 2) + j for j in range(n)])], axis=axis,
+            what="check")[0]
+        out[axis] = {
+            "all-gather": torch.equal(g[0], torch.stack(
+                [val(r) for r in members])) and g[1][:, 0].tolist() == [
+                r > 0 for r in members],
+            "reduce-scatter": torch.equal(rs, sum(val(r, 3) + i
+                                                  for r in members)),
+            "all-reduce": torch.equal(ar, sum(val(r) for r in members)),
+            "all-to-all": torch.equal(a2a, torch.stack(
+                [val(r, 2) + i for r in members]))}
+    out["census"] = [(r["op"], r["axis"], r["ranks"], r["bytes"])
+                     for r in comm.CENSUS]
+    every = [None] * mesh.size
+    dist.all_gather_object(every, out)
+    return every
+
+
+def run_model_cases(mesh, cases, with_plain=False, train=False,
+                    grads=()) -> dict:
+    """``run_cases`` on a (D, M) mesh, ``case_grads`` of ``grads``,
+    ``roundtrip`` and ``comm_checks``."""
+    out = {"comm": comm_checks(mesh)}
+    out.update(run_cases(mesh, cases, with_plain, train))
+    out.update({f"grads/{c}": case_grads(mesh, c) for c in grads})
+    out["roundtrip"] = roundtrip(mesh)
+    return out
+
+
+def spawn_model_cases(shape, cases, with_plain=False, train=False,
+                      grads=()) -> dict:
+    return _spawn(run_model_cases, tuple(shape), list(cases), with_plain,
+                  train, list(grads))
 
 
 def foreign_modules(mesh) -> list:
@@ -386,16 +520,20 @@ def rank_threads():
             os.environ["OMP_NUM_THREADS"] = before
 
 
-def _spawn(fn, D: int, *args):
-    """``fn`` on D gloo ranks (``rank_threads``): rank 0's value."""
+def _spawn(fn, D, *args):
+    """``fn`` on D gloo ranks of the (D, 1) mesh, or on D x M of the (D,
+    M) mesh for a pair (``rank_threads``): rank 0's value."""
     from repro_torch.launch.mesh import spawn
+    shape = (D, 1) if isinstance(D, int) else tuple(D)
     with rank_threads():
-        return spawn(fn, D, *args, device="cpu", join_s=JOIN_S)
+        return spawn(fn, shape[0] * shape[1], *args, device="cpu",
+                     join_s=JOIN_S, shape=shape)
 
 
-def spawn_cases(D: int, cases, with_plain: bool = False,
+def spawn_cases(D, cases, with_plain: bool = False,
                 train: bool = False, engine=()) -> dict:
-    """``run_cases`` on D gloo ranks; rank 0's results."""
+    """``run_cases`` on the gloo ranks of ``_spawn``'s mesh; rank 0's
+    results."""
     return _spawn(run_cases, D, list(cases), with_plain, train,
                   list(engine))
 
@@ -418,23 +556,35 @@ def bitwise(a, b) -> bool:
 # the JAX oracle, in a subprocess
 # ---------------------------------------------------------------------------
 
-def start_jax(out: Path, devices, cases, train: int = 0,
-              engine=None, alone=None) -> list:
-    """Start ``tests/_torch_mesh_jax.py`` once for each D of ``devices``,
-    the processes side by side, each writing ``out``.D.npz for ``cases``
-    (a list, or {D: list}), the ``train`` case where D is ``train``, the
-    engine cases ``engine[D]`` on D devices and ``alone[D]`` with no mesh
-    ({D: list} each)."""
+def shape_token(D) -> str:
+    """The oracle's name of a mesh: "D" for D x 1, "DxM" for a pair (a
+    string is taken as it is)."""
+    if isinstance(D, (int, str)):
+        return str(D)
+    return "x".join(map(str, D))
+
+
+def start_jax(out: Path, devices, cases, train=0, engine=None,
+              alone=None, extra=()) -> list:
+    """Start ``tests/_torch_mesh_jax.py`` once for each D of ``devices``
+    (an int, or a (D, M) pair: ``shape_token``), the processes side by
+    side, each writing ``out``.D.npz for ``cases`` (a list, or {D:
+    list}), the ``train`` case where D is ``train``, the engine cases
+    ``engine[D]`` on D devices and ``alone[D]`` with no mesh ({D: list}
+    each); ``extra`` are more arguments of the first process."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]), JAX_PLATFORMS="cpu")
     procs = []
-    for D in devices:
-        path = out.with_suffix(f".{D}.npz")
+    for i, D in enumerate(devices):
+        tok = shape_token(D)
+        path = out.with_suffix(f".{tok}.npz")
         cmd = [sys.executable, str(ROOT / "tests" / "_torch_mesh_jax.py"),
-               str(path), str(D), ",".join(cases[D] if isinstance(cases, dict)
-                                            else cases)]
+               str(path), tok, ",".join(cases[D] if isinstance(cases, dict)
+                                        else cases)]
         if train == D:
-            cmd.append(f"train={D}")
+            cmd.append(f"train={tok}")
+        if i == 0:
+            cmd.extend(extra)
         for key, table in (("engine", engine), ("alone", alone)):
             if table and table.get(D):
                 cmd.append(f"{key}=" + ",".join(table[D]))
@@ -476,8 +626,10 @@ def finish_jax(procs) -> dict:
                                for k, v in pickle.load(f).items()})
         with np.load(path) as z:
             for key in sorted(z.files):
-                D, case, r, tree, leaf = key.split("|")
-                rounds = runs.setdefault((int(D), case), [])
+                tok, case, r, tree, leaf = key.split("|")
+                dims = tuple(map(int, tok.split("x")))
+                rounds = runs.setdefault((dims[0] if len(dims) == 1 else dims,
+                                          case), [])
                 while len(rounds) <= int(r):
                     rounds.append({"state": {}, "met": {}})
                 slot = rounds[int(r)]
@@ -495,13 +647,16 @@ def finish_jax(procs) -> dict:
 
 
 def run_both(tmp: Path, devices, cases, port_groups: dict,
-             train: int = 0, engine=None, alone=None):
+             train=0, engine=None, alone=None, extra=(), spawn=None):
     """JAX's subprocesses started, the port's groups ({D: (cases,
-    with_plain, train, engine cases)}) run meanwhile on gloo ranks, JAX's
-    npz read: (JAX's runs, {D: the port's results})."""
-    procs = start_jax(tmp / "jax", devices, cases, train, engine, alone)
+    with_plain, train, engine cases)}, or ``spawn``'s arguments after the
+    mesh) run meanwhile on gloo ranks, JAX's npz read: (JAX's runs, {D:
+    the port's results})."""
+    procs = start_jax(tmp / "jax", devices, cases, train, engine, alone,
+                      extra)
+    spawn = spawn or spawn_cases
     try:
-        port = {D: spawn_cases(D, *group) for D, group in port_groups.items()}
+        port = {D: spawn(D, *group) for D, group in port_groups.items()}
     except BaseException:
         for p, _ in procs:
             p.kill()

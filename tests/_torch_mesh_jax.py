@@ -1,15 +1,19 @@
 """The JAX oracle of the mesh tests, run as a subprocess:
 
-    python tests/_torch_mesh_jax.py OUT.npz D[,D...] CASE[,CASE...] \
-        [train=D] [engine=CASE[,CASE...]] [alone=CASE[,CASE...]]
+    python tests/_torch_mesh_jax.py OUT.npz SHAPE[,SHAPE...] CASE[,CASE...] \
+        [at=SHAPE:CASE[,CASE...]] [train=SHAPE] [layout=SHAPE[,SHAPE...]] \
+        [engine=CASE[,CASE...]] [alone=CASE[,CASE...]]
 
+A SHAPE is D (the mesh D x 1) or DxM over ("data", "model").
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` is set before JAX
 is imported. Each case of ``tests/_torch_mesh.py::CASES`` runs through
-JAX's ``build_fedepm`` on the Auto mesh of D x 1 forced host devices
-(``_torch_distributed.jax_rounds``), and ``train=D`` runs JAX's
-``build_train_step`` on D devices as ``test_torch_steps`` runs it; every
-round's w_tau, W and Z leaves and metrics go to OUT.npz under
-"D|case|round|tree|leaf". ``engine=`` runs each case of
+JAX's ``build_fedepm`` on the Auto mesh of each SHAPE of forced host
+devices (``_torch_distributed.jax_rounds``), each ``at=`` pair's cases
+on its shape alone, and ``train=SHAPE`` runs JAX's ``build_train_step``
+on that mesh as ``test_torch_steps`` runs it; every round's w_tau, W and
+Z leaves and metrics go to OUT.npz under "SHAPE|case|round|tree|leaf".
+``layout=`` writes each shape's ``jax.make_mesh`` device ids under
+"SHAPE|layout|0|ids|0". ``engine=`` runs each case of
 ``tests/_torch_mesh.py::ENGINE_CASES`` (and ``ENGINE_LM``, the reduced
 ``lm_federated.toml``) through JAX's ``run_rounds`` on that Auto mesh of
 each D, and ``alone=`` with no mesh (JAX's own spread is the distance
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
@@ -35,6 +40,7 @@ from jax.sharding import AxisType  # noqa: E402
 import _torch_distributed as H  # noqa: E402
 import _torch_mesh as M  # noqa: E402
 
+THREADS = 3  # cases run side by side
 MET_NAMES = ("mu_last", "grad_l1", "noise_scale", "selected", "snr",
              "drift")
 
@@ -48,10 +54,18 @@ def _put(out: dict, prefix: str, states, mets) -> None:
             out[f"{prefix}|{r}|met|{name}"] = np.asarray(getattr(met, name))
 
 
-def _auto_mesh(D: int):
-    return jax.make_mesh((D, 1), ("data", "model"),
+def shape_of(token: str) -> tuple:
+    """"D" -> (D, 1); "DxM" -> (D, M)."""
+    dims = tuple(int(v) for v in token.split("x"))
+    return dims if len(dims) == 2 else (dims[0], 1)
+
+
+def _auto_mesh(D):
+    """The Auto mesh of D (an int: D x 1) or (D, M) forced host devices."""
+    shape = (D, 1) if isinstance(D, int) else tuple(D)
+    return jax.make_mesh(shape, ("data", "model"),
                          axis_types=(AxisType.Auto, AxisType.Auto),
-                         devices=jax.devices()[:D])
+                         devices=jax.devices()[:shape[0] * shape[1]])
 
 
 def _jax_lib() -> dict:
@@ -106,14 +120,33 @@ def engine_run(case: str, D):
 def main(argv) -> int:
     path, devices, cases = argv[0], argv[1], argv[2]
     out = {}
-    for D in map(int, devices.split(",")):
-        for case in filter(None, cases.split(",")):
-            arch, rounds, kw = M.CASES[case]
-            states, mets = H.jax_rounds(arch, rounds, devices=D,
-                                        batch=M.batch_size(case), **kw)
-            _put(out, f"{D}|{case}", states, mets)
+    runs = [(tok, cases) for tok in devices.split(",")]
+    runs += [tuple(a.removeprefix("at=").split(":")) for a in argv[3:]
+             if a.startswith("at=")]
+
+    def one(tok, case):
+        D, Mm = shape_of(tok)
+        arch, rounds, kw = M.CASES[case]
+        return tok, case, H.jax_rounds(arch, rounds, devices=D, model=Mm,
+                                       batch=M.batch_size(case), **kw)
+
+    # compiles overlap in threads (XLA compiles outside the GIL; the JAX
+    # package's axis rules are thread-local)
+    with ThreadPoolExecutor(THREADS) as pool:
+        for tok, case, (states, mets) in pool.map(lambda a: one(*a), [
+                (tok, case) for tok, names in runs
+                for case in filter(None, names.split(","))]):
+            _put(out, f"{tok}|{case}", states, mets)
     engine = {}
     for arg in argv[3:]:
+        if arg.startswith("at="):
+            continue
+        if arg.startswith("layout="):
+            for tok in arg.removeprefix("layout=").split(","):
+                ids = np.vectorize(lambda d: d.id)(
+                    _auto_mesh(shape_of(tok)).devices)
+                out[f"{tok}|layout|0|ids|0"] = ids
+            continue
         if arg.startswith(("engine=", "alone=")):
             key, _, cases = arg.partition("=")
             for case in cases.split(","):
@@ -121,10 +154,14 @@ def main(argv) -> int:
                           else (None,)):
                     engine[D, case] = engine_run(case, D)
             continue
-        D = int(arg.removeprefix("train="))
+        tok = arg.removeprefix("train=")
         import test_torch_steps as T
-        run = T._jax_train(M.SMOLLM, _auto_mesh(D))
-        _put(out, f"{D}|train", run["states"], run["mets"])
+        try:
+            run = T._jax_train(M.SMOLLM, _auto_mesh(shape_of(tok)))
+        except Exception as e:  # JAX's step refusing the mesh is a reading
+            out[f"{tok}|train_error|0|text|0"] = np.asarray(repr(e))
+            continue
+        _put(out, f"{tok}|train", run["states"], run["mets"])
     np.savez(path, **out)
     if engine:
         import pickle

@@ -310,8 +310,9 @@ def test_param_logical_matches_init_and_jax(arch):
 def test_prefill_and_the_mesh_mode_name_item_14(capsys):
     """Prefill runs (ROADMAP queue 1 item 14.2 is ported); ``train``
     without ``--spec`` runs on one device (``tests/test_torch_steps.py``)
-    and on two gloo ranks with ``--devices 2`` (the first part of item
-    14.5), and refuses a "model" axis above 1, naming item 14.5."""
+    and on two gloo ranks with ``--devices 2`` (item 14.5), over "data"
+    and, with ``--mesh-shape 1,2``, over "model"; ``serve --devices 2``
+    still exits 2, naming item 14.5."""
     model = tregistry.get_model(tconfigs.get_reduced("smollm-135m"))
     params = model.init(trandom.PRNGKey(0))
     with torch.inference_mode():
@@ -323,9 +324,12 @@ def test_prefill_and_the_mesh_mode_name_item_14(capsys):
     assert train.main(["--arch", "smollm-135m", "--reduced", "--devices",
                        "2", "--device", "cpu", "--seq", "8",
                        "--global-batch", "2", "--rounds", "1"]) == 0
+    assert train.main(["--arch", "smollm-135m", "--reduced", "--devices",
+                       "2", "--mesh-shape", "1,2", "--device", "cpu",
+                       "--seq", "8", "--global-batch", "2", "--rounds",
+                       "1"]) == 0
     with pytest.raises(SystemExit) as e:
-        train.main(["--arch", "smollm-135m", "--reduced", "--devices",
-                    "2", "--mesh-shape", "1,2"])
+        serve.main(["--arch", "smollm-135m", "--reduced", "--devices", "2"])
     assert e.value.code == 2
     assert "queue 1 item 14" in capsys.readouterr().err
 

@@ -154,15 +154,18 @@ def test_what_stays_on_one_device_names_item_14_5(capsys):
     with pytest.raises(ValueError, match="item 14.5"):
         tdist.build_fedepm(get_model(configs.get_reduced(M.SMOLLM)),
                            None, FedEPMConfig(m=4), 2)
-    for argv, code in ((["--mesh-shape", "2,2"], 2),
-                       (["--mesh-shape", "16,16"], 2)):
+    for argv in (["--devices", "4", "--mesh-shape", "2,3"],
+                 ["--devices", "2", "--mesh-shape", "2,2"]):
         with pytest.raises(SystemExit) as e:
             train.main(["--arch", M.SMOLLM] + argv)
-        assert e.value.code == code
+        assert e.value.code == 2
+    assert capsys.readouterr().err.count("not --devices") == 2
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", M.SMOLLM, "--devices", "8"])
     assert e.value.code == 2
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--mesh", "multi"])
     assert e.value.code == 2
-    assert capsys.readouterr().err.count("item 14.5") == 4
+    err = capsys.readouterr().err
+    assert err.count("item 14.5") == 2
+    assert "item 14.5 part 2" in err and "item 14.5 part 4" in err

@@ -55,8 +55,30 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "run_flash_checks", "run_remat_gradients",
              "check_threefry_rows_kernel", "check_xlstm_upload_vs_cpu",
              "at_child", "lm_leaf_widths", "run_mesh_path", "mesh_rank",
-             "mesh_width", "run_engine_mesh_path", "engine_mesh_rank"):
+             "mesh_width", "run_engine_mesh_path", "engine_mesh_rank",
+             "model_axis_census", "census_by_key", "model_grad_bitwise"):
     assert callable(getattr(chip_smoke, name)), name
+from repro_torch.sharding import comm, mesh, specs
+from repro_torch.core import distributed, fedepm, dp
+from repro_torch.launch import mesh as lmesh, steps, train
+for mod, names in ((mesh, ("make_live_mesh", "axis_members", "LiveMesh")),
+                   (comm, ("all_gather", "all_to_all", "reduce_scatter",
+                           "all_reduce")),
+                   (specs, ("entry_axes", "axis_dim", "data_dim",
+                            "cut_axes", "local_shape", "block_index",
+                            "axis_view", "block_of", "shard_leaf",
+                            "shard_tree", "gather_tree")),
+                   (distributed, ("batch_specs", "model_rows",
+                                  "spatial_round", "temporal_round",
+                                  "build_fedepm", "_Shards",
+                                  "_client_grad", "_noised_upload")),
+                   (fedepm, ("fedepm_round", "upload_scale")),
+                   (dp, ("client_unit_laplace", "add_client_noise",
+                         "snr_db10")),
+                   (lmesh, ("spawn",)), (steps, ("build_train_step",)),
+                   (train, ("main", "run_mesh"))):
+    for name in names:
+        assert callable(getattr(mod, name)), (mod.__name__, name)
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                  "repro_torch.")}}
 for sub in ("repro_torch.sim", "repro_torch.privacy", "repro_torch.telemetry",
@@ -167,6 +189,14 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch):
         get_model(cfg), LMLoss(cfg), FedEPMConfig(m=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         init_fn(random.PRNGKey(0))
+    # a (D, M) mesh runs its ranks on cards unless asked for the CPU
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "smollm-135m", "--reduced", "--devices", "2",
+                    "--mesh-shape", "1,2"])
+    with pytest.raises(ValueError, match="2 ranks need 2 cards"):
+        spawn(print, 2, shape=(1, 2))
 
 
 def test_kernel_on_cpu_tensor_raises():

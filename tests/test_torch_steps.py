@@ -352,10 +352,12 @@ def test_dryrun_and_report_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_more_than_one_device_is_refused_naming_item_14_5(capsys):
-    """A record mesh of more than one device, ``dryrun --mesh multi`` and
-    a "model" axis above 1 stay refused, naming item 14.5; ``train
-    --devices 2`` now runs, on two gloo ranks with ``--device cpu``
-    (``tests/test_torch_mesh_train.py`` holds it to JAX)."""
+    """A record mesh of more than one device and ``dryrun --mesh multi``
+    stay refused, naming item 14.5, and a ``--mesh-shape`` whose product
+    is not ``--devices`` exits 2; ``train --devices 2`` now runs, on two
+    gloo ranks with ``--device cpu`` (``tests/test_torch_mesh_train.py``
+    holds it to JAX; a "model" axis above 1, ``tests/
+    test_torch_mesh_model.py``)."""
     with pytest.raises(ValueError, match="item 14.5"):
         tsteps.build_train_step("smollm-135m",
                                 tmesh.make_production_mesh())
@@ -363,9 +365,11 @@ def test_more_than_one_device_is_refused_naming_item_14_5(capsys):
         dryrun.main(["--mesh", "multi"])
     assert e.value.code == 2
     with pytest.raises(SystemExit) as e:
-        train.main(["--arch", "smollm-135m", "--mesh-shape", "16,16"])
+        train.main(["--arch", "smollm-135m", "--devices", "4",
+                    "--mesh-shape", "2,3"])
     assert e.value.code == 2
-    assert "ROADMAP queue 1 item 14.5" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP queue 1 item 14.5" in err and "holds 6 ranks" in err
     assert train.main(["--arch", "smollm-135m", "--reduced", "--devices",
                        "2", "--device", "cpu", "--seq", "16",
                        "--global-batch", "2", "--rounds", "1"]) == 0
