@@ -2787,6 +2787,13 @@ def check_serve_digest(got: dict, want: dict, what: str) -> float:
     return worst
 
 
+def serve_bits(res) -> list:
+    """``_bit_digest`` of a serve run's tokens, prefill and step logits and
+    final state: equal bits give equal digests."""
+    return _bit_digest([res.tokens, res.prefill_logits, res.logits,
+                        res.state])
+
+
 def _serve_equal(a, b, what: str) -> None:
     from repro_torch.core.treeutil import tree_leaves
     for name in ("tokens", "prefill_logits", "logits"):
@@ -2863,14 +2870,20 @@ def run_serve_path() -> tuple[dict, dict]:
     the counters set to 0 just before it: SERVE_FULL at full width and
     serve's defaults (eager twice bitwise, graph = eager bitwise), smollm at
     SERVE_CHAT (eager once, graph = eager bitwise), and JAX_SERVE's archs
-    reduced, held to JAX's digests. Returns (records, for each of
+    reduced, held to JAX's digests. smollm-135m's full-width eager run is
+    made once, the others' twice. Returns (records, for each of
     SERVE_CPU the full-width graph run's tokens and its prefill and first
     two steps' logits, on the host)."""
     from repro_torch import configs
     out, keep = {}, {}
     for arch in SERVE_FULL:
         cfg = configs.get_config(arch)
-        rec, res = _serve_case(f"{arch} full", cfg, SERVE_DEFAULTS)
+        # smollm's eager repeat is cut: the mesh phase's (1, 1) serve
+        # takes its time
+        rec, res = _serve_case(f"{arch} full", cfg, SERVE_DEFAULTS,
+                               twice=arch != LAUNCH_ARCH)
+        if arch == LAUNCH_ARCH:  # the mesh phase's (1, 1) serve is held to it
+            rec["bits"] = serve_bits(res)
         rec["params"], rec["leaves"] = _param_count(cfg)
         out[f"{arch}/full"] = rec
         if arch in SERVE_CPU:
@@ -3924,7 +3937,7 @@ def _smollm_layer_qkv(T: int):
                             cfg.vocab)
     with torch.no_grad():
         x, pos = dense.embed_inputs(W, {"tokens": tokens}, cfg)
-        lp = dense.layer_params(W["layers"], cfg.n_layers)[0]
+        lp = next(dense.layer_params(W["layers"], cfg.n_layers))
         h = apply_norm(x, lp["ln_attn"], cfg.norm)
         q, k, v = qkv_proj(h, lp["attn"])
         q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
@@ -4140,6 +4153,87 @@ def model_axis_census(kw: dict, shape, m: int, rows: int, k0: int,
     for a in join:
         add("all-reduce", a, "norms", ar(a, 4 * calls))
     return out
+
+
+def serve_of_rows(cfg, shape: dict, rows, groups: int = 1,
+                  device=None):
+    """One device's eager serve of the rows [lo, hi) (``rows``) of the
+    request ``shape`` (batch, prompt_len, new_tokens) alone, MoE routed in
+    ``groups`` (``models/moe.py::routing_groups``): ``launch/serve.py``'s
+    init, request and run, none of its mesh code; the reference a mesh
+    rank's rows are held to bit for bit."""
+    from repro_torch import random
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.launch import serve as S
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_model
+    model, dev = get_model(cfg), resolve_device(device)
+    Tp, n = shape["prompt_len"], shape["new_tokens"]
+    with torch.inference_mode(), moe.routing_groups(groups):
+        params = model.init(random.PRNGKey(0, device=dev))
+        req = {k: v[rows[0]:rows[1]] for k, v in
+               S.prompt_batch(cfg, shape["batch"], Tp, dev).items()}
+        return S._run(model, params, req, Tp + n + (cfg.n_patches or 0),
+                      n, False, dev)
+
+
+def serve_census(cfg, shape, batch: int, new_tokens: int,
+                 capture: bool, entry) -> dict:
+    """The bytes one rank of the live (D, M) ``shape`` receives serving a
+    request of ``batch`` rows for ``new_tokens`` tokens at ``cfg``, its
+    rows cut over ``entry`` (``launch/serve.py::row_entry``), by
+    phase ("prefill", "load", "steps", "tokens", as ``ServeResult.census``)
+    and "op|axis|what" (``census_by_key``), as ``sharding/comm.py``'s
+    census counts them: with n_l and s_l a leaf's size and bytes a value,
+    C_M the leaves that JAX serve's ``param_specs`` cuts over "model", u_p
+    the uses of a top-level part p in one forward (the embedding twice
+    where it is tied, a shared block once an application, else once), b =
+    B / D a data rank's rows and T = 1 + new_tokens,
+
+    forward  all-gather model params  (M-1) sum_p u_p sum_{l in p, C_M}
+             n_l s_l / M
+    prefill  one forward; load: one more where the decode step is
+             captured (its warm-up call), else 0; steps: new_tokens
+             forwards
+    tokens   all-gather model tokens (M-1) (b / M) T 4 where the rows are
+             cut over "model" (M divides b), all-gather data tokens (D-1)
+             b T 4 where they are cut over "data"; all-gather model times
+             (M-1) 24, all-gather data times (D-1) M 24
+
+    (nothing over an axis of one rank)."""
+    from repro_torch import random
+    from repro_torch.core.distributed import DistConfig, param_specs
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.specs import axis_dim, entry_axes, spec_leaves
+    D, M = shape
+    mesh = make_mesh(shape, ("data", "model"))
+    params = get_model(cfg).init(random.PRNGKey(0, device="meta"))
+    specs = param_specs(cfg, params, mesh, DistConfig())
+    uses = {"embed": 1 if "unembed" in params else 2,
+            "shared_attn": -(-cfg.n_layers // max(cfg.shared_attn_every,
+                                                  1))}
+    F = (M - 1) * sum(
+        uses.get(part, 1) * x.numel() // M * x.element_size()
+        for part in params for x, sp in zip(tree_leaves(params[part]),
+                                            spec_leaves(specs[part]))
+        if axis_dim(sp, "model") is not None)
+    over, T = entry_axes(entry), 1 + new_tokens
+    b = batch // D if "data" in over else batch
+    rows = b // M if "model" in over else b
+    out = {"prefill": {"all-gather|model|params": F},
+           "load": {"all-gather|model|params": F} if capture else {},
+           "steps": {"all-gather|model|params": new_tokens * F},
+           "tokens": {
+               "all-gather|model|tokens": (M - 1) * rows * T * 4
+               if "model" in over else 0,
+               "all-gather|data|tokens": (D - 1) * b * T * 4
+               if "data" in over else 0,
+               "all-gather|model|times": (M - 1) * 24,
+               "all-gather|data|times": (D - 1) * M * 24}}
+    return {phase: {k: float(v) for k, v in rec.items() if v}
+            for phase, rec in out.items()}
 
 
 def census_by_key(records) -> dict:
@@ -4619,7 +4713,248 @@ def _model_axis_zamba2(mesh) -> tuple:
     return recs, checks
 
 
-def mesh_rank(mesh) -> dict:
+# serving across cards (ROADMAP queue 1 item 14.5 part 2): launch/serve.py's
+# serve on (D, M) meshes of the mesh phase's ranks, each part of the params
+# gathered over "model" as it runs. (A) SERVE_FULL at full width and
+# SERVE_DEFAULTS on each of SERVE_MESH_SHAPES, eager and graph; (B)
+# smollm-135m at SERVE_CHAT on SERVE_MESH_CHAT_SHAPES, graph; (C) the CLI,
+# zamba2-1.2b on (2, 2) (SERVE_MESH_CLI). On one card, the (1, 1) mesh:
+# smollm at SERVE_DEFAULTS, graph, bit for bit the serve phase's run with
+# no mesh, 0 bytes moved. Held on four: each rank's rows bit for bit one
+# card's serve of those rows alone on its own card (serve_of_rows), graph
+# = eager on the mesh, the census serve_census's to the byte, no host sync
+# in the decode loop, no block of the params keeping its whole leaf's
+# storage (serve asserts it); and the whole request as the gathers put it
+# together, bit for bit the ranks' one-card serves of their rows in row
+# order (which holds the order the gathers put the rows back in). The
+# distance from one card's serve of all B rows at once is printed beside
+# it, with whether it is within SERVE_MESH_RTOL of the scale: a reading,
+# since on full-width bf16 one card's serve of a row alone and among B
+# rows already differ (cuBLAS picks its kernels by shape; ROADMAP queue 3).
+SERVE_MESH_SHAPES = ((4, 1), (2, 2), (1, 4))
+SERVE_MESH_CHAT_SHAPES = ((2, 2), (1, 4))
+SERVE_MESH_RTOL = 2.0 ** -7
+SERVE_MESH_CLI = ["--arch", "zamba2-1.2b", "--devices", "4",
+                  "--mesh-shape", "2,2"]
+
+
+@contextlib.contextmanager
+def _no_host_sync_in_decode():
+    """``Decoder.steps`` under torch's CUDA sync debug mode "error": a
+    host sync in the decode loop raises."""
+    from repro_torch.launch import serve as S
+    steps = S.Decoder.steps
+
+    def checked(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            steps(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    S.Decoder.steps = checked
+    try:
+        yield
+    finally:
+        S.Decoder.steps = steps
+
+
+def _serve_on(cfg, shape: dict, graph: bool, dev, mesh=None):
+    """One ``serve`` on this rank of ``mesh`` (None: this card alone), the
+    decode loop held to no host sync: (result, its peak in GB above what
+    the process held before it)."""
+    from repro_torch.launch.serve import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with _no_host_sync_in_decode():
+        res = serve(cfg, device=dev, graph=graph, mesh=mesh, **shape)
+    return res, (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+
+def _serve_times(res, shape: dict, peak: float) -> dict:
+    """A run's peak and times; on a mesh also the bytes its blocks of the
+    params hold after the init (``params_gb``)."""
+    n, B = shape["new_tokens"], shape["batch"]
+    steps_s = res.slowest[2] if res.slowest else res.steps_s
+    out = {"peak_mem_gb": peak, "prefill_ms": res.prefill_s * 1e3,
+           "decode_ms_per_token": res.steps_s / n * 1e3,
+           "capture_s": res.capture_s, "tok_per_s": n * B / steps_s}
+    if res.param_bytes is not None:
+        out["params_gb"] = res.param_bytes / 1e9
+    return out
+
+
+def _request(res) -> tuple:
+    """(tokens, [the prefill's logits, each step's]) of a run, on the
+    host."""
+    return res.tokens.cpu(), [x.cpu() for x in (res.prefill_logits,
+                                                *res.logits)]
+
+
+def _rows_in_order(parts, batch: int) -> tuple:
+    """The whole request from the ranks' (rows, tokens, logits) ``parts``:
+    each block of rows once, in row order, the blocks asserted to tile
+    [0, ``batch``)."""
+    blocks = sorted({p[0]: p for p in parts}.values(), key=lambda p: p[0])
+    edges = [lo for (lo, _), *_ in blocks] + [blocks[-1][0][1]]
+    assert edges[0] == 0 and edges[-1] == batch and all(
+        p[0][1] == lo for p, lo in zip(blocks, edges[1:])), [
+        p[0] for p in blocks]
+    return (torch.cat([p[1] for p in blocks]),
+            [torch.cat(col) for col in zip(*(p[2] for p in blocks))])
+
+
+def _request_distance(got_tokens, got_logits, ref_tokens,
+                      ref_logits) -> dict:
+    """A request's run against a reference run (``*_logits`` the prefill's
+    then each step's, (B, 1, V)): up to each row's first differing token,
+    the largest |logit difference| over max(1, the step's largest
+    |logit|); each differing token with the reference's top-two margin
+    over that scale."""
+    live = torch.ones(ref_tokens.shape[0], dtype=torch.bool)
+    worst, differ = 0.0, []
+    for s, (g, r) in enumerate(zip(got_logits, ref_logits)):
+        g, r = g[:, -1].double().cpu(), r[:, -1].double().cpu()
+        scale = max(1.0, float(r.abs().max()))
+        if live.any():
+            worst = max(worst, float((g[live] - r[live]).abs().max())
+                        / scale)
+        for i in ((got_tokens[:, s].cpu() != ref_tokens[:, s].cpu())
+                  & live).nonzero().reshape(-1).tolist():
+            top = r[i].topk(2).values
+            differ.append({"row": i, "token": s,
+                           "margin": float(top[0] - top[1]) / scale})
+            live[i] = False
+    return {"max_err_over_scale": worst, "differing_tokens": differ}
+
+
+def _serve_mesh_case(mesh, cfg, shape: dict, shapes, graphs) -> tuple:
+    """One request on each (D, M) of ``shapes`` over this rank's mesh, eager
+    and/or graph (``graphs``): every hold of the section above. Returns
+    (this rank's records, rank 0's checks)."""
+    import torch.distributed as dist
+    from repro_torch.launch.serve import row_entry
+    from repro_torch.sharding import specs as sh
+    from repro_torch.sharding.mesh import make_live_mesh
+    from repro_torch.sharding.rules import P
+    dev, lead = mesh.device, mesh.rank == 0
+    recs, checks, own, ref = {}, {}, {}, None
+    if lead:  # one card's serve of the whole request: a reading
+        one, peak = _serve_on(cfg, shape, True, dev)
+        recs["one_card"], ref = _serve_times(one, shape, peak), _request(one)
+        del one
+    dist.barrier()
+    for dims in shapes:
+        sub = make_live_mesh(dims, device=dev)
+        entry = row_entry(cfg, shape["batch"], sub)
+        runs, whole = {}, None
+        for graph in graphs:
+            what = f"{dims[0]}x{dims[1]}/{'graph' if graph else 'eager'}"
+            log(f"mesh[rank {mesh.rank}] serve {cfg.name} {what}")
+            res, peak = _serve_on(cfg, shape, graph, dev, sub)
+            key = (res.rows, res.groups)
+            if key not in own:  # one card's serve of these rows alone
+                one = serve_of_rows(cfg, shape, res.rows, res.groups, dev)
+                own[key] = (serve_bits(one), _request(one))
+                del one
+            bits = serve_bits(res)
+            assert bits == own[key][0], (cfg.name, what, "rows")
+            runs[graph] = bits
+            census = {k: census_by_key(v) for k, v in res.census.items()}
+            want = serve_census(cfg, dims, shape["batch"],
+                                shape["new_tokens"],
+                                graph and dev.type == "cuda", entry)
+            assert census == want, (cfg.name, what, census, want)
+            rec = dict(_serve_times(res, shape, peak), rows=res.rows,
+                       census=census, slowest_s=res.slowest)
+            got = (res.request_tokens.cpu(), [x.cpu() for x in [
+                sh.gather_tree(res.prefill_logits, P(entry), sub,
+                               what="check")] + list(sh.gather_tree(
+                    res.logits, P(None, entry), sub, what="check"))])
+            if whole is None:  # the ranks' own rows, put together
+                parts = [None] * mesh.size
+                dist.all_gather_object(parts, (res.rows, *own[key][1]))
+                whole = _rows_in_order(parts, shape["batch"]) if lead \
+                    else ()
+                del parts
+            if lead:
+                assert torch.equal(got[0], whole[0]) and all(
+                    torch.equal(a, b) for a, b in zip(got[1], whole[1])), \
+                    (cfg.name, what, "the request in row order")
+                reading = _request_distance(*got, *ref)
+                reading["within_serve_mesh_rtol"] = reading[
+                    "max_err_over_scale"] <= SERVE_MESH_RTOL and all(
+                    t["margin"] < SERVE_MESH_RTOL
+                    for t in reading["differing_tokens"])
+                checks[what] = {"rows_in_order_bitwise": True,
+                                "vs_one_card_all_rows": reading}
+                rec["vs_one_card"] = checks[what]
+            recs[what] = rec
+            del res, got
+            dist.barrier()
+        if len(runs) == 2:
+            assert runs[True] == runs[False], (cfg.name, dims, "graph")
+    return recs, checks
+
+
+def serve_mesh_rank(mesh) -> tuple:
+    """(A) and (B) of serving across cards on this rank of the four-rank
+    mesh: (this rank's records, rank 0's checks)."""
+    from repro_torch import configs
+    recs, checks = {}, {}
+    for arch in SERVE_FULL:
+        recs[arch], checks[arch] = _serve_mesh_case(
+            mesh, configs.get_config(arch), SERVE_DEFAULTS,
+            SERVE_MESH_SHAPES, (False, True))
+    recs["chat"], checks["chat"] = _serve_mesh_case(
+        mesh, configs.get_config(LAUNCH_ARCH), SERVE_CHAT,
+        SERVE_MESH_CHAT_SHAPES, (True,))
+    torch.cuda.empty_cache()
+    return recs, checks
+
+
+def _serve_one_rank(mesh, bits) -> dict:
+    """On one rank: smollm-135m at SERVE_DEFAULTS, graph, on the (1, 1)
+    live mesh, bit for bit the serve phase's run with no mesh (``bits``;
+    run here where None), its census 0 bytes."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    cfg = configs.get_config(LAUNCH_ARCH)
+    res, peak = _serve_on(cfg, SERVE_DEFAULTS, True, mesh.device, mesh)
+    if bits is None:
+        bits = serve_bits(_serve_on(cfg, SERVE_DEFAULTS, True,
+                                    mesh.device)[0])
+    assert serve_bits(res) == bits, "the (1, 1) mesh against no mesh"
+    moved = sum(b for rec in res.census.values()
+                for b in census_by_key(rec).values())
+    assert moved == 0, res.census
+    return {"wall_s": time.perf_counter() - t0, "bitwise_no_mesh": True,
+            "census_bytes": moved, **_serve_times(res, SERVE_DEFAULTS, peak)}
+
+
+def _serve_mesh_cli() -> dict:
+    """(C): ``serve`` SERVE_MESH_CLI in a process of its own: JAX's two
+    lines from rank 0, exit 0."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_MESH_CLI],
+        capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=MESH_TIMEOUT_S)
+    lines = out.stdout.splitlines()
+    for line in lines:
+        log(f"mesh[serve CLI 2x2] {line}")
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert len(lines) == 2 and re.fullmatch(
+        r"prefill 64x4: \d+\.\d\ds", lines[0]) and re.fullmatch(
+        r"decode 8 tokens: \d+\.\d\ds \(\d+\.\d tok/s\)", lines[1]), lines
+    return {"wall_s": time.perf_counter() - t0, "lines": lines}
+
+
+def mesh_rank(mesh, serve_bits_no_mesh=None) -> dict:
     """What each rank of the mesh phase runs (``spawn``): MESH_MODES on
     ``mesh`` and, on rank 0, the same rounds with no mesh on its card and
     the checks (``_mesh_hold``; gather and a2a the same bits;
@@ -4629,9 +4964,12 @@ def mesh_rank(mesh) -> dict:
     within STATE_RTOL: the spatial round on every rank, the temporal one
     on the first min(W, 2), which DIST_SETTINGS' 2 sequences a client
     fill. On four ranks the "model" axis follows (``_model_axis_smollm``,
-    ``_model_axis_zamba2``); on one rank its mesh has both axes' groups
-    and every mode's census is 0 bytes. Returns every rank's records
-    (rank 0's checks included)."""
+    ``_model_axis_zamba2``) and serving across cards
+    (``serve_mesh_rank``); on one rank its mesh has both axes' groups,
+    every mode's census is 0 bytes, and serving on it is the serve phase's
+    run with no mesh (``serve_bits_no_mesh``) bit for bit
+    (``_serve_one_rank``). Returns every rank's records (rank 0's checks
+    included)."""
     import torch.distributed as dist
     from repro_torch import random
     from repro_torch.core.treeutil import tree_leaves
@@ -4704,13 +5042,18 @@ def mesh_rank(mesh) -> dict:
                 "worst_over_scale": check_dist_digests(
                     got, want, f"{arch} {mode} on {sub.size} ranks")}
     dist.barrier()
+    serving = {}
     if W == MESH_MAX_RANKS:
         torch.cuda.empty_cache()
         recs["model_axis_zamba2"], checks["model_axis_zamba2"] = \
             _model_axis_zamba2(mesh)
+        serving, checks["serve"] = serve_mesh_rank(mesh)
+    if W == 1:
+        checks["serve_one_rank"] = _serve_one_rank(mesh, serve_bits_no_mesh)
+        serving = {LAUNCH_ARCH: {"1x1/graph": checks["serve_one_rank"]}}
     mine = {"rank": mesh.rank, "card": torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else str(dev),
-            "modes": recs, "reduced": reduced_recs}
+            "modes": recs, "reduced": reduced_recs, "serve": serving}
     every = [None] * W
     dist.all_gather_object(every, mine)
     return {"ranks": every, "checks": checks}
@@ -4804,14 +5147,17 @@ def _mesh_train_one_card() -> dict:
             "lines": printed[1]}
 
 
-def run_mesh_path() -> dict:
+def run_mesh_path(serve_bits_no_mesh=None) -> dict:
     """The ``mesh`` phase: ``mesh_rank`` on W NCCL ranks, the most of 1, 2
     and MESH_MAX_RANKS that the cards hold (each rank's peak, launches,
     walls and collective bytes printed), then ``train --devices W`` where
     W > 1 (with W = 1 it is the ``launch`` phase's train CLI run); on
     four cards also (C), ``train --devices 4 --mesh-shape 2,2`` at its
-    defaults, and on one ``train --devices 1 --mesh-shape 1,1``
-    (``_mesh_train_one_card``)."""
+    defaults, and serving's (C), ``serve`` SERVE_MESH_CLI; on one ``train
+    --devices 1 --mesh-shape 1,1`` (``_mesh_train_one_card``).
+    ``serve_bits_no_mesh``: the serve phase's smollm-135m graph run's
+    ``serve_bits``, which the (1, 1) mesh's serve is held to (made here
+    where None)."""
     from repro_torch.launch.mesh import spawn
     W = mesh_width()
     if W < MESH_MAX_RANKS:
@@ -4824,7 +5170,7 @@ def run_mesh_path() -> dict:
             f"four")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = spawn(mesh_rank, W, timeout_s=MESH_TIMEOUT_S,
+    res = spawn(mesh_rank, W, serve_bits_no_mesh, timeout_s=MESH_TIMEOUT_S,
                 join_s=MESH_TIMEOUT_S)
     out = {"ranks": W, "wall_s": time.perf_counter() - t0,
            "checks": res["checks"], "per_rank": res["ranks"]}
@@ -4855,16 +5201,58 @@ def run_mesh_path() -> dict:
         log(f"mesh[reduced vs JAX_DIST rank {r['rank']}] " + json.dumps(
             {k: (v["ranks"], v["worst_over_scale"])
              for k, v in r["reduced"].items()}))
+        for case, rec in _serve_records(r["serve"]):
+            log(f"mesh[serve {case} rank {r['rank']}/{W}] "
+                + json.dumps(rec))
     log("mesh[checks] " + json.dumps(res["checks"]))
+    out["serve"] = {r["rank"]: r["serve"] for r in res["ranks"]}
     out["launches"] = launches
     if W > 1:
         out["train_cli"] = _mesh_train_cli(W)
     if W == MESH_MAX_RANKS:
         out["train_cli_model_axis"] = _model_train_cli()
+        out["serve_cli"] = _serve_mesh_cli()
     if W == 1:
         out["train_cli_one_card"] = _mesh_train_one_card()
         log("mesh[train CLI 1x1] " + json.dumps(out["train_cli_one_card"]))
     return out
+
+
+def serve_mesh_path_rank(mesh) -> dict:
+    """``serve_mesh_rank`` alone on this rank of the four-rank mesh
+    (``spawn``): every rank's records and rank 0's checks."""
+    import torch.distributed as dist
+    device_settings()
+    serving, checks = serve_mesh_rank(mesh)
+    every = [None] * mesh.size
+    dist.all_gather_object(every, {"rank": mesh.rank, "serve": serving})
+    return {"ranks": every, "checks": checks}
+
+
+def run_serve_mesh_path() -> dict:
+    """Serving across cards alone, as the ``mesh`` phase runs it on
+    MESH_MAX_RANKS cards: (A) and (B) (``serve_mesh_rank``) on one group of
+    NCCL ranks, each rank's records printed, then (C) (the CLI)."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    res = spawn(serve_mesh_path_rank, MESH_MAX_RANKS,
+                timeout_s=MESH_TIMEOUT_S, join_s=MESH_TIMEOUT_S)
+    for r in res["ranks"]:
+        for case, rec in _serve_records(r["serve"]):
+            log(f"mesh[serve {case} rank {r['rank']}/{MESH_MAX_RANKS}] "
+                + json.dumps(rec))
+    log("mesh[serve checks] " + json.dumps(res["checks"]))
+    return {"wall_s": time.perf_counter() - t0, "checks": res["checks"],
+            "serve": {r["rank"]: r["serve"] for r in res["ranks"]},
+            "serve_cli": _serve_mesh_cli()}
+
+
+def _serve_records(serving: dict):
+    """(case, record) of a rank's serving records: "ARCH SHAPE/MODE", and
+    "ARCH one_card" (rank 0's serve of the whole request on its card)."""
+    for arch, recs in serving.items():
+        for what, rec in recs.items():
+            yield f"{arch} {what}", rec
 
 
 def _mesh_records(modes: dict):
@@ -5868,7 +6256,9 @@ def main() -> int:
                       "smollm-135m": record["lm_path"]["eager"],
                       XLSTM: record["lm_families"]["xlstm-125m/full"][
                           "eager"]}),
-                  "launch": run_launch_path, "mesh": run_mesh_path,
+                  "launch": run_launch_path,
+                  "mesh": lambda: run_mesh_path(
+                      record["serve"][0][f"{LAUNCH_ARCH}/full"]["bits"]),
                   "engine_mesh": run_engine_mesh_path}
     for name, run in main_paths.items():
         t_path = time.perf_counter()

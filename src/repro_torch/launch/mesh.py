@@ -69,6 +69,27 @@ def n_client_groups(mesh) -> int:
     return n
 
 
+def mesh_shape_arg(ap, devices: int, mesh_shape: str) -> tuple:
+    """(ranks, (D, M)) of the launchers' ``--devices`` and
+    ``--mesh-shape``: N,1 by default, one rank without either; a shape
+    that is not two positive counts, or whose product is not
+    ``--devices``, exits 2 (``ap.error``)."""
+    n = max(devices, 1)
+    if not mesh_shape:
+        return n, (n, 1)
+    try:
+        shape = tuple(int(v) for v in mesh_shape.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        ap.error(f"--mesh-shape {mesh_shape}: data,model, two positive "
+                 f"counts")
+    if devices and shape[0] * shape[1] != n:
+        ap.error(f"--mesh-shape {mesh_shape} holds {shape[0] * shape[1]} "
+                 f"ranks, not --devices {n}")
+    return shape[0] * shape[1], shape
+
+
 def _rank_main(rank, fn, n, device_type, store_path, out_path, timeout_s,
                args, shape=None):
     import torch

@@ -270,20 +270,8 @@ def main(argv=None) -> int:
                      f"--spec (the file defines the experiment; only "
                      f"--rounds/--engine override it)")
         return spawn_spec(args)
-    n = max(args.devices, 1)
-    shape = (n, 1)
-    if args.mesh_shape:
-        try:
-            shape = tuple(int(v) for v in args.mesh_shape.split(","))
-        except ValueError:
-            shape = ()
-        if len(shape) != 2 or min(shape) < 1:
-            ap.error(f"--mesh-shape {args.mesh_shape}: data,model, two "
-                     f"positive counts")
-        if args.devices and shape[0] * shape[1] != n:
-            ap.error(f"--mesh-shape {args.mesh_shape} holds "
-                     f"{shape[0] * shape[1]} ranks, not --devices {n}")
-        n = shape[0] * shape[1]
+    from repro_torch.launch.mesh import mesh_shape_arg, spawn
+    n, shape = mesh_shape_arg(ap, args.devices, args.mesh_shape)
     args.rounds = args.rounds_flag if args.rounds_flag is not None else 3
     if n == 1:
         return run_mesh(args)
@@ -292,7 +280,6 @@ def main(argv=None) -> int:
         print(f"--devices {n}: this machine has "
               f"{torch.cuda.device_count()} cards", file=sys.stderr)
         return 2
-    from repro_torch.launch.mesh import spawn
     return spawn(functools.partial(run_mesh, args), n, device=device.type,
                  shape=shape)
 

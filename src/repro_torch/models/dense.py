@@ -18,8 +18,18 @@ cache per layer (``layers.cache_from_prefill``, stacked on L like the
 params), returning only the last position's logits; ``decode_step`` runs
 one token through the caches, its position the cache's ``next``. The decode
 state is JAX's, ``{"caches": {k, v, pos, next}}``, each leaf (m, L, ...).
+
+Every family reads its params through ``compute_copy``: a layer as
+``layer_params`` (or xlstm's loop) reaches it, the embedding, the final
+norm, the unembedding and a shared block at each use. With no mesh it is
+the identity. Serving on a mesh (``launch/serve.py``) sets a gather with
+``compute_copies``, and then each part is gathered whole over "model"
+from this rank's blocks just before it runs, and freed after.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -181,7 +191,8 @@ def embed_inputs(params, batch, cfg: ArchConfig):
     if cfg.family == "audio":
         x = batch["frame_embeds"].to(cfg.dtype)
         return x, torch.arange(x.shape[2], device=x.device)
-    x = _EmbedGather.apply(params["embed"], batch["tokens"]).to(cfg.dtype)
+    x = _EmbedGather.apply(compute_copy(params["embed"], "embed"),
+                           batch["tokens"]).to(cfg.dtype)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(cfg.dtype), x], dim=2)
     return x, torch.arange(x.shape[2], device=x.device)
@@ -190,20 +201,54 @@ def embed_inputs(params, batch, cfg: ArchConfig):
 def unembed(x, params, cfg: ArchConfig):
     """(m, B, T, d) -> (m, B, T, V) logits, the tied embedding transposed
     when there is no ``unembed`` leaf."""
-    w = params.get("unembed")
-    if w is None:
-        w = params["embed"].transpose(1, 2)
+    if "unembed" in params:
+        w = compute_copy(params["unembed"], "unembed")
+    else:
+        w = compute_copy(params["embed"], "embed").transpose(1, 2)
     logits = torch.einsum("mbtd,mdv->mbtv", x, w.to(x.dtype))
     return logits * cfg.logit_scale
 
 
-def layer_params(layers, n: int) -> list:
-    """The L-stacked layer tree as n per-layer trees of views: one unbind
-    per leaf, whose backward stacks the L layer gradients in one write,
-    where a slice per layer would add L zero-padded full copies."""
+_tls = threading.local()
+LAYER = "<layer>"  # ``compute_copy``'s path step: one layer of a stack
+
+
+@contextlib.contextmanager
+def compute_copies(gather):
+    """Within it, ``compute_copy(tree, *path)`` is ``gather(tree, path)``
+    (in this thread): serving on a mesh gathers each part of the params
+    as it runs."""
+    prev = getattr(_tls, "gather", None)
+    _tls.gather = gather
+    try:
+        yield
+    finally:
+        _tls.gather = prev
+
+
+def compute_copy(tree, *path):
+    """The part of the params at ``path`` (a top-level key, then ``LAYER``
+    for one layer of a stacked tree or an index into a list of layers),
+    ``tree`` with the client axis in front, as the forward reads it:
+    ``tree`` itself, or under ``compute_copies`` what its gather makes of
+    it."""
+    gather = getattr(_tls, "gather", None)
+    return tree if gather is None else gather(tree, path)
+
+
+def layer_params(layers, n: int, name: str = "layers"):
+    """The L-stacked layer tree ``params[name]`` as n per-layer trees of
+    views, each through ``compute_copy`` as the caller reaches it: one
+    unbind per leaf, whose backward stacks the L layer gradients in one
+    write, where a slice per layer would add L zero-padded full copies."""
     per_layer = [t.unbind(1) for t in tree_leaves(layers)]
-    return [tree_unflatten(layers, [u[i] for u in per_layer])
-            for i in range(n)]
+    for i in range(n):
+        yield compute_copy(tree_unflatten(layers, [u[i] for u in per_layer]),
+                           name, LAYER)
+
+
+def final_norm(x, params, cfg: ArchConfig):
+    return apply_norm(x, compute_copy(params["ln_f"], "ln_f"), cfg.norm)
 
 
 def hidden(params, batch, cfg: ArchConfig):
@@ -214,7 +259,7 @@ def hidden(params, batch, cfg: ArchConfig):
         lambda h, lp: block_forward(h, lp, cfg, positions)[0], cfg)
     for lp in layer_params(params["layers"], cfg.n_layers):
         x = block(x, lp)
-    return apply_norm(x, params["ln_f"], cfg.norm)
+    return final_norm(x, params, cfg)
 
 
 def apply(params, batch, cfg: ArchConfig):
@@ -274,7 +319,7 @@ def prefill_layers(params, batch, cfg: ArchConfig, max_len, block):
     for lp in layer_params(params["layers"], cfg.n_layers):
         x, k, v = block(x, lp, cfg, positions)
         caches.append(cache_from_prefill(k, v, spec, plen))
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = final_norm(x, params, cfg)
     stacked = {name: torch.stack([c[name] for c in caches], dim=1)
                for name in caches[0]}                 # (m, L, ...)
     return unembed(x[:, :, -1:], params, cfg), {"caches": stacked}
@@ -309,5 +354,5 @@ def decode_layers(params, state, batch, cfg: ArchConfig, after_attn):
                              window=cfg.sliding_window, q_position=pos)
         x = after_attn(x, hn, out_proj(o, lp["attn"]), lp, cfg)
     new["next"] = old["next"] + 1
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = final_norm(x, params, cfg)
     return unembed(x, params, cfg), {"caches": new}

@@ -27,7 +27,9 @@ live in the positions alone, so both kinds share ``decode_attention``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +63,27 @@ def maybe_remat(fn, cfg):
 # ---------------------------------------------------------------------------
 
 
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def leaves_made(fn):
+    """Within it (in this thread), each leaf that ``dense_init`` or
+    ``embed_init`` draws is ``fn(leaf)`` as it is made: serving on a mesh
+    cuts each to its rank's block before the next is drawn."""
+    prev = getattr(_tls, "made", None)
+    _tls.made = fn
+    try:
+        yield
+    finally:
+        _tls.made = prev
+
+
+def _made(x):
+    fn = getattr(_tls, "made", None)
+    return x if fn is None else fn(x)
+
+
 def dense_init(key, shape, dtype=torch.float32, scale=None):
     """``normal(key, shape) * scale``, scale 1/sqrt(shape[0]) in f32 (so
     ``wo`` of shape (H, hd, d) takes 1/sqrt(H), as in JAX). ``key`` may be
@@ -69,11 +92,13 @@ def dense_init(key, shape, dtype=torch.float32, scale=None):
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = 1.0 / torch.sqrt(torch.tensor(float(fan_in)))
-    return (random.normal(key, shape) * scale).to(dtype)
+    # scaled in place: the same bits as ``normal * scale``, without a
+    # second leaf-sized buffer (zamba2's stacked in_proj is 2.6 GB)
+    return _made(random.normal(key, shape).mul_(scale).to(dtype))
 
 
 def embed_init(key, vocab, dim, dtype=torch.float32):
-    return (random.normal(key, (vocab, dim)) * 0.02).to(dtype)
+    return _made(random.normal(key, (vocab, dim)).mul_(0.02).to(dtype))
 
 
 # ---------------------------------------------------------------------------

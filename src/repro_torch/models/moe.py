@@ -10,8 +10,11 @@ expert FFN is one batched matmul over it, and the outputs go back to
 their tokens weighted by the renormalised router probabilities. JAX vmaps
 the per-client loss, so each client has its own sort, counts and
 capacity; here the client axis m leads every tensor, as in
-``models/dense.py``. On one device JAX's group dispatch is dead
-(``batch_groups()`` is 1), so only its G = 1 branch is ported.
+``models/dense.py``. JAX routes in G groups of rows where the "batch" rule
+maps onto G > 1 mesh shards, each call whose N = B T tokens give every
+group at least ``GROUP_MIN`` (serving on a mesh); ``routing_groups(G)``
+sets G here, each group then routed as a client of its own. With no mesh
+G is 1.
 
 The dispatch and the combine move rows by gathers both ways
 (``_Route``): each slot reads one token, each token reads its k slots, so
@@ -26,6 +29,9 @@ so its capacity is max(1, int(cf k B / E)) and it drops tokens where JAX's
 step drops them.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -175,12 +181,38 @@ def _moe_dispatch(xf, p, cfg: ArchConfig):
     return out, aux
 
 
+# JAX's ``moe_mlp`` routes in groups only where each holds this many tokens
+GROUP_MIN = 64
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def routing_groups(G: int):
+    """Within it (in this thread), ``moe_mlp`` routes each client's tokens
+    in G groups of consecutive rows where G divides its N tokens and each
+    group has at least ``GROUP_MIN``, as JAX's ``moe_mlp`` does where
+    ``batch_groups()`` is G; else in one."""
+    prev = getattr(_tls, "groups", 1)
+    _tls.groups = G
+    try:
+        yield
+    finally:
+        _tls.groups = prev
+
+
 def moe_mlp(x, p, cfg: ArchConfig):
     """x (m, B, T, d) -> (m, B, T, d), and aux {lb_loss, dropped} per
-    client (m,)."""
+    client (m,), the mean over its routing groups."""
     m, B, T, d = x.shape
-    out, aux = _moe_dispatch(x.reshape(m, B * T, d), p, cfg)
-    return out.reshape(m, B, T, d), aux
+    N, G = B * T, getattr(_tls, "groups", 1)
+    if G == 1 or N % G or N // G < GROUP_MIN:
+        out, aux = _moe_dispatch(x.reshape(m, N, d), p, cfg)
+        return out.reshape(m, B, T, d), aux
+    xg = x.reshape(m, G, N // G, d)
+    outs, auxs = zip(*(_moe_dispatch(xg[:, g], p, cfg) for g in range(G)))
+    aux = {k: torch.stack([a[k] for a in auxs], dim=1).mean(dim=1)
+           for k in auxs[0]}
+    return torch.stack(outs, dim=1).reshape(m, B, T, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +245,7 @@ def hidden(params, batch, cfg: ArchConfig):
         lambda h, lp: block_forward(h, lp, cfg, positions)[0], cfg)
     for lp in dense.layer_params(params["layers"], cfg.n_layers):
         x = block(x, lp)
-    return apply_norm(x, params["ln_f"], cfg.norm)
+    return dense.final_norm(x, params, cfg)
 
 
 unembed = dense.unembed

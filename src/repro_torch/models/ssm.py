@@ -31,6 +31,8 @@ card's is the CPU's.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 import torch.nn.functional as F
 
@@ -350,26 +352,26 @@ def _backbone(params, x, cfg: ArchConfig, positions,
     tail, as JAX's training branch runs them). Returns x, or with
     ``collect_states`` (x, per segment its layers' final states stacked on
     a layer axis (m, n, ...), each shared application's (k, v))."""
-    layers = dense.layer_params(params["mamba_layers"], cfg.n_layers)
+    layers = dense.layer_params(params["mamba_layers"], cfg.n_layers,
+                                "mamba_layers")
     shared = maybe_remat(
         lambda h, sp: shared_block(h, sp, cfg, positions), cfg)
     mamba = maybe_remat(lambda h, lp: mamba_block(h, lp, cfg), cfg)
-    idx = 0
     seg_states, kvs = [], []
     for attn_before, n in _segments(cfg):
         if attn_before:
-            x, kv = shared(x, params["shared_attn"])
+            x, kv = shared(x, dense.compute_copy(params["shared_attn"],
+                                                 "shared_attn"))
             if collect_states:
                 kvs.append(kv)
         states = []
-        for lp in layers[idx:idx + n]:
+        for lp in itertools.islice(layers, n):
             x, st = mamba(x, lp)
             if collect_states:
                 states.append(st)
         if collect_states:
             seg_states.append(tuple(torch.stack(col, dim=1)
                                     for col in zip(*states)))
-        idx += n
     return (x, seg_states, kvs) if collect_states else x
 
 
@@ -377,13 +379,14 @@ def hidden(params, batch, cfg: ArchConfig):
     """Forward to the final norm, without the unembedding."""
     x, positions = dense.embed_inputs(params, batch, cfg)
     x = _backbone(params, x, cfg, positions)
-    return apply_norm(x, params["ln_f"], cfg.norm)
+    return dense.final_norm(x, params, cfg)
 
 
 def unembed(x, params, cfg: ArchConfig):
     """(m, B, T, d) -> (m, B, T, V), with no logit scale (JAX's
     ``ssm.apply``)."""
-    return torch.einsum("mbtd,mdv->mbtv", x, params["unembed"].to(x.dtype))
+    w = dense.compute_copy(params["unembed"], "unembed")
+    return torch.einsum("mbtd,mdv->mbtv", x, w.to(x.dtype))
 
 
 def apply(params, batch, cfg: ArchConfig):
@@ -429,7 +432,7 @@ def prefill(params, batch, cfg: ArchConfig, max_len=None):
     x, seg_states, kvs = _backbone(params, x, cfg, positions,
                                    collect_states=True)
     caches = [cache_from_prefill(k, v, spec, plen) for k, v in kvs]
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = dense.final_norm(x, params, cfg)
     # the conv tails are already in cfg.dtype, the embedding's
     return unembed(x[:, :, -1:], params, cfg), {
         "mamba": seg_states, "caches": caches, "pos": plen}
@@ -441,22 +444,22 @@ def decode_step(params, state, batch, cfg: ArchConfig):
     (m, B, 1, V), the new state)."""
     x, _ = dense.embed_inputs(params, {"tokens": batch["tokens"]}, cfg)
     pos = state["pos"]
-    layers = dense.layer_params(params["mamba_layers"], cfg.n_layers)
+    layers = dense.layer_params(params["mamba_layers"], cfg.n_layers,
+                                "mamba_layers")
     caches = iter(state["caches"])
-    idx = 0
     new_mamba, new_caches = [], []
     for (attn_before, n), (tails, hs) in zip(_segments(cfg), state["mamba"]):
         if attn_before:
-            x, cache = shared_block_step(x, params["shared_attn"], cfg,
-                                         next(caches), pos)
+            x, cache = shared_block_step(
+                x, dense.compute_copy(params["shared_attn"], "shared_attn"),
+                cfg, next(caches), pos)
             new_caches.append(cache)
         states = []
-        for j, lp in enumerate(layers[idx:idx + n]):
+        for j, lp in enumerate(itertools.islice(layers, n)):
             x, st = mamba_block_step(x, lp, cfg, (tails[:, j], hs[:, j]))
             states.append(st)
         new_mamba.append(tuple(torch.stack(col, dim=1)
                                for col in zip(*states)))
-        idx += n
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = dense.final_norm(x, params, cfg)
     return unembed(x, params, cfg), {"mamba": new_mamba,
                                      "caches": new_caches, "pos": pos + 1}

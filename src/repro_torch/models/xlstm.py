@@ -374,14 +374,16 @@ def hidden(params, batch, cfg: ArchConfig):
     sblk = maybe_remat(lambda h, lp: slstm_block(h, lp, cfg)[0], cfg)
     mblk = maybe_remat(lambda h, lp: mlstm_block(h, lp, cfg)[0], cfg)
     for i, lp in enumerate(params["layers"]):
+        lp = dense.compute_copy(lp, "layers", i)
         x = sblk(x, lp) if _is_slstm(cfg, i) else mblk(x, lp)
-    return apply_norm(x, params["ln_f"], cfg.norm)
+    return dense.final_norm(x, params, cfg)
 
 
 def unembed(x, params, cfg: ArchConfig):
     """(m, B, T, d) -> (m, B, T, V), with no logit scale (JAX's
     ``xlstm.apply``)."""
-    return torch.einsum("mbtd,mdv->mbtv", x, params["unembed"].to(x.dtype))
+    w = dense.compute_copy(params["unembed"], "unembed")
+    return torch.einsum("mbtd,mdv->mbtv", x, w.to(x.dtype))
 
 
 def apply(params, batch, cfg: ArchConfig):
@@ -424,9 +426,9 @@ def prefill(params, batch, cfg: ArchConfig, max_len=None):
     states = []
     for i, lp in enumerate(params["layers"]):
         block = slstm_block if _is_slstm(cfg, i) else mlstm_block
-        x, st = block(x, lp, cfg)
+        x, st = block(x, dense.compute_copy(lp, "layers", i), cfg)
         states.append(st)
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = dense.final_norm(x, params, cfg)
     return unembed(x[:, :, -1:], params, cfg), {
         "states": states,
         "pos": torch.full((mc, B), T, dtype=torch.int32, device=x.device)}
@@ -439,8 +441,8 @@ def decode_step(params, state, batch, cfg: ArchConfig):
     states = []
     for i, (lp, st) in enumerate(zip(params["layers"], state["states"])):
         step = slstm_block_step if _is_slstm(cfg, i) else mlstm_block_step
-        x, st = step(x, lp, cfg, st)
+        x, st = step(x, dense.compute_copy(lp, "layers", i), cfg, st)
         states.append(st)
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = dense.final_norm(x, params, cfg)
     return unembed(x, params, cfg), {"states": states,
                                      "pos": state["pos"] + 1}

@@ -31,8 +31,8 @@ MESH_ACROSS_CARDS = ("a mesh of more than one device is not ported here: "
                      "the rest of the mesh across cards is ROADMAP queue 1 "
                      "item 14.5")
 MODEL_AXIS_NOT_PORTED = ('a "model" axis above 1 runs the LM train step '
-                         'alone; the engine\'s is ROADMAP queue 1 item 14.5 '
-                         'part 3c, serving across cards part 2')
+                         'and serving alone; the engine\'s is ROADMAP queue '
+                         '1 item 14.5 part 3c')
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,11 +20,17 @@ it (one all_gather an axis); ``constrain_tree`` checks the blocks' shapes
 and moves nothing. One device
 places nothing: there ``constrain_tree`` returns its tree. ``client_specs``
 gives the simulator's stacked client trees JAX's client-axis specs.
+``layer_specs`` gives one layer's slice of a stacked tree its specs, for
+the gather of each layer over "model" as it runs (``launch/serve.py``),
+and ``row_specs`` cuts a tree of per-row leaves (requests, decode states)
+on their rows, for ``shard_tree`` and ``gather_tree``.
 """
 from __future__ import annotations
 
 import math
 from typing import Mapping, Optional, Sequence
+
+import torch
 
 from repro_torch.sharding import comm
 from repro_torch.sharding.mesh import is_live, require_one_device
@@ -129,6 +135,28 @@ def client_specs(tree, m: int, mesh):
         return P()
 
     return tmap(one, tree)
+
+
+def layer_specs(tree_of_specs):
+    """The specs of one layer's slice of an L-stacked tree: each without
+    its leading "layers" entry (which the rules leave whole), so a dim cut
+    over "model" is one dim earlier in the slice."""
+    def one(sp):
+        if sp and sp[0] is not None:
+            raise ValueError(f"a stacked leaf cut on its layers dim ({sp}) "
+                             f"has no layer on every rank")
+        return P(*sp[1:])
+    return spec_map(one, tree_of_specs)
+
+
+def row_specs(tree, entry, dims=None):
+    """Specs that cut each leaf of ``tree`` on its rows dim over
+    ``entry`` (an axis or a tuple of them, as in a spec): ``dims`` is a
+    tree of those dims of ``tree``'s structure, dim 0 of every leaf where
+    None."""
+    if dims is None:
+        dims = tmap(lambda x: 0, tree)
+    return tmap(lambda x, k: P(*([None] * k), entry), tree, dims)
 
 
 def spec_map(fn, tree):
@@ -271,12 +299,16 @@ def _zip_map(fn, tree, specs, *more):
 
 
 def shard_leaf(x, spec, mesh):
-    """This rank's block of the whole leaf ``x`` (contiguous, a copy where
-    it is cut)."""
+    """This rank's block of the whole leaf ``x``: ``x`` where it is not
+    cut, else a contiguous copy that shares no storage with ``x`` (a view
+    of it would keep the whole leaf alive)."""
     if not hasattr(x, "shape"):
         return x
     _check_entries(spec, mesh)
-    return block_of(x, spec, mesh).contiguous()
+    block = block_of(x, spec, mesh)
+    if block.shape == x.shape:
+        return x.contiguous()
+    return block.clone(memory_format=torch.contiguous_format)
 
 
 def shard_tree(tree, tree_of_specs, mesh):

@@ -46,6 +46,9 @@ JOIN_S = 300          # the wall limit on a spawned group (about twice a
                       # mesh file's fixture in a run of six workers)
 JAX_S = 300           # and on the JAX subprocess
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS = 64, 2, 2
+# serving across ranks (tests/test_torch_mesh_serve.py): each request's
+# prompt length (where its case names none) and new tokens
+SERVE_SHAPE = {"prompt_len": 16, "new_tokens": 4}
 
 SMOLLM = "smollm-135m"
 CASES = {
@@ -328,6 +331,133 @@ def comm_checks(mesh) -> dict:
     every = [None] * mesh.size
     dist.all_gather_object(every, out)
     return every
+
+
+def state_row_dims(model, rows: int, max_len: int):
+    """The rows dim of each leaf of ``model``'s decode state, read off
+    ``init_decode_state`` at two row counts (stand-ins)."""
+    from repro_torch.core.treeutil import tmap
+    a, b = (model.init_decode_state(r, max_len, 0, device="meta")
+            for r in (rows, rows + 1))
+    return tmap(lambda x, y: next(k for k in range(x.dim())
+                                  if x.shape[k] != y.shape[k]), a, b)
+
+
+def serve_case(arch: str, batch: int, prompt_len=None) -> tuple:
+    """(the case's key "ARCH:B:Tp", its request: batch, prompt_len and
+    new_tokens), SERVE_SHAPE's prompt length where ``prompt_len`` is
+    None."""
+    tp = prompt_len or SERVE_SHAPE["prompt_len"]
+    return f"{arch}:{batch}:{tp}", dict(SERVE_SHAPE, batch=batch,
+                                        prompt_len=tp)
+
+
+def serve_cases(mesh, cases) -> dict:
+    """Each (arch, batch[, prompt_len]) of ``cases``, reduced, through
+    ``launch/serve.py::serve`` on this rank of the live ``mesh`` at
+    ``serve_case``'s request, and one device's serve of the rows this rank
+    served alone (``chip_smoke.serve_of_rows``): per case the whole
+    request's tokens, prefill logits, each step's logits and final state
+    (gathered over the axes that cut the rows), and this rank's rows, row
+    entry, census by phase and whether its run is one device's bit for
+    bit ("rank")."""
+    from repro_torch import configs
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.launch import serve as S
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import specs as sh
+    from repro_torch.sharding.rules import P
+    out = {}
+    for arch, batch, *tp in cases:
+        key, shape = serve_case(arch, batch, *tp)
+        cfg = configs.get_reduced(arch)
+        res = S.serve(cfg, device="cpu", mesh=mesh, **shape)
+        one = chip_smoke.serve_of_rows(cfg, shape, res.rows, res.groups,
+                                       "cpu")
+        same = all(torch.equal(getattr(res, k), getattr(one, k)) for k in
+                   ("tokens", "prefill_logits", "logits")) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(res.state),
+                                              tree_leaves(one.state)))
+        entry = S.row_entry(cfg, batch, mesh)
+        dims = state_row_dims(get_model(cfg), batch,
+                              shape["prompt_len"] + shape["new_tokens"])
+        state = sh.gather_tree(res.state, sh.row_specs(res.state, entry,
+                                                       dims), mesh,
+                               what="check")
+        out[key] = {
+            "tokens": [res.request_tokens],
+            "prefill": [sh.gather_tree(res.prefill_logits, P(entry), mesh,
+                                       what="check")],
+            "logits": list(sh.gather_tree(res.logits, P(None, entry), mesh,
+                                          what="check")),
+            "state": tree_leaves(state),
+            "rank": {"rows": res.rows, "entry": entry, "bitwise": same,
+                     "census": res.census, "slowest": res.slowest}}
+    return out
+
+
+def sub_mesh(mesh, shape):
+    """The live mesh of ``shape`` over the first D x M ranks of the live
+    ``mesh``'s process group, with groups of its own (every rank makes
+    every group, in order: ``new_group`` is collective); None on a rank
+    outside it."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.mesh import LiveMesh, axis_members, make_mesh
+    rec = make_mesh(shape, mesh.axis_names)
+    if rec.dims == mesh.dims:
+        return mesh
+    groups = {}
+    for axis in rec.axis_names:
+        if rec.shape[axis] == 1:
+            continue
+        for members in axis_members(rec, axis):
+            group = dist.group.WORLD if len(members) == mesh.size \
+                else dist.new_group(members)
+            if mesh.rank in members:
+                groups[axis] = group
+    if mesh.rank >= rec.size:
+        return None
+    return LiveMesh(rec.axis_names, rec.dims, rank=mesh.rank, groups=groups,
+                    device=mesh.device)
+
+
+def serve_groups(mesh, groups: dict) -> dict:
+    """What each rank of the serving group runs: ``serve_cases`` of each
+    {(D, M): cases} of ``groups`` on the ``sub_mesh`` of that shape; per
+    shape and case rank 0's results, with every rank's "rank" record of
+    that mesh under "ranks"."""
+    import torch.distributed as dist
+    out = {}
+    for shape, cases in groups.items():
+        sub = sub_mesh(mesh, shape)
+        mine = serve_cases(sub, cases) if sub is not None else {}
+        every = [None] * mesh.size
+        dist.all_gather_object(every, {c: r["rank"] for c, r in
+                                       mine.items()})
+        out[shape] = {c: dict(r, ranks=[e[c] for e in every
+                                        if c in e]) for c, r in mine.items()}
+    return out
+
+
+def spawn_serve(groups: dict, cli) -> tuple:
+    """``serve_groups`` on one group of four gloo ranks and, side by side,
+    ``python -m repro_torch.launch.serve`` with the arguments ``cli``:
+    (rank 0's results, the CLI's CompletedProcess)."""
+    with rank_threads():
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *cli],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    try:
+        runs = _spawn(serve_groups, (2, 2), groups)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    out, err = proc.communicate(timeout=JOIN_S)
+    return runs, subprocess.CompletedProcess(proc.args, proc.returncode,
+                                             out, err)
 
 
 def run_model_cases(mesh, cases, with_plain=False, train=False,

@@ -2,7 +2,8 @@
 
     python tests/_torch_mesh_jax.py OUT.npz SHAPE[,SHAPE...] CASE[,CASE...] \
         [at=SHAPE:CASE[,CASE...]] [train=SHAPE] [layout=SHAPE[,SHAPE...]] \
-        [engine=CASE[,CASE...]] [alone=CASE[,CASE...]]
+        [engine=CASE[,CASE...]] [alone=CASE[,CASE...]] \
+        [serve=SHAPE:ARCH:B:TP[,SHAPE:ARCH:B:TP...]]
 
 A SHAPE is D (the mesh D x 1) or DxM over ("data", "model").
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` is set before JAX
@@ -19,7 +20,14 @@ Z leaves and metrics go to OUT.npz under "SHAPE|case|round|tree|leaf".
 each D, and ``alone=`` with no mesh (JAX's own spread is the distance
 between the two; the tests run a case's no-mesh run once, in one of the
 subprocesses); ``engine_record`` of each run goes to OUT.npz.engine.pkl
-under (D or None, case).
+under (D or None, case). ``serve=`` runs JAX serve's flow
+(``repro/launch/serve.py:52-93``'s calls: ``param_specs`` with
+``DistConfig()``, the init jitted with those shardings, prefill and the
+donated decode step jitted under ``serve_activation_rules``) for each
+reduced ARCH at batch B and prompt length TP on the Auto mesh of SHAPE,
+with ``tests/_torch_mesh.py::SERVE_SHAPE``'s new tokens; its tokens,
+prefill logits, each step's logits and final state leaves go to OUT.npz
+under "SHAPE|serve:ARCH:B:TP|0|{tokens,prefill,logits,state}|i".
 """
 from __future__ import annotations
 
@@ -117,6 +125,52 @@ def engine_run(case: str, D):
     return rec
 
 
+def serve_run(arch: str, shape, batch: int, Tp: int) -> dict:
+    """JAX serve's flow for the reduced ``arch`` on the Auto mesh of
+    ``shape`` at prompt length ``Tp``: {tree: [arrays]} as the npz keys
+    hold them."""
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.core import distributed as dist_mod
+    from repro.launch.steps import _named, serve_activation_rules
+    from repro.models.registry import get_model
+    from repro.sharding.rules import axis_rules
+    mesh = _auto_mesh(shape)
+    cfg = configs.get_reduced(arch)
+    model = get_model(cfg)
+    rules = serve_activation_rules(mesh)
+    aparams = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0)))
+    pspecs = dist_mod.param_specs(cfg, aparams, mesh, dist_mod.DistConfig())
+    params = jax.jit(lambda k: model.init(k), out_shardings=_named(
+        pspecs, mesh))(jax.random.PRNGKey(0))
+    n = M.SERVE_SHAPE["new_tokens"]
+    max_len = Tp + n + (cfg.n_patches or 0)
+
+    def prefill_fn(p, b):
+        with axis_rules(mesh, rules):
+            return model.prefill(p, b, max_len=max_len)
+
+    def decode_fn(p, st, b):
+        with axis_rules(mesh, rules):
+            return model.decode_step(p, st, b)
+
+    req = {"tokens": jax.random.randint(jax.random.PRNGKey(1), (batch, Tp),
+                                        0, cfg.vocab)}
+    first, state = jax.jit(prefill_fn)(params, req)
+    decode = jax.jit(decode_fn, donate_argnums=1)
+    tok = jnp.argmax(first[:, -1], axis=-1)[:, None]
+    toks, logits = [tok], []
+    for _ in range(n):
+        out, state = decode(params, state, {"tokens": tok})
+        tok = jnp.argmax(out[:, 0], axis=-1)[:, None]
+        toks.append(tok)
+        logits.append(np.asarray(out))
+    return {"tokens": [np.concatenate([np.asarray(t) for t in toks], 1)],
+            "prefill": [np.asarray(first)], "logits": logits,
+            "state": [np.asarray(x)
+                      for x in jax.tree_util.tree_leaves(state)]}
+
+
 def main(argv) -> int:
     path, devices, cases = argv[0], argv[1], argv[2]
     out = {}
@@ -138,8 +192,17 @@ def main(argv) -> int:
                 for case in filter(None, names.split(","))]):
             _put(out, f"{tok}|{case}", states, mets)
     engine = {}
+    serve = [tuple(c.split(":")) for a in argv[3:] if a.startswith("serve=")
+             for c in a.removeprefix("serve=").split(",")]
+    with ThreadPoolExecutor(THREADS) as pool:
+        for (tok, arch, b, tp), run in zip(serve, pool.map(
+                lambda c: serve_run(c[1], shape_of(c[0]), int(c[2]),
+                                    int(c[3])), serve)):
+            for tree, leaves in run.items():
+                for i, x in enumerate(leaves):
+                    out[f"{tok}|serve:{arch}:{b}:{tp}|0|{tree}|{i}"] = x
     for arg in argv[3:]:
-        if arg.startswith("at="):
+        if arg.startswith(("at=", "serve=")):
             continue
         if arg.startswith("layout="):
             for tok in arg.removeprefix("layout=").split(","):

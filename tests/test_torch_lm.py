@@ -329,7 +329,7 @@ def test_prefill_and_the_mesh_mode_name_item_14(capsys):
                        "--seq", "8", "--global-batch", "2", "--rounds",
                        "1"]) == 0
     with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", "smollm-135m", "--reduced", "--devices", "2"])
+        serve.main(["--arch", "smollm-135m", "--reduced", "--devices", "3"])
     assert e.value.code == 2
     assert "queue 1 item 14" in capsys.readouterr().err
 

@@ -168,4 +168,4 @@ def test_what_stays_on_one_device_names_item_14_5(capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert err.count("item 14.5") == 2
-    assert "item 14.5 part 2" in err and "item 14.5 part 4" in err
+    assert "item 14.5 part 5" in err and "item 14.5 part 4" in err

@@ -217,18 +217,18 @@ def test_embedding_backward_in_pieces(monkeypatch):
 
 
 def test_what_stays_refused_names_its_part(capsys):
-    """``serve --devices 4`` (part 2), the engine on a "model" axis above
-    1 (part 3c), ``dryrun --mesh multi`` (part 4), a dim its ranks do not
-    divide (part 5); ``train`` with a mesh shape whose product is not
-    ``--devices`` exits 2 naming both."""
+    """``serve --devices 4`` of a batch of 6 (part 5), the engine on a
+    "model" axis above 1 (part 3c), ``dryrun --mesh multi`` (part 4), a
+    dim its ranks do not divide (part 5); ``train`` with a mesh shape
+    whose product is not ``--devices`` exits 2 naming both."""
     from repro_torch.launch import dryrun, serve, train
     from repro_torch.sharding import specs as sh
     from repro_torch.sharding.rules import P
     from repro_torch.sim.engine import _resolve_mesh
     with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", M.SMOLLM, "--devices", "4"])
+        serve.main(["--arch", M.SMOLLM, "--devices", "4", "--batch", "6"])
     assert e.value.code == 2
-    assert "item 14.5 part 2" in capsys.readouterr().err
+    assert "item 14.5 part 5" in capsys.readouterr().err
     live = tmesh.LiveMesh(("data", "model"), (2, 2), rank=3)
     with pytest.raises(ValueError, match=r"item 14\.5 part 3c"):
         _resolve_mesh(live, None)

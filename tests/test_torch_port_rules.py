@@ -56,18 +56,23 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "check_threefry_rows_kernel", "check_xlstm_upload_vs_cpu",
              "at_child", "lm_leaf_widths", "run_mesh_path", "mesh_rank",
              "mesh_width", "run_engine_mesh_path", "engine_mesh_rank",
-             "model_axis_census", "census_by_key", "model_grad_bitwise"):
+             "model_axis_census", "census_by_key", "model_grad_bitwise",
+             "serve_census", "serve_of_rows", "serve_mesh_rank",
+             "run_serve_mesh_path", "serve_mesh_path_rank",
+             "serve_bits"):
     assert callable(getattr(chip_smoke, name)), name
 from repro_torch.sharding import comm, mesh, specs
 from repro_torch.core import distributed, fedepm, dp
-from repro_torch.launch import mesh as lmesh, steps, train
+from repro_torch.launch import mesh as lmesh, serve, steps, train
+from repro_torch.models import dense, layers, moe
 for mod, names in ((mesh, ("make_live_mesh", "axis_members", "LiveMesh")),
                    (comm, ("all_gather", "all_to_all", "reduce_scatter",
                            "all_reduce")),
                    (specs, ("entry_axes", "axis_dim", "data_dim",
                             "cut_axes", "local_shape", "block_index",
                             "axis_view", "block_of", "shard_leaf",
-                            "shard_tree", "gather_tree")),
+                            "shard_tree", "gather_tree", "layer_specs",
+                            "row_specs")),
                    (distributed, ("batch_specs", "model_rows",
                                   "spatial_round", "temporal_round",
                                   "build_fedepm", "_Shards",
@@ -75,8 +80,15 @@ for mod, names in ((mesh, ("make_live_mesh", "axis_members", "LiveMesh")),
                    (fedepm, ("fedepm_round", "upload_scale")),
                    (dp, ("client_unit_laplace", "add_client_noise",
                          "snr_db10")),
-                   (lmesh, ("spawn",)), (steps, ("build_train_step",)),
-                   (train, ("main", "run_mesh"))):
+                   (lmesh, ("spawn", "mesh_shape_arg")),
+                   (steps, ("build_train_step",)),
+                   (train, ("main", "run_mesh")),
+                   (serve, ("main", "run_rank", "serve", "row_entry",
+                            "routing_groups")),
+                   (dense, ("compute_copy", "compute_copies",
+                            "layer_params", "final_norm")),
+                   (layers, ("leaves_made", "dense_init", "embed_init")),
+                   (moe, ("routing_groups", "moe_mlp"))):
     for name in names:
         assert callable(getattr(mod, name)), (mod.__name__, name)
 walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,

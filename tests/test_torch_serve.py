@@ -14,7 +14,8 @@ JAX on the CPU at the reduced configs (checks in ``_torch_serve.py``):
   12-token prompt whose decode wraps the ring) and a ragged
   ``prefill_len``, through the registry;
 - the CLI's lines, exit codes and refusals (an encoder-only arch returns
-  1; the mesh flags exit 2 naming ROADMAP queue 1 item 14.5).
+  1; a batch that the data ranks do not divide exits 2 naming ROADMAP
+  queue 1 item 14.5 part 5).
 """
 from __future__ import annotations
 
@@ -227,10 +228,10 @@ def test_cli_prints_serves_lines(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--devices", "8"],
-                                   ["--mesh-shape", "4,2"],
-                                   ["--arch", "hubert-xlarge",
-                                    "--mesh-shape", "2,1"]])
+                                   ["--mesh-shape", "3,2"],
+                                   ["--batch", "5", "--devices", "2"]])
 def test_cli_refuses_the_mesh(flags, capsys):
+    """A batch that the data ranks do not divide (item 14.5 part 5)."""
     with pytest.raises(SystemExit) as e:
         tserve.main(flags + ["--reduced", "--device", "cpu"])
     assert e.value.code == 2
