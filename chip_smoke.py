@@ -48,7 +48,10 @@ Phases, in order; any failure exits non-zero before the last line:
    three modes at one key x 3 and x 128 counters, 128 keys x 1, x 14 and
    x 1,048,576, and its rows entry (the codec's packed dither) on the
    simulator's layout, ragged layouts, 70,000 rows and the two LM layouts
-   (xlstm's counters pass 2^32); and the port's
+   (xlstm's counters pass 2^32), and its block entry (a serving rank's
+   block of a leaf) at full-width cuts of mixtral-8x7b's and
+   command-r-35b's leaves and ragged edges, with ``random.normal_block``
+   against the whole draw cut; and the port's
    ``repro_torch.random`` on the card against a table of JAX's own answers
    (``PRNGKey``, ``split``, ``fold_in``, ``bits``, ``uniform``,
    ``permutation``) computed with jax 0.9.0 and committed below.
@@ -119,7 +122,8 @@ Phases, in order; any failure exits non-zero before the last line:
    1024, 128 new tokens; reduced (f32) smollm-135m, mixtral-8x7b,
    llava-next-34b, xlstm-125m and zamba2-1.2b, held to ``JAX_SERVE``
    (tokens exact, digests within 4e-6). No TPU kernel runs there (their
-   counters stay 0); the threefry hash draws the init and the prompts.
+   counters stay 0); the threefry hash draws the prompts and its block
+   entry the init.
    Each case prints prefill ms, decode ms a token (eager and graph),
    tok/s, peak device memory and the decode state's bytes; the profiles
    give launches a token and the device's idle share. Then the
@@ -854,6 +858,7 @@ def check_quant_kernels(card: str) -> list[dict]:
 THREEFRY_OPS = {"keys": (40, 32), "bits": (41, 32), "uniform": (43, 35)}
 SM_CLOCKS_PER_S = 132 * 1.98e9
 THREEFRY_OUT_BYTES = {"keys": 16, "bits": 8, "uniform": 4}
+MODES_ALL = ("uniform", "keys", "bits")
 # (keys, counters, timing repetitions); the main path's noise draw is
 # 128 keys x 14 uniforms
 THREEFRY_PLAN = [(128, 14, 200), (1, 3, 0), (1, 128, 0), (128, 1, 0),
@@ -994,6 +999,166 @@ def check_threefry_rows_kernel(card: str) -> list[dict]:
                      "elementwise code", cases)]
 
 
+# the block entry's cuts, (tag, keys, a key's leaf shape, the dim cut, M,
+# block index, timing repetitions): the first is timed as the row's main
+# shape. mixtral-8x7b's layers.moe.wg, one layer (8, 4096, 14336) on its
+# last dim into 4 (32768 rows of 3584); command-r-35b's embed (256000,
+# 8192) on dim 0 into 4 (one row of 524,288,000 counters, past 2^32);
+# command-r's stacked layers.attn.wq (40 keys, 8192, 64, 128) on its heads
+# into 4 (a middle dim, 40 keys); ragged edges (rows past gridDim.y's
+# reach, widths that no tile fills, 70,000 keys)
+THREEFRY_BLOCK_PLAN = [
+    ("mixtral wg layer", 1, (8, 4096, 14336), 2, 4, 1, 5),
+    ("command-r embed", 1, (256000, 8192), 0, 4, 3, 2),
+    ("command-r wq stacked", 40, (8192, 64, 128), 1, 4, 2, 2),
+    ("edge rows", 1, (70000, 4, 5), 2, 5, 4, 0),
+    ("edge width", 3, (7, 300, 9), 1, 3, 2, 0),
+    ("edge keys", MANY_ROWS, (6,), 0, 2, 1, 0)]
+THREEFRY_BLOCK_EDGE_OFFSET = 2 ** 32 - 700  # a counter's carry mid-block
+BLOCK_DRAW_LEAF = (4, (2048, 8384))  # keys, a key's shape: 4 of zamba2's
+                                     # stacked in_proj
+
+
+def _block_args(shape, dim: int, M: int, i: int) -> tuple:
+    """(rows, width, stride, offset) of block ``i`` of M of a key's leaf
+    ``shape`` cut on ``dim``, as ``random.normal_block`` hashes it."""
+    inner = math.prod(shape[dim + 1:])
+    w = shape[dim] // M
+    return (math.prod(shape[:dim]), w * inner, shape[dim] * inner,
+            i * w * inner)
+
+
+def _block_pieces(K: int, rows: int, width: int, budget: int):
+    """(keys slice, first row, rows, first column, columns) pieces of a
+    (K, rows, width) block of at most about ``budget`` values each."""
+    per_key = max(1, budget // max(1, rows * width))
+    for k in range(0, K, per_key):
+        ks = slice(k, min(K, k + per_key))
+        if rows * width <= budget:
+            yield ks, 0, rows, 0, width
+        elif width <= budget:
+            step = budget // width
+            for p in range(0, rows, step):
+                yield ks, p, min(step, rows - p), 0, width
+        else:
+            for p in range(rows):
+                for j in range(0, width, budget):
+                    yield ks, p, 1, j, min(budget, width - j)
+
+
+def _threefry_block_case(tag, K, shape, dim, M, i, reps, gen, modes):
+    """The block entry at block ``i`` of M of ``shape`` cut on ``dim``, K
+    keys, against ``threefry_block_ref`` in pieces, bitwise, in each of
+    ``modes``; timed (uniform, as the init draws) when ``reps``. Per
+    output the uniform mode's operations of the hash entry (the counter's
+    row arithmetic not counted: a floor) and 4 bytes written, the keys
+    read."""
+    from repro_torch.kernels.threefry.threefry import (threefry_block_cuda,
+                                                       threefry_block_ref)
+    keys = torch.randint(0, 2 ** 32, (K, 2), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    rows, width, stride, offset = _block_args(shape, dim, M, i)
+    if tag.startswith("edge"):
+        offset += THREEFRY_BLOCK_EDGE_OFFSET
+    lo, hi = -0.9999999403953552, 1.0  # normal's uniform range
+    res = {"case": tag, "keys": K, "leaf": list(shape), "dim": dim,
+           "block": [i, M], "rows": rows, "width": width, "stride": stride,
+           "offset": offset, "last_counter": offset + (rows - 1) * stride
+           + width - 1, "mismatches": 0, "max_abs_err": 0.0}
+    for mode in modes:
+        got = threefry_block_cuda(keys, rows, width, stride, offset, mode,
+                                  lo, hi)
+        for ks, p, n, j, w in _block_pieces(K, rows, width, WIDE_PIECE):
+            want = threefry_block_ref(keys[ks], n, w, stride,
+                                      offset + p * stride + j, mode, lo, hi)
+            part = got[ks, p * width + j:(p + n - 1) * width + j + w]
+            if mode == "uniform":
+                part, want = part.view(torch.int32), want.view(torch.int32)
+            mism = int((part != want).sum())
+            if mism:
+                raise AssertionError(f"threefry block {tag} {mode}: {mism} "
+                                     f"values differ")
+        del got
+    torch.cuda.synchronize()
+    if reps:
+        N = K * rows * width
+        b_ms, b_by = bound(16 * K + 4 * N, 0.0)
+        alu, other = THREEFRY_OPS["uniform"]
+        t_ops = max(alu / 64, (alu + other) / 128) * N / SM_CLOCKS_PER_S \
+            * 1e3
+        if t_ops > b_ms:
+            b_ms, b_by = t_ops, "operations"
+        call = (keys, rows, width, stride, offset, "uniform", lo, hi)
+        plain = time_ms(lambda: threefry_block_ref(*call), 1) \
+            if N <= WIDE_PIECE * 2 else None
+        res.update(ms=time_ms(lambda: threefry_block_cuda(*call), reps),
+                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _block_draw_case(gen) -> dict:
+    """``random.normal_block`` on the card against ``random.normal`` times
+    a dense_init scale, cast to bf16 and cut, bit for bit: BLOCK_DRAW_LEAF
+    stacked over its keys, cut on its last dim into 4, every block, and
+    the whole draw with no block."""
+    from repro_torch import random
+    K, shape = BLOCK_DRAW_LEAF
+    keys = random.split(random.PRNGKey(int(torch.randint(
+        0, 2 ** 31, (), generator=gen, device="cuda")), device="cuda"), K)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(shape[0])))
+    whole = random.normal(keys, shape).mul_(scale).to(torch.bfloat16)
+    M, w = 4, shape[-1] // 4
+    blocks = [(None, whole)] + [
+        ((2, i * w, w), whole[..., i * w:(i + 1) * w]) for i in range(M)]
+    mism = 0
+    for block, want in blocks:
+        got = random.normal_block(keys, shape, block, scale, torch.bfloat16)
+        mism += int((got.view(torch.int16) != want.view(torch.int16))
+                    .sum())
+        del got
+    del whole, blocks
+    torch.cuda.empty_cache()
+    if mism:
+        raise AssertionError(f"normal_block differs from the whole draw cut "
+                             f"in {mism} values")
+    return {"case": f"normal_block = normal cut, {K} x {shape} bf16, "
+                    f"{M} blocks and the whole", "mismatches": 0,
+            "max_abs_err": 0.0}
+
+
+def check_threefry_block_kernel(card: str) -> list[dict]:
+    """The block entry (the init's block draw) against its plain version,
+    bitwise, at the full-width cuts of THREEFRY_BLOCK_PLAN (the edges in
+    all three modes), timed at mixtral-8x7b's wg layer first; then
+    ``random.normal_block`` against the whole draw cut on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    cases = []
+    for tag, K, shape, dim, M, i, reps in THREEFRY_BLOCK_PLAN:
+        modes = MODES_ALL if tag.startswith("edge") else ("uniform",)
+        cases.append(_threefry_block_case(tag, K, shape, dim, M, i, reps,
+                                          gen, modes))
+        c = cases[-1]
+        if "ms" in c:
+            plain = "not timed (too wide)" if c["plain_ms"] is None \
+                else f"{c['plain_ms']:.4f} ms"
+            log(f"  threefry block {tag} ({K} keys x {c['rows']} rows x "
+                f"{c['width']}): kernel {c['ms']:.4f} ms plain {plain} "
+                f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    cases.append(_block_draw_case(gen))
+    log(f"kernels: the threefry block entry agrees with its plain version in "
+        f"{len(cases) - 1} cuts and the block draw with the whole draw cut "
+        f"({card}); library_ms is null, as for the hash")
+    return [_summary("threefry_block",
+                     "src/repro_torch/kernels/csrc/threefry.cu",
+                     "no TPU kernel: jax.random.normal of a block under "
+                     "partitionable threefry (src/repro/launch/serve.py:52, "
+                     "the init jitted with out_shardings), XLA elementwise "
+                     "code", cases)]
+
+
 # jax.random's answers under jax 0.9.0's defaults (threefry2x32,
 # partitionable), for PRNGKey(seed): the key, split(key, 3) flattened,
 # fold_in(key, 7), bits(key, (5,)), the f32 bit patterns of
@@ -1100,7 +1265,8 @@ def read_counts() -> dict:
 # task (d = 45222): ``benchmarks.common.run_algorithm(alg, **settings)``
 # with jax 0.9.0. The port draws JAX's stream, so the card must reach the
 # same CR, or one round from it (the variance rule can flip on an ulp),
-# with f/m within 1e-5. tests/test_torch_bench.py recomputes them with JAX.
+# with f/m within 1e-5. tests/test_torch_bench_trials.py recomputes them
+# with JAX.
 JAX_TRIALS = {
     "main": {"alg": "fedepm", "m": 128, "k0": 12, "rho": 0.5, "eps": 0.1,
              "max_rounds": 400, "CR": 120, "f": 0.6923203468322754},
@@ -1122,9 +1288,9 @@ CR_SLACK, F_ATOL = 1, 1e-5
 # (``benchmarks.common.run_algorithm``, jax 0.9.0) and the port's CPU run
 # (``repro_torch.launch.paper.run_algorithm(..., device="cpu")``), which
 # now computes XLA:CPU's loss and gradient bit for bit and stops at JAX's
-# round with JAX's f/m; tests/test_torch_bench.py recomputes both columns
-# live. The card computes with CUDA's exp and log1p and torch's reductions;
-# its CRs are printed beside them, not held to them.
+# round with JAX's f/m; tests/test_torch_bench_trials.py recomputes both
+# columns live. The card computes with CUDA's exp and log1p and torch's
+# reductions; its CRs are printed beside them, not held to them.
 QUEUE3_TRIALS = {
     "fedepm/rho=1.0/seed=2": {"alg": "fedepm", "rho": 1.0, "seed": 2,
                               "jax": (101, 0.6923197937011719),
@@ -2834,6 +3000,7 @@ def _serve_case(tag: str, cfg, shape: dict, twice: bool = True):
     assert (GRAPH_STATS["captures"], GRAPH_STATS["replays"]) == (1, n), \
         GRAPH_STATS
     assert launches.pop("threefry") > 0, launches
+    assert launches.pop("threefry_block") > 0, launches  # the inits' draws
     assert not any(launches.values()), (tag, launches)
     rec = {"arch": cfg.name, **shape,
            "prefill_ms": graph.prefill_s * 1e3,
@@ -4156,12 +4323,13 @@ def model_axis_census(kw: dict, shape, m: int, rows: int, k0: int,
 
 
 def serve_of_rows(cfg, shape: dict, rows, groups: int = 1,
-                  device=None):
+                  device=None, params=None):
     """One device's eager serve of the rows [lo, hi) (``rows``) of the
     request ``shape`` (batch, prompt_len, new_tokens) alone, MoE routed in
     ``groups`` (``models/moe.py::routing_groups``): ``launch/serve.py``'s
-    init, request and run, none of its mesh code; the reference a mesh
-    rank's rows are held to bit for bit."""
+    init (or ``params``, that init's tree, where given), request and run,
+    none of its mesh code; the reference a mesh rank's rows are held to
+    bit for bit."""
     from repro_torch import random
     from repro_torch.kernels.common import resolve_device
     from repro_torch.launch import serve as S
@@ -4170,7 +4338,8 @@ def serve_of_rows(cfg, shape: dict, rows, groups: int = 1,
     model, dev = get_model(cfg), resolve_device(device)
     Tp, n = shape["prompt_len"], shape["new_tokens"]
     with torch.inference_mode(), moe.routing_groups(groups):
-        params = model.init(random.PRNGKey(0, device=dev))
+        if params is None:
+            params = model.init(random.PRNGKey(0, device=dev))
         req = {k: v[rows[0]:rows[1]] for k, v in
                S.prompt_batch(cfg, shape["batch"], Tp, dev).items()}
         return S._run(model, params, req, Tp + n + (cfg.n_patches or 0),
@@ -4731,6 +4900,38 @@ def _model_axis_zamba2(mesh) -> tuple:
 # it, with whether it is within SERVE_MESH_RTOL of the scale: a reading,
 # since on full-width bf16 one card's serve of a row alone and among B
 # rows already differ (cuBLAS picks its kernels by shape; ROADMAP queue 3).
+# Every rank's init is held too (part 2b, _hold_init): its blocks exactly
+# the bytes by the specs, its peak at most those and SERVE_INIT_SLACK_GB.
+#
+# Each rank's bytes of the params at full width on a (D, M) mesh, by JAX
+# serve's param_specs(cfg, params, mesh, DistConfig()) (recomputed with
+# JAX by tests/test_torch_block_draw.py): the port's blocks must hold
+# exactly these
+SERVE_BLOCK_BYTES = {("mixtral-8x7b", (1, 4)): 23_351_402_496,
+                     ("mixtral-8x7b", (2, 2)): 46_702_796_800,
+                     ("command-r-35b", (1, 4)): 15_141_797_888,
+                     ("command-r-35b", (2, 2)): 30_283_563_008}
+# (D) models that no card holds beside a rank's blocks, at full width on
+# four cards, SERVE_DEFAULTS, at SERVE_BIG_SHAPES eager and graph:
+# command-r-35b held to one card's serve of each rank's rows, made in the
+# parent process before the ranks start; mixtral-8x7b (93.4 GB) on no one
+# card, its ranks held to each other, its sampled block rows to the plain
+# hash, and its depth cut to SERVE_BIG_DEPTH layers held to one card
+SERVE_BIG = ("command-r-35b", "mixtral-8x7b")
+SERVE_ONE_CARD = ("command-r-35b",)
+SERVE_BIG_SHAPES = ((1, 4), (2, 2))
+SERVE_BIG_DEPTH = 2
+SERVE_INIT_SLACK_GB = 1.5   # an init's peak above a rank's blocks
+SERVE_SAMPLE_VALUES = 2048  # a sampled row's window, from each end
+# where mixtral-8x7b's init (models/moe.py::init) draws the sampled leaves:
+# the key as splits of PRNGKey(0), (num, index) each, "L" a layer's index
+# (the layers' keys stacked), and the scale ("fan_in": 1/sqrt of the
+# per-key shape's first dim, dense_init's)
+SERVE_SAMPLES = {
+    "embed": ([(3, 0)], 0.02),
+    "layers.moe.wg": ([(3, 1), (32, "L"), (2, 1), (4, 2)], "fan_in"),
+    "layers.moe.wo": ([(3, 1), (32, "L"), (2, 1), (4, 3)], "fan_in"),
+    "unembed": ([(3, 2)], "fan_in")}
 SERVE_MESH_SHAPES = ((4, 1), (2, 2), (1, 4))
 SERVE_MESH_CHAT_SHAPES = ((2, 2), (1, 4))
 SERVE_MESH_RTOL = 2.0 ** -7
@@ -4773,15 +4974,22 @@ def _serve_on(cfg, shape: dict, graph: bool, dev, mesh=None):
 
 
 def _serve_times(res, shape: dict, peak: float) -> dict:
-    """A run's peak and times; on a mesh also the bytes its blocks of the
-    params hold after the init (``params_gb``)."""
+    """A run's peaks and times: the init's time and peak
+    (``ServeResult.init_s``, ``init_peak_gb``), the request's own peak
+    with the params held (``peak_mem_gb``), prefill, decode a token,
+    tok/s; on a mesh also the bytes its blocks of the params hold after
+    the init (``params_gb``) and the bytes it received a decode step
+    (``census_per_token_gb``)."""
     n, B = shape["new_tokens"], shape["batch"]
     steps_s = res.slowest[2] if res.slowest else res.steps_s
-    out = {"peak_mem_gb": peak, "prefill_ms": res.prefill_s * 1e3,
+    out = {"init_s": res.init_s, "init_peak_gb": res.init_peak_gb,
+           "peak_mem_gb": peak, "prefill_ms": res.prefill_s * 1e3,
            "decode_ms_per_token": res.steps_s / n * 1e3,
            "capture_s": res.capture_s, "tok_per_s": n * B / steps_s}
     if res.param_bytes is not None:
         out["params_gb"] = res.param_bytes / 1e9
+        out["census_per_token_gb"] = sum(
+            census_by_key(res.census["steps"]).values()) / n / 1e9
     return out
 
 
@@ -4829,10 +5037,49 @@ def _request_distance(got_tokens, got_logits, ref_tokens,
     return {"max_err_over_scale": worst, "differing_tokens": differ}
 
 
-def _serve_mesh_case(mesh, cfg, shape: dict, shapes, graphs) -> tuple:
+def _block_bytes(cfg, dims) -> int:
+    """A rank's bytes of the params on a (D, M) mesh by JAX serve's
+    ``param_specs``, from the meta init's shapes."""
+    from repro_torch import random
+    from repro_torch.core.distributed import DistConfig, param_specs
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.specs import local_shape, spec_leaves
+    mesh = make_mesh(dims, ("data", "model"))
+    like = get_model(cfg).init(random.PRNGKey(0, device="meta"))
+    specs = spec_leaves(param_specs(cfg, like, mesh, DistConfig()))
+    return sum(math.prod(local_shape(x.shape, sp, mesh)) * x.element_size()
+               for x, sp in zip(tree_leaves(like), specs))
+
+
+def _hold_init(cfg, dims, res, what: str) -> None:
+    """A mesh rank's init: its blocks hold exactly a rank's bytes by the
+    specs (at full width also SERVE_BLOCK_BYTES, JAX's), and on the card
+    its peak is at most those bytes and SERVE_INIT_SLACK_GB of pieces."""
+    from repro_torch import configs
+    want = _block_bytes(cfg, dims)
+    if cfg == configs.get_config(cfg.name):
+        want_jax = SERVE_BLOCK_BYTES.get((cfg.name, tuple(dims)), want)
+        assert want == want_jax, (cfg.name, dims, want, want_jax)
+    assert res.param_bytes == want, (cfg.name, what, res.param_bytes, want)
+    if res.init_peak_gb is not None:
+        assert res.init_peak_gb <= want / 1e9 + SERVE_INIT_SLACK_GB, \
+            (cfg.name, what, res.init_peak_gb, want / 1e9)
+
+
+def _serve_mesh_case(mesh, cfg, shape: dict, shapes, graphs,
+                     one_card=None, alone: bool = False) -> tuple:
     """One request on each (D, M) of ``shapes`` over this rank's mesh, eager
-    and/or graph (``graphs``): every hold of the section above. Returns
-    (this rank's records, rank 0's checks)."""
+    and/or graph (``graphs``): every hold of the section above, and each
+    rank's init held (``_hold_init``). ``one_card``: where one card holds
+    the params but not beside a rank's blocks, the parent's one-card serve
+    of the request and of each rank's rows (``serve_rows_on_one_card``),
+    which rank 0 then does not run. ``alone``: where no card holds the
+    params, no one-card serve at all; each rank's run is held bit for bit
+    to every other rank's (each serves the whole request) and its sampled
+    block rows to the plain hash (``_sampled_block_rows``). Returns (this
+    rank's records, rank 0's checks)."""
     import torch.distributed as dist
     from repro_torch.launch.serve import row_entry
     from repro_torch.sharding import specs as sh
@@ -4840,7 +5087,11 @@ def _serve_mesh_case(mesh, cfg, shape: dict, shapes, graphs) -> tuple:
     from repro_torch.sharding.rules import P
     dev, lead = mesh.device, mesh.rank == 0
     recs, checks, own, ref = {}, {}, {}, None
-    if lead:  # one card's serve of the whole request: a reading
+    if one_card is not None:
+        own = dict(one_card["rows"])
+        if lead:
+            recs["one_card"], ref = one_card["times"], one_card["ref"]
+    elif lead and not alone:  # one card's serve of the whole request
         one, peak = _serve_on(cfg, shape, True, dev)
         recs["one_card"], ref = _serve_times(one, shape, peak), _request(one)
         del one
@@ -4853,13 +5104,21 @@ def _serve_mesh_case(mesh, cfg, shape: dict, shapes, graphs) -> tuple:
             what = f"{dims[0]}x{dims[1]}/{'graph' if graph else 'eager'}"
             log(f"mesh[rank {mesh.rank}] serve {cfg.name} {what}")
             res, peak = _serve_on(cfg, shape, graph, dev, sub)
+            _hold_init(cfg, dims, res, what)
             key = (res.rows, res.groups)
-            if key not in own:  # one card's serve of these rows alone
-                one = serve_of_rows(cfg, shape, res.rows, res.groups, dev)
-                own[key] = (serve_bits(one), _request(one))
-                del one
             bits = serve_bits(res)
-            assert bits == own[key][0], (cfg.name, what, "rows")
+            if alone:  # every rank serves the whole request: the same bits
+                every = [None] * mesh.size
+                dist.all_gather_object(every, bits)
+                assert entry is None and all(b == bits for b in every), \
+                    (cfg.name, what, "ranks")
+            else:
+                if key not in own:  # one card's serve of these rows alone
+                    one = serve_of_rows(cfg, shape, res.rows, res.groups,
+                                        dev)
+                    own[key] = (serve_bits(one), _request(one))
+                    del one
+                assert bits == own[key][0], (cfg.name, what, "rows")
             runs[graph] = bits
             census = {k: census_by_key(v) for k, v in res.census.items()}
             want = serve_census(cfg, dims, shape["batch"],
@@ -4868,6 +5127,13 @@ def _serve_mesh_case(mesh, cfg, shape: dict, shapes, graphs) -> tuple:
             assert census == want, (cfg.name, what, census, want)
             rec = dict(_serve_times(res, shape, peak), rows=res.rows,
                        census=census, slowest_s=res.slowest)
+            if alone:
+                if lead:
+                    checks[what] = {"ranks_bitwise": True}
+                recs[what] = rec
+                del res
+                dist.barrier()
+                continue
             got = (res.request_tokens.cpu(), [x.cpu() for x in [
                 sh.gather_tree(res.prefill_logits, P(entry), sub,
                                what="check")] + list(sh.gather_tree(
@@ -4895,6 +5161,144 @@ def _serve_mesh_case(mesh, cfg, shape: dict, shapes, graphs) -> tuple:
             dist.barrier()
         if len(runs) == 2:
             assert runs[True] == runs[False], (cfg.name, dims, "graph")
+        if alone:
+            recs[f"{dims[0]}x{dims[1]}/blocks"] = _sampled_block_rows(
+                sub, cfg)
+            dist.barrier()
+    return recs, checks
+
+
+def _sampled_block_rows(mesh, cfg) -> dict:
+    """This rank's blocks of mixtral-8x7b's SERVE_SAMPLES leaves, drawn
+    again on the card as ``serve`` draws them (``launch/serve.py::
+    _mesh_params``), against the plain hash run on the CPU at the
+    counters where each sampled row's values lie: for the first and last
+    layer of a stacked leaf, its first, middle and last block row, a
+    window of SERVE_SAMPLE_VALUES at each end; the key made from
+    ``PRNGKey(0)`` by SERVE_SAMPLES' splits, each value ``normal``'s
+    erf_inv of the hash's uniform, times the scale, in the leaf's dtype,
+    bit for bit. An independent check of the block's counters."""
+    from repro_torch import random
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.core.xla_cpu import erfinv
+    from repro_torch.kernels.threefry.ref import threefry_ref
+    from repro_torch.launch import serve as S
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import specs as sh
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params, pspecs, _ = S._mesh_params(model, mesh, mesh.device)
+        like = model.init(random.PRNGKey(0, device="meta"))
+    names = S.leaf_names(like)
+    at = {n: (x, w, sp) for n, x, w, sp in zip(
+        names, tree_leaves(params), tree_leaves(like),
+        sh.spec_leaves(pspecs))}
+    del params
+    out = {"values": 0, "rows": 0}
+    for name, (splits, scale) in SERVE_SAMPLES.items():
+        block, whole, sp = at[name]
+        dim, start, length = sh.block_range(whole.shape, sp, mesh, name)
+        lead = 1 if name.startswith("layers.") else 0
+        shape = tuple(whole.shape[lead:])
+        rows, width, stride, offset = _block_args(
+            shape, dim - lead, shape[dim - lead] // length,
+            start // length)
+        sc = 1.0 / torch.sqrt(torch.tensor(float(shape[0]))) \
+            if scale == "fan_in" else scale
+        layers = (0, whole.shape[0] - 1) if lead else (None,)
+        for layer in layers:
+            key = random.PRNGKey(0)
+            for num, idx in splits:
+                key = random.split(key, num)[layer if idx == "L" else idx]
+            got_rows = (block[layer] if lead else block).reshape(rows, width)
+            for p in sorted({0, rows // 2, rows - 1}):
+                w = min(width, SERVE_SAMPLE_VALUES)
+                for j in sorted({0, width - w}):
+                    u = threefry_ref(key[None], w, offset + p * stride + j,
+                                     "uniform", -0.9999999403953552, 1.0)
+                    want = (erfinv(u[0]) * 1.4142135381698608).mul_(sc).to(
+                        whole.dtype)
+                    got = got_rows[p, j:j + w].cpu()
+                    view = torch.int16 if whole.element_size() == 2 \
+                        else torch.int32
+                    assert torch.equal(got.view(view), want.view(view)), \
+                        (name, layer, p, j)
+                    out["values"] += w
+                out["rows"] += 1
+    del at, block
+    torch.cuda.empty_cache()
+    out.update(leaves=len(SERVE_SAMPLES), bitwise=True,
+               wall_s=time.perf_counter() - t0)
+    log(f"mesh[rank {mesh.rank}] {cfg.name} {mesh.dims} sampled block rows "
+        f"= the plain hash on the CPU: " + json.dumps(out))
+    return out
+
+
+def serve_rows_on_one_card(cfg, shape: dict, shapes, dev=None) -> dict:
+    """In the parent, before the ranks start, on card 0: one card's serve
+    of the whole request ``shape`` (graph; its times a reading, its tokens
+    and logits on the host) and, from one init, its eager serve of each
+    block of rows that a rank of each (D, M) of ``shapes`` will serve
+    (``serve_of_rows``), kept as digests and on the host; the card is
+    freed after. For ``_serve_mesh_case(one_card=...)``."""
+    from repro_torch import random
+    from repro_torch.launch import serve as S
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import specs as sh
+    from repro_torch.sharding.mesh import LiveMesh
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev is None else dev
+    if dev.type == "cuda":
+        torch.cuda.init()  # the process's first CUDA call: the peak's reset
+    one, peak = _serve_on(cfg, shape, True, dev)
+    out = {"times": _serve_times(one, shape, peak), "ref": _request(one),
+           "rows": {}}
+    del one
+    keys = set()
+    for dims in shapes:
+        for r in range(math.prod(dims)):
+            mesh = LiveMesh(("data", "model"), dims, rank=r)
+            entry = S.row_entry(cfg, shape["batch"], mesh)
+            n = shape["batch"] // math.prod(
+                mesh.shape[a] for a in sh.entry_axes(entry))
+            lo = sh.block_index(entry, mesh) * n
+            keys.add(((lo, lo + n), S.routing_groups(cfg, entry, mesh)))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        params = get_model(cfg).init(random.PRNGKey(0, device=dev))
+        for rows, groups in sorted(keys):
+            res = serve_of_rows(cfg, shape, rows, groups, dev, params)
+            out["rows"][rows, groups] = (serve_bits(res), _request(res))
+            del res
+    del params
+    torch.cuda.empty_cache()
+    out["times"]["wall_s"] = time.perf_counter() - t0
+    log(f"mesh[serve {cfg.name} one card, parent] " + json.dumps(
+        out["times"]) + f", {len(keys)} blocks of rows kept on the host")
+    return out
+
+
+def serve_big_rank(mesh, one_card: dict) -> tuple:
+    """(D) on this rank of the four-rank mesh: command-r-35b at full width
+    against ``one_card`` (its ``serve_rows_on_one_card``), mixtral-8x7b at
+    full width alone, and at its depth cut against one card. Returns (this
+    rank's records, rank 0's checks)."""
+    from repro_torch import configs
+    recs, checks = {}, {}
+    for arch in SERVE_BIG:
+        cfg = configs.get_config(arch)
+        recs[arch], checks[arch] = _serve_mesh_case(
+            mesh, cfg, SERVE_DEFAULTS, SERVE_BIG_SHAPES, (False, True),
+            one_card=one_card.get(arch), alone=arch not in one_card)
+        torch.cuda.empty_cache()
+    cut = dataclasses.replace(configs.get_config("mixtral-8x7b"),
+                              n_layers=SERVE_BIG_DEPTH)
+    tag = f"mixtral-8x7b/{SERVE_BIG_DEPTH}L"
+    recs[tag], checks[tag] = _serve_mesh_case(
+        mesh, cut, SERVE_DEFAULTS, SERVE_BIG_SHAPES, (False, True))
+    torch.cuda.empty_cache()
     return recs, checks
 
 
@@ -4934,8 +5338,8 @@ def _serve_one_rank(mesh, bits) -> dict:
 
 
 def _serve_mesh_cli() -> dict:
-    """(C): ``serve`` SERVE_MESH_CLI in a process of its own: JAX's two
-    lines from rank 0, exit 0."""
+    """(C): ``serve`` SERVE_MESH_CLI in a process of its own: rank 0's
+    init line, then JAX's two lines, exit 0."""
     import os
     import re
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4948,9 +5352,11 @@ def _serve_mesh_cli() -> dict:
     for line in lines:
         log(f"mesh[serve CLI 2x2] {line}")
     assert out.returncode == 0, out.stderr[-4000:]
-    assert len(lines) == 2 and re.fullmatch(
-        r"prefill 64x4: \d+\.\d\ds", lines[0]) and re.fullmatch(
-        r"decode 8 tokens: \d+\.\d\ds \(\d+\.\d tok/s\)", lines[1]), lines
+    assert len(lines) == 3 and re.fullmatch(
+        r"init rank 0: \d+\.\d\ds, params \d+\.\d\d GB, peak \d+\.\d\d GB",
+        lines[0]) and re.fullmatch(
+        r"prefill 64x4: \d+\.\d\ds", lines[1]) and re.fullmatch(
+        r"decode 8 tokens: \d+\.\d\ds \(\d+\.\d tok/s\)", lines[2]), lines
     return {"wall_s": time.perf_counter() - t0, "lines": lines}
 
 
@@ -5218,25 +5624,39 @@ def run_mesh_path(serve_bits_no_mesh=None) -> dict:
     return out
 
 
-def serve_mesh_path_rank(mesh) -> dict:
+def serve_mesh_path_rank(mesh, one_card=None) -> dict:
     """``serve_mesh_rank`` alone on this rank of the four-rank mesh
-    (``spawn``): every rank's records and rank 0's checks."""
+    (``spawn``), then (D) (``serve_big_rank``) where ``one_card`` is
+    given: every rank's records and rank 0's checks."""
     import torch.distributed as dist
     device_settings()
     serving, checks = serve_mesh_rank(mesh)
+    if one_card is not None:
+        more, more_checks = serve_big_rank(mesh, one_card)
+        serving.update(more)
+        checks.update(more_checks)
     every = [None] * mesh.size
     dist.all_gather_object(every, {"rank": mesh.rank, "serve": serving})
     return {"ranks": every, "checks": checks}
 
 
-def run_serve_mesh_path() -> dict:
-    """Serving across cards alone, as the ``mesh`` phase runs it on
-    MESH_MAX_RANKS cards: (A) and (B) (``serve_mesh_rank``) on one group of
-    NCCL ranks, each rank's records printed, then (C) (the CLI)."""
+def run_serve_mesh_path(big: bool = True) -> dict:
+    """Serving across cards alone on MESH_MAX_RANKS cards: with ``big``,
+    first one card's serve of command-r-35b (``serve_rows_on_one_card``,
+    in this process); then (A) and (B) (``serve_mesh_rank``), as the
+    ``mesh`` phase runs them, and with ``big`` (D) (``serve_big_rank``),
+    on one group of NCCL ranks, each rank's records printed; then (C)
+    (the CLI)."""
+    from repro_torch import configs
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
-    res = spawn(serve_mesh_path_rank, MESH_MAX_RANKS,
-                timeout_s=MESH_TIMEOUT_S, join_s=MESH_TIMEOUT_S)
+    one_card = None
+    if big:
+        one_card = {arch: serve_rows_on_one_card(
+            configs.get_config(arch), SERVE_DEFAULTS, SERVE_BIG_SHAPES)
+            for arch in SERVE_ONE_CARD}
+    res = spawn(serve_mesh_path_rank, MESH_MAX_RANKS, one_card,
+                timeout_s=MESH_TIMEOUT_S, join_s=2 * MESH_TIMEOUT_S)
     for r in res["ranks"]:
         for case, rec in _serve_records(r["serve"]):
             log(f"mesh[serve {case} rank {r['rank']}/{MESH_MAX_RANKS}] "
@@ -5766,7 +6186,8 @@ def run_queue3_trials() -> dict:
 DEVICE_KERNELS = {"ens_kernel": ("ens",), "prox_kernel": ("prox_update",),
                   "quant_kernel": tuple(QUANT),
                   "threefry_kernel": ("threefry",),
-                  "threefry_rows_kernel": ("threefry_rows",)}
+                  "threefry_rows_kernel": ("threefry_rows",),
+                  "threefry_block_kernel": ("threefry_block",)}
 
 
 def profile_engine_path(key: str, rounds: int = PROFILE_ROUNDS) -> dict:
@@ -6236,7 +6657,8 @@ def main() -> int:
     t = time.perf_counter()
     kernels = (check_kernels(card) + check_quant_kernels(card)
                + check_threefry_kernel(card)
-               + check_threefry_rows_kernel(card))
+               + check_threefry_rows_kernel(card)
+               + check_threefry_block_kernel(card))
     jax_table = check_jax_random_table()
     phases["kernels_s"] = time.perf_counter() - t
     t = time.perf_counter()

@@ -12,11 +12,13 @@ def launch_counters() -> dict:
     from repro_torch.kernels.ens.ens import ens_cuda
     from repro_torch.kernels.prox.prox import prox_update_cuda
     from repro_torch.kernels.quant import quant
-    from repro_torch.kernels.threefry.threefry import (threefry_cuda,
+    from repro_torch.kernels.threefry.threefry import (threefry_block_cuda,
+                                                       threefry_cuda,
                                                        threefry_rows_cuda)
     return {"prox_update": prox_update_cuda, "ens": ens_cuda,
             "quantize_cols": quant.quantize_cols_cuda,
             "ef_accumulate": quant.ef_accumulate_cuda,
             "private_quantize_cols": quant.private_quantize_cols_cuda,
             "quantize": quant.quantize_cuda, "threefry": threefry_cuda,
-            "threefry_rows": threefry_rows_cuda}
+            "threefry_rows": threefry_rows_cuda,
+            "threefry_block": threefry_block_cuda}

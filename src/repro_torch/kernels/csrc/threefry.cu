@@ -31,6 +31,16 @@
 // written as 32 bits (4 bytes an output, no int64 plane). Each block of
 // ``span`` values finds its row once, by a binary search over the rows'
 // first blocks, as the quantizer's packed entries do.
+//
+// The block entry draws a rank's block of a leaf cut on one dim: rows
+// of ``width`` counters each, row p's first at offset + p * stride, so
+// value (p, j) of key k is the hash of offset + p * stride + j, written at
+// out[k, p * width + j] in any of the three modes. Under partitionable
+// threefry a leaf (A..., N, I...) cut on N to [c0, c0 + w) is prod(A) such
+// rows, of width w prod(I), stride N prod(I), offset c0 prod(I): the bits
+// of the whole draw at the block's values, none other hashed. A thread
+// block takes a tile of blockDim.x columns of one row (one division a
+// tile, none a value); blockIdx.y walks the keys.
 #include <cstdint>
 
 #include "common.cuh"
@@ -66,6 +76,24 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   x0 += k2; x1 += k0 + 5u;
 }
 
+// value ``at`` of the output in ``mode``: the pair, y1 ^ y2, or the
+// uniform on [lo, lo + range)
+__device__ __forceinline__ void store(void* __restrict__ out, long long at,
+                                      int mode, uint32_t x0, uint32_t x1,
+                                      float lo, float range) {
+  if (mode == 0) {
+    int64_t* o = static_cast<int64_t*>(out) + 2 * at;
+    o[0] = static_cast<int64_t>(x0);
+    o[1] = static_cast<int64_t>(x1);
+  } else if (mode == 1) {
+    static_cast<int64_t*>(out)[at] = static_cast<int64_t>(x0 ^ x1);
+  } else {
+    const uint32_t b = ((x0 ^ x1) >> 9) | 0x3F800000u;
+    const float f = __fsub_rn(__uint_as_float(b), 1.0f);
+    static_cast<float*>(out)[at] = fmaxf(lo, __fmaf_rn(f, range, lo));
+  }
+}
+
 __global__ void threefry_kernel(const int64_t* __restrict__ keys,
                                 long long n_keys, long long n,
                                 unsigned long long offset, int mode,
@@ -82,18 +110,36 @@ __global__ void threefry_kernel(const int64_t* __restrict__ keys,
       uint32_t x0 = static_cast<uint32_t>(c >> 32);
       uint32_t x1 = static_cast<uint32_t>(c);
       threefry2x32(k0, k1, x0, x1);
-      const long long at = k * n + j;
-      if (mode == 0) {
-        int64_t* o = static_cast<int64_t*>(out) + 2 * at;
-        o[0] = static_cast<int64_t>(x0);
-        o[1] = static_cast<int64_t>(x1);
-      } else if (mode == 1) {
-        static_cast<int64_t*>(out)[at] = static_cast<int64_t>(x0 ^ x1);
-      } else {
-        const uint32_t b = ((x0 ^ x1) >> 9) | 0x3F800000u;
-        const float f = __fsub_rn(__uint_as_float(b), 1.0f);
-        static_cast<float*>(out)[at] = fmaxf(lo, __fmaf_rn(f, range, lo));
-      }
+      store(out, k * n + j, mode, x0, x1, lo, range);
+    }
+  }
+}
+
+__global__ void threefry_block_kernel(const int64_t* __restrict__ keys,
+                                      long long n_keys, long long rows,
+                                      long long width,
+                                      unsigned long long row_stride,
+                                      unsigned long long offset, int mode,
+                                      float lo, float hi,
+                                      void* __restrict__ out) {
+  const float range = __fsub_rn(hi, lo);
+  const long long per_row = (width + blockDim.x - 1) / blockDim.x;
+  const long long tiles = rows * per_row;
+  const long long n = rows * width;
+  for (long long k = blockIdx.y; k < n_keys; k += gridDim.y) {
+    const uint32_t k0 = static_cast<uint32_t>(keys[2 * k]);
+    const uint32_t k1 = static_cast<uint32_t>(keys[2 * k + 1]);
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const long long p = t / per_row;
+      const long long j = (t - p * per_row) * blockDim.x + threadIdx.x;
+      if (j >= width) continue;
+      const unsigned long long c =
+          offset + static_cast<unsigned long long>(p) * row_stride +
+          static_cast<unsigned long long>(j);
+      uint32_t x0 = static_cast<uint32_t>(c >> 32);
+      uint32_t x1 = static_cast<uint32_t>(c);
+      threefry2x32(k0, k1, x0, x1);
+      store(out, k * n + p * width + j, mode, x0, x1, lo, range);
     }
   }
 }
@@ -168,6 +214,26 @@ extern "C" int threefry2x32_launch(const void* keys, long long n_keys,
     threefry_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int64_t*>(keys), n_keys, n, offset, mode, lo, hi,
         out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int threefry_block_launch(const void* keys, long long n_keys,
+                                     long long rows, long long width,
+                                     unsigned long long row_stride,
+                                     unsigned long long offset, int mode,
+                                     float lo, float hi, void* out,
+                                     void* stream) {
+  constexpr int kThreads = 256;
+  if (n_keys > 0 && rows > 0 && width > 0) {
+    long long bx = rows * ((width + kThreads - 1) / kThreads);
+    if (bx > 8192) bx = 8192;
+    const long long by = n_keys < 65535 ? n_keys : 65535;
+    dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(by));
+    threefry_block_kernel<<<grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int64_t*>(keys), n_keys, rows, width, row_stride,
+        offset, mode, lo, hi, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

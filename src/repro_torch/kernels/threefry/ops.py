@@ -10,8 +10,11 @@ import torch
 
 from repro_torch.kernels.common import resolve_impl
 from repro_torch.kernels.rows import PackedRows
-from repro_torch.kernels.threefry.ref import threefry_ref, threefry_rows_ref
-from repro_torch.kernels.threefry.threefry import (threefry_cuda,
+from repro_torch.kernels.threefry.ref import (threefry_block_ref,
+                                              threefry_ref, threefry_rows_ref)
+from repro_torch.kernels.threefry.threefry import (check_block_args,
+                                                   threefry_block_cuda,
+                                                   threefry_cuda,
                                                    threefry_rows_cuda)
 
 
@@ -32,3 +35,19 @@ def threefry_rows(key: torch.Tensor, rows: PackedRows, *,
     if resolve_impl(impl, key) == "cuda":
         return threefry_rows_cuda(key, rows)
     return threefry_rows_ref(key, rows)
+
+
+def threefry_block(keys: torch.Tensor, rows: int, width: int, stride: int,
+                   offset: int = 0, mode: str = "uniform", lo: float = 0.0,
+                   hi: float = 1.0, *, impl: str | None = None
+                   ) -> torch.Tensor:
+    """keys (K, 2) over ``rows`` rows of ``width`` counters, row p's first
+    at ``offset + p * stride``: value (p, j) of key q is the hash of
+    ``offset + p * stride + j`` in ``mode`` (as ``threefry``), (K, rows *
+    width) (pairs: (K, rows * width, 2))."""
+    if resolve_impl(impl, keys) == "cuda":
+        return threefry_block_cuda(keys, rows, width, stride, offset, mode,
+                                   lo, hi)
+    check_block_args(keys, rows, width, stride, offset, mode)
+    return threefry_block_ref(keys, rows, width, stride, offset, mode, lo,
+                              hi)

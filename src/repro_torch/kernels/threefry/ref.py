@@ -10,6 +10,11 @@ returns, by ``mode``: ``"keys"`` (K, n, 2) hash pairs, ``"bits"`` (K, n)
 ``jax.random.uniform`` maps 32 bits: ``max(lo, f * (hi - lo) + lo)`` with
 one rounding (``torch.addcmul``), the FMA that jitted XLA:CPU computes.
 
+``threefry_block_ref`` is the plain version of the block entry: keys
+(K, 2) over ``rows`` rows of ``width`` counters, row p's first at
+``offset + p * stride``, (K, rows * width) in any mode: ``threefry_ref``'s
+arithmetic at those counters.
+
 ``threefry_rows_ref`` is the plain version of the rows entry: one key's
 ``y1 ^ y2`` at the dither counters of a packed row layout
 (``PackedRows.counters``), as int32 carrying the 32 bits, hashed
@@ -57,9 +62,26 @@ def bits_to_uniform(b: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 def threefry_ref(keys: torch.Tensor, n: int, offset: int = 0,
                  mode: str = "keys", lo: float = 0.0,
                  hi: float = 1.0) -> torch.Tensor:
+    c = torch.arange(n, dtype=torch.int64, device=keys.device) + offset
+    return _at_counters(keys, c, mode, lo, hi)
+
+
+def threefry_block_ref(keys: torch.Tensor, rows: int, width: int,
+                       stride: int, offset: int = 0, mode: str = "uniform",
+                       lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+    dev = keys.device
+    c = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * stride
+         + torch.arange(width, dtype=torch.int64, device=dev)
+         + offset).reshape(-1)
+    return _at_counters(keys, c, mode, lo, hi)
+
+
+def _at_counters(keys: torch.Tensor, c: torch.Tensor, mode: str, lo: float,
+                 hi: float) -> torch.Tensor:
+    """The hash of each key (K, 2) at the 64-bit counters ``c`` (n,) in
+    ``mode``."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    c = torch.arange(n, dtype=torch.int64, device=keys.device) + offset
     k1, k2 = keys[:, 0:1], keys[:, 1:2]
     y1, y2 = threefry2x32(k1, k2, c >> 32, c & MASK)
     if mode == "keys":

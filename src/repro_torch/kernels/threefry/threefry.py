@@ -11,8 +11,13 @@ PyTorch version, ``threefry_ref``, sits beside it: the CPU path, and what
 packed row layout (``kernels/rows.py``), 32 bits an output, the plain
 version ``threefry_rows_ref``.
 
-``threefry_cuda.launches`` and ``threefry_rows_cuda.launches`` count kernel
-launches.
+``threefry_block_cuda`` is the block entry: keys over rows of counters
+at a stride, a rank's block of a leaf cut on one dim (what the init's
+block draw hashes, ``random.normal_block``), the plain version
+``threefry_block_ref``.
+
+``threefry_cuda.launches``, ``threefry_rows_cuda.launches`` and
+``threefry_block_cuda.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -23,13 +28,16 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.rows import ROW_SPAN, PackedRows
 from repro_torch.kernels.threefry.ref import (  # noqa: F401
-    MODES, threefry_ref, threefry_rows_ref)
+    MODES, threefry_block_ref, threefry_ref, threefry_rows_ref)
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGS = {"threefry2x32_launch": [_P, _I64, _I64, ctypes.c_uint64,
                                  ctypes.c_int, ctypes.c_float,
                                  ctypes.c_float, _P, _P],
-         "threefry_rows_launch": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P]}
+         "threefry_rows_launch": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P],
+         "threefry_block_launch": [_P, _I64, _I64, _I64, ctypes.c_uint64,
+                                   ctypes.c_uint64, ctypes.c_int,
+                                   ctypes.c_float, ctypes.c_float, _P, _P]}
 _FNS: dict = {}  # entry name -> (library, C entry with argtypes set)
 
 
@@ -103,3 +111,47 @@ def threefry_rows_cuda(key: torch.Tensor, rows: PackedRows) -> torch.Tensor:
 
 
 threefry_rows_cuda.launches = 0
+
+
+def threefry_block_cuda(keys: torch.Tensor, rows: int, width: int,
+                        stride: int, offset: int = 0, mode: str = "uniform",
+                        lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+    """``threefry_block_ref`` on a CUDA tensor of keys (K, 2), int64
+    holding uint32 values: (K, rows * width)."""
+    check_block_args(keys, rows, width, stride, offset, mode)
+    if not keys.is_cuda:
+        raise ValueError("threefry_block_cuda needs CUDA tensors")
+    keys = keys.contiguous()
+    K = keys.shape[0]
+    out = torch.empty((K, rows * width) if mode != "keys" else
+                      (K, rows * width, 2), device=keys.device,
+                      dtype=torch.float32 if mode == "uniform"
+                      else torch.int64)
+    if out.numel() == 0:
+        return out
+    lib, fn = _fn("threefry_block_launch")
+    err = fn(keys.data_ptr(), K, rows, width, stride, offset,
+             MODES.index(mode), lo, hi, out.data_ptr(),
+             torch.cuda.current_stream(keys.device).cuda_stream)
+    build.check(lib, err, "threefry block kernel launch")
+    threefry_block_cuda.launches += 1
+    return out
+
+
+threefry_block_cuda.launches = 0
+
+
+def check_block_args(keys, rows, width, stride, offset, mode) -> None:
+    """The block entry's arguments: int64 keys (K, 2), a known mode, no
+    negative count, rows no wider than their stride, and every counter
+    below 2**63 (the plain version's int64)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64:
+        raise TypeError(f"the block entry takes int64 keys (K, 2); got "
+                        f"{keys.dtype} {tuple(keys.shape)}")
+    if min(rows, width, offset) < 0 or (rows > 1 and width > stride) or \
+            offset + max(rows - 1, 0) * stride + width >= 2 ** 63:
+        raise ValueError(f"a block of {rows} rows of {width} counters at "
+                         f"stride {stride} from {offset}: rows overlap or "
+                         f"counters leave 63 bits")

@@ -22,14 +22,22 @@ ranks with ``--device cpu``; ranks row-major over ("data", "model").
 
 - Params: each rank holds, of each leaf, the block that JAX serve's
   ``param_specs(cfg, params, mesh, DistConfig())`` gives it (cut over
-  "model", whole over "data"), with one device's bits from
-  ``PRNGKey(0)``. Each leaf that ``dense_init`` or ``embed_init`` draws
-  (every matrix) is cut to the rank's block as it is made, its whole freed
-  before the next is drawn (``layers.leaves_made``); the few others (norm
-  scales, biases, per-head vectors) as the init returns. So a rank holds
-  its blocks and at most one whole leaf, never the whole tree, and after
-  the init its blocks alone (``ServeResult.param_bytes``; no block keeps
-  its whole leaf's storage, asserted).
+  "model" on at most one dim, whole over "data"), with one device's bits
+  from ``PRNGKey(0)``, as JAX's jitted init with ``out_shardings`` draws
+  them. Each leaf that ``dense_init`` or ``embed_init`` draws (every
+  matrix) is drawn as the rank's block alone: the hook
+  ``layers.leaves_made`` answers each draw with its ``sharding/specs.py::
+  block_range``, and ``random.normal_block`` hashes only the block's
+  counters (the threefry block entry), in pieces of ``NORMAL_CHUNK``
+  values, straight into the leaf's dtype. The few others (norm scales,
+  biases, per-head vectors, a conv kernel) are drawn whole and cut as the
+  init returns. So during the init a rank holds its blocks and one piece,
+  never a whole matrix, and after it its blocks alone
+  (``ServeResult.param_bytes``; no block keeps more storage than its own,
+  asserted). A leaf whose spec cuts two dims, or a dim that the ranks do
+  not divide, is refused, naming it. ``ServeResult.init_s`` and
+  ``init_peak_gb`` time and measure the init; rank 0 prints them on a line
+  before JAX's two.
 - Requests: every rank draws the whole request and keeps its rows: cut
   over "data" as JAX's ``"batch": client_axes`` rule cuts them, then over
   "model" where M divides a data rank's rows (``row_entry``). Where it
@@ -177,6 +185,13 @@ class ServeResult:
     "steps", and on a mesh "tokens", the gathers of the tokens and times),
     ``sharding/comm.py``'s records.
 
+    ``init_s``: the params' init, a host time that ends in a synchronise
+    on the card; ``init_peak_gb``: on the card, the init's peak device
+    memory above what was allocated before it, in GB (None elsewhere).
+    ``serve`` resets the card's peak memory counter before the init and
+    again after it, so a caller's reading after ``serve`` is the request's
+    own peak, with the params held.
+
     On a mesh: ``rows`` the request's rows [lo, hi) this rank served;
     ``groups`` the MoE routing groups it served them in
     (``models/moe.py::routing_groups``); ``param_bytes`` the bytes its
@@ -196,6 +211,8 @@ class ServeResult:
     request_tokens: torch.Tensor | None = None
     slowest: tuple | None = None
     census: dict | None = None
+    init_s: float | None = None
+    init_peak_gb: float | None = None
 
     @property
     def decode_s(self) -> float:
@@ -205,6 +222,26 @@ class ServeResult:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _timed_init(init, dev: torch.device) -> tuple:
+    """(``init()``, its host time, its peak device memory in GB above what
+    was allocated before it on the card, else None); the card's peak
+    counter reset before and after it."""
+    cuda = dev.type == "cuda"
+    _sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = init()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    peak = None
+    if cuda:
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+    return out, secs, peak
 
 
 def row_entry(cfg: ArchConfig, batch: int, mesh):
@@ -232,32 +269,45 @@ def routing_groups(cfg: ArchConfig, entry, mesh) -> int:
         else 1
 
 
+def leaf_names(tree, prefix: str = "") -> list:
+    """The dotted path of each leaf of ``tree`` ("layers.moe.wg"), in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
 def _mesh_params(model: Model, mesh, device):
     """This rank's block of each leaf by JAX serve's ``param_specs``, and
-    the specs: each leaf that ``dense_init`` or ``embed_init`` draws cut
-    as it is made, the others as the init returns."""
+    the specs: each leaf that ``dense_init`` or ``embed_init`` draws
+    drawn as its block alone (``layers.leaves_made``, ``random.
+    normal_block``), the others drawn whole and cut as the init returns."""
     from repro_torch.core.distributed import DistConfig, param_specs
     made = []
-    with layers.leaves_made(lambda x: made.append(x) or x):
+    with layers.leaves_made(made.append):
         like = model.init(random.PRNGKey(0, device="meta"))
     pspecs = param_specs(model.cfg, like, mesh, DistConfig())
-    spec_of = {id(x): sp for x, sp in zip(tree_leaves(like),
-                                          sh.spec_leaves(pspecs))}
-    # the init draws in the same order on every device: the i-th leaf
-    # made on the card is the i-th made on "meta"
-    order = iter([(spec_of.get(id(x)), x.shape) for x in made])
+    at = {id(x): (sp, name) for x, sp, name in zip(
+        tree_leaves(like), sh.spec_leaves(pspecs), leaf_names(like))}
+    # the init draws in the same order on every device: the i-th draw on
+    # the card is the i-th on "meta", whose stand-in is the tree's leaf
+    order = iter([(x.shape,) + at[id(x)] for x in made])
 
-    def cut(x):
-        sp, shape = next(order)
-        assert x.shape == shape, (x.shape, shape)
-        return x if sp is None else sh.shard_leaf(x, sp, mesh)
+    def block(x):
+        shape, sp, name = next(order)
+        assert x.shape == shape, (name, x.shape, shape)
+        return sh.block_range(shape, sp, mesh, name)
 
-    with layers.leaves_made(cut):
+    with layers.leaves_made(block):
         leaves = tree_leaves(model.init(random.PRNGKey(0, device=device)))
-    cut_early = {id(x) for x in made}
+    drawn = {id(x) for x in made}
     for l, (x, sp) in enumerate(zip(tree_leaves(like),
                                     sh.spec_leaves(pspecs))):
-        if id(x) not in cut_early:
+        if id(x) not in drawn:
             leaves[l] = sh.shard_leaf(leaves[l], sp, mesh)
     held = sum(x.untyped_storage().nbytes() for x in leaves)
     assert held == sum(x.numel() * x.element_size() for x in leaves), \
@@ -328,14 +378,18 @@ def serve(cfg: ArchConfig, batch: int = 4, prompt_len: int = 64,
     if mesh is None:
         dev = resolve_device(device)
         with torch.inference_mode():
-            params = model.init(random.PRNGKey(0, device=dev))
+            params, init_s, peak = _timed_init(
+                lambda: model.init(random.PRNGKey(0, device=dev)), dev)
             req = prompt_batch(cfg, batch, prompt_len, dev)
-            return _run(model, params, req, max_len, new_tokens, graph, dev)
+            res = _run(model, params, req, max_len, new_tokens, graph, dev)
+        res.init_s, res.init_peak_gb = init_s, peak
+        return res
     dev = mesh.device
     entry = row_entry(cfg, batch, mesh)
     groups = routing_groups(cfg, entry, mesh)
     with torch.inference_mode():
-        params, pspecs, held = _mesh_params(model, mesh, dev)
+        (params, pspecs, held), init_s, peak = _timed_init(
+            lambda: _mesh_params(model, mesh, dev), dev)
         req = prompt_batch(cfg, batch, prompt_len, dev)
         mine = sh.shard_tree(req, sh.row_specs(req, entry), mesh)
         n = mine["tokens"].shape[0]
@@ -354,6 +408,7 @@ def serve(cfg: ArchConfig, batch: int = 4, prompt_len: int = 64,
         res.slowest = tuple(times.reshape(-1, 3).amax(0).tolist())
         res.census["tokens"] = comm.CENSUS[mark:]
     res.rows, res.groups, res.param_bytes = (lo, lo + n), groups, held
+    res.init_s, res.init_peak_gb = init_s, peak
     return res
 
 
@@ -378,13 +433,20 @@ def parser() -> argparse.ArgumentParser:
 def run_rank(args, mesh=None) -> int:
     """``serve`` of the arguments on one device (``mesh`` None) or on this
     rank of the live ``mesh``; one device, or rank 0, prints JAX's two
-    lines (on a mesh with the slowest rank's times)."""
+    lines (on a mesh with the slowest rank's times, after a line with
+    rank 0's init: its time, its blocks' bytes and, on the card, its
+    peak)."""
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get_config(args.arch)
     B, Tp, n = args.batch, args.prompt_len, args.new_tokens
     res = serve(cfg, B, Tp, n, device=args.device, mesh=mesh)
     prefill_s, capture_s, steps_s = res.slowest or (
         res.prefill_s, res.capture_s, res.steps_s)
+    if mesh is not None and mesh.rank == 0:
+        peak = "" if res.init_peak_gb is None \
+            else f", peak {res.init_peak_gb:.2f} GB"
+        print(f"init rank 0: {res.init_s:.2f}s, params "
+              f"{res.param_bytes / 1e9:.2f} GB{peak}")
     if mesh is None or mesh.rank == 0:
         print(f"prefill {Tp}x{B}: {prefill_s:.2f}s")
         dt = capture_s + steps_s

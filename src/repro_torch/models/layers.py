@@ -68,9 +68,14 @@ _tls = threading.local()
 
 @contextlib.contextmanager
 def leaves_made(fn):
-    """Within it (in this thread), each leaf that ``dense_init`` or
-    ``embed_init`` draws is ``fn(leaf)`` as it is made: serving on a mesh
-    cuts each to its rank's block before the next is drawn."""
+    """Within it (in this thread), ``dense_init`` and ``embed_init`` ask
+    ``fn(like)`` before each draw which block of the leaf to draw: ``like``
+    is the whole leaf's stand-in (a meta tensor of its shape and dtype),
+    the answer a ``random.normal_block`` block (dim, start, length), or
+    None for the whole leaf. Serving on a mesh answers with the rank's
+    block, so no whole leaf is made. On the meta device a leaf drawn whole
+    is the stand-in itself, so a caller can pair its draws with the tree's
+    leaves."""
     prev = getattr(_tls, "made", None)
     _tls.made = fn
     try:
@@ -79,9 +84,19 @@ def leaves_made(fn):
         _tls.made = prev
 
 
-def _made(x):
-    fn = getattr(_tls, "made", None)
-    return x if fn is None else fn(x)
+def _draw(key, shape, dtype, scale):
+    """``normal(key, shape) * scale`` in ``dtype``, or the block of it that
+    the ``leaves_made`` hook asks for, drawn in pieces straight into
+    ``dtype`` (``random.normal_block``): the bits of the whole draw, and
+    no f32 buffer of the leaf."""
+    fn, block = getattr(_tls, "made", None), None
+    if fn is not None:
+        like = torch.empty(tuple(key.shape[:-1]) + tuple(shape), dtype=dtype,
+                           device="meta")
+        block = fn(like)
+        if block is None and key.device.type == "meta":
+            return like
+    return random.normal_block(key, shape, block, scale, dtype)
 
 
 def dense_init(key, shape, dtype=torch.float32, scale=None):
@@ -92,13 +107,11 @@ def dense_init(key, shape, dtype=torch.float32, scale=None):
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = 1.0 / torch.sqrt(torch.tensor(float(fan_in)))
-    # scaled in place: the same bits as ``normal * scale``, without a
-    # second leaf-sized buffer (zamba2's stacked in_proj is 2.6 GB)
-    return _made(random.normal(key, shape).mul_(scale).to(dtype))
+    return _draw(key, shape, dtype, scale)
 
 
 def embed_init(key, vocab, dim, dtype=torch.float32):
-    return _made(random.normal(key, (vocab, dim)).mul_(0.02).to(dtype))
+    return _draw(key, (vocab, dim), dtype, 0.02)
 
 
 # ---------------------------------------------------------------------------

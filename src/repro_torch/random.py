@@ -19,6 +19,10 @@ keys (leading axes ``...``) and acts on each key as ``jax.vmap`` would:
 ``normal(key, shape, dtype)`` -- (..., *shape) f32 (or bf16):
                              sqrt(2) erfinv(u), u on (-1, 1), with
                              XLA:CPU's f32 erf_inv.
+``normal_block(key, shape, block, scale, dtype)`` -- the block (a dim,
+                             its start and length) of ``normal(key, shape)
+                             * scale`` cast to ``dtype``, only its values
+                             hashed, in pieces, straight into ``dtype``.
 ``randint(key, shape, minval, maxval)`` -- (..., *shape) int32 on
                              [minval, maxval).
 ``permutation(key, n)``   -- (..., n) int64: ``jax.random.permutation``'s
@@ -27,7 +31,8 @@ keys (leading axes ``...``) and acts on each key as ``jax.vmap`` would:
                              i < n, in one launch.
 
 Each hash is one launch of ``kernels/threefry`` on the card (its plain
-version on the CPU), batched over the keys and counters.
+version on the CPU), batched over the keys and counters; ``normal`` and
+``normal_block`` take its block entry.
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ import math
 import torch
 
 from repro_torch.core.xla_cpu import erfinv
-from repro_torch.kernels.threefry.ops import threefry, threefry_rows
+from repro_torch.kernels.threefry.ops import (threefry, threefry_block,
+                                              threefry_rows)
 from repro_torch.kernels.threefry.ref import MASK
 
 _UINT32_MAX = 2 ** 32 - 1
@@ -88,15 +94,15 @@ def bits_rows(key: torch.Tensor, rows) -> torch.Tensor:
     return threefry_rows(key, rows)
 
 
-def _pieces(key: torch.Tensor, shape, lo: float, hi: float, chunk: int,
+def _pieces(key: torch.Tensor, shape, lo: float, hi: float,
             transform=None) -> torch.Tensor:
     """f32 uniforms on [lo, hi) for each key of ``key`` (..., 2) over
-    ``shape``, hashed about ``chunk`` values at a time (over all the keys)
-    into one buffer, each piece through the elementwise ``transform``
-    first where one is given. A value depends only on its key and flat
-    index, so the pieces give the bits of one whole-draw hash. A key on
-    the meta device draws the shape alone (an abstract init: the launch
-    layer's stand-ins)."""
+    ``shape``, hashed about ``UNIFORM_CHUNK`` values at a time (over all
+    the keys) into one buffer, each piece through the elementwise
+    ``transform`` first where one is given. A value depends only on its
+    key and flat index, so the pieces give the bits of one whole-draw
+    hash. A key on the meta device draws the shape alone (an abstract
+    init: the launch layer's stand-ins)."""
     if key.shape[-1:] != (2,):
         raise ValueError(f"a key has shape (..., 2); got {tuple(key.shape)}")
     shape = tuple(shape)
@@ -105,7 +111,7 @@ def _pieces(key: torch.Tensor, shape, lo: float, hi: float, chunk: int,
                            device="meta")
     n = math.prod(shape)
     keys = key.reshape(-1, 2)
-    step = max(1, chunk // max(1, keys.shape[0]))
+    step = max(1, UNIFORM_CHUNK // max(1, keys.shape[0]))
     out = torch.empty((keys.shape[0], n), dtype=torch.float32,
                       device=key.device)
     for start in range(0, n, step):
@@ -126,8 +132,7 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``,
     drawn in pieces of ``UNIFORM_CHUNK`` values; ``transform`` (an
     elementwise f32 function) maps each piece before it is stored."""
-    return _pieces(key, shape, float(minval), float(maxval), UNIFORM_CHUNK,
-                   transform)
+    return _pieces(key, shape, float(minval), float(maxval), transform)
 
 
 _NEXT_BELOW_NEG1 = -0.9999999403953552  # nextafter(-1, 0) in f32
@@ -136,8 +141,10 @@ _SQRT2 = 1.4142135381698608             # sqrt(2) rounded to f32
 
 # f32 normals drawn per hash call: a draw's value depends only on its key
 # and flat index, so a large draw (zamba2's stacked in_proj, 652M values)
-# runs in pieces whose erf_inv temporaries stay near 1 GB, not tens of GB
-NORMAL_CHUNK = 1 << 24
+# runs in pieces whose erf_inv temporaries (about 80 bytes a value at
+# their peak) stay near 0.7 GB, not tens of GB: a serving rank's init
+# holds its blocks and one piece
+NORMAL_CHUNK = 1 << 23
 _BF16_NEXT_BELOW_NEG1 = -0.99609375    # nextafter(-1, 0) in bf16
 _BF16_ONE_BITS = 0x3F80                # 1.0 in bf16
 
@@ -146,8 +153,9 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)``, f32 or bf16.
 
     f32: a uniform on [nextafter(-1, 0), 1) through XLA:CPU's f32
-    ``erf_inv`` (``core/xla_cpu.erfinv``), times sqrt(2). The same ops run
-    on the card, where the init's draws need no other form.
+    ``erf_inv`` (``core/xla_cpu.erfinv``), times sqrt(2), in pieces
+    (``normal_block`` of the whole leaf). The same ops run on the card,
+    where the init's draws need no other form.
 
     bf16 is its own draw, not the f32 one rounded: JAX draws 8 bits a value
     (bf16 has 7 mantissa bits; the low byte of ``bits``), makes a bf16 on
@@ -156,8 +164,7 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     it, then multiplies by sqrt(2) rounded to bf16, each op rounding to
     bf16 as XLA:CPU's does."""
     if dtype == torch.float32:
-        return _pieces(key, shape, _NEXT_BELOW_NEG1, 1.0, NORMAL_CHUNK,
-                       lambda u: erfinv(u) * _SQRT2)
+        return normal_block(key, shape)
     if dtype != torch.bfloat16:
         raise ValueError(f"normal draws f32 or bf16; got {dtype}")
     byte = bits(key, shape) & 0xFF
@@ -168,6 +175,69 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     u = torch.maximum((one_to_two - 1.0) * 2.0 + lo, lo)
     z = erfinv(u.to(torch.float32)).to(torch.bfloat16)
     return z * torch.full((), _SQRT2, dtype=torch.bfloat16, device=key.device)
+
+
+def normal_block(key: torch.Tensor, shape, block=None, scale=None,
+                 dtype=torch.float32) -> torch.Tensor:
+    """``normal(key, shape).mul_(scale).to(dtype)`` cut to ``block``, bit for
+    bit, with only the block's values hashed: ``key`` (..., 2) stacks the
+    draws on its leading axes, and ``block`` (dim, start, length) names a
+    dim of the stacked leaf (..., *shape) and the range of it to keep (None:
+    the whole leaf).
+
+    A cut on dim k of the per-key shape (A..., N, I...) to [c0, c0 + w) is
+    prod(A) rows of w prod(I) values, row p's first at flat index p N
+    prod(I) + c0 prod(I) of the key's draw, which the hash's block entry
+    takes as they are; a cut on a key axis draws those keys' leaves whole.
+    The rows go through the hash in pieces of at most ``NORMAL_CHUNK``
+    values over all keys, each through ``normal``'s erf_inv and sqrt(2),
+    then ``* scale`` in f32 (where ``scale`` is given), then the cast into
+    a preallocated output of the block's shape in ``dtype``: every step is
+    elementwise, so the bits are the whole draw's, and no f32 buffer of the
+    whole leaf (or of the block) is made. A key on the meta device gives
+    the block's shape alone."""
+    shape, batch = tuple(shape), tuple(key.shape[:-1])
+    if key.shape[-1:] != (2,):
+        raise ValueError(f"a key has shape (..., 2); got {tuple(key.shape)}")
+    full = batch + shape
+    if not full and block is None:  # one value
+        return normal_block(key, (1,), None, scale, dtype).reshape(())
+    dim, start, length = (0, 0, full[0]) if block is None else block
+    if not 0 <= dim < len(full) or start < 0 or length < 0 or \
+            start + length > full[dim]:
+        raise ValueError(f"block {block} is not a block of a leaf {full}")
+    out_shape = full[:dim] + (length,) + full[dim + 1:]
+    if key.device.type == "meta":
+        return torch.empty(out_shape, dtype=dtype, device="meta")
+    if dim < len(batch):  # some keys' leaves whole: one row each
+        key = key.narrow(dim, start, length)
+        rows, width, stride, offset = 1, math.prod(shape), 0, 0
+    else:
+        k = dim - len(batch)
+        inner = math.prod(shape[k + 1:])
+        rows, width = math.prod(shape[:k]), length * inner
+        stride, offset = shape[k] * inner, start * inner
+    keys = key.reshape(-1, 2)
+    out = torch.empty((keys.shape[0], rows * width), dtype=dtype,
+                      device=key.device)
+    step = max(1, NORMAL_CHUNK // max(1, keys.shape[0]))
+    if width <= step:  # pieces of whole rows
+        per = step // max(1, width)
+        pieces = [(p, min(per, rows - p), 0, width)
+                  for p in range(0, rows, per)]
+    else:              # pieces of one row each
+        pieces = [(p, 1, j, min(step, width - j))
+                  for p in range(rows) for j in range(0, width, step)]
+    for p, n_rows, j, w in pieces:
+        u = threefry_block(keys, n_rows, w, stride,
+                           offset + p * stride + j, "uniform",
+                           _NEXT_BELOW_NEG1, 1.0)
+        z = erfinv(u) * _SQRT2
+        if scale is not None:
+            z.mul_(scale)
+        at = p * width + j
+        out[:, at:at + n_rows * w] = z
+    return out.reshape(out_shape)
 
 
 def randint(key: torch.Tensor, shape, minval: int,

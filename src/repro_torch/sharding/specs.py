@@ -20,6 +20,8 @@ it (one all_gather an axis); ``constrain_tree`` checks the blocks' shapes
 and moves nothing. One device
 places nothing: there ``constrain_tree`` returns its tree. ``client_specs``
 gives the simulator's stacked client trees JAX's client-axis specs.
+``block_range`` says where a rank's block of a leaf cut on one dim lies,
+for ``block_of`` and for the init's block draw (``launch/serve.py``).
 ``layer_specs`` gives one layer's slice of a stacked tree its specs, for
 the gather of each layer over "model" as it runs (``launch/serve.py``),
 and ``row_specs`` cuts a tree of per-row leaves (requests, decode states)
@@ -272,13 +274,36 @@ def axis_view(x, k: int, entry, axis: str, mesh, gone=()):
     return x.unflatten(k, (pre, mesh.shape[axis], -1))
 
 
+def block_range(shape, spec, mesh, name: str = "a leaf"):
+    """Where this rank's block of a leaf of ``shape`` lies by ``spec`` on
+    the live ``mesh``: (dim, start, length) on the one dim that ``spec``
+    cuts over more than one rank, or None where it cuts none. A spec that
+    cuts two dims is refused, naming the leaf (``name``): a block draw
+    (``random.normal_block``) takes one."""
+    cut = [k for k, e in enumerate(spec)
+           if math.prod(mesh.shape[a] for a in entry_axes(e)) > 1]
+    if len(cut) > 1:
+        raise ValueError(f"{name} {tuple(shape)}: its spec {spec} cuts dims "
+                         f"{cut}; a block is cut on one dim")
+    if not cut:
+        return None
+    k = cut[0]
+    try:
+        n = local_shape(shape, P(*([None] * k), spec[k]), mesh)[k]
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    return k, block_index(spec[k], mesh) * n, n
+
+
 def block_of(x, spec, mesh):
-    """A view of this rank's block of the whole leaf ``x``."""
+    """A view of this rank's block of the whole leaf ``x``: each dim that
+    ``spec`` cuts narrowed to its ``block_range``."""
     for k, e in enumerate(spec):
         if e is None:
             continue
-        n = local_shape(x.shape, P(*([None] * k), e), mesh)[k]
-        x = x.narrow(k, block_index(e, mesh) * n, n)
+        at = block_range(x.shape, P(*([None] * k), e), mesh)
+        if at is not None:
+            x = x.narrow(*at)
     return x
 
 

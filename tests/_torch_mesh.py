@@ -49,6 +49,7 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS = 64, 2, 2
 # serving across ranks (tests/test_torch_mesh_serve.py): each request's
 # prompt length (where its case names none) and new tokens
 SERVE_SHAPE = {"prompt_len": 16, "new_tokens": 4}
+DRAW_SHAPE = (1, 4)   # the serving mesh whose ranks record their draws
 
 SMOLLM = "smollm-135m"
 CASES = {
@@ -352,7 +353,58 @@ def serve_case(arch: str, batch: int, prompt_len=None) -> tuple:
                                         prompt_len=tp)
 
 
-def serve_cases(mesh, cases) -> dict:
+# the pieces of the block draw on the (1, 4) serving mesh, in values: at
+# reduced widths ``random.NORMAL_CHUNK`` would hash every leaf in one
+DRAW_CHUNK = 1 << 12
+
+
+@contextlib.contextmanager
+def draw_record(rec: dict):
+    """Within it the init's block draws (``random.normal_block``) hash
+    pieces of DRAW_CHUNK values, and ``rec`` counts the draws and keeps
+    the largest output a draw made and the largest piece it hashed."""
+    from repro_torch import random
+    saved = random.normal_block, random.threefry_block, random.NORMAL_CHUNK
+    block, hash_ = saved[:2]
+    rec.update(draws=0, largest_out=0, largest_piece=0)
+
+    def drawn(*args, **kw):
+        out = block(*args, **kw)
+        rec["draws"] += 1
+        rec["largest_out"] = max(rec["largest_out"], out.numel())
+        return out
+
+    def hashed(keys, rows, width, *args, **kw):
+        rec["largest_piece"] = max(rec["largest_piece"],
+                                   keys.shape[0] * rows * width)
+        return hash_(keys, rows, width, *args, **kw)
+
+    random.normal_block, random.threefry_block = drawn, hashed
+    random.NORMAL_CHUNK = DRAW_CHUNK
+    try:
+        yield rec
+    finally:
+        random.normal_block, random.threefry_block, random.NORMAL_CHUNK = \
+            saved
+
+
+def largest_block(cfg, mesh) -> int:
+    """The most values of one leaf's block that a rank of ``mesh`` holds
+    by JAX serve's ``param_specs``."""
+    import math
+
+    from repro_torch import random
+    from repro_torch.core.distributed import DistConfig, param_specs
+    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import specs as sh
+    like = get_model(cfg).init(random.PRNGKey(0, device="meta"))
+    specs = sh.spec_leaves(param_specs(cfg, like, mesh, DistConfig()))
+    return max(math.prod(sh.local_shape(x.shape, sp, mesh))
+               for x, sp in zip(tree_leaves(like), specs))
+
+
+def serve_cases(mesh, cases, record: bool = False) -> dict:
     """Each (arch, batch[, prompt_len]) of ``cases``, reduced, through
     ``launch/serve.py::serve`` on this rank of the live ``mesh`` at
     ``serve_case``'s request, and one device's serve of the rows this rank
@@ -360,7 +412,9 @@ def serve_cases(mesh, cases) -> dict:
     request's tokens, prefill logits, each step's logits and final state
     (gathered over the axes that cut the rows), and this rank's rows, row
     entry, census by phase and whether its run is one device's bit for
-    bit ("rank")."""
+    bit ("rank"). With ``record`` the serve's init runs under
+    ``draw_record`` (one device's serve does not), and "rank" gets its
+    record beside ``largest_block``."""
     from repro_torch import configs
     from repro_torch.core.treeutil import tree_leaves
     from repro_torch.launch import serve as S
@@ -371,7 +425,11 @@ def serve_cases(mesh, cases) -> dict:
     for arch, batch, *tp in cases:
         key, shape = serve_case(arch, batch, *tp)
         cfg = configs.get_reduced(arch)
-        res = S.serve(cfg, device="cpu", mesh=mesh, **shape)
+        draws = {}
+        with draw_record(draws) if record else contextlib.nullcontext():
+            res = S.serve(cfg, device="cpu", mesh=mesh, **shape)
+        if record:
+            draws["largest_block"] = largest_block(cfg, mesh)
         one = chip_smoke.serve_of_rows(cfg, shape, res.rows, res.groups,
                                        "cpu")
         same = all(torch.equal(getattr(res, k), getattr(one, k)) for k in
@@ -392,7 +450,8 @@ def serve_cases(mesh, cases) -> dict:
                                           what="check")),
             "state": tree_leaves(state),
             "rank": {"rows": res.rows, "entry": entry, "bitwise": same,
-                     "census": res.census, "slowest": res.slowest}}
+                     "census": res.census, "slowest": res.slowest,
+                     "draws": draws}}
     return out
 
 
@@ -431,7 +490,8 @@ def serve_groups(mesh, groups: dict) -> dict:
     out = {}
     for shape, cases in groups.items():
         sub = sub_mesh(mesh, shape)
-        mine = serve_cases(sub, cases) if sub is not None else {}
+        mine = serve_cases(sub, cases, record=shape == DRAW_SHAPE) \
+            if sub is not None else {}
         every = [None] * mesh.size
         dist.all_gather_object(every, {c: r["rank"] for c, r in
                                        mine.items()})

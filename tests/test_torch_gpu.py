@@ -348,6 +348,42 @@ def test_threefry_rows_kernel_bitwise(gen, rows):
     assert torch.equal(got, threefry_rows_ref(key, rows))
 
 
+@pytest.mark.parametrize("mode", ["uniform", "keys", "bits"])
+@pytest.mark.parametrize("K,rows,width,stride,offset", [
+    (1, 32, 300, 1200, 2 ** 32 - 5000), (70000, 1, 3, 3, 0),
+    (3, 5000, 1, 7, 11), (2, 1, 1 << 20, 1 << 22, 2 ** 32 - 7)])
+def test_threefry_block_kernel_bitwise(gen, K, rows, width, stride, offset,
+                                       mode):
+    """The block entry against its plain version: rows at a stride whose
+    counters pass 2**32, more keys than gridDim.y takes, one-value rows,
+    one wide row; one launch each."""
+    from repro_torch.kernels.threefry.threefry import (threefry_block_cuda,
+                                                       threefry_block_ref)
+    keys = torch.randint(0, 2 ** 32, (K, 2), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    before = threefry_block_cuda.launches
+    got = threefry_ops.threefry_block(keys, rows, width, stride, offset,
+                                      mode, -0.5, 0.5)
+    assert threefry_block_cuda.launches - before == 1
+    want = threefry_block_ref(keys, rows, width, stride, offset, mode,
+                              -0.5, 0.5)
+    if mode == "uniform":
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+def test_block_draw_on_card_is_the_cpus(gen):
+    """``random.normal_block`` on the card, a stacked leaf cut on a middle
+    dim into bf16 at a scale, is the CPU's bit for bit."""
+    key = random.split(random.PRNGKey(5), 3)
+    scale = 1.0 / torch.sqrt(torch.tensor(64.0))
+    cpu = random.normal_block(key, (64, 40, 24), (2, 10, 20), scale,
+                              torch.bfloat16)
+    card = random.normal_block(key.cuda(), (64, 40, 24), (2, 10, 20), scale,
+                               torch.bfloat16)
+    assert torch.equal(card.cpu().view(torch.int16), cpu.view(torch.int16))
+
+
 def test_codec_dither_on_card_is_the_cpus(gen):
     """The packed dither drawn on the card is the CPU's, bit for bit."""
     from repro_torch.sim import transport as tr

@@ -9,7 +9,8 @@ tokens (``SERVE_SHAPE``) unless a case says otherwise, reduced archs
 (f32).
 
 - reduced smollm-135m at (2, 1), (1, 2), (2, 2) and (1, 4); xlstm-125m,
-  zamba2-1.2b and mixtral-8x7b at (2, 2); smollm at B 6 on (2, 2), where
+  zamba2-1.2b and mixtral-8x7b at (2, 2); command-r-35b at (2, 2) and
+  (1, 4); mixtral-8x7b at (1, 4); smollm at B 6 on (2, 2), where
   each data rank has 3 rows, which M = 2 does not divide, so every model
   rank serves its data rank's whole rows (every other B 4 case cuts its
   rows over "model" too); mixtral at prompt 16 (JAX routes the prefill's
@@ -21,6 +22,9 @@ tokens (``SERVE_SHAPE``) unless a case says otherwise, reduced archs
   |value|). JAX's own spread between these meshes and its (1, 1) run is
   at most 1.46e-6 of that scale (mixtral at (2, 2)); the bound is not
   widened by it;
+- on the (1, 4) mesh each rank draws each matrix as its block alone, in
+  pieces of ``_torch_mesh.DRAW_CHUNK`` values: no draw makes more than
+  the rank's largest block, none hashes more than a piece;
 - on every rank, its rows' tokens, logits and state are one device's
   serve of those rows alone bit for bit (``chip_smoke.serve_of_rows``:
   the gathers over "model" are exact copies), the rows tile the request
@@ -54,8 +58,8 @@ GROUPS = {
     (1, 2): [(SMOLLM, 4)],
     (2, 2): [(SMOLLM, 4), (SMOLLM, 6), ("xlstm-125m", 4),
              ("zamba2-1.2b", 4), ("mixtral-8x7b", 4),
-             ("mixtral-8x7b", 4, 32)],
-    (1, 4): [(SMOLLM, 4)],
+             ("mixtral-8x7b", 4, 32), ("command-r-35b", 4)],
+    (1, 4): [(SMOLLM, 4), ("command-r-35b", 4), ("mixtral-8x7b", 4)],
     (1, 1): [(SMOLLM, 4)],
 }
 CASES = [(shape, case) for shape, cases in GROUPS.items()
@@ -81,6 +85,23 @@ def runs(tmp_path_factory):
             p.kill()
         raise
     return M.finish_jax(procs), port, cli
+
+
+@pytest.mark.parametrize("case", GROUPS[M.DRAW_SHAPE],
+                         ids=[M.serve_case(*c)[0] for c in
+                              GROUPS[M.DRAW_SHAPE]])
+def test_no_rank_draws_more_than_its_block_and_a_piece(runs, case):
+    """On the (1, 4) mesh, with pieces of ``DRAW_CHUNK`` values: no draw
+    of the init made an output larger than the rank's largest block of a
+    leaf, and none hashed more than one piece at once; the rank's serve
+    is still one device's bit for bit (drawn in pieces of
+    ``NORMAL_CHUNK``, one each at these widths)."""
+    _, port, _ = runs
+    for r in port[M.DRAW_SHAPE][M.serve_case(*case)[0]]["ranks"]:
+        d = r["draws"]
+        assert d["draws"] > 0 and r["bitwise"], d
+        assert d["largest_out"] <= d["largest_block"], d
+        assert 0 < d["largest_piece"] <= M.DRAW_CHUNK, d
 
 
 def _close(got, want, what):
@@ -157,13 +178,17 @@ def test_census_is_the_formula(runs, shape, case):
 
 
 def test_cli_prints_serves_lines_on_the_mesh(runs):
+    """Rank 0's init line (its time and its blocks' bytes; the gloo ranks
+    have no card, so no peak), then JAX's two lines."""
     _, _, cli = runs
     assert cli.returncode == 0, cli.stderr[-4000:]
     out = cli.stdout.splitlines()
-    assert len(out) == 2, out
-    assert re.fullmatch(r"prefill 16x4: \d+\.\d\ds", out[0]), out
+    assert len(out) == 3, out
+    assert re.fullmatch(r"init rank 0: \d+\.\d\ds, params \d+\.\d\d GB",
+                        out[0]), out
+    assert re.fullmatch(r"prefill 16x4: \d+\.\d\ds", out[1]), out
     assert re.fullmatch(r"decode 4 tokens: \d+\.\d\ds \(\d+\.\d tok/s\)",
-                        out[1]), out
+                        out[2]), out
 
 
 @pytest.mark.parametrize("argv,code,says", [

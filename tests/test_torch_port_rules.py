@@ -59,12 +59,15 @@ for name in ("main", "build_kernels", "check_kernels", "check_quant_kernels",
              "model_axis_census", "census_by_key", "model_grad_bitwise",
              "serve_census", "serve_of_rows", "serve_mesh_rank",
              "run_serve_mesh_path", "serve_mesh_path_rank",
-             "serve_bits"):
+             "serve_bits", "check_threefry_block_kernel",
+             "serve_rows_on_one_card", "serve_big_rank"):
     assert callable(getattr(chip_smoke, name)), name
 from repro_torch.sharding import comm, mesh, specs
 from repro_torch.core import distributed, fedepm, dp
 from repro_torch.launch import mesh as lmesh, serve, steps, train
 from repro_torch.models import dense, layers, moe
+from repro_torch import random
+from repro_torch.kernels.threefry import ops as threefry_ops
 for mod, names in ((mesh, ("make_live_mesh", "axis_members", "LiveMesh")),
                    (comm, ("all_gather", "all_to_all", "reduce_scatter",
                            "all_reduce")),
@@ -72,7 +75,7 @@ for mod, names in ((mesh, ("make_live_mesh", "axis_members", "LiveMesh")),
                             "cut_axes", "local_shape", "block_index",
                             "axis_view", "block_of", "shard_leaf",
                             "shard_tree", "gather_tree", "layer_specs",
-                            "row_specs")),
+                            "row_specs", "block_range")),
                    (distributed, ("batch_specs", "model_rows",
                                   "spatial_round", "temporal_round",
                                   "build_fedepm", "_Shards",
@@ -84,7 +87,9 @@ for mod, names in ((mesh, ("make_live_mesh", "axis_members", "LiveMesh")),
                    (steps, ("build_train_step",)),
                    (train, ("main", "run_mesh")),
                    (serve, ("main", "run_rank", "serve", "row_entry",
-                            "routing_groups")),
+                            "routing_groups", "leaf_names")),
+                   (random, ("normal_block",)),
+                   (threefry_ops, ("threefry_block",)),
                    (dense, ("compute_copy", "compute_copies",
                             "layer_params", "final_norm")),
                    (layers, ("leaves_made", "dense_init", "embed_init")),
