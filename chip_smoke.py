@@ -900,7 +900,7 @@ def _threefry_case(K, n, mode, reps, gen):
         if K * n <= 4096:  # events time the host's launches: take the device's
             dev, names, lost = device_ms(
                 lambda: threefry_cuda(keys, n, 0, mode, lo, hi), reps)
-            assert all("threefry_kernel" in nm for nm in names), names
+            assert all("threefry_block_kernel" in nm for nm in names), names
             res.update(device_ms=dev, device_records_lost=lost)
     return res
 
@@ -1001,13 +1001,19 @@ def check_threefry_rows_kernel(card: str) -> list[dict]:
 
 # the block entry's cuts, (tag, keys, a key's leaf shape, the dim cut, M,
 # block index, timing repetitions): the first is timed as the row's main
-# shape. mixtral-8x7b's layers.moe.wg, one layer (8, 4096, 14336) on its
-# last dim into 4 (32768 rows of 3584); command-r-35b's embed (256000,
-# 8192) on dim 0 into 4 (one row of 524,288,000 counters, past 2^32);
-# command-r's stacked layers.attn.wq (40 keys, 8192, 64, 128) on its heads
-# into 4 (a middle dim, 40 keys); ragged edges (rows past gridDim.y's
-# reach, widths that no tile fills, 70,000 keys)
+# shape, the launch the init makes: random.normal_block's piece of
+# mixtral-8x7b's layers.moe.wg at (1, 4), its 32 stacked keys over
+# INIT_PIECE_ROWS = NORMAL_CHUNK // 32 // 3584 rows of its block (3584 of
+# 14336 columns a row). Then whole blocks in one launch: wg's one layer
+# (8, 4096, 14336) on its last dim into 4 (32768 rows of 3584);
+# command-r-35b's embed (256000, 8192) on dim 0 into 4 (one row of
+# 524,288,000 counters, past 2^32); command-r's stacked layers.attn.wq (40
+# keys, 8192, 64, 128) on its heads into 4 (a middle dim, 40 keys); ragged
+# edges (rows past gridDim.y's reach, widths that no tile fills, 70,000
+# keys)
+INIT_PIECE_ROWS = 73
 THREEFRY_BLOCK_PLAN = [
+    ("mixtral wg init piece", 32, (INIT_PIECE_ROWS, 14336), 1, 4, 1, 20),
     ("mixtral wg layer", 1, (8, 4096, 14336), 2, 4, 1, 5),
     ("command-r embed", 1, (256000, 8192), 0, 4, 3, 2),
     ("command-r wq stacked", 40, (8192, 64, 128), 1, 4, 2, 2),
@@ -1131,8 +1137,11 @@ def _block_draw_case(gen) -> dict:
 def check_threefry_block_kernel(card: str) -> list[dict]:
     """The block entry (the init's block draw) against its plain version,
     bitwise, at the full-width cuts of THREEFRY_BLOCK_PLAN (the edges in
-    all three modes), timed at mixtral-8x7b's wg layer first; then
+    all three modes), timed at the init's piece of mixtral-8x7b's wg first
+    and at whole blocks in one launch; then
     ``random.normal_block`` against the whole draw cut on the card."""
+    from repro_torch.random import NORMAL_CHUNK
+    assert INIT_PIECE_ROWS == NORMAL_CHUNK // 32 // 3584, NORMAL_CHUNK
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     cases = []
@@ -1405,7 +1414,7 @@ def _profile_window(prof, span: str, rounds: int) -> tuple[dict, dict]:
              "port_kernels_us_per_round": {
                  k: sum(t for name, (t, _) in by_name.items() if k in name)
                  / rounds for k in ("ens_kernel", "prox_kernel",
-                                    "quant_kernel", "threefry_kernel",
+                                    "quant_kernel", "threefry_block_kernel",
                                     "threefry_rows_kernel")},
              "top": [{"kernel": name[:80], "us_per_round": t / rounds,
                       "calls_per_round": c / rounds}
@@ -1458,7 +1467,7 @@ def profile_main_path(rounds: int = PROFILE_ROUNDS) -> dict:
     by_name, out = _profile_window(prof, ROUNDS_SPAN, cr)
     assert _launches_in(by_name, "ens_kernel") == cr
     assert _launches_in(by_name, "prox_kernel") == cr * k0
-    assert _launches_in(by_name, "threefry_kernel") == 6 * cr
+    assert _launches_in(by_name, "threefry_block_kernel") == 6 * cr
     out["tct_ms_per_round"] = res["TCT"] / cr * 1e3
     log("profile " + json.dumps(out))
     return out
@@ -4975,11 +4984,11 @@ def _serve_on(cfg, shape: dict, graph: bool, dev, mesh=None):
 
 def _serve_times(res, shape: dict, peak: float) -> dict:
     """A run's peaks and times: the init's time and peak
-    (``ServeResult.init_s``, ``init_peak_gb``), the request's own peak
-    with the params held (``peak_mem_gb``), prefill, decode a token,
-    tok/s; on a mesh also the bytes its blocks of the params hold after
-    the init (``params_gb``) and the bytes it received a decode step
-    (``census_per_token_gb``)."""
+    (``ServeResult.init_s``, ``init_peak_gb``), the call's peak above what
+    the process held before it, the init's included (``peak_mem_gb``),
+    prefill, decode a token, tok/s; on a mesh also the bytes its blocks of
+    the params hold after the init (``params_gb``) and the bytes it
+    received a decode step (``census_per_token_gb``)."""
     n, B = shape["new_tokens"], shape["batch"]
     steps_s = res.slowest[2] if res.slowest else res.steps_s
     out = {"init_s": res.init_s, "init_peak_gb": res.init_peak_gb,
@@ -5063,7 +5072,8 @@ def _hold_init(cfg, dims, res, what: str) -> None:
         want_jax = SERVE_BLOCK_BYTES.get((cfg.name, tuple(dims)), want)
         assert want == want_jax, (cfg.name, dims, want, want_jax)
     assert res.param_bytes == want, (cfg.name, what, res.param_bytes, want)
-    if res.init_peak_gb is not None:
+    if res.tokens.is_cuda:  # _serve_on reset the counter: the init's peak
+        assert res.init_peak_gb is not None, (cfg.name, what)
         assert res.init_peak_gb <= want / 1e9 + SERVE_INIT_SLACK_GB, \
             (cfg.name, what, res.init_peak_gb, want / 1e9)
 
@@ -5179,7 +5189,7 @@ def _sampled_block_rows(mesh, cfg) -> dict:
     erf_inv of the hash's uniform, times the scale, in the leaf's dtype,
     bit for bit. An independent check of the block's counters."""
     from repro_torch import random
-    from repro_torch.core.treeutil import tree_leaves
+    from repro_torch.core.treeutil import tree_leaf_names, tree_leaves
     from repro_torch.core.xla_cpu import erfinv
     from repro_torch.kernels.threefry.ref import threefry_ref
     from repro_torch.launch import serve as S
@@ -5191,7 +5201,7 @@ def _sampled_block_rows(mesh, cfg) -> dict:
     with torch.inference_mode():
         params, pspecs, _ = S._mesh_params(model, mesh, mesh.device)
         like = model.init(random.PRNGKey(0, device="meta"))
-    names = S.leaf_names(like)
+    names = tree_leaf_names(like)
     at = {n: (x, w, sp) for n, x, w, sp in zip(
         names, tree_leaves(params), tree_leaves(like),
         sh.spec_leaves(pspecs))}
@@ -5624,37 +5634,33 @@ def run_mesh_path(serve_bits_no_mesh=None) -> dict:
     return out
 
 
-def serve_mesh_path_rank(mesh, one_card=None) -> dict:
+def serve_mesh_path_rank(mesh, one_card: dict) -> dict:
     """``serve_mesh_rank`` alone on this rank of the four-rank mesh
-    (``spawn``), then (D) (``serve_big_rank``) where ``one_card`` is
-    given: every rank's records and rank 0's checks."""
+    (``spawn``), then (D) (``serve_big_rank``) against ``one_card``: every
+    rank's records and rank 0's checks."""
     import torch.distributed as dist
     device_settings()
     serving, checks = serve_mesh_rank(mesh)
-    if one_card is not None:
-        more, more_checks = serve_big_rank(mesh, one_card)
-        serving.update(more)
-        checks.update(more_checks)
+    more, more_checks = serve_big_rank(mesh, one_card)
+    serving.update(more)
+    checks.update(more_checks)
     every = [None] * mesh.size
     dist.all_gather_object(every, {"rank": mesh.rank, "serve": serving})
     return {"ranks": every, "checks": checks}
 
 
-def run_serve_mesh_path(big: bool = True) -> dict:
-    """Serving across cards alone on MESH_MAX_RANKS cards: with ``big``,
-    first one card's serve of command-r-35b (``serve_rows_on_one_card``,
-    in this process); then (A) and (B) (``serve_mesh_rank``), as the
-    ``mesh`` phase runs them, and with ``big`` (D) (``serve_big_rank``),
-    on one group of NCCL ranks, each rank's records printed; then (C)
-    (the CLI)."""
+def run_serve_mesh_path() -> dict:
+    """Serving across cards alone on MESH_MAX_RANKS cards: first one
+    card's serve of command-r-35b (``serve_rows_on_one_card``, in this
+    process); then (A) and (B) (``serve_mesh_rank``), as the ``mesh`` phase
+    runs them, and (D) (``serve_big_rank``), on one group of NCCL ranks,
+    each rank's records printed; then (C) (the CLI)."""
     from repro_torch import configs
     from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
-    one_card = None
-    if big:
-        one_card = {arch: serve_rows_on_one_card(
-            configs.get_config(arch), SERVE_DEFAULTS, SERVE_BIG_SHAPES)
-            for arch in SERVE_ONE_CARD}
+    one_card = {arch: serve_rows_on_one_card(
+        configs.get_config(arch), SERVE_DEFAULTS, SERVE_BIG_SHAPES)
+        for arch in SERVE_ONE_CARD}
     res = spawn(serve_mesh_path_rank, MESH_MAX_RANKS, one_card,
                 timeout_s=MESH_TIMEOUT_S, join_s=2 * MESH_TIMEOUT_S)
     for r in res["ranks"]:
@@ -6182,12 +6188,12 @@ def run_queue3_trials() -> dict:
 
 
 # a port kernel's name on the device -> the counters of its wrappers (the
-# four quantizer entries launch one templated kernel)
+# four quantizer entries launch one templated kernel; the hash and the
+# block entry one block kernel)
 DEVICE_KERNELS = {"ens_kernel": ("ens",), "prox_kernel": ("prox_update",),
                   "quant_kernel": tuple(QUANT),
-                  "threefry_kernel": ("threefry",),
                   "threefry_rows_kernel": ("threefry_rows",),
-                  "threefry_block_kernel": ("threefry_block",)}
+                  "threefry_block_kernel": ("threefry", "threefry_block")}
 
 
 def profile_engine_path(key: str, rounds: int = PROFILE_ROUNDS) -> dict:
@@ -6429,8 +6435,8 @@ def profile_baselines(rounds: int = PROFILE_ROUNDS) -> dict:
         cr = res["CR"]
         by_name, stats = _profile_window(prof, ROUNDS_SPAN, cr)
         counts = {k: _launches_in(by_name, k) for k in
-                  ("threefry_kernel", "ens_kernel", "prox_kernel")}
-        assert counts == {"threefry_kernel": 6 * cr, "ens_kernel": 0,
+                  ("threefry_block_kernel", "ens_kernel", "prox_kernel")}
+        assert counts == {"threefry_block_kernel": 6 * cr, "ens_kernel": 0,
                           "prox_kernel": 0}, (alg, cr, counts)
         stats["tct_ms_per_round"] = res["TCT"] / cr * 1e3
         out[alg] = stats

@@ -17,6 +17,18 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
+def tree_leaf_names(tree, prefix: str = "") -> list[str]:
+    """The dotted path of each leaf of ``tree`` ("layers.moe.wg"), in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in tree_leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (tuple, list)):
+        return [n for i, t in enumerate(tree)
+                for n in tree_leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
 def tmap(fn, tree, *rest):
     """Apply ``fn`` leaf-wise over trees of one structure (dict keys in
     sorted order, as ``tree_leaves`` and JAX visit them)."""

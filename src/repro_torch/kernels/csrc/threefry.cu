@@ -19,8 +19,6 @@
 // integer operations per output, 40 of them rotates and xors that only the
 // SM's 64 INT32 lanes take, against 16 (keys), 8 (bits) or 4 (uniform)
 // bytes written; at small n the launch itself.
-// Design: blockIdx.y walks the keys, a grid-stride loop over x walks the
-// counters, so writes are coalesced and each key is read once per thread.
 // Built with --fmad=false: the only FMA is the explicit one above.
 //
 // The rows entry draws the codec's dither over its packed row layout
@@ -32,15 +30,18 @@
 // ``span`` values finds its row once, by a binary search over the rows'
 // first blocks, as the quantizer's packed entries do.
 //
-// The block entry draws a rank's block of a leaf cut on one dim: rows
-// of ``width`` counters each, row p's first at offset + p * stride, so
-// value (p, j) of key k is the hash of offset + p * stride + j, written at
-// out[k, p * width + j] in any of the three modes. Under partitionable
-// threefry a leaf (A..., N, I...) cut on N to [c0, c0 + w) is prod(A) such
-// rows, of width w prod(I), stride N prod(I), offset c0 prod(I): the bits
-// of the whole draw at the block's values, none other hashed. A thread
-// block takes a tile of blockDim.x columns of one row (one division a
-// tile, none a value); blockIdx.y walks the keys.
+// The block entry hashes rows of ``width`` counters each, row p's first
+// at offset + p * stride, so value (p, j) of key k is the hash of
+// offset + p * stride + j, written at out[k, p * width + j] in any of the
+// three modes. The hash (threefry_cuda: split, fold_in, bits, uniform) is
+// one row of n counters. The init's block draw is a rank's block of a
+// leaf cut on one dim: under partitionable threefry a leaf (A..., N, I...)
+// cut on N to [c0, c0 + w) is prod(A) such rows, of width w prod(I),
+// stride N prod(I), offset c0 prod(I): the bits of the whole draw at the
+// block's values, none other hashed. Grid-stride loops walk the keys
+// over z, the rows over y and a row's counters over x, so writes are
+// coalesced, a key is read once per row, and no index is divided (two
+// 64-bit divisions a value made the hash 45% slower on the H100).
 #include <cstdint>
 
 #include "common.cuh"
@@ -94,52 +95,48 @@ __device__ __forceinline__ void store(void* __restrict__ out, long long at,
   }
 }
 
-__global__ void threefry_kernel(const int64_t* __restrict__ keys,
-                                long long n_keys, long long n,
-                                unsigned long long offset, int mode,
-                                float lo, float hi, void* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const float range = __fsub_rn(hi, lo);
-  for (long long k = blockIdx.y; k < n_keys; k += gridDim.y) {
-    const uint32_t k0 = static_cast<uint32_t>(keys[2 * k]);
-    const uint32_t k1 = static_cast<uint32_t>(keys[2 * k + 1]);
-    for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         j < n; j += stride) {
-      const unsigned long long c = offset + static_cast<unsigned long long>(j);
-      uint32_t x0 = static_cast<uint32_t>(c >> 32);
-      uint32_t x1 = static_cast<uint32_t>(c);
-      threefry2x32(k0, k1, x0, x1);
-      store(out, k * n + j, mode, x0, x1, lo, range);
-    }
-  }
-}
+// 256 threads a block, at most 32 registers a thread: the hash's rounds
+// are one chain of dependent operations, so it needs every warp an SM can
+// hold to hide their latency (at 33 registers, 6 blocks an SM instead of
+// 8, the hash took 20% longer on the H100)
+constexpr int kBlockThreads = 256;
 
-__global__ void threefry_block_kernel(const int64_t* __restrict__ keys,
-                                      long long n_keys, long long rows,
-                                      long long width,
-                                      unsigned long long row_stride,
-                                      unsigned long long offset, int mode,
-                                      float lo, float hi,
-                                      void* __restrict__ out) {
+__global__ void __launch_bounds__(kBlockThreads, 8)
+threefry_block_kernel(const int64_t* __restrict__ keys, long long n_keys,
+                      long long rows, long long width,
+                      unsigned long long row_stride,
+                      unsigned long long offset, int mode, float lo,
+                      float hi, void* __restrict__ out) {
+  const long long j0 =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j0 >= width) return;
   const float range = __fsub_rn(hi, lo);
-  const long long per_row = (width + blockDim.x - 1) / blockDim.x;
-  const long long tiles = rows * per_row;
-  const long long n = rows * width;
-  for (long long k = blockIdx.y; k < n_keys; k += gridDim.y) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  // this thread's first counter and output in its first row, and the
+  // moves to its next row: no multiply inside the loops
+  const unsigned long long first =
+      offset + static_cast<unsigned long long>(blockIdx.y) * row_stride +
+      static_cast<unsigned long long>(j0);
+  const unsigned long long next_row =
+      static_cast<unsigned long long>(gridDim.y) * row_stride;
+  const long long first_at = static_cast<long long>(blockIdx.y) * width + j0;
+  const long long next_at = static_cast<long long>(gridDim.y) * width;
+  const long long key_at = rows * width;
+  for (long long k = blockIdx.z; k < n_keys; k += gridDim.z) {
     const uint32_t k0 = static_cast<uint32_t>(keys[2 * k]);
     const uint32_t k1 = static_cast<uint32_t>(keys[2 * k + 1]);
-    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const long long p = t / per_row;
-      const long long j = (t - p * per_row) * blockDim.x + threadIdx.x;
-      if (j >= width) continue;
-      const unsigned long long c =
-          offset + static_cast<unsigned long long>(p) * row_stride +
-          static_cast<unsigned long long>(j);
-      uint32_t x0 = static_cast<uint32_t>(c >> 32);
-      uint32_t x1 = static_cast<uint32_t>(c);
-      threefry2x32(k0, k1, x0, x1);
-      store(out, k * n + p * width + j, mode, x0, x1, lo, range);
+    unsigned long long row = first;
+    long long at = k * key_at + first_at;
+    for (long long p = blockIdx.y; p < rows; p += gridDim.y) {
+      for (long long j = 0; j < width - j0; j += step) {
+        const unsigned long long c = row + static_cast<unsigned long long>(j);
+        uint32_t x0 = static_cast<uint32_t>(c >> 32);
+        uint32_t x1 = static_cast<uint32_t>(c);
+        threefry2x32(k0, k1, x0, x1);
+        store(out, at + j, mode, x0, x1, lo, range);
+      }
+      row += next_row;
+      at += next_at;
     }
   }
 }
@@ -201,35 +198,26 @@ extern "C" int threefry_rows_launch(const void* key, long long rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int threefry2x32_launch(const void* keys, long long n_keys,
-                                   long long n, unsigned long long offset,
-                                   int mode, float lo, float hi, void* out,
-                                   void* stream) {
-  constexpr int kThreads = 256;
-  if (n_keys > 0 && n > 0) {
-    long long bx = (n + kThreads - 1) / kThreads;
-    if (bx > 4096) bx = 4096;
-    const long long by = n_keys < 65535 ? n_keys : 65535;
-    dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(by));
-    threefry_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int64_t*>(keys), n_keys, n, offset, mode, lo, hi,
-        out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int threefry_block_launch(const void* keys, long long n_keys,
                                      long long rows, long long width,
                                      unsigned long long row_stride,
                                      unsigned long long offset, int mode,
                                      float lo, float hi, void* out,
                                      void* stream) {
-  constexpr int kThreads = 256;
+  constexpr int kThreads = kBlockThreads;
   if (n_keys > 0 && rows > 0 && width > 0) {
-    long long bx = rows * ((width + kThreads - 1) / kThreads);
-    if (bx > 8192) bx = 8192;
-    const long long by = n_keys < 65535 ? n_keys : 65535;
-    dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(by));
+    // about 8192 blocks in all where the work allows (8 waves of the
+    // SMs' resident blocks), so a thread takes several counters and the
+    // rows loop, not a block's launch, pays for its setup
+    long long bx = (width + kThreads - 1) / kThreads;
+    if (bx > 1024) bx = 1024;
+    const long long bz = n_keys < 65535 ? n_keys : 65535;
+    long long by = 8192 / (bx * bz);
+    if (by > rows) by = rows;
+    if (by > 65535) by = 65535;
+    if (by < 1) by = 1;
+    dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(by),
+              static_cast<unsigned>(bz));
     threefry_block_kernel<<<grid, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int64_t*>(keys), n_keys, rows, width, row_stride,

@@ -14,10 +14,12 @@ version ``threefry_rows_ref``.
 ``threefry_block_cuda`` is the block entry: keys over rows of counters
 at a stride, a rank's block of a leaf cut on one dim (what the init's
 block draw hashes, ``random.normal_block``), the plain version
-``threefry_block_ref``.
+``threefry_block_ref``. ``threefry_cuda`` launches the same kernel over
+one row of ``n`` counters.
 
 ``threefry_cuda.launches``, ``threefry_rows_cuda.launches`` and
-``threefry_block_cuda.launches`` count kernel launches.
+``threefry_block_cuda.launches`` count kernel launches, each its own
+wrapper's.
 """
 from __future__ import annotations
 
@@ -31,17 +33,14 @@ from repro_torch.kernels.threefry.ref import (  # noqa: F401
     MODES, threefry_block_ref, threefry_ref, threefry_rows_ref)
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
-_SIGS = {"threefry2x32_launch": [_P, _I64, _I64, ctypes.c_uint64,
-                                 ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_float, _P, _P],
-         "threefry_rows_launch": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P],
+_SIGS = {"threefry_rows_launch": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P],
          "threefry_block_launch": [_P, _I64, _I64, _I64, ctypes.c_uint64,
                                    ctypes.c_uint64, ctypes.c_int,
                                    ctypes.c_float, ctypes.c_float, _P, _P]}
 _FNS: dict = {}  # entry name -> (library, C entry with argtypes set)
 
 
-def _fn(name: str = "threefry2x32_launch"):
+def _fn(name: str = "threefry_block_launch"):
     if name not in _FNS:
         lib = build.load("threefry")
         fn = getattr(lib, name)
@@ -55,7 +54,8 @@ def threefry_cuda(keys: torch.Tensor, n: int, offset: int = 0,
                   mode: str = "keys", lo: float = 0.0,
                   hi: float = 1.0) -> torch.Tensor:
     """``threefry_ref`` on a CUDA tensor of keys (K, 2), int64 holding
-    uint32 values."""
+    uint32 values: the block entry's kernel over one row of ``n``
+    counters."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if not keys.is_cuda:
@@ -74,8 +74,8 @@ def threefry_cuda(keys: torch.Tensor, n: int, offset: int = 0,
     if out.numel() == 0:
         return out
     lib, fn = _fn()
-    err = fn(keys.data_ptr(), K, n, offset, MODES.index(mode), lo, hi,
-             out.data_ptr(), torch.cuda.current_stream(keys.device)
+    err = fn(keys.data_ptr(), K, 1, n, n, offset, MODES.index(mode), lo,
+             hi, out.data_ptr(), torch.cuda.current_stream(keys.device)
              .cuda_stream)
     build.check(lib, err, "threefry kernel launch")
     threefry_cuda.launches += 1
@@ -129,7 +129,7 @@ def threefry_block_cuda(keys: torch.Tensor, rows: int, width: int,
                       else torch.int64)
     if out.numel() == 0:
         return out
-    lib, fn = _fn("threefry_block_launch")
+    lib, fn = _fn()
     err = fn(keys.data_ptr(), K, rows, width, stride, offset,
              MODES.index(mode), lo, hi, out.data_ptr(),
              torch.cuda.current_stream(keys.device).cuda_stream)

@@ -82,7 +82,8 @@ import torch
 
 from repro_torch import configs, random
 from repro_torch.core.scan import ScanProgram
-from repro_torch.core.treeutil import tree_leaves, tree_unflatten
+from repro_torch.core.treeutil import (tree_leaf_names, tree_leaves,
+                                       tree_unflatten)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import dense, layers, moe
 from repro_torch.models.config import ArchConfig
@@ -187,10 +188,11 @@ class ServeResult:
 
     ``init_s``: the params' init, a host time that ends in a synchronise
     on the card; ``init_peak_gb``: on the card, the init's peak device
-    memory above what was allocated before it, in GB (None elsewhere).
-    ``serve`` resets the card's peak memory counter before the init and
-    again after it, so a caller's reading after ``serve`` is the request's
-    own peak, with the params held.
+    memory above what was allocated before it, in GB (None elsewhere, or
+    where an earlier peak of the process hides it: ``serve`` reads the
+    card's peak memory counter and never resets it, so a caller who
+    resets it before the call gets the init's peak here and the whole
+    call's after it).
 
     On a mesh: ``rows`` the request's rows [lo, hi) this rank served;
     ``groups`` the MoE routing groups it served them in
@@ -226,21 +228,23 @@ def _sync(device: torch.device) -> None:
 
 def _timed_init(init, dev: torch.device) -> tuple:
     """(``init()``, its host time, its peak device memory in GB above what
-    was allocated before it on the card, else None); the card's peak
-    counter reset before and after it."""
+    was allocated before it on the card, else None). The card's peak
+    counter is read, never reset: the peak is the init's own where the
+    init raised it past its value before, as it does where the counter
+    started at what was allocated (a fresh process, or a caller that
+    reset it); else an earlier peak hides the init's, and it is None."""
     cuda = dev.type == "cuda"
     _sync(dev)
     if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
+        high = torch.cuda.max_memory_allocated(dev)
     t0 = time.perf_counter()
     out = init()
     _sync(dev)
     secs = time.perf_counter() - t0
     peak = None
-    if cuda:
+    if cuda and torch.cuda.max_memory_allocated(dev) > high:
         peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
-        torch.cuda.reset_peak_memory_stats(dev)
     return out, secs, peak
 
 
@@ -269,18 +273,6 @@ def routing_groups(cfg: ArchConfig, entry, mesh) -> int:
         else 1
 
 
-def leaf_names(tree, prefix: str = "") -> list:
-    """The dotted path of each leaf of ``tree`` ("layers.moe.wg"), in
-    ``tree_leaves`` order."""
-    if isinstance(tree, dict):
-        return [n for k in sorted(tree)
-                for n in leaf_names(tree[k], f"{prefix}{k}.")]
-    if isinstance(tree, (list, tuple)):
-        return [n for i, t in enumerate(tree)
-                for n in leaf_names(t, f"{prefix}{i}.")]
-    return [prefix[:-1]]
-
-
 def _mesh_params(model: Model, mesh, device):
     """This rank's block of each leaf by JAX serve's ``param_specs``, and
     the specs: each leaf that ``dense_init`` or ``embed_init`` draws
@@ -292,7 +284,7 @@ def _mesh_params(model: Model, mesh, device):
         like = model.init(random.PRNGKey(0, device="meta"))
     pspecs = param_specs(model.cfg, like, mesh, DistConfig())
     at = {id(x): (sp, name) for x, sp, name in zip(
-        tree_leaves(like), sh.spec_leaves(pspecs), leaf_names(like))}
+        tree_leaves(like), sh.spec_leaves(pspecs), tree_leaf_names(like))}
     # the init draws in the same order on every device: the i-th draw on
     # the card is the i-th on "meta", whose stand-in is the tree's leaf
     order = iter([(x.shape,) + at[id(x)] for x in made])

@@ -67,6 +67,7 @@ from repro_torch.core import distributed, fedepm, dp
 from repro_torch.launch import mesh as lmesh, serve, steps, train
 from repro_torch.models import dense, layers, moe
 from repro_torch import random
+from repro_torch.core import treeutil
 from repro_torch.kernels.threefry import ops as threefry_ops
 for mod, names in ((mesh, ("make_live_mesh", "axis_members", "LiveMesh")),
                    (comm, ("all_gather", "all_to_all", "reduce_scatter",
@@ -87,8 +88,9 @@ for mod, names in ((mesh, ("make_live_mesh", "axis_members", "LiveMesh")),
                    (steps, ("build_train_step",)),
                    (train, ("main", "run_mesh")),
                    (serve, ("main", "run_rank", "serve", "row_entry",
-                            "routing_groups", "leaf_names")),
+                            "routing_groups")),
                    (random, ("normal_block",)),
+                   (treeutil, ("tree_leaf_names",)),
                    (threefry_ops, ("threefry_block",)),
                    (dense, ("compute_copy", "compute_copies",
                             "layer_params", "final_norm")),
